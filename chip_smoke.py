@@ -16,19 +16,33 @@ Phases, each printing its wall time:
    by chunk over a whole reverse pass (max-rel 2e-5 per output), and the
    velocity gradient of a masked-L1 observation loss through the kernels
    against plain eager autograd (max-rel 1e-4);
-5. a small inversion (16x16 model, dim-8 U-Net) run on the card through
+5. the tape kernels at the same shape, with the taped route forced:
+   ``tape_step`` against its plain version on every slot of every chunk's
+   tape of one pass, ``bwd_tape_step`` against its plain version chunk by
+   chunk over a whole reverse pass (max-rel 2e-5 per output), and the
+   velocity gradient under ``adjoint='tape'`` against ``'reverse'``
+   (max-rel 1e-4; at nbc=120 both adjoints are valid);
+6. a small inversion (16x16 model, dim-8 U-Net) run on the card through
    the kernels and on the CPU through the plain path with the same draws:
    mu atol 1e-4 (Adam divides each gradient by its own RMS, so a relative
    gradient error shows up scaled by the 0.03 step), losses and metrics
    rtol 1e-4;
-6. the slice: the shipped prior read by the port's own reader, observations
+7. the slice: the shipped prior read by the port's own reader, observations
    from the refined operator as ``bench.py`` makes them, and a few
    RED-DiffEq steps of ``InversionEngine.optimize`` at the headline
-   settings, with every kernel's launch count rising and the plain path
-   unused.
+   settings, where the t2 guard takes the tape-free adjoint, with the
+   forward and that adjoint launched every step, the tape kernels never
+   and the plain path unused; then the same steps with the taped adjoint
+   forced, for its time per step;
+8. the narrow-sponge slice: the headline settings with nbc=40, where the
+   guard itself takes the taped adjoint. The velocity gradient through the
+   tape kernels against plain eager autograd (max-rel 1e-4), then a few
+   RED-DiffEq steps with the tape kernels launched every step, the
+   tape-free adjoint never and the plain path unused.
 
-Then one JSON line with each kernel's launches, error, times and bound,
-the card's line from nvidia-smi, and last ``{"ok": true, "device": ...}``.
+Then one JSON line with each kernel's launches (from the slice that takes
+its route), error, times and bound, the card's line from nvidia-smi, and
+last ``{"ok": true, "device": ...}``.
 Any failed check raises and the script exits non-zero. Without a CUDA
 device, or without the package beside it, it exits non-zero and prints no
 result.
@@ -42,6 +56,9 @@ import numpy as np
 
 HEADLINE = dict(n_grid=70, nt=1000, dx=10.0, dt=0.001, nbc=120, f=15.0,
                 sz=10, gz=10, ng=70, ns=5)
+# A narrow sponge: the bound on min(t2) falls below the guard (any nbc <= 55
+# at dx=10, dt=1e-3), so the solver takes the taped adjoint by itself.
+NARROW = dict(HEADLINE, nbc=40)
 BATCH, CHUNK, TS = 4, 20, 20
 CKPT = 'pretrained_models/model-synthetic-ema.ckpt'
 SOURCE = 'red_diffeq_tpu_torch/ops/csrc/stencil.cu'
@@ -141,13 +158,25 @@ def bounds(p, steps, n_calls):
     ng, chunk = p['geo']['ng'], CHUNK
     field, coef, row, recs = b * ns * h * w, b * h * w, b * ns * w, \
         b * ns * chunk * ng
-    fwd_bytes = 4 * n_calls * (4 * field + 3 * coef + row + chunk + recs)
     fwd_ops = steps * (14 * field + 2 * row)
-    bwd_bytes = 4 * n_calls * (6 * field + recs + 6 * coef + 2 * row + chunk)
-    bwd_ops = steps * (35 * field + coef + b * ns * ng + 2 * row)
+    work = {
+        'fwd_step': (4 * n_calls * (4 * field + 3 * coef + row + chunk
+                                    + recs), fwd_ops),
+        'bwd_reverse_step': (
+            4 * n_calls * (6 * field + recs + 6 * coef + 2 * row + chunk),
+            steps * (35 * field + coef + b * ns * ng + 2 * row)),
+        # The replay reads the start carry and writes the chunk + 2 slots.
+        'tape_step': (4 * n_calls * ((chunk + 4) * field + 3 * coef + row
+                                     + chunk), fwd_ops),
+        # The taped adjoint needs tape slots 0 .. chunk (not the chunk-end
+        # state), the two cotangents in and the two out.
+        'bwd_tape_step': (
+            4 * n_calls * ((chunk + 5) * field + recs + 6 * coef + row
+                           + chunk),
+            steps * (30 * field + b * ns * ng + 2 * row)),
+    }
     out = {}
-    for name, nbytes, ops in (('fwd_step', fwd_bytes, fwd_ops),
-                              ('bwd_reverse_step', bwd_bytes, bwd_ops)):
+    for name, (nbytes, ops) in work.items():
         by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         by_ops = ops / PEAK_FP32_PER_S * 1e3
         out[name] = dict(bound_ms=max(by_bytes, by_ops),
@@ -180,73 +209,166 @@ def phase_forward(p):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms), carries_k, seis_k
 
 
-def phase_adjoint(p, carries, seis):
+def random_grecs(p):
+    """One random receiver cotangent (B, ns, chunk, ng) per chunk."""
     import torch
-    from red_diffeq_tpu_torch.core.losses import observation_loss
-    from red_diffeq_tpu_torch.ops import stencil
-    from red_diffeq_tpu_torch.solvers.acoustic import FWIForward
-    from red_diffeq_tpu_torch.utils.data_trans import (
-        s_normalize_none, v_denormalize, v_normalize,
-    )
-
     dev = p['alpha'].device
     gen = torch.Generator(device=dev).manual_seed(4)
-    grecs = [torch.randn((*p['shape'][:2], CHUNK, p['geo']['ng']),
-                         generator=gen, device=dev)
-             for _ in range(len(p['src']))]
-    coef = (p['alpha'], p['t1'], p['t2'], p['inj'])
+    return [torch.randn((*p['shape'][:2], CHUNK, p['geo']['ng']),
+                        generator=gen, device=dev)
+            for _ in range(len(p['src']))]
 
-    def reverse_pass(fn, compare=None):
-        gp0 = torch.zeros(p['shape'], device=dev)
-        gp1 = torch.zeros_like(gp0)
-        err = 0.0
-        for i in range(len(p['src']) - 1, -1, -1):
-            args = (*carries[i + 1], gp0, gp1, grecs[i], *coef, p['src'][i])
-            out = fn(*args, **p['geo'])
-            if compare is not None:
-                want = compare(*args, **p['geo'])
-                for name, o, w in zip(('gp0', 'gp1', 'galpha', 'gt1', 'gt2',
-                                       'ginj'), out, want):
-                    r = max_rel(o, w)
-                    check(r <= 2e-5, f'bwd_reverse_step chunk {i} {name}: '
-                          f'max-rel {r:.3e} > 2e-5')
-                    err = max(err, float((o - w).abs().max()))
-            gp0, gp1 = out[0], out[1]
-        return err
 
-    err = reverse_pass(stencil.bwd_reverse_chunk,
-                       compare=stencil.bwd_reverse_chunk_plain)
-    print(f'bwd_reverse_step vs plain over {len(grecs)} chunks: max abs err '
-          f'{err:.3e}', flush=True)
-    ms = cuda_ms(lambda: reverse_pass(stencil.bwd_reverse_chunk), 5)
-    plain_ms = cuda_ms(lambda: reverse_pass(stencil.bwd_reverse_chunk_plain),
-                       2)
-    print(f'bwd pass ({len(grecs) * CHUNK} steps): kernel {ms:.3f} ms, plain '
-          f'{plain_ms:.3f} ms', flush=True)
+def check_outputs(kernel, names, got, want, where):
+    """Gate each output at max-rel 2e-5; return the largest abs error."""
+    err = 0.0
+    for name, o, w in zip(names, got, want):
+        r = max_rel(o, w)
+        check(r <= 2e-5, f'{kernel} {where} {name}: max-rel {r:.3e} > 2e-5')
+        err = max(err, float((o - w).abs().max()))
+    return err
 
-    # Velocity gradient of a masked-L1 observation loss: kernels vs plain
-    # eager autograd through the checkpointed plain path.
-    v = torch.from_numpy(p['v_true']).to(dev)
-    mu = v_normalize(v) * 0.97
-    y = seis[:, :, :HEADLINE['nt']]
+
+GRADS = ('gp0', 'gp1', 'galpha', 'gt1', 'gt2', 'ginj')
+
+
+def velocity_grad(ctx, backend, mu, y, mask, **kw):
+    """Gradient of a masked-L1 observation loss w.r.t. the normalised
+    velocity ``mu``, through ``FWIForward(ctx, backend=backend, **kw)``."""
+    from red_diffeq_tpu_torch.core.losses import observation_loss
+    from red_diffeq_tpu_torch.solvers.acoustic import FWIForward
+    from red_diffeq_tpu_torch.utils.data_trans import (
+        s_normalize_none, v_denormalize,
+    )
+    op = FWIForward(ctx, v_denorm_func=v_denormalize,
+                    s_norm_func=s_normalize_none, backend=backend,
+                    chunk=CHUNK, device=mu.device, **kw)
+    x = mu.clone().requires_grad_(True)
+    observation_loss(op(x), y, mask).sum().backward()
+    return x.grad
+
+
+def gradient_problem(v_true, y):
+    """A model near the truth ``v_true`` (m/s), and the observations ``y``
+    with a few receivers masked out."""
+    import torch
+    from red_diffeq_tpu_torch.utils.data_trans import v_normalize
     mask = torch.ones_like(y)
     mask[:, :, :, 10:13] = 0.0
-    grads = {}
-    for backend in ('kernel', 'plain'):
-        op = FWIForward(HEADLINE,
-                        v_denorm_func=v_denormalize,
-                        s_norm_func=s_normalize_none, backend=backend,
-                        chunk=CHUNK, device=dev)
-        x = mu.clone().requires_grad_(True)
-        observation_loss(op(x), y, mask).sum().backward()
-        grads[backend] = x.grad
-    r = max_rel(grads['kernel'], grads['plain'])
-    check(torch.isfinite(grads['kernel']).all()
-          and float(grads['plain'].abs().max()) > 0, 'gradient is degenerate')
-    check(r <= 1e-4, f'velocity gradient max-rel {r:.3e} > 1e-4')
-    print(f'velocity gradient, kernels vs plain autograd: max-rel {r:.3e}',
-          flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, grad_max_rel=r)
+    v = torch.from_numpy(v_true).to(y.device)
+    return v_normalize(v) * 0.97, y, mask
+
+
+def reverse_pass(p, fn, chunk_args, compare=None, kernel=None):
+    """Sweep the carry's cotangent through every chunk from the last, with
+    ``fn(*chunk_args(i, gp0, gp1), **geo)``; with ``compare``, gate each
+    chunk's outputs against it and return the largest abs error."""
+    import torch
+    gp0 = torch.zeros(p['shape'], device=p['alpha'].device)
+    gp1 = torch.zeros_like(gp0)
+    err = 0.0
+    for i in range(len(p['src']) - 1, -1, -1):
+        args = chunk_args(i, gp0, gp1)
+        out = fn(*args, **p['geo'])
+        if compare is not None:
+            err = max(err, check_outputs(kernel, GRADS, out,
+                                         compare(*args, **p['geo']),
+                                         f'chunk {i}'))
+        gp0, gp1 = out[0], out[1]
+    return err
+
+
+def time_reverse_pass(p, name, fn, plain_fn, chunk_args):
+    """Gate kernel ``name`` (wrapper ``fn``) against ``plain_fn`` over a
+    whole reverse pass, then time both passes."""
+    err = reverse_pass(p, fn, chunk_args, compare=plain_fn, kernel=name)
+    print(f'{name} vs plain over {len(p["src"])} chunks: max abs err '
+          f'{err:.3e}', flush=True)
+    ms = cuda_ms(lambda: reverse_pass(p, fn, chunk_args), 5)
+    plain_ms = cuda_ms(lambda: reverse_pass(p, plain_fn, chunk_args), 2)
+    print(f'{name} pass ({len(p["src"]) * CHUNK} steps): kernel {ms:.3f} '
+          f'ms, plain {plain_ms:.3f} ms', flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def phase_adjoint(p, carries, grad_problem):
+    from red_diffeq_tpu_torch.ops import stencil
+
+    grecs = random_grecs(p)
+    coef = (p['alpha'], p['t1'], p['t2'], p['inj'])
+    res = time_reverse_pass(
+        p, 'bwd_reverse_step', stencil.bwd_reverse_chunk,
+        stencil.bwd_reverse_chunk_plain,
+        lambda i, gp0, gp1: (*carries[i + 1], gp0, gp1, grecs[i], *coef,
+                             p['src'][i]))
+    # Velocity gradient of a masked-L1 observation loss: kernels vs plain
+    # eager autograd through the checkpointed plain path.
+    res['grad_max_rel'] = compare_grads(
+        HEADLINE, *grad_problem, 'kernels vs plain autograd', ('plain', {}))
+    return res
+
+
+def compare_grads(ctx, mu, y, mask, label, ref, **kw):
+    """Velocity gradient through the kernel backend (``kw`` for its
+    ``FWIForward``) against ``ref`` = (backend, kwargs): max-rel 1e-4."""
+    import torch
+    got = velocity_grad(ctx, 'kernel', mu, y, mask, **kw)
+    want = velocity_grad(ctx, ref[0], mu, y, mask, **ref[1])
+    r = max_rel(got, want)
+    check(bool(torch.isfinite(got).all())
+          and float(want.abs().max()) > 0, 'gradient is degenerate')
+    check(r <= 1e-4, f'velocity gradient ({label}) max-rel {r:.3e} > 1e-4')
+    print(f'velocity gradient, {label}: max-rel {r:.3e}', flush=True)
+    return r
+
+
+def phase_tape(p, carries, grad_problem):
+    """The tape kernels at the headline shape with the taped route forced:
+    each against its plain version over a whole pass, their pass times,
+    and the taped gradient against the tape-free one."""
+    from red_diffeq_tpu_torch.ops import stencil
+
+    coef = (p['alpha'], p['t1'], p['t2'], p['inj'])
+    isz = p['geo']['isz']
+
+    def replay(fn, i):
+        return fn(*carries[i], *coef, p['src'][i], isz=isz)
+
+    tapes, err = [], 0.0
+    for i in range(len(p['src'])):
+        tape = replay(stencil.tape_chunk, i)
+        err = max(err, check_outputs(
+            'tape_step', [f'slot {j}' for j in range(len(tape))], tape,
+            replay(stencil.tape_chunk_plain, i), f'chunk {i}'))
+        # The last two slots are the forward kernel's end carry.
+        check_outputs('tape_step', ('s_{K-1}', 's_K'), tape[-2:],
+                      carries[i + 1], f'chunk {i} vs fwd_step')
+        tapes.append(tape)
+    print(f'tape_step vs plain: {len(tapes)} tapes of {len(tapes[0])} '
+          f'slots, max abs err {err:.3e}', flush=True)
+
+    def tape_pass(fn):
+        for i in range(len(tapes)):
+            replay(fn, i)
+
+    tape_ms = cuda_ms(lambda: tape_pass(stencil.tape_chunk), 5)
+    tape_plain_ms = cuda_ms(lambda: tape_pass(stencil.tape_chunk_plain), 2)
+    print(f'tape pass ({len(tapes) * CHUNK} steps): kernel {tape_ms:.3f} ms, '
+          f'plain {tape_plain_ms:.3f} ms', flush=True)
+
+    grecs = random_grecs(p)
+    bwd = time_reverse_pass(
+        p, 'bwd_tape_step', stencil.bwd_tape_chunk,
+        stencil.bwd_tape_chunk_plain,
+        lambda i, gp0, gp1: (tapes[i], gp0, gp1, grecs[i], *coef[:3],
+                             p['src'][i]))
+    del tapes
+    r = compare_grads(HEADLINE, *grad_problem,
+                      f"adjoint='tape' vs 'reverse' at nbc={HEADLINE['nbc']}",
+                      ('kernel', {'adjoint': 'reverse'}), adjoint='tape')
+    return dict(tape_step=dict(max_abs_err=err, ms=tape_ms,
+                               plain_ms=tape_plain_ms),
+                bwd_tape_step=bwd, grad_max_rel=r)
 
 
 def phase_small_reference(dev):
@@ -310,19 +432,12 @@ def phase_small_reference(dev):
           f'{d:.3e}', flush=True)
 
 
-def phase_slice(dev):
-    import torch
-    import torch.nn.functional as F
-    from red_diffeq_tpu_torch.core.inversion import InversionEngine
+def load_prior(dev):
+    """The dim-64 U-Net diffusion prior with the shipped weights, read by
+    the port's own reader."""
     from red_diffeq_tpu_torch.io import checkpoints
-    from red_diffeq_tpu_torch.io.synthetic import generate_mixed_dataset
     from red_diffeq_tpu_torch.models.diffusion import GaussianDiffusion
     from red_diffeq_tpu_torch.models.unet import Unet
-    from red_diffeq_tpu_torch.ops import stencil
-    from red_diffeq_tpu_torch.solvers import acoustic
-    from red_diffeq_tpu_torch.utils.data_trans import (
-        prepare_initial_model, s_normalize_none, v_denormalize, v_normalize,
-    )
 
     t0 = time.perf_counter()
     diffusion = GaussianDiffusion(Unet(dim=64, dim_mults=(1, 2, 4, 8),
@@ -335,12 +450,26 @@ def phase_slice(dev):
     checkpoints.load_diffusion_params(diffusion, CKPT)
     print(f'prior: {n_leaves} leaves loaded in '
           f'{time.perf_counter() - t0:.2f} s', flush=True)
+    return diffusion
+
+
+def slice_problem(dev, ctx):
+    """The headline's velocity models at ``ctx``, their observations from
+    the refined operator as ``bench.py`` makes them, and the smoothed
+    initial models."""
+    import torch
+    import torch.nn.functional as F
+    from red_diffeq_tpu_torch.io.synthetic import generate_mixed_dataset
+    from red_diffeq_tpu_torch.solvers import acoustic
+    from red_diffeq_tpu_torch.utils.data_trans import (
+        prepare_initial_model, s_normalize_none, v_denormalize, v_normalize,
+    )
 
     t0 = time.perf_counter()
-    n, nt, ns, ng = (HEADLINE[k] for k in ('n_grid', 'nt', 'ns', 'ng'))
+    n, nt, ns, ng = (ctx[k] for k in ('n_grid', 'nt', 'ns', 'ng'))
     v_true = generate_mixed_dataset(BATCH, h=n, w=n, seed=8888)
     op_obs = acoustic.FWIForward(
-        acoustic.refined_ctx(HEADLINE, factor=2), sample_temporal=2,
+        acoustic.refined_ctx(ctx, factor=2), sample_temporal=2,
         v_denorm_func=v_denormalize,
         s_norm_func=s_normalize_none, backend='plain', chunk=CHUNK,
         device=dev)
@@ -350,24 +479,46 @@ def phase_slice(dev):
     torch.cuda.synchronize()
     check(tuple(y.shape) == (BATCH, ns, nt, ng)
           and bool(torch.isfinite(y).all()), 'observations are malformed')
-    print(f'observations {tuple(y.shape)} (refined x2, plain path) in '
-          f'{time.perf_counter() - t0:.2f} s', flush=True)
-
+    print(f'observations {tuple(y.shape)} at nbc={ctx["nbc"]} (refined x2, '
+          f'plain path) in {time.perf_counter() - t0:.2f} s', flush=True)
     init = np.concatenate([prepare_initial_model(v_true[b:b + 1], 'smoothed',
                                                  sigma=10.0)
                            for b in range(BATCH)])
     mu0 = F.pad(torch.from_numpy(init), (1, 1, 1, 1))
-    op = acoustic.FWIForward(HEADLINE,
+    return dict(v_true=v_true, y=y, mu0=mu0)
+
+
+def phase_slice(dev, diffusion, ctx, problem, route, adjoint=None):
+    """``TS`` RED-DiffEq steps of ``InversionEngine.optimize`` at ``ctx``
+    after a one-step warm-up. Checks that the solver took ``route``, that
+    the forward kernel and that route's two kernels (the tape-free adjoint,
+    or the tape replay and the taped adjoint) each launched once per FD
+    step, the other route's kernels never, the plain path never, and that
+    every sample's observation loss fell. Returns (launches, s/step)."""
+    import torch
+    from red_diffeq_tpu_torch.core.inversion import InversionEngine
+    from red_diffeq_tpu_torch.ops import stencil
+    from red_diffeq_tpu_torch.solvers import acoustic
+    from red_diffeq_tpu_torch.utils.data_trans import (
+        s_normalize_none, v_denormalize,
+    )
+
+    n = ctx['n_grid']
+    op = acoustic.FWIForward(ctx,
                              v_denorm_func=v_denormalize,
                              s_norm_func=s_normalize_none, chunk=CHUNK,
-                             device=dev)
+                             adjoint=adjoint, device=dev)
     check(op.backend == 'kernel', f'auto picked {op.backend!r} on the card')
+    mode = stencil.resolve_run_config(op.geom, CHUNK, adjoint)[0]
+    check(mode == route, f'nbc={ctx["nbc"]}: the solver takes {mode!r}, '
+          f'expected {route!r}')
     engine = InversionEngine(diffusion, regularization='diffusion',
                              sigma_x0=1e-4, device=dev)
 
     def run(ts):
         gen = torch.Generator(device=dev).manual_seed(8888)
-        out = engine.optimize(mu0, v_true, y, op, ts=ts, lr=0.03,
+        out = engine.optimize(problem['mu0'], problem['v_true'],
+                              problem['y'], op, ts=ts, lr=0.03,
                               reg_lambda=0.75, generator=gen)
         torch.cuda.synchronize()
         return out
@@ -384,13 +535,15 @@ def phase_slice(dev):
     counts = dict(stencil.launches)
     plain_calls = acoustic.plain_chunk_calls['chunk']
 
-    steps_per_pass = len(acoustic.source_chunks(op.geom, CHUNK, 'cpu')) * CHUNK
-    print(f'main path launches: {counts}, plain chunks {plain_calls}',
-          flush=True)
-    for name in ('fwd_step', 'bwd_reverse_step'):
-        check(counts[name] == TS * steps_per_pass,
-              f'{name} launched {counts[name]} times, expected '
-              f'{TS * steps_per_pass}')
+    steps = TS * len(acoustic.source_chunks(op.geom, CHUNK, 'cpu')) * CHUNK
+    route_kernels = (('bwd_reverse_step',) if route == 'reverse'
+                     else ('tape_step', 'bwd_tape_step'))
+    print(f'nbc={ctx["nbc"]}, adjoint {route!r}: launches {counts}, plain '
+          f'chunks {plain_calls}', flush=True)
+    for name in counts:
+        want = steps if name == 'fwd_step' or name in route_kernels else 0
+        check(counts[name] == want,
+              f'{name} launched {counts[name]} times, expected {want}')
     check(plain_calls == 0, f'the plain path ran {plain_calls} chunks')
     check(tuple(mu.shape) == (BATCH, 1, n, n)
           and bool(torch.isfinite(mu).all())
@@ -405,10 +558,22 @@ def phase_slice(dev):
         print(f'sample {i}: obs {obs[0]:.5g} -> {obs[-1]:.5g}, '
               f'SSIM {curves["ssim"][0]:.4f} -> {curves["ssim"][-1]:.4f}, '
               f'MAE {curves["mae"][-1]:.4f}', flush=True)
-    print(f'inversion: {TS} steps in {run_s:.3f} s, '
-          f'{run_s / TS:.4f} s/step (warm-up step {warm_s:.2f} s)',
-          flush=True)
+    print(f'inversion at nbc={ctx["nbc"]}, adjoint {route!r}: {TS} steps in '
+          f'{run_s:.3f} s, {run_s / TS:.4f} s/step (warm-up step '
+          f'{warm_s:.2f} s)', flush=True)
     return counts, run_s / TS
+
+
+def phase_narrow(dev, diffusion):
+    """The narrow-sponge slice: the taped gradient against plain eager
+    autograd at nbc=40, then the inversion with the guard's own route."""
+    problem = slice_problem(dev, NARROW)
+    r = compare_grads(NARROW,
+                      *gradient_problem(problem['v_true'], problem['y']),
+                      f'tape kernels vs plain autograd at nbc={NARROW["nbc"]}',
+                      ('plain', {}))
+    counts, s_step = phase_slice(dev, diffusion, NARROW, problem, 'tape')
+    return counts, s_step, r
 
 
 def main():
@@ -440,28 +605,48 @@ def main():
     with Phase('forward kernel'):
         p = headline_problem(dev)
         fwd, carries, seis = phase_forward(p)
+        grad_problem = gradient_problem(p['v_true'],
+                                        seis[:, :, :HEADLINE['nt']])
     with Phase('adjoint kernel'):
-        bwd = phase_adjoint(p, carries, seis)
+        bwd = phase_adjoint(p, carries, grad_problem)
+    with Phase('tape kernels'):
+        tape = phase_tape(p, carries, grad_problem)
         del carries
     with Phase('small inversion vs CPU'):
         phase_small_reference(dev)
     with Phase('slice'):
-        counts, s_per_step = phase_slice(dev)
+        diffusion = load_prior(dev)
+        problem = slice_problem(dev, HEADLINE)
+        counts, s_per_step = phase_slice(dev, diffusion, HEADLINE, problem,
+                                         'reverse')
+        _, s_tape_forced = phase_slice(dev, diffusion, HEADLINE, problem,
+                                       'tape', adjoint='tape')
+        del problem
+    with Phase('narrow-sponge slice'):
+        narrow_counts, s_narrow, narrow_grad = phase_narrow(dev, diffusion)
 
     steps = len(p['src']) * CHUNK
     bnd = bounds(p, steps, len(p['src']))
     kernels = []
-    for name, res, line in (('fwd_step', fwd, 150),
-                            ('bwd_reverse_step', bwd, 352)):
+    # Each kernel's launches come from the slice that takes its route.
+    for name, res, line, launched in (
+            ('fwd_step', fwd, 150, counts),
+            ('bwd_reverse_step', bwd, 352, counts),
+            ('tape_step', tape['tape_step'], 233, narrow_counts),
+            ('bwd_tape_step', tape['bwd_tape_step'], 271, narrow_counts)):
         kernels.append(dict(
             name=name, route='cuda', source=SOURCE,
             replaces=f'red_diffeq_tpu/ops/stencil.py:{line}',
-            launches=counts[name], max_abs_err=res['max_abs_err'],
+            launches=launched[name], max_abs_err=res['max_abs_err'],
             ms=res['ms'], plain_ms=res['plain_ms'],
             bound_ms=bnd[name]['bound_ms'], bound_by=bnd[name]['bound_by'],
             library_ms=None))
-    print(f'slice: {s_per_step:.4f} s per inversion step; velocity '
-          f'gradient max-rel {bwd["grad_max_rel"]:.3e}', flush=True)
+    print(f'slice: {s_per_step:.4f} s per inversion step at the headline '
+          f"(adjoint 'reverse'), {s_tape_forced:.4f} with 'tape' forced, "
+          f"{s_narrow:.4f} at nbc={NARROW['nbc']} ('tape'); velocity "
+          f'gradient max-rel {bwd["grad_max_rel"]:.3e} (kernels vs plain), '
+          f'{tape["grad_max_rel"]:.3e} (tape vs reverse), {narrow_grad:.3e} '
+          f'(tape kernels vs plain, nbc={NARROW["nbc"]})', flush=True)
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

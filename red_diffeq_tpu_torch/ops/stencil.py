@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for the acoustic FD time stepper.
 
-Counterpart of ``red_diffeq_tpu/ops/stencil.py``. Two kernels of the JAX
-package are ported, both in ``csrc/stencil.cu``:
+Counterpart of ``red_diffeq_tpu/ops/stencil.py``. All four kernels of the
+JAX package are ported, in ``csrc/stencil.cu``:
 
 * ``_fwd_kernel`` (launcher ``_run_fwd``, ``stencil.py:150-231, 510``)
   becomes ``fwd_step``: one FD step of every (sample, shot) wavefield,
@@ -10,6 +10,18 @@ package are ported, both in ``csrc/stencil.cu``:
   ``stencil.py:352-443, 632``) becomes ``bwd_reverse_step``: one step of
   the tape-free adjoint, rebuilding s_{m-2} from s_m and s_{m-1} while the
   cotangent sweeps backward.
+* ``_tape_kernel`` (launcher ``_run_tape``, ``stencil.py:233-268, 550``)
+  becomes ``tape_step``: one step of the chunk's replay, writing s_m to its
+  slot of a flat tape of ``chunk + 2`` states (slot i = s_{i-1}; slots 0
+  and 1 are the chunk-start carry), with no receiver rows.
+* ``_bwd_kernel`` (launcher ``_run_bwd``, ``stencil.py:271-349, 582``)
+  becomes ``bwd_tape_step``: one step of the taped adjoint, reading s_{m-1}
+  and s_{m-2} from the tape instead of rebuilding them.
+
+The taped pair is the JAX package's route when the t2 guard trips (a
+narrow or strong sponge: at dx=10, dt=1e-3 any nbc <= 55), or when the
+caller asks for ``adjoint='tape'``. As in the JAX custom VJP, the tape
+lives only during one chunk's backward.
 
 Each kernel is one launch per time step; a chunk of ``chunk`` steps is
 ``chunk`` launches, issued by one call into the shared library. The TPU
@@ -21,15 +33,12 @@ tiling: one thread per cell, the state in device memory (and mostly in the
 ``'mxu_xy'``, ``'halo'``, env ``RDT_X_STENCIL``) are lowerings of the same
 Laplacian and have no meaning here.
 
-The tape pair (``_tape_kernel`` / ``_bwd_kernel``), which the JAX package
-takes when the t2 guard trips, is not ported yet: that route raises
-``NotImplementedError``.
-
 Beside each kernel is its plain PyTorch version (``fwd_chunk_plain``,
-``bwd_reverse_chunk_plain``) with the same fp32 arithmetic, step for step.
-The wrappers (``fwd_chunk``, ``bwd_reverse_chunk``) take the plain version
-only for tensors on the CPU; on a CUDA tensor they launch the kernel or
-raise.
+``bwd_reverse_chunk_plain``, ``tape_chunk_plain``, ``bwd_tape_chunk_plain``)
+with the same fp32 arithmetic, step for step. The wrappers (``fwd_chunk``,
+``bwd_reverse_chunk``, ``tape_chunk``, ``bwd_tape_chunk``) take the plain
+version only for tensors on the CPU; on a CUDA tensor they launch the
+kernel or raise.
 """
 import ctypes
 import hashlib
@@ -47,7 +56,8 @@ C1, C2, C3 = -2.5, 4.0 / 3.0, -1.0 / 12.0
 
 # Kernel launches made by the wrappers, by kernel. Each wrapper adds one for
 # every kernel launch it makes, and nowhere else.
-launches = {'fwd_step': 0, 'bwd_reverse_step': 0}
+launches = {'fwd_step': 0, 'bwd_reverse_step': 0, 'tape_step': 0,
+            'bwd_tape_step': 0}
 
 
 def reset_launches() -> None:
@@ -67,8 +77,8 @@ def pick_unroll(chunk: int) -> int:
 
 
 # Default adjoint: 'reverse' rebuilds past states by inverting the damped
-# recursion; 'tape' (stored states) is the fallback when the rebuild would
-# be unstable.
+# recursion; 'tape' replays the chunk into a tape of its states, the route
+# when the rebuild would be unstable.
 ADJOINT_MODE = 'reverse'
 # Framework-wide velocity ceiling, v in [1500, 4500] m/s; kappa grows with
 # the sample's vmin, so this bounds the sponge damping and so min(t2).
@@ -120,56 +130,85 @@ def laplacian4(p: torch.Tensor) -> torch.Tensor:
 # Plain versions, step for step the kernels' arithmetic.
 # ----------------------------------------------------------------------
 
+def _step_plain(p0, p1, alpha, t1, t2, inj, src_k, isz):
+    """s_m = t1*s_{m-1} - t2*s_{m-2} + alpha*L(s_{m-1}), then the source row
+    ``isz`` adds inj*src[k]."""
+    p = t1 * p1 - t2 * p0 + alpha * laplacian4(p1)
+    p[:, :, isz, :] = p[:, :, isz, :] + inj[:, :, 0, :] * src_k
+    return p
+
+
 def fwd_chunk_plain(p0, p1, alpha, t1, t2, inj, src_chunk, *, isz, igz, g0,
                     ng):
     """``chunk`` FD steps; returns (p0', p1', recs (B, ns, chunk, ng)).
-
-    s_m = t1*s_{m-1} - t2*s_{m-2} + alpha*L(s_{m-1}), then the source row
-    ``isz`` adds inj*src[k]; row ``igz``, columns g0:g0+ng, is recorded
-    after the injection."""
-    chunk = src_chunk.shape[0]
-    inj_row = inj[:, :, 0, :]
+    Row ``igz``, columns g0:g0+ng, is recorded after the injection."""
     recs = []
-    for k in range(chunk):
-        p = t1 * p1 - t2 * p0 + alpha * laplacian4(p1)
-        p[:, :, isz, :] = p[:, :, isz, :] + inj_row * src_chunk[k]
+    for k in range(src_chunk.shape[0]):
+        p = _step_plain(p0, p1, alpha, t1, t2, inj, src_chunk[k], isz)
         recs.append(p[:, :, igz, g0:g0 + ng])
         p0, p1 = p1, p
     return p0, p1, torch.stack(recs, dim=2)
 
 
+def tape_chunk_plain(p0, p1, alpha, t1, t2, inj, src_chunk, *, isz):
+    """The chunk's replay from its start carry (p0 = s_{-1}, p1 = s_0):
+    the tape (chunk + 2, B, ns, Hp, Wp) with slot i = s_{i-1}."""
+    tape = [p0, p1]
+    for k in range(src_chunk.shape[0]):
+        tape.append(_step_plain(tape[-2], tape[-1], alpha, t1, t2, inj,
+                                src_chunk[k], isz))
+    return torch.stack(tape)
+
+
 def bwd_reverse_chunk_plain(p0o, p1o, gp0o, gp1o, grec, alpha, t1, t2, inj,
                             src_chunk, *, isz, igz, g0, ng):
-    """Tape-free adjoint of :func:`fwd_chunk_plain`.
+    """Tape-free adjoint of :func:`fwd_chunk_plain`, from the chunk's final
+    states (p0o = s_{K-1}, p1o = s_K), their cotangents and the receiver
+    cotangent ``grec`` (B, ns, chunk, ng). The rebuild does not read the
+    cotangent, so the past states are rebuilt backwards first,
 
-    Inputs: the chunk's final states (p0o = s_{K-1}, p1o = s_K), their
-    cotangents, and the receiver cotangent ``grec`` (B, ns, chunk, ng).
-    Per reversed step m (k = m - 1):
+      s_{m-2} = (t1*s_{m-1} + alpha*L(s_{m-1}) + inj_m - s_m) / t2,
+
+    into the tape layout, and :func:`bwd_tape_chunk_plain` sweeps them; each
+    step's arithmetic is ``bwd_reverse_step``'s. Returns (gp0, gp1, galpha,
+    gt1, gt2, ginj)."""
+    inv_t2 = 1.0 / t2
+    states = [p1o, p0o]                         # s_K, s_{K-1}, ..., s_{-1}
+    for k in range(src_chunk.shape[0] - 1, -1, -1):
+        s_m, s_m1 = states[-2], states[-1]
+        inj_field = torch.zeros_like(s_m1)
+        inj_field[:, :, isz, :] = inj[:, :, 0, :] * src_chunk[k]
+        states.append((t1 * s_m1 + alpha * laplacian4(s_m1) + inj_field
+                       - s_m) * inv_t2)
+    return bwd_tape_chunk_plain(torch.stack(states[::-1]), gp0o, gp1o, grec,
+                                alpha, t1, t2, src_chunk, isz=isz, igz=igz,
+                                g0=g0, ng=ng)
+
+
+def bwd_tape_chunk_plain(tape, gp0o, gp1o, grec, alpha, t1, t2, src_chunk,
+                         *, isz, igz, g0, ng):
+    """Taped adjoint of :func:`fwd_chunk_plain`, reading s_{m-1} and s_{m-2}
+    from slots m and m-1 of the tape of :func:`tape_chunk_plain`. Per
+    reversed step m (k = m - 1):
 
       v += G^T grec[k]
-      s_{m-2} = (t1*s_{m-1} + alpha*L(s_{m-1}) + inj_m - s_m) / t2
       galpha += v*L(s_{m-1}); gt1 += v*s_{m-1}; gt2 -= v*s_{m-2}
       ginj += v[isz]*src[k]
       (u, v) <- (-t2*v, u + t1*v + L(alpha*v))
 
     The coefficient cotangents are summed over shots in shot order, as the
-    kernel does. Returns (gp0, gp1, galpha, gt1, gt2, ginj)."""
-    b, ns, hp, wp = p0o.shape
-    chunk = src_chunk.shape[0]
+    kernels do. Returns (gp0, gp1, galpha, gt1, gt2, ginj)."""
+    ns, wp = gp0o.shape[1], gp0o.shape[-1]
     u, v = gp0o, gp1o
-    s_m, s_m1 = p1o, p0o
-    inv_t2 = 1.0 / t2
     galpha = torch.zeros_like(alpha)
     gt1 = torch.zeros_like(alpha)
     gt2 = torch.zeros_like(alpha)
-    ginj = torch.zeros_like(inj)
-    for k in range(chunk - 1, -1, -1):
+    ginj = gp0o.new_zeros(gp0o.shape[0], ns, 1, wp)
+    for k in range(src_chunk.shape[0] - 1, -1, -1):
         v = v.clone()
         v[:, :, igz, g0:g0 + ng] = v[:, :, igz, g0:g0 + ng] + grec[:, :, k]
+        s_m1, s_m2 = tape[k + 1], tape[k]
         lap_s = laplacian4(s_m1)
-        inj_field = torch.zeros_like(s_m1)
-        inj_field[:, :, isz, :] = inj[:, :, 0, :] * src_chunk[k]
-        s_m2 = (t1 * s_m1 + alpha * lap_s + inj_field - s_m) * inv_t2
         ginj = ginj + v[:, :, isz:isz + 1, :] * src_chunk[k]
         for s in range(ns):
             vs = v[:, s:s + 1]
@@ -177,7 +216,6 @@ def bwd_reverse_chunk_plain(p0o, p1o, gp0o, gp1o, grec, alpha, t1, t2, inj,
             gt1 = gt1 + vs * s_m1[:, s:s + 1]
             gt2 = gt2 - vs * s_m2[:, s:s + 1]
         u, v = -t2 * v, u + t1 * v + laplacian4(alpha * v)
-        s_m, s_m1 = s_m1, s_m2
     return u, v, galpha, gt1, gt2, ginj
 
 
@@ -238,6 +276,10 @@ def _load():
         lib.rdt_fwd_chunk.restype = i
         lib.rdt_bwd_reverse_chunk.argtypes = [p] * 16 + [i] * 9 + [p]
         lib.rdt_bwd_reverse_chunk.restype = i
+        lib.rdt_tape_chunk.argtypes = [p] * 6 + [i] * 6 + [p]
+        lib.rdt_tape_chunk.restype = i
+        lib.rdt_bwd_tape_chunk.argtypes = [p] * 14 + [i] * 9 + [p]
+        lib.rdt_bwd_tape_chunk.restype = i
         _lib = lib
     return _lib
 
@@ -254,7 +296,7 @@ def _check(name, t, shape, device):
         raise ValueError(f'{name} must be contiguous')
 
 
-def _check_geometry(hp, wp, isz, igz, g0, ng):
+def _check_geometry(hp, wp, isz, igz=0, g0=0, ng=0):
     if hp < 5 or wp < 5:
         raise ValueError('the 4th-order stencil needs a field of at least '
                          '5x5')
@@ -263,19 +305,28 @@ def _check_geometry(hp, wp, isz, igz, g0, ng):
                          'outside the field')
 
 
-def _check_args(p0, p1, alpha, t1, t2, inj, src_chunk, hp, wp, isz, igz,
-                g0, ng):
-    b, ns = p0.shape[:2]
-    dev = p0.device
-    for name, t in (('p0', p0), ('p1', p1)):
+def _check_args(fields, alpha, t1, t2, src_chunk, *, isz, igz=0, g0=0,
+                ng=0, inj=None):
+    """Check the (B, ns, Hp, Wp) wavefields (a dict name -> tensor, shaped
+    as the first), the (B, 1, Hp, Wp) coefficients, the injection row, the
+    source chunk and the geometry. Returns (B, ns, Hp, Wp)."""
+    first = next(iter(fields.values()))
+    if first.dim() != 4:
+        raise ValueError(f'wavefields must be (B, ns, Hp, Wp), got shape '
+                         f'{tuple(first.shape)}')
+    b, ns, hp, wp = first.shape
+    dev = first.device
+    for name, t in fields.items():
         _check(name, t, (b, ns, hp, wp), dev)
     for name, t in (('alpha', alpha), ('t1', t1), ('t2', t2)):
         _check(name, t, (b, 1, hp, wp), dev)
-    _check('inj', inj, (b, ns, 1, wp), dev)
+    if inj is not None:
+        _check('inj', inj, (b, ns, 1, wp), dev)
     _check('src_chunk', src_chunk, (src_chunk.shape[0],), dev)
     _check_geometry(hp, wp, isz, igz, g0, ng)
-    if p0.numel() >= 2 ** 31:
+    if first.numel() >= 2 ** 31:
         raise ValueError('fields of 2**31 elements or more are not supported')
+    return b, ns, hp, wp
 
 
 def _ptr(t):
@@ -295,10 +346,10 @@ def fwd_chunk(p0, p1, alpha, t1, t2, inj, src_chunk, *, isz, igz, g0, ng):
                                isz=isz, igz=igz, g0=g0, ng=ng)
     if p0.device.type != 'cuda':
         raise ValueError(f'unsupported device {p0.device}')
-    b, ns, hp, wp = p0.shape
+    b, ns, hp, wp = _check_args({'p0': p0, 'p1': p1}, alpha, t1, t2,
+                                src_chunk, isz=isz, igz=igz, g0=g0, ng=ng,
+                                inj=inj)
     chunk = src_chunk.shape[0]
-    _check_args(p0, p1, alpha, t1, t2, inj, src_chunk, hp, wp, isz, igz,
-                g0, ng)
     lib = _load()
     x, y = p0.clone(), p1.clone()  # stepped in place, ping-pong
     recs = torch.empty((b, ns, chunk, ng), device=p0.device,
@@ -325,13 +376,11 @@ def bwd_reverse_chunk(p0o, p1o, gp0o, gp1o, grec, alpha, t1, t2, inj,
             isz=isz, igz=igz, g0=g0, ng=ng)
     if p0o.device.type != 'cuda':
         raise ValueError(f'unsupported device {p0o.device}')
-    b, ns, hp, wp = p0o.shape
+    b, ns, hp, wp = _check_args(
+        {'p0o': p0o, 'p1o': p1o, 'gp0o': gp0o, 'gp1o': gp1o}, alpha, t1, t2,
+        src_chunk, isz=isz, igz=igz, g0=g0, ng=ng, inj=inj)
     chunk = src_chunk.shape[0]
     dev = p0o.device
-    _check_args(p0o, p1o, alpha, t1, t2, inj, src_chunk, hp, wp, isz, igz,
-                g0, ng)
-    _check('gp0o', gp0o, (b, ns, hp, wp), dev)
-    _check('gp1o', gp1o, (b, ns, hp, wp), dev)
     _check('grec', grec, (b, ns, chunk, ng), dev)
     lib = _load()
     # u, v: cotangents of s_{m-1}, s_m (ping-pong with u2, v2); s_m is
@@ -356,48 +405,119 @@ def bwd_reverse_chunk(p0o, p1o, gp0o, gp1o, grec, alpha, t1, t2, inj,
     return gp0, gp1, galpha, gt1, gt2, ginj
 
 
+def tape_chunk(p0, p1, alpha, t1, t2, inj, src_chunk, *, isz):
+    """The replay of one chunk into its tape: the CUDA kernel ``tape_step``
+    for CUDA tensors, :func:`tape_chunk_plain` for CPU tensors. Returns the
+    tape (chunk + 2, B, ns, Hp, Wp), slot i = s_{i-1}."""
+    if p0.device.type == 'cpu':
+        return tape_chunk_plain(p0, p1, alpha, t1, t2, inj, src_chunk,
+                                isz=isz)
+    if p0.device.type != 'cuda':
+        raise ValueError(f'unsupported device {p0.device}')
+    b, ns, hp, wp = _check_args({'p0': p0, 'p1': p1}, alpha, t1, t2,
+                                src_chunk, isz=isz, inj=inj)
+    chunk = src_chunk.shape[0]
+    lib = _load()
+    tape = torch.empty((chunk + 2, b, ns, hp, wp), device=p0.device,
+                       dtype=torch.float32)
+    tape[0].copy_(p0)
+    tape[1].copy_(p1)
+    err = lib.rdt_tape_chunk(
+        _ptr(tape), _ptr(alpha), _ptr(t1), _ptr(t2), _ptr(inj),
+        _ptr(src_chunk), b, ns, hp, wp, isz, chunk, _stream(p0.device))
+    if err != 0:
+        raise RuntimeError(f'tape_step launch failed: CUDA error {err}')
+    launches['tape_step'] += chunk
+    return tape
+
+
+def bwd_tape_chunk(tape, gp0o, gp1o, grec, alpha, t1, t2, src_chunk, *, isz,
+                   igz, g0, ng):
+    """The taped adjoint of one chunk: the CUDA kernel ``bwd_tape_step``
+    for CUDA tensors, :func:`bwd_tape_chunk_plain` for CPU tensors. Returns
+    (gp0, gp1, galpha, gt1, gt2, ginj)."""
+    if gp0o.device.type == 'cpu':
+        return bwd_tape_chunk_plain(tape, gp0o, gp1o, grec, alpha, t1, t2,
+                                    src_chunk, isz=isz, igz=igz, g0=g0,
+                                    ng=ng)
+    if gp0o.device.type != 'cuda':
+        raise ValueError(f'unsupported device {gp0o.device}')
+    b, ns, hp, wp = _check_args({'gp0o': gp0o, 'gp1o': gp1o}, alpha, t1, t2,
+                                src_chunk, isz=isz, igz=igz, g0=g0, ng=ng)
+    chunk = src_chunk.shape[0]
+    dev = gp0o.device
+    _check('tape', tape, (chunk + 2, b, ns, hp, wp), dev)
+    _check('grec', grec, (b, ns, chunk, ng), dev)
+    lib = _load()
+    u, v = gp0o.clone(), gp1o.clone()   # ping-pong with u2, v2
+    u2, v2 = torch.empty_like(u), torch.empty_like(v)
+    galpha = torch.zeros_like(alpha)
+    gt1 = torch.zeros_like(alpha)
+    gt2 = torch.zeros_like(alpha)
+    ginj = torch.zeros((b, ns, 1, wp), device=dev, dtype=torch.float32)
+    err = lib.rdt_bwd_tape_chunk(
+        _ptr(u), _ptr(v), _ptr(u2), _ptr(v2), _ptr(tape), _ptr(grec),
+        _ptr(alpha), _ptr(t1), _ptr(t2), _ptr(src_chunk), _ptr(galpha),
+        _ptr(gt1), _ptr(gt2), _ptr(ginj), b, ns, hp, wp, isz, igz, g0, ng,
+        chunk, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f'bwd_tape_step launch failed: CUDA error {err}')
+    launches['bwd_tape_step'] += chunk
+    gp0, gp1 = (u, v) if chunk % 2 == 0 else (u2, v2)
+    return gp0, gp1, galpha, gt1, gt2, ginj
+
+
 class StencilChunk(torch.autograd.Function):
-    """One chunk of FD steps with the tape-free adjoint as its backward;
+    """One chunk of FD steps with a kernel adjoint as its backward;
     counterpart of ``pallas_chunk`` and its ``jax.custom_vjp``
-    (``red_diffeq_tpu/ops/stencil.py:680-765``). Saves only the chunk's
-    final carry and the coefficients."""
+    (``red_diffeq_tpu/ops/stencil.py:680-765``). ``mode`` 'reverse' saves
+    the chunk's final carry and runs the tape-free adjoint; 'tape' saves
+    the chunk-start carry, and its backward replays the chunk into a tape
+    and sweeps it (``_pallas_chunk_bwd``, ``:739-763``)."""
 
     @staticmethod
-    def forward(ctx, p0, p1, alpha, t1, t2, inj, src_chunk, geo):
+    def forward(ctx, p0, p1, alpha, t1, t2, inj, src_chunk, geo,
+                mode='reverse'):
+        if mode not in ('reverse', 'tape'):
+            raise ValueError(f"unknown adjoint mode {mode!r} (expected "
+                             "'reverse' or 'tape')")
         isz, igz, g0, ng = geo
         p0o, p1o, recs = fwd_chunk(p0, p1, alpha, t1, t2, inj, src_chunk,
                                    isz=isz, igz=igz, g0=g0, ng=ng)
-        ctx.save_for_backward(p0o, p1o, alpha, t1, t2, inj, src_chunk)
-        ctx.geo = geo
+        carry = (p0o, p1o) if mode == 'reverse' else (p0, p1)
+        ctx.save_for_backward(*carry, alpha, t1, t2, inj, src_chunk)
+        ctx.geo, ctx.mode = geo, mode
         return p0o, p1o, recs
 
     @staticmethod
     def backward(ctx, gp0o, gp1o, grec):
-        p0o, p1o, alpha, t1, t2, inj, src_chunk = ctx.saved_tensors
+        c0, c1, alpha, t1, t2, inj, src_chunk = ctx.saved_tensors
         isz, igz, g0, ng = ctx.geo
-        gp0, gp1, galpha, gt1, gt2, ginj = bwd_reverse_chunk(
-            p0o, p1o, gp0o.contiguous(), gp1o.contiguous(),
-            grec.contiguous(), alpha, t1, t2, inj, src_chunk,
-            isz=isz, igz=igz, g0=g0, ng=ng)
+        gp0o, gp1o, grec = (g.contiguous() for g in (gp0o, gp1o, grec))
+        if ctx.mode == 'reverse':
+            grads = bwd_reverse_chunk(c0, c1, gp0o, gp1o, grec, alpha, t1,
+                                      t2, inj, src_chunk, isz=isz, igz=igz,
+                                      g0=g0, ng=ng)
+        else:
+            tape = tape_chunk(c0, c1, alpha, t1, t2, inj, src_chunk, isz=isz)
+            grads = bwd_tape_chunk(tape, gp0o, gp1o, grec, alpha, t1, t2,
+                                   src_chunk, isz=isz, igz=igz, g0=g0, ng=ng)
         # The source wavelet is a configuration constant: no cotangent.
-        return gp0, gp1, galpha, gt1, gt2, ginj, None, None
+        return (*grads, None, None, None)
 
 
 def stencil_chunk_fn(*, alpha, temp1, temp2, beta_pts, geom, chunk,
                      mode=None):
     """Adapter with the (carry, src_chunk) -> (carry, recs) signature of
     the solver's chunk loop, ``recs`` as (B, ns, chunk, ng); counterpart
-    of ``pallas_chunk_fn`` (``red_diffeq_tpu/ops/stencil.py:801-827``)."""
+    of ``pallas_chunk_fn`` (``red_diffeq_tpu/ops/stencil.py:801-827``).
+    ``mode=None`` takes the adjoint the t2 guard picks
+    (:func:`resolve_run_config`)."""
     if not geom.receivers_contiguous:
         raise NotImplementedError(
             'the kernel backend requires a contiguous receiver line; '
             "use backend='plain' for scattered receivers")
     mode, _ = resolve_run_config(geom, chunk, mode)
-    if mode != 'reverse':
-        raise NotImplementedError(
-            f"adjoint mode {mode!r}: the tape kernels (_tape_kernel, "
-            '_bwd_kernel) are the next slice of the port; only the '
-            'tape-free reverse adjoint runs on this backend')
     wp = alpha.shape[-1]
     inj = build_injection_field(beta_pts, geom.isx, wp).contiguous()
     geo = (geom.isz, geom.igz, geom.igx[0], geom.ng)
@@ -405,7 +525,7 @@ def stencil_chunk_fn(*, alpha, temp1, temp2, beta_pts, geom, chunk,
 
     def chunk_fn(carry, src_chunk):
         p0o, p1o, recs = StencilChunk.apply(*carry, alpha, temp1, temp2,
-                                            inj, src_chunk, geo)
+                                            inj, src_chunk, geo, mode)
         return (p0o, p1o), recs
 
     return chunk_fn

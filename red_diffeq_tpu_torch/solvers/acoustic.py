@@ -6,8 +6,10 @@ absorbing boundary, Ricker source, all shots of a sample stepped together,
 receivers sampled every step. The time loop runs over fixed-size chunks:
 
 * ``backend='kernel'``: one ``ops.stencil.StencilChunk`` per chunk, whose
-  forward and tape-free adjoint are the CUDA kernels (their plain versions
-  for CPU tensors);
+  forward and adjoint are the CUDA kernels (their plain versions for CPU
+  tensors). The adjoint is the tape-free 'reverse' one unless the t2 guard
+  routes to 'tape' (a narrow or strong sponge) or ``adjoint`` asks for one;
+  the plain backend ignores ``adjoint``;
 * ``backend='plain'``: plain PyTorch steps, the counterpart of
   ``_xla_chunk``, under ``torch.utils.checkpoint`` per chunk as the JAX
   path uses ``jax.checkpoint``;
@@ -204,8 +206,9 @@ def forward_modeling(v_pad: torch.Tensor, geom: Geometry, *, chunk: int = 20,
 
     Returns the seismogram (B, ns, ceil(nt / sample_temporal), ng).
     ``backend`` is ``'kernel'`` or ``'plain'``; ``adjoint`` picks the
-    kernel backend's adjoint (``None``: 'reverse' unless the t2 guard
-    routes to 'tape')."""
+    kernel backend's adjoint, ``'reverse'`` or ``'tape'`` (``None``:
+    'reverse' unless the t2 guard routes to 'tape'); the plain backend
+    ignores it."""
     b, _, hp, wp = v_pad.shape
     alpha, temp1, temp2, beta_pts = coefficients(v_pad, geom)
     src_chunks = source_chunks(geom, chunk, v_pad.device)

@@ -5,7 +5,9 @@ nbc=60, nt=40, dim-8 U-Net with mults (1, 2) on the 18x18 padded grid,
 20 diffusion steps). JAX's draws (the sigma_x0 noise, the RED timestep
 and the RED noise) are fed to the port. Tolerances: mu atol 1e-5 (the
 Adam step is 0.03, so this is 3e-4 of one update); losses and metrics
-rtol 1e-4.
+rtol 1e-4. The same three steps at nbc=8, where the t2 guard takes the
+taped adjoint, hold the port's kernel backend to the JAX engine on its
+Pallas kernels in interpret mode.
 """
 from functools import partial
 
@@ -29,11 +31,13 @@ from red_diffeq_tpu_torch.io.checkpoints import flax_to_state_dict
 from red_diffeq_tpu_torch.models.diffusion import GaussianDiffusion
 from red_diffeq_tpu_torch.models.unet import Unet
 from red_diffeq_tpu_torch.regularization.base import make_reg_fn
-from red_diffeq_tpu_torch.solvers.acoustic import FWIForward
+from red_diffeq_tpu_torch.ops.stencil import resolve_run_config
+from red_diffeq_tpu_torch.solvers.acoustic import FWIForward, Geometry
 from red_diffeq_tpu_torch.utils import data_trans as tdt
 
 CTX = dict(n_grid=16, nt=40, dx=10.0, dt=0.001, nbc=60, f=15.0, sz=10,
            gz=10, ng=16, ns=2)
+TAPE_CTX = dict(CTX, nbc=8)
 TS, LR, LAM, SIGMA = 3, 0.03, 0.75, 1e-4
 KEYS = ('total_losses', 'obs_losses', 'reg_losses', 'mae', 'rmse', 'ssim')
 
@@ -50,11 +54,12 @@ def _problem():
     return v_true, mu0
 
 
-@pytest.fixture(scope='module')
-def jax_run():
+def _jax_steps(ctx, backend):
+    """Three JAX inversion steps on ``backend``; returns the problem, the
+    draws, every step's mu and metrics, and the U-Net's weights."""
     v_true, mu0 = _problem()
-    op = JaxFWI(CTX, normalize=True, v_denorm_func=jdt.v_denormalize,
-                s_norm_func=jdt.s_normalize_none, backend='xla', chunk=20)
+    op = JaxFWI(ctx, normalize=True, v_denorm_func=jdt.v_denormalize,
+                s_norm_func=jdt.s_normalize_none, backend=backend, chunk=20)
     y = op(jdt.v_normalize(jnp.asarray(v_true)))
     diff = JaxDiffusion(JaxUnet(dim=8, dim_mults=(1, 2), channels=1),
                         image_size=18, timesteps=20)
@@ -83,10 +88,29 @@ def jax_run():
                 mus=mus, metrics=metrics, params=params)
 
 
+@pytest.fixture(scope='module')
+def jax_run():
+    return _jax_steps(CTX, 'xla')
+
+
 @pytest.mark.parametrize('backend', ['plain', 'kernel'])
 def test_three_steps_match_jax(jax_run, backend):
-    r = jax_run
-    op = FWIForward(CTX, v_denorm_func=tdt.v_denormalize,
+    _check_three_steps(jax_run, CTX, backend)
+
+
+def test_three_steps_match_jax_on_the_tape_route():
+    """nbc=8: the guard routes both packages to the taped adjoint; the port
+    runs it through ``backend='kernel'`` (the tape kernels' plain versions
+    on the CPU), JAX through ``_tape_kernel`` and ``_bwd_kernel`` in
+    interpret mode."""
+    geom = Geometry.from_ctx(TAPE_CTX)
+    assert resolve_run_config(geom, 20)[0] == 'tape'
+    _check_three_steps(_jax_steps(TAPE_CTX, 'pallas_interpret'), TAPE_CTX,
+                       'kernel')
+
+
+def _check_three_steps(r, ctx, backend):
+    op = FWIForward(ctx, v_denorm_func=tdt.v_denormalize,
                     s_norm_func=tdt.s_normalize_none, backend=backend,
                     chunk=20, device='cpu')
     unet = Unet(dim=8, dim_mults=(1, 2), channels=1)
