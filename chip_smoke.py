@@ -8,41 +8,61 @@ Run from the repository root, with no arguments:
 Phases, each printing its wall time:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the CUDA kernels from ``red_diffeq_tpu_torch/ops/csrc`` with nvcc;
-3. the forward kernel ``fwd_step`` against its plain PyTorch version at the
-   headline shape (B=4, ns=5, 310x310, chunk 20, nt=1000), full
-   seismogram: rtol 2e-5 / atol 1e-7;
-4. the adjoint kernel ``bwd_reverse_step`` against its plain version chunk
-   by chunk over a whole reverse pass (max-rel 2e-5 per output), and the
-   velocity gradient of a masked-L1 observation loss through the kernels
-   against plain eager autograd (max-rel 1e-4);
-5. the tape kernels at the same shape, with the taped route forced:
+2. build the CUDA kernels from ``red_diffeq_tpu_torch/ops/csrc`` with nvcc,
+   and read each kernel's registers, spills and resident blocks per SM
+   (the blocked kernels must not spill and must fit two blocks on an SM);
+3. the forward kernel ``fwd_step`` (temporally blocked, U steps a launch)
+   against its plain PyTorch version at the headline shape (B=4, ns=5,
+   310x310, chunk 20, nt=1000), full seismogram and every chunk carry:
+   rtol 2e-5 / atol 1e-7, max abs err printed per output; then the same
+   at the nbc=40 shape (150x150), where the taped route launches it, with
+   its time there;
+4. the adjoint kernels ``bwd_reverse_step`` (blocked) and ``sum_shots``
+   against their plain versions chunk by chunk over a whole reverse pass
+   (max-rel 2e-5 per output, the per-shot sums and their shot sums alike,
+   the cotangents gp0/gp1 bit for bit), the steps and the shot sums each
+   timed on their own, one
+   chunk of 7 steps (a short last group for either kernel) of each
+   blocked kernel against its plain version, and the velocity gradient of
+   a masked-L1 observation loss through the kernels against plain eager
+   autograd (max-rel 1e-4);
+5. determinism: the velocity gradient at the headline (tape-free
+   adjoint) and at nbc=40 (taped adjoint), each computed twice from the
+   same inputs, must agree bit for bit; a third run under
+   ``torch.use_deterministic_algorithms(True, warn_only=True)`` prints
+   any operation PyTorch calls nondeterministic;
+6. the tape kernels at the headline shape, with the taped route forced:
    ``tape_step`` against its plain version on every slot of every chunk's
    tape of one pass, ``bwd_tape_step`` against its plain version chunk by
    chunk over a whole reverse pass (max-rel 2e-5 per output), and the
    velocity gradient under ``adjoint='tape'`` against ``'reverse'``
    (max-rel 1e-4; at nbc=120 both adjoints are valid);
-6. a small inversion (16x16 model, dim-8 U-Net) run on the card through
+7. a small inversion (16x16 model, dim-8 U-Net) run on the card through
    the kernels and on the CPU through the plain path with the same draws:
    mu atol 1e-4 (Adam divides each gradient by its own RMS, so a relative
    gradient error shows up scaled by the 0.03 step), losses and metrics
    rtol 1e-4;
-7. the slice: the shipped prior read by the port's own reader, observations
+8. the slice: the shipped prior read by the port's own reader, observations
    from the refined operator as ``bench.py`` makes them, and a few
    RED-DiffEq steps of ``InversionEngine.optimize`` at the headline
    settings, where the t2 guard takes the tape-free adjoint, with the
-   forward and that adjoint launched every step, the tape kernels never
-   and the plain path unused; then the same steps with the taped adjoint
-   forced, for its time per step;
-8. the narrow-sponge slice: the headline settings with nbc=40, where the
+   launch counts of that route's kernels (ceil(chunk/U) launches per chunk
+   of each blocked kernel, one ``sum_shots`` per chunk), the tape kernels
+   never and the plain path unused; then the same steps with the taped
+   adjoint forced, for its time per step;
+9. the narrow-sponge slice: the headline settings with nbc=40, where the
    guard itself takes the taped adjoint. The velocity gradient through the
    tape kernels against plain eager autograd (max-rel 1e-4), then a few
-   RED-DiffEq steps with the tape kernels launched every step, the
-   tape-free adjoint never and the plain path unused.
+   RED-DiffEq steps with the forward kernel's blocked launches, the tape
+   kernels once per FD step, the tape-free adjoint never and the plain
+   path unused.
 
-Then one JSON line with each kernel's launches (from the slice that takes
-its route), error, times and bound, the card's line from nvidia-smi, and
-last ``{"ok": true, "device": ...}``.
+Then one JSON line with each kernel's launches and the steps per launch
+its wrapper handed its launcher (both read in the slice that takes its
+route), launches per 1000-step pass (those launches over the slice's
+inversion steps), error, times and bound, the card's line from nvidia-smi,
+and last
+``{"ok": true, "device": ...}``.
 Any failed check raises and the script exits non-zero. Without a CUDA
 device, or without the package beside it, it exits non-zero and prints no
 result.
@@ -66,6 +86,12 @@ SOURCE = 'red_diffeq_tpu_torch/ops/csrc/stencil.cu'
 # cores, at the full 700 W power limit.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+# ms per 1000-step pass of each kernel in the previous design (one launch
+# per FD step, one thread per cell) and seconds per headline inversion
+# step, printed beside this run's: chip runs on an NVIDIA H100 80GB HBM3 at
+# 700 W recorded in PERF.md.
+EARLIER_MS = {'fwd_step': 20.680, 'bwd_reverse_step': 86.645}
+EARLIER_S_PER_STEP = 0.1240
 
 
 class Phase:
@@ -112,15 +138,16 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def headline_problem(dev):
+def headline_problem(dev, ctx=None):
     import torch
     import torch.nn.functional as F
     from red_diffeq_tpu_torch.io.synthetic import generate_mixed_dataset
     from red_diffeq_tpu_torch.ops import stencil
     from red_diffeq_tpu_torch.solvers import acoustic
 
-    geom = acoustic.Geometry.from_ctx(HEADLINE)
-    n = HEADLINE['n_grid']
+    ctx = ctx or HEADLINE
+    geom = acoustic.Geometry.from_ctx(ctx)
+    n = ctx['n_grid']
     v_true = generate_mixed_dataset(BATCH, h=n, w=n, seed=8888)
     v_pad = F.pad(torch.from_numpy(v_true).to(dev), (geom.nbc,) * 4,
                   mode='replicate')
@@ -162,9 +189,16 @@ def bounds(p, steps, n_calls):
     work = {
         'fwd_step': (4 * n_calls * (4 * field + 3 * coef + row + chunk
                                     + recs), fwd_ops),
+        # The adjoint's steps without the shot sums: the two carries and
+        # their cotangents in, the cotangents and the per-shot alpha, t1,
+        # t2 cotangents (three fields, not three coefficient maps) out.
         'bwd_reverse_step': (
-            4 * n_calls * (6 * field + recs + 6 * coef + 2 * row + chunk),
+            4 * n_calls * (9 * field + recs + 3 * coef + 2 * row + chunk),
             steps * (35 * field + coef + b * ns * ng + 2 * row)),
+        # The shot sums alone: the blocked adjoint's per-shot coefficient
+        # cotangents in (three fields), their sums out, once per chunk.
+        'sum_shots': (4 * n_calls * (3 * field + 3 * coef),
+                      n_calls * 3 * (ns - 1) * coef),
         # The replay reads the start carry and writes the chunk + 2 slots.
         'tape_step': (4 * n_calls * ((chunk + 4) * field + 3 * coef + row
                                      + chunk), fwd_ops),
@@ -185,28 +219,67 @@ def bounds(p, steps, n_calls):
     return out
 
 
-def phase_forward(p):
+def phase_kernel_info(shapes):
+    """Registers, spill bytes and resident blocks per SM of every kernel,
+    and the blocked kernels' U and tile at each field shape of
+    ``shapes``. The blocked kernels must not spill and must fit two blocks
+    on an SM."""
+    from red_diffeq_tpu_torch.ops import stencil
+    for name in stencil.launches:
+        k = stencil.kernel_info(name)
+        blocked = name in stencil.BLOCKED
+        tiles = '; '.join(
+            f'{hp}x{wp}: U={u}, tile {ty}x{tx}' for hp, wp in shapes
+            for u, ty, tx in [stencil.pick_blocking(name, hp, wp)]
+        ) if blocked else 'one thread per cell, one step a launch'
+        print(f'{name}: {k["regs"]} registers, {k["local_bytes"]} local '
+              f'bytes, {k["blocks_per_sm"]} blocks per SM ({tiles})',
+              flush=True)
+        if blocked:
+            check(k['local_bytes'] == 0, f'{name} spills to local memory')
+            check(k['blocks_per_sm'] >= 2, f'{name}: only '
+                  f'{k["blocks_per_sm"]} block(s) fit on an SM')
+
+
+def phase_forward(p, label='headline', full=True):
+    """``fwd_step`` against its plain version over one pass (seismogram and
+    every chunk carry), with max abs err per output; its time per pass,
+    and the plain version's with ``full``."""
     import torch
     from red_diffeq_tpu_torch.ops import stencil
 
+    stencil.reset_launches()
     seis_k, carries_k = forward_pass(stencil.fwd_chunk, p, keep=True)
+    u, per_chunk = (stencil.last_unroll['fwd_step'],
+                    stencil.launches['fwd_step'] / len(p['src']))
     seis_p, carries_p = forward_pass(stencil.fwd_chunk_plain, p, keep=True)
     torch.testing.assert_close(seis_k, seis_p, rtol=2e-5, atol=1e-7)
+    errs = {'seismogram': float((seis_k - seis_p).abs().max()),
+            'p0 carries': 0.0, 'p1 carries': 0.0}
     for (a0, a1), (b0, b1) in zip(carries_k, carries_p):
         torch.testing.assert_close(a0, b0, rtol=2e-5, atol=1e-7)
         torch.testing.assert_close(a1, b1, rtol=2e-5, atol=1e-7)
-    err = max(float((seis_k - seis_p).abs().max()),
-              float((carries_k[-1][1] - carries_p[-1][1]).abs().max()))
+        errs['p0 carries'] = max(errs['p0 carries'],
+                                 float((a0 - b0).abs().max()))
+        errs['p1 carries'] = max(errs['p1 carries'],
+                                 float((a1 - b1).abs().max()))
     check(torch.isfinite(seis_k).all() and float(seis_k.abs().max()) > 0,
           'forward seismogram is not finite or is all zero')
-    print(f'fwd_step vs plain: seismogram {tuple(seis_k.shape)}, '
-          f'max abs err {err:.3e} (max |seis| '
-          f'{float(seis_p.abs().max()):.3e})', flush=True)
+    print(f'fwd_step vs plain at the {label} shape {p["shape"]}: seismogram '
+          f'{tuple(seis_k.shape)}, max abs err '
+          + ', '.join(f'{k} {v:.3e}' for k, v in errs.items())
+          + f' (max |seis| {float(seis_p.abs().max()):.3e}); U={u}, '
+          f'{per_chunk:g} launches per chunk', flush=True)
     ms = cuda_ms(lambda: forward_pass(stencil.fwd_chunk, p), 5)
-    plain_ms = cuda_ms(lambda: forward_pass(stencil.fwd_chunk_plain, p), 2)
-    print(f'fwd pass ({seis_k.shape[2]} steps): kernel {ms:.3f} ms, plain '
-          f'{plain_ms:.3f} ms', flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms), carries_k, seis_k
+    plain_ms = (cuda_ms(lambda: forward_pass(stencil.fwd_chunk_plain, p), 2)
+                if full else None)
+    print(f'fwd pass at the {label} shape ({seis_k.shape[2]} steps): kernel '
+          f'{ms:.3f} ms'
+          + (f' (one launch per step: {EARLIER_MS["fwd_step"]:.3f} ms)'
+             if full else '')
+          + (f', plain {plain_ms:.3f} ms' if full else ''), flush=True)
+    return (dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms),
+            carries_k, seis_k)
 
 
 def random_grecs(p):
@@ -219,13 +292,17 @@ def random_grecs(p):
             for _ in range(len(p['src']))]
 
 
-def check_outputs(kernel, names, got, want, where):
-    """Gate each output at max-rel 2e-5; return the largest abs error."""
+def check_outputs(kernel, names, got, want, where, errs=None):
+    """Gate each output at max-rel 2e-5; return the largest abs error, and
+    keep each output's largest in ``errs``."""
     err = 0.0
     for name, o, w in zip(names, got, want):
         r = max_rel(o, w)
         check(r <= 2e-5, f'{kernel} {where} {name}: max-rel {r:.3e} > 2e-5')
-        err = max(err, float((o - w).abs().max()))
+        e = float((o - w).abs().max())
+        err = max(err, e)
+        if errs is not None:
+            errs[name] = max(errs.get(name, 0.0), e)
     return err
 
 
@@ -259,10 +336,12 @@ def gradient_problem(v_true, y):
     return v_normalize(v) * 0.97, y, mask
 
 
-def reverse_pass(p, fn, chunk_args, compare=None, kernel=None):
+def reverse_pass(p, fn, chunk_args, compare=None, kernel=None, errs=None,
+                 names=GRADS):
     """Sweep the carry's cotangent through every chunk from the last, with
     ``fn(*chunk_args(i, gp0, gp1), **geo)``; with ``compare``, gate each
-    chunk's outputs against it and return the largest abs error."""
+    chunk's outputs (``names``) against it and return the largest abs
+    error (each output's largest in ``errs``)."""
     import torch
     gp0 = torch.zeros(p['shape'], device=p['alpha'].device)
     gp1 = torch.zeros_like(gp0)
@@ -271,41 +350,160 @@ def reverse_pass(p, fn, chunk_args, compare=None, kernel=None):
         args = chunk_args(i, gp0, gp1)
         out = fn(*args, **p['geo'])
         if compare is not None:
-            err = max(err, check_outputs(kernel, GRADS, out,
+            err = max(err, check_outputs(kernel, names, out,
                                          compare(*args, **p['geo']),
-                                         f'chunk {i}'))
+                                         f'chunk {i}', errs))
         gp0, gp1 = out[0], out[1]
     return err
 
 
-def time_reverse_pass(p, name, fn, plain_fn, chunk_args):
-    """Gate kernel ``name`` (wrapper ``fn``) against ``plain_fn`` over a
-    whole reverse pass, then time both passes."""
-    err = reverse_pass(p, fn, chunk_args, compare=plain_fn, kernel=name)
+def time_reverse_pass(p, name, fn, plain_fn, chunk_args, names=GRADS,
+                      timed=None):
+    """Gate kernel ``name`` (wrapper ``fn``, outputs ``names``) against
+    ``plain_fn`` over a whole reverse pass, printing each output's max abs
+    err and keeping the gated pass's launch counts, then time a pass of
+    each of ``timed`` = (kernel's wrapper, its plain version), by default
+    ``fn`` and ``plain_fn``."""
+    from red_diffeq_tpu_torch.ops import stencil
+    errs = {}
+    stencil.reset_launches()
+    err = reverse_pass(p, fn, chunk_args, compare=plain_fn, kernel=name,
+                       errs=errs, names=names)
+    launched = dict(stencil.launches)
     print(f'{name} vs plain over {len(p["src"])} chunks: max abs err '
-          f'{err:.3e}', flush=True)
+          + ', '.join(f'{k} {v:.3e}' for k, v in errs.items()), flush=True)
+    fn, plain_fn = timed or (fn, plain_fn)
     ms = cuda_ms(lambda: reverse_pass(p, fn, chunk_args), 5)
     plain_ms = cuda_ms(lambda: reverse_pass(p, plain_fn, chunk_args), 2)
     print(f'{name} pass ({len(p["src"]) * CHUNK} steps): kernel {ms:.3f} '
           f'ms, plain {plain_ms:.3f} ms', flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, errs=errs,
+                launched=launched)
+
+
+# The tape-free adjoint's outputs: its steps' (the alpha, t1, t2
+# cotangents per shot), then their shot sums.
+REVERSE_OUT = ('gp0', 'gp1', 'pa', 'pt1', 'pt2', 'ginj', 'galpha', 'gt1',
+               'gt2')
+
+
+def reverse_chunk(steps_fn, sum_fn):
+    """The tape-free adjoint of one chunk as ``steps_fn`` and ``sum_fn``
+    over its per-shot sums, returning every output of both."""
+    def fn(*args, **geo):
+        gp0, gp1, pa, p1, p2, ginj = steps_fn(*args, **geo)
+        return (gp0, gp1, pa, p1, p2, ginj, *sum_fn(pa, p1, p2))
+    return fn
 
 
 def phase_adjoint(p, carries, grad_problem):
+    import torch
     from red_diffeq_tpu_torch.ops import stencil
 
     grecs = random_grecs(p)
     coef = (p['alpha'], p['t1'], p['t2'], p['inj'])
+    # Gated: the steps and the shot sums, every output of each; timed:
+    # the steps alone (``sum_shots`` is timed on its own below).
     res = time_reverse_pass(
-        p, 'bwd_reverse_step', stencil.bwd_reverse_chunk,
-        stencil.bwd_reverse_chunk_plain,
+        p, 'bwd_reverse_step',
+        reverse_chunk(stencil.bwd_reverse_steps, stencil.sum_shots),
+        reverse_chunk(stencil.bwd_reverse_steps_plain,
+                      lambda *q: [stencil.sum_shots_plain(t) for t in q]),
         lambda i, gp0, gp1: (*carries[i + 1], gp0, gp1, grecs[i], *coef,
-                             p['src'][i]))
+                             p['src'][i]),
+        names=REVERSE_OUT, timed=(stencil.bwd_reverse_steps,
+                                  stencil.bwd_reverse_steps_plain))
+    res['max_abs_err'] = max(res['errs'][k] for k in REVERSE_OUT[:6])
+    n_chunks, launched = len(p['src']), res['launched']
+    print(f"bwd_reverse_step: U={stencil.last_unroll['bwd_reverse_step']}, "
+          f"{launched['bwd_reverse_step'] / n_chunks:g} launches and "
+          f"{launched['sum_shots'] / n_chunks:g} sum_shots per chunk",
+          flush=True)
+    for name in ('gp0', 'gp1'):
+        check(res['errs'][name] == 0.0, f'bwd_reverse_step {name} differs '
+              f'from its plain version by {res["errs"][name]:.3e}')
+    # The shot sums alone, on per-shot partials of the main path's shape.
+    gen = torch.Generator(device=p['alpha'].device).manual_seed(5)
+    parts = [[torch.randn(p['shape'], generator=gen,
+                          device=p['alpha'].device) for _ in range(3)]
+             for _ in range(len(p['src']))]
+    err = max(check_outputs('sum_shots', ('galpha', 'gt1', 'gt2'),
+                            stencil.sum_shots(*q),
+                            [stencil.sum_shots_plain(t) for t in q],
+                            f'partials {i}')
+              for i, q in enumerate(parts))
+    ms = cuda_ms(lambda: [stencil.sum_shots(*q) for q in parts], 5)
+    plain_ms = cuda_ms(lambda: [[stencil.sum_shots_plain(t) for t in q]
+                                for q in parts], 2)
+    # PyTorch's own reduction over the shot axis, one call per partial sum.
+    library_ms = cuda_ms(lambda: [[t.sum(dim=1, keepdim=True) for t in q]
+                                  for q in parts], 5)
+    print(f'sum_shots vs plain, {len(parts)} calls: max abs err {err:.3e}; '
+          f'kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, torch.sum '
+          f'{library_ms:.3f} ms per pass', flush=True)
+    print(f"tape-free adjoint pass, bwd_reverse_step + sum_shots: "
+          f"{res['ms'] + ms:.3f} ms (one launch per step, shot sums in the "
+          f"kernel: {EARLIER_MS['bwd_reverse_step']:.3f} ms)", flush=True)
+    res['sum_shots'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            library_ms=library_ms)
+    del parts
+    phase_short_chunk(p, carries, grecs[0])
     # Velocity gradient of a masked-L1 observation loss: kernels vs plain
     # eager autograd through the checkpointed plain path.
     res['grad_max_rel'] = compare_grads(
         HEADLINE, *grad_problem, 'kernels vs plain autograd', ('plain', {}))
     return res
+
+
+def phase_short_chunk(p, carries, grec, steps=7):
+    """One chunk of ``steps`` FD steps (U does not divide it, so the last
+    group of each blocked kernel is short) from a mid-pass carry: the
+    forward and the tape-free adjoint against their plain versions."""
+    from red_diffeq_tpu_torch.ops import stencil
+
+    coef = (p['alpha'], p['t1'], p['t2'], p['inj'])
+    i = len(p['src']) // 2
+    src = p['src'][i][:steps].contiguous()
+    fwd = [fn(*carries[i], *coef, src, **p['geo'])
+           for fn in (stencil.fwd_chunk, stencil.fwd_chunk_plain)]
+    e_f = check_outputs('fwd_step', ('p0', 'p1', 'recs'), *fwd,
+                        f'{steps}-step chunk')
+    args = (*fwd[1][:2], *carries[i + 1], grec[:, :, :steps].contiguous(),
+            *coef, src)
+    e_b = check_outputs('bwd_reverse_step', GRADS,
+                        stencil.bwd_reverse_chunk(*args, **p['geo']),
+                        stencil.bwd_reverse_chunk_plain(*args, **p['geo']),
+                        f'{steps}-step chunk')
+    print(f'{steps}-step chunk (short last group) vs plain: fwd_step max abs '
+          f'err {e_f:.3e}, bwd_reverse_step {e_b:.3e}', flush=True)
+
+
+def phase_determinism(problems):
+    """The velocity gradient, computed twice from the same inputs, must
+    agree bit for bit, for each (ctx, mu, y, mask) of ``problems``; a third
+    run under PyTorch's deterministic mode prints the operations it calls
+    nondeterministic."""
+    import warnings
+    import torch
+
+    for ctx, mu, y, mask in problems:
+        where = f"nbc={ctx['nbc']}"
+        g1 = velocity_grad(ctx, 'kernel', mu, y, mask)
+        g2 = velocity_grad(ctx, 'kernel', mu, y, mask)
+        d = float((g1 - g2).abs().max())
+        check(torch.equal(g1, g2), f'velocity gradient at {where} differs '
+              f'between two identical runs by {d:.3e}')
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter('always')
+                g3 = velocity_grad(ctx, 'kernel', mu, y, mask)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        flagged = sorted({str(w.message).splitlines()[0] for w in caught})
+        print(f'determinism at {where}: two runs equal bit for bit; under '
+              f'deterministic mode equal: {torch.equal(g1, g3)}, flagged: '
+              f'{flagged or "nothing"}', flush=True)
 
 
 def compare_grads(ctx, mu, y, mask, label, ref, **kw):
@@ -533,17 +731,27 @@ def phase_slice(dev, diffusion, ctx, problem, route, adjoint=None):
     mu, per_model = run(TS)
     run_s = time.perf_counter() - t0
     counts = dict(stencil.launches)
+    unrolls = dict(stencil.last_unroll)
     plain_calls = acoustic.plain_chunk_calls['chunk']
 
-    steps = TS * len(acoustic.source_chunks(op.geom, CHUNK, 'cpu')) * CHUNK
-    route_kernels = (('bwd_reverse_step',) if route == 'reverse'
-                     else ('tape_step', 'bwd_tape_step'))
+    chunks = TS * len(acoustic.source_chunks(op.geom, CHUNK, 'cpu'))
+    hp = n + 2 * ctx['nbc']
+
+    def per_chunk(name):
+        return -(-CHUNK // stencil.pick_blocking(name, hp, hp)[0])
+
+    want = dict.fromkeys(counts, 0)
+    want['fwd_step'] = chunks * per_chunk('fwd_step')
+    if route == 'reverse':
+        want['bwd_reverse_step'] = chunks * per_chunk('bwd_reverse_step')
+        want['sum_shots'] = chunks
+    else:
+        want['tape_step'] = want['bwd_tape_step'] = chunks * CHUNK
     print(f'nbc={ctx["nbc"]}, adjoint {route!r}: launches {counts}, plain '
           f'chunks {plain_calls}', flush=True)
     for name in counts:
-        want = steps if name == 'fwd_step' or name in route_kernels else 0
-        check(counts[name] == want,
-              f'{name} launched {counts[name]} times, expected {want}')
+        check(counts[name] == want[name],
+              f'{name} launched {counts[name]} times, expected {want[name]}')
     check(plain_calls == 0, f'the plain path ran {plain_calls} chunks')
     check(tuple(mu.shape) == (BATCH, 1, n, n)
           and bool(torch.isfinite(mu).all())
@@ -561,7 +769,7 @@ def phase_slice(dev, diffusion, ctx, problem, route, adjoint=None):
     print(f'inversion at nbc={ctx["nbc"]}, adjoint {route!r}: {TS} steps in '
           f'{run_s:.3f} s, {run_s / TS:.4f} s/step (warm-up step '
           f'{warm_s:.2f} s)', flush=True)
-    return counts, run_s / TS
+    return counts, run_s / TS, unrolls
 
 
 def phase_narrow(dev, diffusion):
@@ -572,8 +780,9 @@ def phase_narrow(dev, diffusion):
                       *gradient_problem(problem['v_true'], problem['y']),
                       f'tape kernels vs plain autograd at nbc={NARROW["nbc"]}',
                       ('plain', {}))
-    counts, s_step = phase_slice(dev, diffusion, NARROW, problem, 'tape')
-    return counts, s_step, r
+    counts, s_step, unrolls = phase_slice(dev, diffusion, NARROW, problem,
+                                          'tape')
+    return counts, s_step, unrolls, r
 
 
 def main():
@@ -602,13 +811,26 @@ def main():
         print(smi, flush=True)
     with Phase('build'):
         print(f'built {stencil.build(verbose=True)}', flush=True)
+        hp = HEADLINE['n_grid'] + 2 * HEADLINE['nbc']
+        hn = NARROW['n_grid'] + 2 * NARROW['nbc']
+        phase_kernel_info(((hp, hp), (hn, hn)))
     with Phase('forward kernel'):
         p = headline_problem(dev)
         fwd, carries, seis = phase_forward(p)
         grad_problem = gradient_problem(p['v_true'],
                                         seis[:, :, :HEADLINE['nt']])
+        pn = headline_problem(dev, NARROW)
+        fwd_narrow, _, seis_n = phase_forward(pn, f'nbc={NARROW["nbc"]}',
+                                              full=False)
+        narrow_grad_problem = gradient_problem(pn['v_true'],
+                                               seis_n[:, :, :NARROW['nt']])
+        del pn, seis_n
     with Phase('adjoint kernel'):
         bwd = phase_adjoint(p, carries, grad_problem)
+    with Phase('determinism'):
+        phase_determinism(((HEADLINE, *grad_problem),
+                           (NARROW, *narrow_grad_problem)))
+        del narrow_grad_problem
     with Phase('tape kernels'):
         tape = phase_tape(p, carries, grad_problem)
         del carries
@@ -617,32 +839,47 @@ def main():
     with Phase('slice'):
         diffusion = load_prior(dev)
         problem = slice_problem(dev, HEADLINE)
-        counts, s_per_step = phase_slice(dev, diffusion, HEADLINE, problem,
-                                         'reverse')
-        _, s_tape_forced = phase_slice(dev, diffusion, HEADLINE, problem,
-                                       'tape', adjoint='tape')
+        counts, s_per_step, unrolls = phase_slice(dev, diffusion, HEADLINE,
+                                                  problem, 'reverse')
+        _, s_tape_forced, _ = phase_slice(dev, diffusion, HEADLINE, problem,
+                                          'tape', adjoint='tape')
         del problem
     with Phase('narrow-sponge slice'):
-        narrow_counts, s_narrow, narrow_grad = phase_narrow(dev, diffusion)
+        narrow_counts, s_narrow, narrow_unrolls, narrow_grad = phase_narrow(
+            dev, diffusion)
 
-    steps = len(p['src']) * CHUNK
-    bnd = bounds(p, steps, len(p['src']))
+    n_chunks = len(p['src'])
+    steps = n_chunks * CHUNK
+    bnd = bounds(p, steps, n_chunks)
     kernels = []
-    # Each kernel's launches come from the slice that takes its route.
-    for name, res, line, launched in (
-            ('fwd_step', fwd, 150, counts),
-            ('bwd_reverse_step', bwd, 352, counts),
-            ('tape_step', tape['tape_step'], 233, narrow_counts),
-            ('bwd_tape_step', tape['bwd_tape_step'], 271, narrow_counts)):
+    # Each kernel's launches, and the steps per launch its wrapper handed
+    # the launcher, come from the slice that takes its route; one
+    # inversion step is one pass of each of that route's kernels.
+    for name, res, line, launched, unroll in (
+            ('fwd_step', fwd, 150, counts, unrolls),
+            ('bwd_reverse_step', bwd, 352, counts, unrolls),
+            ('sum_shots', bwd['sum_shots'], 435, counts, unrolls),
+            ('tape_step', tape['tape_step'], 233, narrow_counts,
+             narrow_unrolls),
+            ('bwd_tape_step', tape['bwd_tape_step'], 271, narrow_counts,
+             narrow_unrolls)):
+        check(launched[name] % TS == 0, f'{name}: {launched[name]} launches '
+              f'in {TS} inversion steps')
         kernels.append(dict(
             name=name, route='cuda', source=SOURCE,
             replaces=f'red_diffeq_tpu/ops/stencil.py:{line}',
             launches=launched[name], max_abs_err=res['max_abs_err'],
             ms=res['ms'], plain_ms=res['plain_ms'],
             bound_ms=bnd[name]['bound_ms'], bound_by=bnd[name]['bound_by'],
-            library_ms=None))
+            library_ms=res.get('library_ms'), unroll=unroll[name],
+            launches_per_pass=launched[name] // TS))
+    print(f'fwd_step at nbc={NARROW["nbc"]} ({hn}x{hn}): '
+          f'{fwd_narrow["ms"]:.3f} ms per pass, max abs err '
+          f'{fwd_narrow["max_abs_err"]:.3e}', flush=True)
     print(f'slice: {s_per_step:.4f} s per inversion step at the headline '
-          f"(adjoint 'reverse'), {s_tape_forced:.4f} with 'tape' forced, "
+          f"(adjoint 'reverse'; one launch per step: "
+          f"{EARLIER_S_PER_STEP:.4f}), "
+          f"{s_tape_forced:.4f} with 'tape' forced, "
           f"{s_narrow:.4f} at nbc={NARROW['nbc']} ('tape'); velocity "
           f'gradient max-rel {bwd["grad_max_rel"]:.3e} (kernels vs plain), '
           f'{tape["grad_max_rel"]:.3e} (tape vs reverse), {narrow_grad:.3e} '

@@ -8,7 +8,9 @@ rate, clamps to [-1, 1], and records MAE, RMSE and SSIM of the cropped
 result. The optimizer is the arithmetic of ``optax.adam`` with
 ``optax.cosine_decay_schedule(lr, ts)``, so the first update uses ``lr``.
 Each step's draws (the ``sigma_x0`` noise, the RED timestep and the RED
-noise) come from a ``torch.Generator`` unless given explicitly.
+noise) come from a ``torch.Generator`` unless given explicitly; without
+one, ``optimize`` takes the next generator of the global sequence
+(``utils/seed_utils.py``), as the JAX engine takes ``next_key()``.
 """
 import math
 from typing import Callable, Dict, Optional
@@ -20,6 +22,7 @@ from red_diffeq_tpu_torch.core.metrics import calculate_metrics
 from red_diffeq_tpu_torch.regularization.base import make_reg_fn
 from red_diffeq_tpu_torch.utils.data_trans import v_normalize
 from red_diffeq_tpu_torch.utils.device import resolve_device
+from red_diffeq_tpu_torch.utils.seed_utils import next_key
 
 _VALID_REG = ('diffusion', 'l2', 'tv', 'hybrid', None)
 _F32 = torch.float32
@@ -134,8 +137,10 @@ class InversionEngine:
         ``mu``: initial model, padded (B, 1, H+2, W+2), in [-1, 1].
         ``mu_true``: ground truth in m/s, (B, 1, H, W).
         ``y``: observed seismograms (B, ns, nt, ng).
-        ``generator``: source of every step's draws; a generator on the
-        engine's device seeded with 0 when None."""
+        ``generator``: source of every step's draws; when None, the next
+        generator of the global sequence (:func:`next_key`) on the
+        engine's device, so two calls draw differently and ``set_seed``
+        repeats them."""
         if mu.shape[0] != y.shape[0]:
             raise ValueError(
                 'Batch size mismatch between velocity and seismic data')
@@ -158,8 +163,7 @@ class InversionEngine:
         y = torch.as_tensor(y, dtype=_F32, device=dev)
         mask = torch.ones_like(y)
         if generator is None:
-            generator = torch.Generator(device=dev)
-            generator.manual_seed(0)
+            generator = next_key(dev)
 
         reg_fn = make_reg_fn(reg_name, self.diffusion_model,
                              use_time_weight=self.use_time_weight,

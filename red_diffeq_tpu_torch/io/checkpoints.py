@@ -10,8 +10,9 @@ pure Python and numpy, so the port needs neither ``msgpack`` nor ``flax``.
 the layout moves of ``tools/convert_torch_checkpoint.py``.
 """
 import struct
+import warnings
 from pathlib import Path
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -160,11 +161,16 @@ def flax_to_state_dict(tree: dict, model: torch.nn.Module
     return out
 
 
-def load_diffusion_params(diffusion, path: Union[str, Path]):
+def load_diffusion_params(diffusion, path: Optional[Union[str, Path]]):
     """Load the U-Net weights of ``diffusion`` from a flax checkpoint: the
     bare parameter tree or a training state ``{'ema_params': ...}``
-    (counterpart of ``red_diffeq_tpu/io/checkpoints.py:37-66``). Unlike the
-    JAX loader, a missing file raises."""
+    (counterpart of ``red_diffeq_tpu/io/checkpoints.py:47-70``). As the JAX
+    loader does, a missing file warns, naming the path, and keeps the
+    model's random weights."""
+    if not path or not Path(path).exists():
+        warnings.warn(f'pretrained model not found at {path}; continuing '
+                      'with randomly initialized weights')
+        return diffusion
     raw = load_params(path)
     if 'ema_params' in raw:
         raw = raw['ema_params']

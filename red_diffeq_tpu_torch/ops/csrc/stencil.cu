@@ -1,11 +1,13 @@
-// Acoustic FD time stepper for Hopper (sm_90a): forward step, the tape-free
-// adjoint step, and the taped pair (tape replay step, taped adjoint step),
-// with a plain C interface loaded through ctypes
+// Acoustic FD time stepper for Hopper (sm_90a): the forward, the tape-free
+// adjoint and its shot sum, and the taped pair (tape replay step, taped
+// adjoint step), with a plain C interface loaded through ctypes
 // (red_diffeq_tpu_torch/ops/stencil.py).
 //
 // fwd_step replaces _fwd_kernel (red_diffeq_tpu/ops/stencil.py:150-231,
 // launched by _run_fwd at :510). bwd_reverse_step replaces
-// _bwd_reverse_kernel (:352-443, launched by _run_bwd_reverse at :632).
+// _bwd_reverse_kernel (:352-443, launched by _run_bwd_reverse at :632);
+// sum_shots does its cross-shot sum of the coefficient cotangents (the
+// shot-shared coefficient block the JAX kernel adds into, :435-437).
 // tape_step replaces _tape_kernel (:233-268, launched by _run_tape at :550)
 // and bwd_tape_step replaces _bwd_kernel (:271-349, launched by _run_bwd at
 // :582); the JAX package takes that pair when its t2 guard trips.
@@ -17,38 +19,41 @@
 // Bound on this card (H100 SXM: 3.35 TB/s, 67 TFLOP/s fp32). Per cell and
 // step the forward and the tape replay do 14 fp32 operations, the tape-free
 // adjoint 35 and the taped adjoint 30. Counting each chunk call's inputs and
-// outputs (its start and end states or its tape, coefficients, receiver
-// rows) once, one 1000-step pass at the headline (B=4, ns=5, 310x310, chunk
-// 20) is bound at 0.53 ms by bytes (forward), 1.01 ms by operations
-// (tape-free adjoint) and about 2.8 ms by bytes for each of the taped pair,
-// whose 22-state tape (169 MB a chunk) is written once and read once;
-// chip_smoke.py computes all four. Run one step per launch, as here, each
-// launch re-reads the state from L2 or device memory, so these kernels are
-// bound by that traffic and by the launch rate, far from those bounds.
+// outputs once, one 1000-step pass at the headline (B=4, ns=5, 310x310,
+// chunk 20) is bound at 0.53 ms by bytes (forward), 1.01 ms by operations
+// (tape-free adjoint) and about 2.8 ms by bytes for each of the taped pair;
+// chip_smoke.py computes them all.
 //
-// Design, simple and right first: one launch per time step, one thread per
-// cell. A 310x310 fp32 field is 384 KB, above the 227 KB of shared memory
-// a block may have, so the TPU's whole-field-resident program does not
-// carry over; the batch-4 state (about 31 MB forward) lives in the 50 MB
-// L2 between launches. Neighbour reads wrap around (circular stencil).
-// The forward steps in place: s_m overwrites s_{m-2}, which only its own
-// cell reads. The adjoints give one thread each (b, y, x) and loop over
-// the shots, so the alpha/t1/t2 cotangents are summed over shots in one
-// fixed order with no atomics. They need L(alpha*v) of v *after* the
-// receiver injection, so each thread adds grec to the neighbour values on
-// row igz itself. Build with -fmad=false: every multiply and add rounds as
-// in the plain PyTorch version (same grouping as ops/stencil.py), which
-// the rebuild's divide by t2 (error growth up to (1/t2)^chunk) needs.
-// The taped pair does not keep the TPU's haloed tape blocks (U+2 states per
-// grid iteration, so that one VMEM block serves one iteration): its tape is
-// flat, chunk+2 states of (B, ns, Hp, Wp) with slot i = s_{i-1}, so slots 0
-// and 1 are the chunk-start carry. tape_step reads slots m and m-1 and
-// writes slot m+1; bwd_tape_step reads s_{m-1} and s_{m-2} from slots m
-// and m-1 where bwd_reverse_step rebuilds s_{m-2}, and never divides by t2.
-// The tape lives only during one chunk's backward, as in the JAX custom VJP.
-// At the headline it is above the L2, so the taped pair streams from HBM.
-// Later work: temporal blocking with a 2*U halo, clusters with distributed
-// shared memory, one launch per chunk.
+// fwd_step and bwd_reverse_step are temporally blocked: one launch takes U
+// steps (U = 4 at the headline, rdt_blocking below) of one tile of
+// one (sample, shot) field. A 310x310 fp32 field is 384 KB, above the 227 KB
+// of shared memory a block may have, so the TPU's whole-field-resident
+// program becomes tiles with a halo of 2U cells (see "Temporal blocking"
+// below). Their cost is the window's traffic through L2 each launch (a
+// 64x64 window for a 48x48 forward tile, 32x64 for a 16x48 adjoint tile)
+// and the steps' shared-memory and fp32 work on the shrinking halo, not the
+// launch rate: one launch per U steps, state in registers and shared
+// memory between the steps. The adjoint gives each (b, s, cell) to one
+// thread and keeps this shot's alpha/t1/t2 cotangents in per-shot running
+// sums (B, ns, Hp, Wp); sum_shots adds them over shots in shot order once
+// per chunk. No floating-point atomics anywhere: every sum has one fixed
+// order, so results repeat bit for bit. Build with -fmad=false: every
+// multiply and add rounds as in the plain PyTorch version (same grouping
+// as ops/stencil.py), which the rebuild's divide by t2 (error growth up to
+// (1/t2)^chunk) needs; halo cells repeat their owner's operations, so the
+// blocked kernels equal their plain versions bit for bit.
+//
+// The taped pair is one launch per time step, one thread per cell. It does
+// not keep the TPU's haloed tape blocks (U+2 states per grid iteration, so
+// that one VMEM block serves one iteration): its tape is flat, chunk+2
+// states of (B, ns, Hp, Wp) with slot i = s_{i-1}, so slots 0 and 1 are the
+// chunk-start carry. tape_step reads slots m and m-1 and writes slot m+1;
+// bwd_tape_step reads s_{m-1} and s_{m-2} from slots m and m-1 where
+// bwd_reverse_step rebuilds s_{m-2}, and never divides by t2. Its threads
+// each take one (b, y, x) and loop over the shots, so its coefficient
+// cotangents are summed step by step, shots in order. The tape lives only
+// during one chunk's backward, as in the JAX custom VJP; at the headline it
+// is above the L2, so the taped pair streams from HBM.
 
 #include <cuda_runtime.h>
 
@@ -97,27 +102,314 @@ __device__ __forceinline__ float step_cell(
   return p;
 }
 
-// One forward step. p0 holds s_{m-2} and receives s_m; p1 holds s_{m-1}.
-__global__ void fwd_step(float* __restrict__ p0, const float* __restrict__ p1,
-                         const float* __restrict__ alpha,
-                         const float* __restrict__ t1,
-                         const float* __restrict__ t2,
-                         const float* __restrict__ inj,
-                         const float* __restrict__ src, int k,
-                         float* __restrict__ recs, int B, int ns, int H, int W,
-                         int isz, int igz, int g0, int ng, int chunk) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  const int hw = H * W;
-  if (idx >= B * ns * hw) return;
-  const int x = idx % W;
-  const int y = (idx / W) % H;
-  const int bs = idx / hw;            // b * ns + s
-  const int c = (bs / ns) * hw + y * W + x;
-  const float p = step_cell(p0[idx], p1 + (size_t)bs * hw, alpha, t1, t2, inj,
-                            src, k, bs, c, y, x, H, W, isz);
-  p0[idx] = p;
-  if (y == igz && x >= g0 && x < g0 + ng)
-    recs[((size_t)bs * chunk + k) * ng + (x - g0)] = p;
+// ---------------------------------------------------------------------------
+// Temporal blocking. A block owns a tile of one (sample, shot) field and
+// loads a window of the tile plus a halo of h = 2U cells on each side
+// (indices wrap: the Laplacian is circular). It takes n <= U steps there,
+// and writes the tile once. After step s the cells within 2s of the window's
+// edge hold garbage (their stencil reached outside the window); the tile
+// lies 2U cells inside, so its cells are right after U steps. Cells repeat
+// their owner's arithmetic operation for operation, so every cell comes out
+// bit for bit as with one step per launch; only the tile's own cells record
+// receivers or add to sums.
+//
+// Each thread keeps an MY x MX micro-tile of cells of the window in
+// registers and exchanges its edges with its neighbours through two shared
+// windows used in turn (read one, write the other, one barrier a step).
+// Rows are read as float4 (MX = 4), edge columns as float2.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int wrap(int i, int n) {
+  i %= n;
+  return i < 0 ? i + n : i;
+}
+
+// A window of LY x LX cells in shared memory, with 2 pad rows above and
+// below and 4 pad columns left and right (so rows stay 16-byte aligned);
+// the pads are zero and only ever read for cells that turn to garbage.
+template <int MX_, int MY_, int NTX_, int NTY_>
+struct Layout {
+  static constexpr int MX = MX_, MY = MY_, NTX = NTX_, NTY = NTY_;
+  static constexpr int LX = MX * NTX, LY = MY * NTY, THREADS = NTX * NTY;
+  static constexpr int SX = LX + 8;
+  static constexpr int SIZE = (LY + 4) * SX;
+  __device__ static int at(int y, int x) { return (y + 2) * SX + x + 4; }
+};
+
+template <int M>
+__device__ __forceinline__ void load_row(const float* p, float (&o)[M]) {
+  static_assert(M == 4, "rows are read as float4");
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  o[0] = t.x; o[1] = t.y; o[2] = t.z; o[3] = t.w;
+}
+
+template <int M>
+__device__ __forceinline__ void store_row(float* p, const float (&v)[M]) {
+  static_assert(M == 4, "rows are written as float4");
+  float4 t;
+  t.x = v[0]; t.y = v[1]; t.z = v[2]; t.w = v[3];
+  *reinterpret_cast<float4*>(p) = t;
+}
+
+__device__ __forceinline__ void load_pair(const float* p, float& a, float& b) {
+  const float2 t = *reinterpret_cast<const float2*>(p);
+  a = t.x;
+  b = t.y;
+}
+
+// The four rows above and below a thread's micro-tile in a window.
+template <class L>
+struct Edges {
+  float up2[L::MX], up1[L::MX], dn1[L::MX], dn2[L::MX];
+  __device__ Edges(const float* win, int ly, int lx) {
+    load_row(&win[L::at(ly - 2, lx)], up2);
+    load_row(&win[L::at(ly - 1, lx)], up1);
+    load_row(&win[L::at(ly + L::MY, lx)], dn1);
+    load_row(&win[L::at(ly + L::MY + 1, lx)], dn2);
+  }
+};
+
+// L(f) at cell (j, i) of a micro-tile f, whose field values are f itself
+// at its own cells, the edge rows e above and below, and l2, l1 | r1, r2
+// left and right of row j. In the grouping of lap4; j and i are constants
+// after unrolling, so every neighbour is a register.
+template <class L>
+__device__ __forceinline__ float lap_cell(const float (&f)[L::MY][L::MX],
+                                          const Edges<L>& e, float l2,
+                                          float l1, float r1, float r2,
+                                          int j, int i) {
+  constexpr int MX = L::MX, MY = L::MY;
+  const float ym2 = j >= 2 ? f[j - 2][i] : (j == 1 ? e.up1[i] : e.up2[i]);
+  const float ym1 = j >= 1 ? f[j - 1][i] : e.up1[i];
+  const float yp1 = j + 1 < MY ? f[j + 1][i] : e.dn1[i];
+  const float yp2 = j + 2 < MY ? f[j + 2][i]
+                               : (j + 2 == MY ? e.dn1[i] : e.dn2[i]);
+  const float xm2 = i >= 2 ? f[j][i - 2] : (i == 1 ? l1 : l2);
+  const float xm1 = i >= 1 ? f[j][i - 1] : l1;
+  const float xp1 = i + 1 < MX ? f[j][i + 1] : r1;
+  const float xp2 = i + 2 < MX ? f[j][i + 2] : (i + 2 == MX ? r1 : r2);
+  return kC2 * (((ym1 + yp1) + xm1) + xp1) +
+         kC3 * (((ym2 + yp2) + xm2) + xp2);
+}
+
+// A thread's micro-tile: the tile's and the micro-tile's origins, and bit
+// masks over the micro-tile's rows (bit j) and columns (bit i): the tile's
+// own rows and columns, the source row, the receiver row and the receiver
+// line's columns. Column indices come from the window's gxv on demand.
+template <class L>
+struct Cells {
+  int ly, lx, h, ty, tx, y0, x0;
+  unsigned own_y = 0, own_x = 0, src_y = 0, rec_y = 0, rec_x = 0;
+  const int* gxv = nullptr;
+  __device__ explicit Cells(int unroll) {
+    h = 2 * unroll;
+    ty = L::LY - 2 * h;
+    tx = L::LX - 2 * h;
+    y0 = blockIdx.y * ty;
+    x0 = blockIdx.x * tx;
+    ly = threadIdx.y * L::MY;
+    lx = threadIdx.x * L::MX;
+  }
+  // The masks, once the window's rows gyv and columns gxv are in place.
+  __device__ void classify(const int* gyv, const int* gxv_, int H, int W,
+                           int isz, int igz, int g0, int ng) {
+    gxv = gxv_;
+#pragma unroll
+    for (int j = 0; j < L::MY; ++j) {
+      const int t = ly + j - h, gy = gyv[ly + j];
+      own_y |= (unsigned)(t >= 0 && t < ty && y0 + t < H) << j;
+      src_y |= (unsigned)(gy == isz) << j;
+      rec_y |= (unsigned)(gy == igz) << j;
+    }
+#pragma unroll
+    for (int i = 0; i < L::MX; ++i) {
+      const int t = lx + i - h, gx = gxv[lx + i];
+      own_x |= (unsigned)(t >= 0 && t < tx && x0 + t < W) << i;
+      rec_x |= (unsigned)(gx >= g0 && gx < g0 + ng) << i;
+    }
+  }
+  __device__ bool oy(int j) const { return own_y >> j & 1u; }
+  __device__ bool ox(int i) const { return own_x >> i & 1u; }
+  __device__ bool src(int j) const { return src_y >> j & 1u; }
+  __device__ bool rec(int j, int i) const {
+    return (rec_y >> j & 1u) && (rec_x >> i & 1u);
+  }
+  __device__ int gx(int i) const { return gxv[lx + i]; }
+  // Whether any cell of the micro-tile lies r or more cells inside the
+  // window (the region still right after step r/2).
+  __device__ bool live(int r) const {
+    return ly + L::MY > r && ly < L::LY - r && lx + L::MX > r &&
+           lx < L::LX - r;
+  }
+};
+
+// Zero the pad cells of the first n windows (never copied into; read only
+// for cells that turn to garbage): 2 rows above and below, 4 columns left
+// and right of each.
+template <class L>
+__device__ __forceinline__ void zero_pads(float* smem, int n) {
+  constexpr int ROWS = 4 * L::SX, PER = ROWS + 8 * L::LY;
+  const int tid = threadIdx.y * L::NTX + threadIdx.x;
+  for (int i = tid; i < n * PER; i += L::THREADS) {
+    const int w = i / PER, k = i % PER;
+    int y, x;
+    if (k < ROWS) {
+      y = k / L::SX;
+      y = y < 2 ? y - 2 : L::LY + y - 2;
+      x = k % L::SX - 4;
+    } else {
+      y = (k - ROWS) / 8;
+      x = (k - ROWS) % 8;
+      x = x < 4 ? x - 4 : L::LX + x - 4;
+    }
+    smem[w * L::SIZE + L::at(y, x)] = 0.0f;
+  }
+}
+
+// One float from device to shared memory, asynchronously (cp.async); the
+// copies of a thread are complete after copy_wait(), those of the block
+// after a barrier that follows it.
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+#if defined(__CUDA_ARCH__)
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+#else
+  *dst = *src;
+#endif
+}
+
+__device__ __forceinline__ void copy_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_all;\n" ::);
+#endif
+}
+
+// The global row of each window row and the global column of each window
+// column, into gyv[LY] and gxv[LX].
+template <class L>
+__device__ __forceinline__ void window_index(int* gyv, int* gxv, int y0h,
+                                             int x0h, int H, int W) {
+  const int tid = threadIdx.y * L::NTX + threadIdx.x;
+  for (int i = tid; i < L::LY; i += L::THREADS) gyv[i] = wrap(y0h + i, H);
+  for (int i = tid; i < L::LX; i += L::THREADS) gxv[i] = wrap(x0h + i, W);
+}
+
+// Whether window cell (y, x) is one of the tile's own cells in the field.
+template <class L>
+__device__ __forceinline__ bool tile_cell(const Cells<L>& m, int y, int x,
+                                          int H, int W) {
+  const int ty = y - m.h, tx = x - m.h;
+  return ty >= 0 && ty < m.ty && tx >= 0 && tx < m.tx && m.y0 + ty < H &&
+         m.x0 + tx < W;
+}
+
+// The forward's blocking: 4x4 cells a thread, 16x16 threads, a 64x64
+// window (48x48 tile at U=4); two state windows, the alpha, t1, t2
+// windows and the window's rows and columns in shared memory (98 KB).
+using FwdL = Layout<4, 4, 16, 16>;
+
+// Steps k0 .. k0+n-1 (n <= unroll) of the forward, one block per (tile,
+// sample*shot). in0, in1 hold s_{k0-2}, s_{k0-1}; out0, out1 receive
+// s_{k0+n-2}, s_{k0+n-1}. A thread keeps s_{m-1} (p) and s_{m-2} (q) of its
+// cells in registers, s_{m-1} also in the shared window its neighbours
+// read; s_m is computed into q (which only its own cell reads), then p and
+// q swap names.
+__global__ void __launch_bounds__(FwdL::THREADS, 2) fwd_step(
+    const float* __restrict__ in0, const float* __restrict__ in1,
+    float* __restrict__ out0, float* __restrict__ out1,
+    const float* __restrict__ alpha, const float* __restrict__ t1,
+    const float* __restrict__ t2, const float* __restrict__ inj,
+    const float* __restrict__ src, float* __restrict__ recs, int k0, int n,
+    int unroll, int ns, int H, int W, int isz, int igz, int g0, int ng,
+    int chunk) {
+  using L = FwdL;
+  constexpr int MX = L::MX, MY = L::MY;
+  extern __shared__ float smem[];
+  // Window offsets in smem: the state pair in turn, then alpha, t1, t2.
+  int cur = 0, nxt = L::SIZE;
+  constexpr int WA = 2 * L::SIZE, W1 = 3 * L::SIZE, W2 = 4 * L::SIZE;
+  Cells<L> m(unroll);
+  const int bs = blockIdx.z;
+  const size_t f = (size_t)bs * H * W;
+  const size_t cb = (size_t)(bs / ns) * H * W;
+  const float* injr = inj + (size_t)bs * W;
+  // The window, in coalesced order: s_{m-1} into the current state window,
+  // s_{m-2} into the other one (each thread then reads its own cells),
+  // alpha, t1, t2.
+  int* gyv = reinterpret_cast<int*>(smem + 5 * L::SIZE);
+  int* gxv = gyv + L::LY;
+  window_index<L>(gyv, gxv, m.y0 - m.h, m.x0 - m.h, H, W);
+  zero_pads<L>(smem, 2);
+  __syncthreads();
+  m.classify(gyv, gxv, H, W, isz, igz, g0, ng);
+  const int tid = threadIdx.y * L::NTX + threadIdx.x;
+  for (int i = tid; i < L::LY * L::LX; i += L::THREADS) {
+    const int y = i / L::LX, x = i % L::LX, c = L::at(y, x);
+    const size_t g = (size_t)gyv[y] * W + gxv[x];
+    copy_async(&smem[cur + c], in1 + f + g);
+    copy_async(&smem[nxt + c], in0 + f + g);
+    copy_async(&smem[WA + c], alpha + cb + g);
+    copy_async(&smem[W1 + c], t1 + cb + g);
+    copy_async(&smem[W2 + c], t2 + cb + g);
+  }
+  copy_wait();
+  __syncthreads();
+  float p[MY][MX], q[MY][MX];
+#pragma unroll
+  for (int j = 0; j < MY; ++j) {
+    load_row(&smem[cur + L::at(m.ly + j, m.lx)], p[j]);
+    load_row(&smem[nxt + L::at(m.ly + j, m.lx)], q[j]);
+  }
+  for (int s = 0; s < n; ++s) {
+    const int k = k0 + s;
+    if (m.live(2 * (unroll - n + 1 + s))) {
+      const float sk = src[k];
+      const Edges<L> e(&smem[cur], m.ly, m.lx);
+#pragma unroll
+      for (int j = 0; j < MY; ++j) {
+        float l2, l1, r1, r2, a[MX], c1[MX], c2[MX];
+        load_pair(&smem[cur + L::at(m.ly + j, m.lx - 2)], l2, l1);
+        load_pair(&smem[cur + L::at(m.ly + j, m.lx + MX)], r1, r2);
+        load_row(&smem[WA + L::at(m.ly + j, m.lx)], a);
+        load_row(&smem[W1 + L::at(m.ly + j, m.lx)], c1);
+        load_row(&smem[W2 + L::at(m.ly + j, m.lx)], c2);
+#pragma unroll
+        for (int i = 0; i < MX; ++i) {
+          float v = (c1[i] * p[j][i] - c2[i] * q[j][i]) +
+                    a[i] * lap_cell<L>(p, e, l2, l1, r1, r2, j, i);
+          if (m.src(j)) v = v + injr[m.gx(i)] * sk;
+          q[j][i] = v;
+          if (m.oy(j) && m.ox(i) && m.rec(j, i))
+            recs[((size_t)bs * chunk + k) * ng + (m.gx(i) - g0)] = v;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < MY; ++j) {
+#pragma unroll
+        for (int i = 0; i < MX; ++i) {
+          const float t = p[j][i];
+          p[j][i] = q[j][i];
+          q[j][i] = t;
+        }
+        store_row(&smem[nxt + L::at(m.ly + j, m.lx)], p[j]);
+      }
+    }
+    __syncthreads();
+    const int t = cur; cur = nxt; nxt = t;
+  }
+  // The current window holds s_{m-1} at every live cell; s_{m-2} goes to
+  // the other, then the tile leaves in coalesced order.
+#pragma unroll
+  for (int j = 0; j < MY; ++j) store_row(&smem[nxt + L::at(m.ly + j, m.lx)], q[j]);
+  __syncthreads();
+  for (int i = tid; i < L::LY * L::LX; i += L::THREADS) {
+    const int y = i / L::LX, x = i % L::LX, c = L::at(y, x);
+    if (!tile_cell(m, y, x, H, W)) continue;
+    const size_t g = f + (size_t)gyv[y] * W + gxv[x];
+    out0[g] = smem[nxt + c];
+    out1[g] = smem[cur + c];
+  }
 }
 
 // One step m (k = m - 1) of the tape replay: prev and cur hold s_{m-2} and
@@ -143,66 +435,248 @@ __global__ void tape_step(const float* __restrict__ prev,
                        src, k, bs, c, y, x, H, W, isz);
 }
 
-// One reversed step m (k = m - 1) of the tape-free adjoint, one thread per
-// (b, y, x) looping over the shots.
-//   u_in, v_in: cotangents of s_{m-1}, s_m (v before the receiver injection)
-//   u_out, v_out: cotangents of s_{m-2}, s_{m-1}
-//   s_m: holds s_m, receives the rebuilt s_{m-2};  s_m1: holds s_{m-1}
-__global__ void bwd_reverse_step(
+// The adjoint's blocking: 4x2 cells a thread, 16x16 threads, a 64-column,
+// 32-row window (48x16 tile at U=4); two windows each of s_{m-1} and of
+// alpha*v, the alpha, t1, t2 and 1/t2 windows, the tile's running sums and
+// the window's rows and columns (108 KB of shared memory).
+using BwdL = Layout<4, 2, 16, 16>;
+
+// Reversed steps k_hi down to k_hi-n+1 (n <= unroll; step k rebuilds
+// s_{k-1} from s_{k+1} and s_k) of the tape-free adjoint, one block per
+// (tile, sample*shot).
+//   u_in, v_in: cotangents of s_{m-1}, s_m (m = k_hi + 1; v before the
+//     receiver injection); u_out, v_out: those of the group's last step.
+//   s_in, s1_in: s_m, s_{m-1}; s_out, s1_out: the group's last pair.
+//   pa, p1, p2: this shot's running alpha, t1 and t2 cotangents
+//     (B, ns, H, W), added to in step order; ginj: (B, ns, 1, W).
+// A thread keeps s_m, s_{m-1}, u and v of its cells in registers, s_{m-1}
+// and alpha*v (v after the receiver injection) also in the shared windows
+// its neighbours read; the tile's running sums stay in shared memory, each
+// row of a micro-tile read and written by its own thread. Per step:
+//   s_{m-2} = (t1*s_{m-1} + alpha*L(s_{m-1}) + inj - s_m) / t2 (into the
+//     s_m registers, then s_m and s_{m-1} swap names), the tile's sums;
+//   v' = u + t1*v + L(alpha*v), u' = -t2*v, and the next step's receiver
+//     cotangent added to v'.
+__global__ void __launch_bounds__(BwdL::THREADS, 2) bwd_reverse_step(
     const float* __restrict__ u_in, const float* __restrict__ v_in,
+    const float* __restrict__ s_in, const float* __restrict__ s1_in,
     float* __restrict__ u_out, float* __restrict__ v_out,
-    float* __restrict__ s_m, const float* __restrict__ s_m1,
-    const float* __restrict__ grec, const float* __restrict__ alpha,
-    const float* __restrict__ t1, const float* __restrict__ t2,
-    const float* __restrict__ inj, const float* __restrict__ src, int k,
-    float* __restrict__ galpha, float* __restrict__ gt1,
-    float* __restrict__ gt2, float* __restrict__ ginj, int B, int ns, int H,
-    int W, int isz, int igz, int g0, int ng, int chunk) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  const int hw = H * W;
-  if (idx >= B * hw) return;
-  const int x = idx % W;
-  const int y = (idx / W) % H;
-  const int b = idx / hw;
-  const int cy = y * W + x;
-  const float* al = alpha + (size_t)b * hw;
-  const float a = al[cy];
-  const float tt1 = t1[idx];
-  const float tt2 = t2[idx];
-  const float inv_t2 = 1.0f / tt2;
-  const float srck = src[k];
-  const Nbr n = neighbours(y, x, H, W);
-  float ga = galpha[idx], g1 = gt1[idx], g2 = gt2[idx];
-  for (int s = 0; s < ns; ++s) {
-    const int bs = b * ns + s;
-    const size_t f = (size_t)bs * hw;
-    const float* vf = v_in + f;
-    const float* sf = s_m1 + f;
-    const float* gr = grec + ((size_t)bs * chunk + k) * ng;
-    // v after the receiver injection, at any cell.
-    const auto vv_at = [&](int yy, int xx) {
-      float val = vf[yy * W + xx];
-      if (yy == igz && xx >= g0 && xx < g0 + ng) val = val + gr[xx - g0];
-      return val;
-    };
-    const auto s_at = [&](int yy, int xx) { return sf[yy * W + xx]; };
-    const auto w_at = [&](int yy, int xx) { return al[yy * W + xx] * vv_at(yy, xx); };
-    const float vv = vv_at(y, x);
-    const float sm1 = sf[cy];
-    const float lap_s = lap4(s_at, n, y, x);
-    const float inj_field = y == isz ? inj[bs * W + x] * srck : 0.0f;
-    const float sm2 = (((tt1 * sm1 + a * lap_s) + inj_field) - s_m[f + cy]) * inv_t2;
-    if (y == isz) ginj[bs * W + x] = ginj[bs * W + x] + vv * srck;
-    ga = ga + vv * lap_s;
-    g1 = g1 + vv * sm1;
-    g2 = g2 - vv * sm2;
-    v_out[f + cy] = (u_in[f + cy] + tt1 * vv) + lap4(w_at, n, y, x);
-    u_out[f + cy] = -tt2 * vv;
-    s_m[f + cy] = sm2;
+    float* __restrict__ s_out, float* __restrict__ s1_out,
+    float* __restrict__ pa, float* __restrict__ p1, float* __restrict__ p2,
+    float* __restrict__ ginj, const float* __restrict__ grec,
+    const float* __restrict__ alpha, const float* __restrict__ t1,
+    const float* __restrict__ t2, const float* __restrict__ inj,
+    const float* __restrict__ src, int k_hi, int n, int unroll, int ns,
+    int H, int W, int isz, int igz, int g0, int ng, int chunk) {
+  using L = BwdL;
+  constexpr int MX = L::MX, MY = L::MY;
+  extern __shared__ float smem[];
+  // Window offsets in smem: s_{m-1} and alpha*v each in turn, then alpha,
+  // t1, t2, then the running sums.
+  int s1c = 0, s1n = L::SIZE, wc = 2 * L::SIZE, wn = 3 * L::SIZE;
+  constexpr int WA = 4 * L::SIZE, W1 = 5 * L::SIZE, W2 = 6 * L::SIZE;
+  constexpr int WI = 7 * L::SIZE;      // 1/t2 at each thread's own cells
+  float* sums = smem + 8 * L::SIZE;   // 3 arrays of LY x LX, no pads
+  Cells<L> m(unroll);
+  const int bs = blockIdx.z;
+  const size_t f = (size_t)bs * H * W;
+  const size_t cb = (size_t)(bs / ns) * H * W;
+  const float* gr = grec + (size_t)bs * chunk * ng;
+  const float* injr = inj + (size_t)bs * W;
+  float* ginjr = ginj + (size_t)bs * W;
+  // The window, in coalesced order: s_{m-1} into its current window, s_m,
+  // u and v into the other three state windows (each thread then reads its
+  // own cells), alpha, t1, t2, and the tile's running sums.
+  int* gyv = reinterpret_cast<int*>(smem + 8 * L::SIZE + 3 * L::LY * L::LX);
+  int* gxv = gyv + L::LY;
+  window_index<L>(gyv, gxv, m.y0 - m.h, m.x0 - m.h, H, W);
+  zero_pads<L>(smem, 4);
+  __syncthreads();
+  m.classify(gyv, gxv, H, W, isz, igz, g0, ng);
+  const int tid = threadIdx.y * L::NTX + threadIdx.x;
+  for (int i = tid; i < L::LY * L::LX; i += L::THREADS) {
+    const int y = i / L::LX, x = i % L::LX, c = L::at(y, x);
+    const size_t gc = cb + (size_t)gyv[y] * W + gxv[x];
+    const size_t g = f + (size_t)gyv[y] * W + gxv[x];
+    copy_async(&smem[s1c + c], s1_in + g);
+    copy_async(&smem[s1n + c], s_in + g);
+    copy_async(&smem[wn + c], u_in + g);
+    copy_async(&smem[wc + c], v_in + g);
+    copy_async(&smem[WA + c], alpha + gc);
+    copy_async(&smem[W1 + c], t1 + gc);
+    copy_async(&smem[W2 + c], t2 + gc);
+    if (tile_cell(m, y, x, H, W)) {
+      copy_async(&sums[i], pa + g);
+      copy_async(&sums[i + L::LY * L::LX], p1 + g);
+      copy_async(&sums[i + 2 * L::LY * L::LX], p2 + g);
+    }
   }
-  galpha[idx] = ga;
-  gt1[idx] = g1;
-  gt2[idx] = g2;
+  copy_wait();
+  __syncthreads();
+  float sm[MY][MX], s1[MY][MX], u[MY][MX], v[MY][MX];
+#pragma unroll
+  for (int j = 0; j < MY; ++j) {
+    float a[MX], w[MX], c2[MX];
+    load_row(&smem[s1c + L::at(m.ly + j, m.lx)], s1[j]);
+    load_row(&smem[s1n + L::at(m.ly + j, m.lx)], sm[j]);
+    load_row(&smem[wn + L::at(m.ly + j, m.lx)], u[j]);
+    load_row(&smem[wc + L::at(m.ly + j, m.lx)], v[j]);
+    load_row(&smem[WA + L::at(m.ly + j, m.lx)], a);
+    load_row(&smem[W2 + L::at(m.ly + j, m.lx)], c2);
+#pragma unroll
+    for (int i = 0; i < MX; ++i) {
+      if (m.rec(j, i))
+        v[j][i] = v[j][i] + gr[(size_t)k_hi * ng + (m.gx(i) - g0)];
+      w[i] = a[i] * v[j][i];
+      c2[i] = 1.0f / c2[i];
+    }
+    store_row(&smem[wc + L::at(m.ly + j, m.lx)], w);
+    store_row(&smem[WI + L::at(m.ly + j, m.lx)], c2);
+  }
+  __syncthreads();
+  for (int s = 0; s < n; ++s) {
+    const int k = k_hi - s;
+    if (m.live(2 * (unroll - n + 1 + s))) {
+      const float sk = src[k];
+      {
+        const Edges<L> e(&smem[s1c], m.ly, m.lx);
+#pragma unroll
+        for (int j = 0; j < MY; ++j) {
+          float l2, l1, r1, r2, a[MX], c1[MX], inv_t2[MX];
+          load_pair(&smem[s1c + L::at(m.ly + j, m.lx - 2)], l2, l1);
+          load_pair(&smem[s1c + L::at(m.ly + j, m.lx + MX)], r1, r2);
+          load_row(&smem[WA + L::at(m.ly + j, m.lx)], a);
+          load_row(&smem[W1 + L::at(m.ly + j, m.lx)], c1);
+          load_row(&smem[WI + L::at(m.ly + j, m.lx)], inv_t2);
+          // The row's running sums (read whole, kept at its own cells).
+          const int r = (m.ly + j) * L::LX + m.lx;
+          float qa[MX], q1[MX], q2[MX];
+          if (m.oy(j)) {
+            load_row(&sums[r], qa);
+            load_row(&sums[r + L::LY * L::LX], q1);
+            load_row(&sums[r + 2 * L::LY * L::LX], q2);
+          }
+#pragma unroll
+          for (int i = 0; i < MX; ++i) {
+            const float vv = v[j][i];
+            const float sv = s1[j][i];
+            const float ls = lap_cell<L>(s1, e, l2, l1, r1, r2, j, i);
+            const float inj_field =
+                m.src(j) ? injr[m.gx(i)] * sk : 0.0f;
+            const float s2 = (((c1[i] * sv + a[i] * ls) + inj_field) -
+                              sm[j][i]) * inv_t2[i];
+            if (m.oy(j) && m.ox(i)) {
+              qa[i] = qa[i] + vv * ls;
+              q1[i] = q1[i] + vv * sv;
+              q2[i] = q2[i] - vv * s2;
+              if (m.src(j)) ginjr[m.gx(i)] = ginjr[m.gx(i)] + vv * sk;
+            }
+            sm[j][i] = s2;
+          }
+          if (m.oy(j)) {
+            store_row(&sums[r], qa);
+            store_row(&sums[r + L::LY * L::LX], q1);
+            store_row(&sums[r + 2 * L::LY * L::LX], q2);
+          }
+        }
+      }
+      // s_m <- s_{m-1}, s_{m-1} <- s_{m-2}.
+#pragma unroll
+      for (int j = 0; j < MY; ++j)
+#pragma unroll
+        for (int i = 0; i < MX; ++i) {
+          const float t = sm[j][i];
+          sm[j][i] = s1[j][i];
+          s1[j][i] = t;
+        }
+      {
+        float w[MY][MX];
+#pragma unroll
+        for (int j = 0; j < MY; ++j) {
+          float a[MX];
+          load_row(&smem[WA + L::at(m.ly + j, m.lx)], a);
+#pragma unroll
+          for (int i = 0; i < MX; ++i) w[j][i] = a[i] * v[j][i];
+        }
+        const Edges<L> e(&smem[wc], m.ly, m.lx);
+#pragma unroll
+        for (int j = 0; j < MY; ++j) {
+          float l2, l1, r1, r2, c1[MX], c2[MX];
+          load_pair(&smem[wc + L::at(m.ly + j, m.lx - 2)], l2, l1);
+          load_pair(&smem[wc + L::at(m.ly + j, m.lx + MX)], r1, r2);
+          load_row(&smem[W1 + L::at(m.ly + j, m.lx)], c1);
+          load_row(&smem[W2 + L::at(m.ly + j, m.lx)], c2);
+          const bool rec_next = s + 1 < n;
+#pragma unroll
+          for (int i = 0; i < MX; ++i) {
+            const float vv = v[j][i];
+            float nv = (u[j][i] + c1[i] * vv) +
+                       lap_cell<L>(w, e, l2, l1, r1, r2, j, i);
+            if (rec_next && m.rec(j, i))
+              nv = nv + gr[(size_t)(k - 1) * ng + (m.gx(i) - g0)];
+            u[j][i] = -c2[i] * vv;
+            v[j][i] = nv;
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < MY; ++j) {
+        float a[MX], w[MX];
+        load_row(&smem[WA + L::at(m.ly + j, m.lx)], a);
+#pragma unroll
+        for (int i = 0; i < MX; ++i) w[i] = a[i] * v[j][i];
+        store_row(&smem[s1n + L::at(m.ly + j, m.lx)], s1[j]);
+        store_row(&smem[wn + L::at(m.ly + j, m.lx)], w);
+      }
+    }
+    __syncthreads();
+    int t;
+    t = s1c; s1c = s1n; s1n = t;
+    t = wc; wc = wn; wn = t;
+  }
+  // s_{m-1} is in its current window at every live cell; s_m, u and v go
+  // to the other three, then the tile leaves in coalesced order.
+#pragma unroll
+  for (int j = 0; j < MY; ++j) {
+    store_row(&smem[wc + L::at(m.ly + j, m.lx)], sm[j]);
+    store_row(&smem[s1n + L::at(m.ly + j, m.lx)], u[j]);
+    store_row(&smem[wn + L::at(m.ly + j, m.lx)], v[j]);
+  }
+  __syncthreads();
+  for (int i = tid; i < L::LY * L::LX; i += L::THREADS) {
+    const int y = i / L::LX, x = i % L::LX, c = L::at(y, x);
+    if (!tile_cell(m, y, x, H, W)) continue;
+    const size_t g = f + (size_t)gyv[y] * W + gxv[x];
+    s1_out[g] = smem[s1c + c];
+    s_out[g] = smem[wc + c];
+    u_out[g] = smem[s1n + c];
+    v_out[g] = smem[wn + c];
+    pa[g] = sums[i];
+    p1[g] = sums[i + L::LY * L::LX];
+    p2[g] = sums[i + 2 * L::LY * L::LX];
+  }
+}
+
+// The shot sum of the adjoint's coefficient cotangents, once per chunk:
+// galpha[b] = ((pa[b, 0] + pa[b, 1]) + ...) + pa[b, ns-1], likewise gt1 and
+// gt2, one thread per (b, y, x), in one fixed order and with no atomics.
+__global__ void sum_shots(const float* __restrict__ pa,
+                          const float* __restrict__ p1,
+                          const float* __restrict__ p2,
+                          float* __restrict__ galpha, float* __restrict__ gt1,
+                          float* __restrict__ gt2, int B, int ns, int hw) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= B * hw) return;
+  const size_t o = (size_t)(idx / hw) * ns * hw + idx % hw;
+  float sa = pa[o], s1 = p1[o], s2 = p2[o];
+  for (int s = 1; s < ns; ++s) {
+    sa = sa + pa[o + (size_t)s * hw];
+    s1 = s1 + p1[o + (size_t)s * hw];
+    s2 = s2 + p2[o + (size_t)s * hw];
+  }
+  galpha[idx] = sa;
+  gt1[idx] = s1;
+  gt2[idx] = s2;
 }
 
 // One reversed step m (k = m - 1) of the taped adjoint, one thread per
@@ -265,55 +739,184 @@ __global__ void bwd_tape_step(
 
 inline unsigned blocks(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
+// Shared memory of one block of each blocked kernel, in bytes.
+constexpr size_t kFwdSmem =
+    5 * FwdL::SIZE * sizeof(float) + (FwdL::LY + FwdL::LX) * sizeof(int);
+constexpr size_t kBwdSmem =
+    (8 * BwdL::SIZE + 3 * BwdL::LY * BwdL::LX) * sizeof(float) +
+    (BwdL::LY + BwdL::LX) * sizeof(int);
+
+// Most steps per launch of each blocked kernel.
+constexpr int kFwdMaxUnroll = 4, kBwdMaxUnroll = 4;
+
+// Whether `unroll` steps a launch suit a blocked kernel of at most `max_u`
+// on an H x W field: the two halos of 2U cells fit in its shorter side.
+inline bool unroll_fits(int unroll, int max_u, int H, int W) {
+  return unroll >= 1 && unroll <= max_u && 4 * unroll <= (H < W ? H : W);
+}
+
+// The grid of a blocked kernel with layout L at `unroll` steps a launch:
+// the tile is the window less the two halos.
+template <class L>
+dim3 tile_grid(int unroll, int B, int ns, int H, int W) {
+  const int ty = L::LY - 4 * unroll, tx = L::LX - 4 * unroll;
+  return dim3((W + tx - 1) / tx, (H + ty - 1) / ty, B * ns);
+}
+
 }  // namespace
 
-// `chunk` forward steps on PyTorch's stream. x holds s_{-1} and y s_0 on
-// entry; steps alternate between them, so s_chunk ends in y when chunk is
-// even and in x when it is odd. recs: (B, ns, chunk, ng). Returns the first
-// launch error, 0 if none.
-extern "C" int rdt_fwd_chunk(float* x, float* y, const float* alpha,
-                             const float* t1, const float* t2,
-                             const float* inj, const float* src, float* recs,
-                             int B, int ns, int H, int W, int isz, int igz,
-                             int g0, int ng, int chunk, void* stream) {
+// `chunk` forward steps on PyTorch's stream, in groups of `unroll` steps
+// (the last group may be shorter), one fwd_step launch per group. p0, p1
+// hold s_{-1}, s_0 and are only read; the groups write (x0, x1) and
+// (y0, y1) in turn, so the chunk's end states are in (x0, x1) when the
+// number of groups is odd and in (y0, y1) when it is even.
+// recs: (B, ns, chunk, ng). Returns the first launch error, 0 if none.
+extern "C" int rdt_fwd_chunk(const float* p0, const float* p1, float* x0,
+                             float* x1, float* y0, float* y1,
+                             const float* alpha, const float* t1,
+                             const float* t2, const float* inj,
+                             const float* src, float* recs, int B, int ns,
+                             int H, int W, int isz, int igz, int g0, int ng,
+                             int chunk, int unroll, void* stream) {
+  if (!unroll_fits(unroll, kFwdMaxUnroll, H, W))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned grid = blocks((long long)B * ns * H * W);
-  for (int k = 0; k < chunk; ++k) {
-    fwd_step<<<grid, kThreads, 0, st>>>(x, y, alpha, t1, t2, inj, src, k, recs,
-                                        B, ns, H, W, isz, igz, g0, ng, chunk);
-    const cudaError_t err = cudaGetLastError();
+  const size_t smem = kFwdSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_step, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid = tile_grid<FwdL>(unroll, B, ns, H, W);
+  const dim3 block(FwdL::NTX, FwdL::NTY);
+  const float* a0 = p0;
+  const float* a1 = p1;
+  float* b0 = x0;
+  float* b1 = x1;
+  for (int k0 = 0; k0 < chunk; k0 += unroll) {
+    const int n = chunk - k0 < unroll ? chunk - k0 : unroll;
+    fwd_step<<<grid, block, smem, st>>>(a0, a1, b0, b1, alpha, t1, t2, inj,
+                                        src, recs, k0, n, unroll, ns,
+                                        H, W, isz, igz, g0, ng, chunk);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    float* t = x; x = y; y = t;
+    a0 = b0;
+    a1 = b1;
+    b0 = b0 == x0 ? y0 : x0;
+    b1 = b1 == x1 ? y1 : x1;
   }
   return 0;
 }
 
-// The adjoint of one chunk on PyTorch's stream, steps chunk-1 down to 0.
-// (u, v) and (u2, v2) alternate, so the cotangents of the chunk's start
-// states end in (u, v) when chunk is even and in (u2, v2) when it is odd.
-// s_m / s_m1 enter as s_chunk / s_{chunk-1} and are consumed. galpha, gt1,
-// gt2 (B, 1, H, W) and ginj (B, ns, 1, W) accumulate and must be zeroed by
-// the caller. Returns the first launch error, 0 if none.
+// The tape-free adjoint of one chunk on PyTorch's stream, steps chunk-1
+// down to 0 in groups of `unroll` (the last may be shorter), one
+// bwd_reverse_step launch per group. u, v (cotangents of s_{chunk-1},
+// s_chunk) and s_m, s_m1 (s_chunk, s_{chunk-1}) are only read; the groups
+// write set x (x[0..3] = u, v, s_m, s_m1) and set y in turn, so the
+// cotangents of the chunk's start states end in x[0], x[1] when the number
+// of groups is odd and in y[0], y[1] when it is even. pa, p1, p2
+// (B, ns, H, W) and ginj (B, ns, 1, W) accumulate and must be zeroed by the
+// caller; rdt_sum_shots then sums pa, p1, p2 over shots. Returns the first
+// launch error, 0 if none.
 extern "C" int rdt_bwd_reverse_chunk(
-    float* u, float* v, float* u2, float* v2, float* s_m, float* s_m1,
-    const float* grec, const float* alpha, const float* t1, const float* t2,
-    const float* inj, const float* src, float* galpha, float* gt1, float* gt2,
-    float* ginj, int B, int ns, int H, int W, int isz, int igz, int g0, int ng,
-    int chunk, void* stream) {
+    const float* u, const float* v, const float* s_m, const float* s_m1,
+    float* const* x, float* const* y, float* pa, float* p1, float* p2,
+    float* ginj, const float* grec, const float* alpha, const float* t1,
+    const float* t2, const float* inj, const float* src, int B, int ns,
+    int H, int W, int isz, int igz, int g0, int ng, int chunk, int unroll,
+    void* stream) {
+  if (!unroll_fits(unroll, kBwdMaxUnroll, H, W))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned grid = blocks((long long)B * H * W);
-  for (int k = chunk - 1; k >= 0; --k) {
-    bwd_reverse_step<<<grid, kThreads, 0, st>>>(
-        u, v, u2, v2, s_m, s_m1, grec, alpha, t1, t2, inj, src, k, galpha,
-        gt1, gt2, ginj, B, ns, H, W, isz, igz, g0, ng, chunk);
-    const cudaError_t err = cudaGetLastError();
+  const size_t smem = kBwdSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_reverse_step, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid = tile_grid<BwdL>(unroll, B, ns, H, W);
+  const dim3 block(BwdL::NTX, BwdL::NTY);
+  const float* in[4] = {u, v, s_m, s_m1};
+  float* const* out = x;
+  for (int k_hi = chunk - 1; k_hi >= 0; k_hi -= unroll) {
+    const int n = k_hi + 1 < unroll ? k_hi + 1 : unroll;
+    bwd_reverse_step<<<grid, block, smem, st>>>(
+        in[0], in[1], in[2], in[3], out[0], out[1], out[2], out[3], pa, p1,
+        p2, ginj, grec, alpha, t1, t2, inj, src, k_hi, n, unroll, ns,
+        H, W, isz, igz, g0, ng, chunk);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    float* t;
-    t = u; u = u2; u2 = t;
-    t = v; v = v2; v2 = t;
-    t = s_m; s_m = s_m1; s_m1 = t;
+    for (int i = 0; i < 4; ++i) in[i] = out[i];
+    out = out == x ? y : x;
   }
   return 0;
+}
+
+// The shot sums of the adjoint's per-shot coefficient cotangents on
+// PyTorch's stream: pa, p1, p2 (B, ns, hw) into galpha, gt1, gt2 (B, hw).
+// Returns the launch error, 0 if none.
+extern "C" int rdt_sum_shots(const float* pa, const float* p1,
+                             const float* p2, float* galpha, float* gt1,
+                             float* gt2, int B, int ns, int hw,
+                             void* stream) {
+  sum_shots<<<blocks((long long)B * hw), kThreads, 0,
+              static_cast<cudaStream_t>(stream)>>>(pa, p1, p2, galpha, gt1,
+                                                   gt2, B, ns, hw);
+  return (int)cudaGetLastError();
+}
+
+// The blocking of blocked kernel `which` (0 fwd_step, 1 bwd_reverse_step)
+// on an H x W field: the most steps per launch U whose two halos of 2U cells
+// fit in the field's shorter side, and the tile (the window less the
+// halos) that one block then writes. Returns cudaErrorInvalidValue for
+// another kernel or a field too small for U = 1, 0 otherwise.
+extern "C" int rdt_blocking(int which, int H, int W, int* unroll,
+                            int* tile_y, int* tile_x) {
+  int max_u, ly, lx;
+  switch (which) {
+    case 0: max_u = kFwdMaxUnroll; ly = FwdL::LY; lx = FwdL::LX; break;
+    case 1: max_u = kBwdMaxUnroll; ly = BwdL::LY; lx = BwdL::LX; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  int u = (H < W ? H : W) / 4;
+  if (u > max_u) u = max_u;
+  if (!unroll_fits(u, max_u, H, W)) return (int)cudaErrorInvalidValue;
+  *unroll = u;
+  *tile_y = ly - 4 * u;
+  *tile_x = lx - 4 * u;
+  return 0;
+}
+
+// Registers per thread, local (spill) bytes per thread and resident blocks
+// per SM of kernel `which` (0 fwd_step, 1 bwd_reverse_step, 2 tape_step,
+// 3 bwd_tape_step, 4 sum_shots) at its launch configuration; the blocked
+// kernels with their shared memory. Returns a CUDA error,
+// 0 if none.
+extern "C" int rdt_kernel_info(int which,
+                               int* regs, int* local_bytes, int* blocks_per_sm) {
+  const void* fn;
+  int threads = kThreads;
+  size_t smem = 0;
+  switch (which) {
+    case 0: fn = (const void*)fwd_step; threads = FwdL::THREADS;
+            smem = kFwdSmem; break;
+    case 1: fn = (const void*)bwd_reverse_step; threads = BwdL::THREADS;
+            smem = kBwdSmem; break;
+    case 2: fn = (const void*)tape_step; break;
+    case 3: fn = (const void*)bwd_tape_step; break;
+    case 4: fn = (const void*)sum_shots; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err;
+  if (smem > 0) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, fn, threads, smem);
 }
 
 // The tape of one chunk on PyTorch's stream: chunk + 2 states of B*ns*H*W

@@ -4,12 +4,14 @@ Counterpart of ``red_diffeq_tpu/ops/stencil.py``. All four kernels of the
 JAX package are ported, in ``csrc/stencil.cu``:
 
 * ``_fwd_kernel`` (launcher ``_run_fwd``, ``stencil.py:150-231, 510``)
-  becomes ``fwd_step``: one FD step of every (sample, shot) wavefield,
-  with the source injection and the receiver row recorded.
+  becomes ``fwd_step``: U FD steps of one tile of a (sample, shot)
+  wavefield, with the source injection and the receiver row recorded.
 * ``_bwd_reverse_kernel`` (launcher ``_run_bwd_reverse``,
-  ``stencil.py:352-443, 632``) becomes ``bwd_reverse_step``: one step of
-  the tape-free adjoint, rebuilding s_{m-2} from s_m and s_{m-1} while the
-  cotangent sweeps backward.
+  ``stencil.py:352-443, 632``) becomes ``bwd_reverse_step``: U steps of
+  the tape-free adjoint on one tile, rebuilding s_{m-2} from s_m and
+  s_{m-1} while the cotangent sweeps backward, and ``sum_shots``, which
+  sums its per-shot coefficient cotangents over shots once per chunk (the
+  JAX kernel adds every shot into one shot-shared block, ``:435-437``).
 * ``_tape_kernel`` (launcher ``_run_tape``, ``stencil.py:233-268, 550``)
   becomes ``tape_step``: one step of the chunk's replay, writing s_m to its
   slot of a flat tape of ``chunk + 2`` states (slot i = s_{i-1}; slots 0
@@ -23,22 +25,30 @@ narrow or strong sponge: at dx=10, dt=1e-3 any nbc <= 55), or when the
 caller asks for ``adjoint='tape'``. As in the JAX custom VJP, the tape
 lives only during one chunk's backward.
 
-Each kernel is one launch per time step; a chunk of ``chunk`` steps is
-``chunk`` launches, issued by one call into the shared library. The TPU
-kernels keep a whole (sample, shot) field in VMEM and fuse U steps per
-grid iteration; one 310x310 fp32 field is 384 KB, above the 227 KB of
-shared memory one Hopper block may have, so these kernels choose their own
-tiling: one thread per cell, the state in device memory (and mostly in the
-50 MB L2). The TPU-only x-stencil layouts (``'roll'``, ``'mxu'``,
-``'mxu_xy'``, ``'halo'``, env ``RDT_X_STENCIL``) are lowerings of the same
-Laplacian and have no meaning here.
+``fwd_step`` and ``bwd_reverse_step`` are temporally blocked: one launch
+takes U steps (the last group of a chunk may be shorter) of one tile of one
+(sample, shot) field, loaded into shared memory with a halo of 2U cells a
+side; :func:`pick_blocking` picks U from the field size, and the tile is
+the kernel's compiled window less the halos. A chunk is ceil(chunk/U)
+launches of each, and the tape-free adjoint adds one ``sum_shots`` launch.
+``tape_step`` and ``bwd_tape_step`` are one launch per time step, one
+thread per cell. The TPU kernels keep a whole field in VMEM; one 310x310
+fp32 field is 384 KB, above the 227 KB of shared memory one Hopper block
+may have, hence tiles. No kernel adds with floating-point atomics, so
+every result repeats bit for bit.
+The TPU-only x-stencil layouts (``'roll'``, ``'mxu'``, ``'mxu_xy'``,
+``'halo'``, env ``RDT_X_STENCIL``) are lowerings of the same Laplacian and
+have no meaning here.
 
 Beside each kernel is its plain PyTorch version (``fwd_chunk_plain``,
-``bwd_reverse_chunk_plain``, ``tape_chunk_plain``, ``bwd_tape_chunk_plain``)
-with the same fp32 arithmetic, step for step. The wrappers (``fwd_chunk``,
-``bwd_reverse_chunk``, ``tape_chunk``, ``bwd_tape_chunk``) take the plain
-version only for tensors on the CPU; on a CUDA tensor they launch the
-kernel or raise.
+``bwd_reverse_steps_plain``, ``sum_shots_plain``, ``tape_chunk_plain``,
+``bwd_tape_chunk_plain``) with the same fp32 arithmetic, step for step and
+in the same order of summation; ``bwd_reverse_chunk_plain`` is
+``bwd_reverse_steps_plain`` followed by ``sum_shots_plain``. The wrappers
+(``fwd_chunk``, ``bwd_reverse_steps``, ``bwd_reverse_chunk`` (the two
+adjoint kernels in turn), ``sum_shots``, ``tape_chunk``,
+``bwd_tape_chunk``) take the plain version only for tensors on the CPU; on
+a CUDA tensor they launch the kernel or raise.
 """
 import ctypes
 import hashlib
@@ -56,24 +66,50 @@ C1, C2, C3 = -2.5, 4.0 / 3.0, -1.0 / 12.0
 
 # Kernel launches made by the wrappers, by kernel. Each wrapper adds one for
 # every kernel launch it makes, and nowhere else.
-launches = {'fwd_step': 0, 'bwd_reverse_step': 0, 'tape_step': 0,
-            'bwd_tape_step': 0}
+launches = {'fwd_step': 0, 'bwd_reverse_step': 0, 'sum_shots': 0,
+            'tape_step': 0, 'bwd_tape_step': 0}
+# FD steps per launch that each stepping kernel's wrapper last handed its
+# launcher (None until it launches; ``sum_shots`` takes no steps).
+last_unroll = dict.fromkeys(launches)
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+        last_unroll[k] = None
 
 
 def pick_unroll(chunk: int) -> int:
     """Largest unroll factor of the TPU kernels dividing the chunk
-    (``red_diffeq_tpu/ops/stencil.py:48-53``). The CUDA kernels step one
-    time step per launch; the value stays part of the resolved run
-    configuration that logs report."""
+    (``red_diffeq_tpu/ops/stencil.py:48-53``), part of the resolved run
+    configuration that logs report. The CUDA kernels pick their own steps
+    per launch from the field size (:func:`pick_blocking`)."""
     for u in (10, 8, 5, 4, 2, 1):
         if chunk % u == 0:
             return u
     return 1
+
+
+# The temporally blocked kernels; their windows and most steps per launch
+# are compiled into csrc/stencil.cu and read through pick_blocking.
+BLOCKED = ('fwd_step', 'bwd_reverse_step')
+
+
+def pick_blocking(kernel: str, hp: int, wp: int):
+    """(U, tile rows, tile columns) of blocked ``kernel`` for an Hp x Wp
+    field, as the CUDA library computes them (``rdt_blocking``): the most
+    steps per launch compiled in, cut so that the two halos of 2U cells fit
+    in the field's shorter side (4U <= min(Hp, Wp)); the tile is the
+    kernel's window less the halos. Raises for a field too small for
+    U = 1."""
+    if kernel not in BLOCKED:
+        raise ValueError(f'{kernel} is not a blocked kernel')
+    vals = [ctypes.c_int() for _ in range(3)]
+    if _load().rdt_blocking(_KERNEL_IDS[kernel], hp, wp,
+                            *map(ctypes.byref, vals)) != 0:
+        raise ValueError(f'a {hp}x{wp} field is too small for the halo of '
+                         f'{kernel}')
+    return tuple(v.value for v in vals)
 
 
 # Default adjoint: 'reverse' rebuilds past states by inverting the damped
@@ -164,14 +200,29 @@ def bwd_reverse_chunk_plain(p0o, p1o, gp0o, gp1o, grec, alpha, t1, t2, inj,
                             src_chunk, *, isz, igz, g0, ng):
     """Tape-free adjoint of :func:`fwd_chunk_plain`, from the chunk's final
     states (p0o = s_{K-1}, p1o = s_K), their cotangents and the receiver
-    cotangent ``grec`` (B, ns, chunk, ng). The rebuild does not read the
+    cotangent ``grec`` (B, ns, chunk, ng): :func:`bwd_reverse_steps_plain`,
+    then the per-shot coefficient cotangents summed over the shots
+    (:func:`sum_shots_plain`), as ``bwd_reverse_step`` and ``sum_shots``
+    do. Returns (gp0, gp1, galpha, gt1, gt2, ginj)."""
+    gp0, gp1, pa, p1, p2, ginj = bwd_reverse_steps_plain(
+        p0o, p1o, gp0o, gp1o, grec, alpha, t1, t2, inj, src_chunk, isz=isz,
+        igz=igz, g0=g0, ng=ng)
+    return (gp0, gp1, *(sum_shots_plain(t) for t in (pa, p1, p2)), ginj)
+
+
+def bwd_reverse_steps_plain(p0o, p1o, gp0o, gp1o, grec, alpha, t1, t2, inj,
+                            src_chunk, *, isz, igz, g0, ng):
+    """The steps of :func:`bwd_reverse_chunk_plain`, the coefficient
+    cotangents left as per-shot sums. The rebuild does not read the
     cotangent, so the past states are rebuilt backwards first,
 
       s_{m-2} = (t1*s_{m-1} + alpha*L(s_{m-1}) + inj_m - s_m) / t2,
 
-    into the tape layout, and :func:`bwd_tape_chunk_plain` sweeps them; each
-    step's arithmetic is ``bwd_reverse_step``'s. Returns (gp0, gp1, galpha,
-    gt1, gt2, ginj)."""
+    into the tape layout, and the sweep of :func:`bwd_tape_chunk_plain`
+    runs over them; each step's arithmetic is ``bwd_reverse_step``'s, and
+    as in that kernel the coefficient cotangents are summed per shot over
+    the steps. Returns (gp0, gp1, pa, p1, p2, ginj), the sums of the alpha,
+    t1 and t2 cotangents (B, ns, Hp, Wp)."""
     inv_t2 = 1.0 / t2
     states = [p1o, p0o]                         # s_K, s_{K-1}, ..., s_{-1}
     for k in range(src_chunk.shape[0] - 1, -1, -1):
@@ -180,9 +231,18 @@ def bwd_reverse_chunk_plain(p0o, p1o, gp0o, gp1o, grec, alpha, t1, t2, inj,
         inj_field[:, :, isz, :] = inj[:, :, 0, :] * src_chunk[k]
         states.append((t1 * s_m1 + alpha * laplacian4(s_m1) + inj_field
                        - s_m) * inv_t2)
-    return bwd_tape_chunk_plain(torch.stack(states[::-1]), gp0o, gp1o, grec,
-                                alpha, t1, t2, src_chunk, isz=isz, igz=igz,
-                                g0=g0, ng=ng)
+    return _adjoint_sweep(torch.stack(states[::-1]), gp0o, gp1o, grec, alpha,
+                          t1, t2, src_chunk, isz=isz, igz=igz, g0=g0, ng=ng,
+                          per_shot=True)
+
+
+def sum_shots_plain(partial):
+    """(B, ns, Hp, Wp) per-shot sums -> (B, 1, Hp, Wp), added in shot
+    order: ((p[:, 0] + p[:, 1]) + ...) + p[:, ns-1]."""
+    out = partial[:, 0:1].contiguous()
+    for s in range(1, partial.shape[1]):
+        out = out + partial[:, s:s + 1]
+    return out
 
 
 def bwd_tape_chunk_plain(tape, gp0o, gp1o, grec, alpha, t1, t2, src_chunk,
@@ -196,13 +256,23 @@ def bwd_tape_chunk_plain(tape, gp0o, gp1o, grec, alpha, t1, t2, src_chunk,
       ginj += v[isz]*src[k]
       (u, v) <- (-t2*v, u + t1*v + L(alpha*v))
 
-    The coefficient cotangents are summed over shots in shot order, as the
-    kernels do. Returns (gp0, gp1, galpha, gt1, gt2, ginj)."""
+    The coefficient cotangents are summed step by step and, within a step,
+    over shots in shot order, as ``bwd_tape_step`` does. Returns (gp0, gp1,
+    galpha, gt1, gt2, ginj)."""
+    return _adjoint_sweep(tape, gp0o, gp1o, grec, alpha, t1, t2, src_chunk,
+                          isz=isz, igz=igz, g0=g0, ng=ng, per_shot=False)
+
+
+def _adjoint_sweep(tape, gp0o, gp1o, grec, alpha, t1, t2, src_chunk, *, isz,
+                   igz, g0, ng, per_shot):
+    """The reversed sweep over a tape of the chunk's states. ``per_shot``:
+    the coefficient cotangents are summed per shot and returned so
+    (``bwd_reverse_step``); else each step's shots are added in turn
+    (``bwd_tape_step``)."""
     ns, wp = gp0o.shape[1], gp0o.shape[-1]
     u, v = gp0o, gp1o
-    galpha = torch.zeros_like(alpha)
-    gt1 = torch.zeros_like(alpha)
-    gt2 = torch.zeros_like(alpha)
+    acc = torch.zeros_like(gp0o if per_shot else alpha)
+    galpha, gt1, gt2 = acc, acc.clone(), acc.clone()
     ginj = gp0o.new_zeros(gp0o.shape[0], ns, 1, wp)
     for k in range(src_chunk.shape[0] - 1, -1, -1):
         v = v.clone()
@@ -210,11 +280,16 @@ def bwd_tape_chunk_plain(tape, gp0o, gp1o, grec, alpha, t1, t2, src_chunk,
         s_m1, s_m2 = tape[k + 1], tape[k]
         lap_s = laplacian4(s_m1)
         ginj = ginj + v[:, :, isz:isz + 1, :] * src_chunk[k]
-        for s in range(ns):
-            vs = v[:, s:s + 1]
-            galpha = galpha + vs * lap_s[:, s:s + 1]
-            gt1 = gt1 + vs * s_m1[:, s:s + 1]
-            gt2 = gt2 - vs * s_m2[:, s:s + 1]
+        if per_shot:
+            galpha = galpha + v * lap_s
+            gt1 = gt1 + v * s_m1
+            gt2 = gt2 - v * s_m2
+        else:
+            for s in range(ns):
+                vs = v[:, s:s + 1]
+                galpha = galpha + vs * lap_s[:, s:s + 1]
+                gt1 = gt1 + vs * s_m1[:, s:s + 1]
+                gt2 = gt2 - vs * s_m2[:, s:s + 1]
         u, v = -t2 * v, u + t1 * v + laplacian4(alpha * v)
     return u, v, galpha, gt1, gt2, ginj
 
@@ -272,14 +347,21 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rdt_fwd_chunk.argtypes = [p] * 8 + [i] * 9 + [p]
+        lib.rdt_fwd_chunk.argtypes = [p] * 12 + [i] * 10 + [p]
         lib.rdt_fwd_chunk.restype = i
-        lib.rdt_bwd_reverse_chunk.argtypes = [p] * 16 + [i] * 9 + [p]
+        lib.rdt_bwd_reverse_chunk.argtypes = [p] * 16 + [i] * 10 + [p]
         lib.rdt_bwd_reverse_chunk.restype = i
+        lib.rdt_sum_shots.argtypes = [p] * 6 + [i] * 3 + [p]
+        lib.rdt_sum_shots.restype = i
         lib.rdt_tape_chunk.argtypes = [p] * 6 + [i] * 6 + [p]
         lib.rdt_tape_chunk.restype = i
         lib.rdt_bwd_tape_chunk.argtypes = [p] * 14 + [i] * 9 + [p]
         lib.rdt_bwd_tape_chunk.restype = i
+        ip = ctypes.POINTER(i)
+        lib.rdt_kernel_info.argtypes = [i] + [ip] * 3
+        lib.rdt_kernel_info.restype = i
+        lib.rdt_blocking.argtypes = [i] * 3 + [ip] * 3
+        lib.rdt_blocking.restype = i
         _lib = lib
     return _lib
 
@@ -326,6 +408,9 @@ def _check_args(fields, alpha, t1, t2, src_chunk, *, isz, igz=0, g0=0,
     _check_geometry(hp, wp, isz, igz, g0, ng)
     if first.numel() >= 2 ** 31:
         raise ValueError('fields of 2**31 elements or more are not supported')
+    if b * ns > 65535:
+        raise ValueError('more than 65535 (sample, shot) fields are not '
+                         'supported')
     return b, ns, hp, wp
 
 
@@ -346,63 +431,143 @@ def fwd_chunk(p0, p1, alpha, t1, t2, inj, src_chunk, *, isz, igz, g0, ng):
                                isz=isz, igz=igz, g0=g0, ng=ng)
     if p0.device.type != 'cuda':
         raise ValueError(f'unsupported device {p0.device}')
+    return _fwd_chunk_kernel(p0, p1, alpha, t1, t2, inj, src_chunk, isz=isz,
+                             igz=igz, g0=g0, ng=ng)
+
+
+def _fwd_chunk_kernel(p0, p1, alpha, t1, t2, inj, src_chunk, *, isz, igz, g0,
+                      ng):
     b, ns, hp, wp = _check_args({'p0': p0, 'p1': p1}, alpha, t1, t2,
                                 src_chunk, isz=isz, igz=igz, g0=g0, ng=ng,
                                 inj=inj)
     chunk = src_chunk.shape[0]
+    unroll = pick_blocking('fwd_step', hp, wp)[0]
     lib = _load()
-    x, y = p0.clone(), p1.clone()  # stepped in place, ping-pong
+    x0, x1, y0, y1 = (torch.empty_like(p0) for _ in range(4))
     recs = torch.empty((b, ns, chunk, ng), device=p0.device,
                        dtype=torch.float32)
     err = lib.rdt_fwd_chunk(
-        _ptr(x), _ptr(y), _ptr(alpha), _ptr(t1), _ptr(t2), _ptr(inj),
-        _ptr(src_chunk), _ptr(recs), b, ns, hp, wp, isz, igz, g0, ng, chunk,
+        _ptr(p0), _ptr(p1), _ptr(x0), _ptr(x1), _ptr(y0), _ptr(y1),
+        _ptr(alpha), _ptr(t1), _ptr(t2), _ptr(inj), _ptr(src_chunk),
+        _ptr(recs), b, ns, hp, wp, isz, igz, g0, ng, chunk, unroll,
         _stream(p0.device))
     if err != 0:
         raise RuntimeError(f'fwd_step launch failed: CUDA error {err}')
-    launches['fwd_step'] += chunk
-    # After an even number of steps s_K sits in y, else in x.
-    return (x, y, recs) if chunk % 2 == 0 else (y, x, recs)
+    groups = -(-chunk // unroll)
+    launches['fwd_step'] += groups
+    last_unroll['fwd_step'] = unroll
+    # The groups write (x0, x1) and (y0, y1) in turn, starting with x.
+    return (x0, x1, recs) if groups % 2 else (y0, y1, recs)
 
 
 def bwd_reverse_chunk(p0o, p1o, gp0o, gp1o, grec, alpha, t1, t2, inj,
                       src_chunk, *, isz, igz, g0, ng):
-    """The tape-free adjoint of one chunk: the CUDA kernel
-    ``bwd_reverse_step`` for CUDA tensors, :func:`bwd_reverse_chunk_plain`
-    for CPU tensors. Returns (gp0, gp1, galpha, gt1, gt2, ginj)."""
+    """The tape-free adjoint of one chunk: the CUDA kernels
+    ``bwd_reverse_step`` and ``sum_shots`` for CUDA tensors,
+    :func:`bwd_reverse_chunk_plain` for CPU tensors. Returns (gp0, gp1,
+    galpha, gt1, gt2, ginj)."""
     if p0o.device.type == 'cpu':
         return bwd_reverse_chunk_plain(
             p0o, p1o, gp0o, gp1o, grec, alpha, t1, t2, inj, src_chunk,
             isz=isz, igz=igz, g0=g0, ng=ng)
     if p0o.device.type != 'cuda':
         raise ValueError(f'unsupported device {p0o.device}')
+    return _bwd_reverse_chunk_kernel(p0o, p1o, gp0o, gp1o, grec, alpha, t1,
+                                     t2, inj, src_chunk, isz=isz, igz=igz,
+                                     g0=g0, ng=ng)
+
+
+def bwd_reverse_steps(p0o, p1o, gp0o, gp1o, grec, alpha, t1, t2, inj,
+                      src_chunk, *, isz, igz, g0, ng):
+    """The steps of the tape-free adjoint of one chunk, without the shot
+    sums: the CUDA kernel ``bwd_reverse_step`` for CUDA tensors,
+    :func:`bwd_reverse_steps_plain` for CPU tensors. Returns (gp0, gp1, pa,
+    p1, p2, ginj), the alpha, t1 and t2 cotangents per shot."""
+    if p0o.device.type == 'cpu':
+        return bwd_reverse_steps_plain(
+            p0o, p1o, gp0o, gp1o, grec, alpha, t1, t2, inj, src_chunk,
+            isz=isz, igz=igz, g0=g0, ng=ng)
+    if p0o.device.type != 'cuda':
+        raise ValueError(f'unsupported device {p0o.device}')
+    return _bwd_reverse_steps_kernel(p0o, p1o, gp0o, gp1o, grec, alpha, t1,
+                                     t2, inj, src_chunk, isz=isz, igz=igz,
+                                     g0=g0, ng=ng)
+
+
+def _ptrs(ts):
+    return ctypes.cast((ctypes.c_void_p * len(ts))(*(t.data_ptr()
+                                                     for t in ts)),
+                       ctypes.c_void_p)
+
+
+def _bwd_reverse_chunk_kernel(p0o, p1o, gp0o, gp1o, grec, alpha, t1, t2, inj,
+                              src_chunk, *, isz, igz, g0, ng):
+    gp0, gp1, pa, p1, p2, ginj = _bwd_reverse_steps_kernel(
+        p0o, p1o, gp0o, gp1o, grec, alpha, t1, t2, inj, src_chunk, isz=isz,
+        igz=igz, g0=g0, ng=ng)
+    galpha, gt1, gt2 = sum_shots(pa, p1, p2)
+    return gp0, gp1, galpha, gt1, gt2, ginj
+
+
+def _bwd_reverse_steps_kernel(p0o, p1o, gp0o, gp1o, grec, alpha, t1, t2,
+                              inj, src_chunk, *, isz, igz, g0, ng):
     b, ns, hp, wp = _check_args(
         {'p0o': p0o, 'p1o': p1o, 'gp0o': gp0o, 'gp1o': gp1o}, alpha, t1, t2,
         src_chunk, isz=isz, igz=igz, g0=g0, ng=ng, inj=inj)
     chunk = src_chunk.shape[0]
     dev = p0o.device
     _check('grec', grec, (b, ns, chunk, ng), dev)
+    unroll = pick_blocking('bwd_reverse_step', hp, wp)[0]
     lib = _load()
-    # u, v: cotangents of s_{m-1}, s_m (ping-pong with u2, v2); s_m is
-    # overwritten in place by the rebuilt s_{m-2}.
-    u, v = gp0o.clone(), gp1o.clone()
-    u2, v2 = torch.empty_like(u), torch.empty_like(v)
-    s_m, s_m1 = p1o.clone(), p0o.clone()
-    galpha = torch.zeros_like(alpha)
-    gt1 = torch.zeros_like(alpha)
-    gt2 = torch.zeros_like(alpha)
+    # Two sets of (u, v, s_m, s_{m-1}) written by the groups in turn; the
+    # per-shot sums of the alpha, t1, t2 cotangents; the injection row's.
+    x = [torch.empty_like(gp0o) for _ in range(4)]
+    y = [torch.empty_like(gp0o) for _ in range(4)]
+    pa, p1, p2 = (torch.zeros_like(gp0o) for _ in range(3))
     ginj = torch.zeros_like(inj)
+    xp, yp = _ptrs(x), _ptrs(y)
     err = lib.rdt_bwd_reverse_chunk(
-        _ptr(u), _ptr(v), _ptr(u2), _ptr(v2), _ptr(s_m), _ptr(s_m1),
-        _ptr(grec), _ptr(alpha), _ptr(t1), _ptr(t2), _ptr(inj),
-        _ptr(src_chunk), _ptr(galpha), _ptr(gt1), _ptr(gt2), _ptr(ginj),
-        b, ns, hp, wp, isz, igz, g0, ng, chunk, _stream(dev))
+        _ptr(gp0o), _ptr(gp1o), _ptr(p1o), _ptr(p0o), xp, yp, _ptr(pa),
+        _ptr(p1), _ptr(p2), _ptr(ginj), _ptr(grec), _ptr(alpha), _ptr(t1),
+        _ptr(t2), _ptr(inj), _ptr(src_chunk), b, ns, hp, wp, isz, igz, g0,
+        ng, chunk, unroll, _stream(dev))
     if err != 0:
         raise RuntimeError(f'bwd_reverse_step launch failed: CUDA error '
                            f'{err}')
-    launches['bwd_reverse_step'] += chunk
-    gp0, gp1 = (u, v) if chunk % 2 == 0 else (u2, v2)
-    return gp0, gp1, galpha, gt1, gt2, ginj
+    groups = -(-chunk // unroll)
+    launches['bwd_reverse_step'] += groups
+    last_unroll['bwd_reverse_step'] = unroll
+    out = x if groups % 2 else y
+    return out[0], out[1], pa, p1, p2, ginj
+
+
+def sum_shots(pa, p1, p2):
+    """The adjoint's per-shot coefficient cotangents (B, ns, Hp, Wp) summed
+    over shots in shot order: the CUDA kernel ``sum_shots`` for CUDA
+    tensors, :func:`sum_shots_plain` for CPU tensors. Returns (galpha, gt1,
+    gt2), each (B, 1, Hp, Wp)."""
+    if pa.device.type == 'cpu':
+        return tuple(sum_shots_plain(p) for p in (pa, p1, p2))
+    if pa.device.type != 'cuda':
+        raise ValueError(f'unsupported device {pa.device}')
+    return _sum_shots_kernel(pa, p1, p2)
+
+
+def _sum_shots_kernel(pa, p1, p2):
+    if pa.dim() != 4:
+        raise ValueError(f'partial sums must be (B, ns, Hp, Wp), got shape '
+                         f'{tuple(pa.shape)}')
+    b, ns, hp, wp = pa.shape
+    for name, t in (('pa', pa), ('p1', p1), ('p2', p2)):
+        _check(name, t, (b, ns, hp, wp), pa.device)
+    lib = _load()
+    out = [pa.new_empty((b, 1, hp, wp)) for _ in range(3)]
+    err = lib.rdt_sum_shots(_ptr(pa), _ptr(p1), _ptr(p2), *map(_ptr, out),
+                            b, ns, hp * wp, _stream(pa.device))
+    if err != 0:
+        raise RuntimeError(f'sum_shots launch failed: CUDA error {err}')
+    launches['sum_shots'] += 1
+    return tuple(out)
 
 
 def tape_chunk(p0, p1, alpha, t1, t2, inj, src_chunk, *, isz):
@@ -414,6 +579,10 @@ def tape_chunk(p0, p1, alpha, t1, t2, inj, src_chunk, *, isz):
                                 isz=isz)
     if p0.device.type != 'cuda':
         raise ValueError(f'unsupported device {p0.device}')
+    return _tape_chunk_kernel(p0, p1, alpha, t1, t2, inj, src_chunk, isz=isz)
+
+
+def _tape_chunk_kernel(p0, p1, alpha, t1, t2, inj, src_chunk, *, isz):
     b, ns, hp, wp = _check_args({'p0': p0, 'p1': p1}, alpha, t1, t2,
                                 src_chunk, isz=isz, inj=inj)
     chunk = src_chunk.shape[0]
@@ -428,6 +597,7 @@ def tape_chunk(p0, p1, alpha, t1, t2, inj, src_chunk, *, isz):
     if err != 0:
         raise RuntimeError(f'tape_step launch failed: CUDA error {err}')
     launches['tape_step'] += chunk
+    last_unroll['tape_step'] = 1
     return tape
 
 
@@ -442,6 +612,12 @@ def bwd_tape_chunk(tape, gp0o, gp1o, grec, alpha, t1, t2, src_chunk, *, isz,
                                     ng=ng)
     if gp0o.device.type != 'cuda':
         raise ValueError(f'unsupported device {gp0o.device}')
+    return _bwd_tape_chunk_kernel(tape, gp0o, gp1o, grec, alpha, t1, t2,
+                                  src_chunk, isz=isz, igz=igz, g0=g0, ng=ng)
+
+
+def _bwd_tape_chunk_kernel(tape, gp0o, gp1o, grec, alpha, t1, t2, src_chunk,
+                           *, isz, igz, g0, ng):
     b, ns, hp, wp = _check_args({'gp0o': gp0o, 'gp1o': gp1o}, alpha, t1, t2,
                                 src_chunk, isz=isz, igz=igz, g0=g0, ng=ng)
     chunk = src_chunk.shape[0]
@@ -463,8 +639,26 @@ def bwd_tape_chunk(tape, gp0o, gp1o, grec, alpha, t1, t2, src_chunk, *, isz,
     if err != 0:
         raise RuntimeError(f'bwd_tape_step launch failed: CUDA error {err}')
     launches['bwd_tape_step'] += chunk
+    last_unroll['bwd_tape_step'] = 1
     gp0, gp1 = (u, v) if chunk % 2 == 0 else (u2, v2)
     return gp0, gp1, galpha, gt1, gt2, ginj
+
+
+_KERNEL_IDS = {'fwd_step': 0, 'bwd_reverse_step': 1, 'tape_step': 2,
+               'bwd_tape_step': 3, 'sum_shots': 4}
+
+
+def kernel_info(name: str):
+    """Registers per thread, local (spill) bytes per thread and resident
+    blocks per SM of kernel ``name`` on the current card, at its launch
+    configuration (CUDA's function attributes and occupancy calculator)."""
+    vals = [ctypes.c_int() for _ in range(3)]
+    err = _load().rdt_kernel_info(_KERNEL_IDS[name],
+                                  *map(ctypes.byref, vals))
+    if err != 0:
+        raise RuntimeError(f'kernel_info({name!r}) failed: CUDA error {err}')
+    return dict(zip(('regs', 'local_bytes', 'blocks_per_sm'),
+                    (v.value for v in vals)))
 
 
 class StencilChunk(torch.autograd.Function):

@@ -17,6 +17,10 @@ receivers sampled every step. The time loop runs over fixed-size chunks:
   the CPU.
 
 Wavefield layout: (batch, ns, Hp, Wp).
+
+The sponge pad (:func:`edge_pad`) is PyTorch's replicate pad forward with a
+backward that sums the edge strips in a fixed order, so the velocity
+gradient is the same bit for bit from run to run on the card.
 """
 import math
 from dataclasses import dataclass
@@ -35,6 +39,39 @@ C1, C2, C3 = -2.5, 4.0 / 3.0, -1.0 / 12.0
 
 # Chunks stepped by the plain path (the counterpart of ``_xla_chunk``).
 plain_chunk_calls = {'chunk': 0}
+
+
+class EdgePad(torch.autograd.Function):
+    """Replicate (edge) pad of the last two axes by ``n`` cells a side,
+    the counterpart of ``jnp.pad(mode='edge')``. PyTorch's CUDA backward
+    of the replicate pad adds with atomics, in an order that changes from
+    run to run; this backward takes the interior of the cotangent and
+    adds to its edge rows, then its edge columns, the sums of the strips
+    that replicate them (``torch.sum`` over each strip: a fixed order, no
+    atomics). The corners are folded with the rows, then the columns."""
+
+    @staticmethod
+    def forward(ctx, v, n):
+        ctx.n = n
+        return F.pad(v, (n, n, n, n), mode='replicate')
+
+    @staticmethod
+    def backward(ctx, g):
+        n = ctx.n
+        h, w = g.shape[-2] - 2 * n, g.shape[-1] - 2 * n
+        rows = g[..., n:n + h, :].clone()
+        rows[..., 0, :] += g[..., :n, :].sum(dim=-2)
+        rows[..., h - 1, :] += g[..., n + h:, :].sum(dim=-2)
+        gv = rows[..., n:n + w].clone()
+        gv[..., 0] += rows[..., :n].sum(dim=-1)
+        gv[..., w - 1] += rows[..., n + w:].sum(dim=-1)
+        return gv, None
+
+
+def edge_pad(v: torch.Tensor, n: int) -> torch.Tensor:
+    """Pad ``v`` (..., H, W) by ``n`` edge cells on each side, with a
+    deterministic backward (:class:`EdgePad`)."""
+    return EdgePad.apply(v, n) if n > 0 else v
 
 
 def ricker(f: float, dt: float, nt: int) -> np.ndarray:
@@ -274,8 +311,7 @@ class FWIForward:
     def __call__(self, v_norm: torch.Tensor) -> torch.Tensor:
         check_on(v_norm, self.device, 'v_norm')
         v = self.v_denorm_func(v_norm) if self.v_denorm_func else v_norm
-        nbc = self.geom.nbc
-        v_pad = F.pad(v, (nbc, nbc, nbc, nbc), mode='replicate')
+        v_pad = edge_pad(v, self.geom.nbc)
         s = forward_modeling(v_pad, self.geom, chunk=self.chunk,
                              backend=self.backend, adjoint=self.adjoint)
         if self.s_norm_func is not None:

@@ -1,0 +1,55 @@
+"""Build ``red_diffeq_tpu_torch/ops/csrc/stencil.cu`` for the host with g++,
+against ``cuda_host.h`` in this directory (each CUDA thread a fiber).
+
+Used by ``tests/test_torch_kernel_emulation.py`` and
+``tools/rehearse_chip_smoke.py``. Every fp32 operation rounds alone
+(-ffp-contract=off), as nvcc's -fmad=false makes it on the card.
+"""
+import ctypes
+import re
+import subprocess
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+
+
+def host_source(src: str) -> str:
+    """The CUDA source with its CUDA-only spellings rewritten for
+    cuda_host.h: the header, the dynamic shared memory, the launches."""
+    src = src.replace('#include <cuda_runtime.h>', '#include "cuda_host.h"')
+    src = src.replace('extern __shared__ float smem[];',
+                      'float* smem = host::shared.data();')
+    return re.sub(r'(\w+)<<<(.*?)>>>\(',
+                  lambda m: f'host::launch({m.group(1)}, {m.group(2)})(',
+                  src, flags=re.S)
+
+
+def build_host_library(cu: Path, out_dir: Path, gxx: str) -> Path:
+    """Compile ``cu`` for the host into ``out_dir``; returns the shared
+    library's path. Raises with the compiler's message on failure."""
+    cpp = out_dir / 'stencil_host.cpp'
+    lib = out_dir / 'libstencil_host.so'
+    cpp.write_text(host_source(cu.read_text()))
+    res = subprocess.run(
+        [gxx, '-std=c++17', '-O1', '-ffp-contract=off', '-shared', '-fPIC',
+         '-w', f'-I{HERE}', '-o', str(lib), str(cpp)],
+        capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f'g++ failed ({res.returncode}):\n'
+                           f'{res.stderr[-4000:]}')
+    return lib
+
+
+def use_host_library(monkeypatch, stencil, lib: Path):
+    """Point the ``stencil`` module at the host build ``lib`` for one test:
+    its loader, a null stream and fresh launch counters. Returns the
+    module."""
+    monkeypatch.setattr(stencil, 'build', lambda verbose=False: lib)
+    monkeypatch.setattr(stencil, '_lib', None)
+    monkeypatch.setattr(stencil, '_stream',
+                        lambda device: ctypes.c_void_p(0))
+    monkeypatch.setattr(stencil, 'launches',
+                        dict.fromkeys(stencil.launches, 0))
+    monkeypatch.setattr(stencil, 'last_unroll',
+                        dict.fromkeys(stencil.launches))
+    return stencil

@@ -4,6 +4,7 @@ from pathlib import Path
 import msgpack
 import numpy as np
 import pytest
+import torch
 
 from red_diffeq_tpu_torch.io import checkpoints
 from red_diffeq_tpu_torch.models.diffusion import GaussianDiffusion
@@ -127,5 +128,28 @@ def test_load_diffusion_params_accepts_bare_and_ema_trees(tmp_path):
         np.testing.assert_array_equal(
             diff.model.final_conv.bias.detach().numpy(),
             raw['final_conv']['bias'])
-    with pytest.raises(FileNotFoundError):
-        checkpoints.load_diffusion_params(diff, tmp_path / 'absent.ckpt')
+    # A missing file warns, naming the path, and keeps the weights, as the
+    # JAX loader does.
+    before = {k: t.clone() for k, t in diff.model.state_dict().items()}
+    with pytest.warns(UserWarning, match='absent.ckpt'):
+        out = checkpoints.load_diffusion_params(diff, tmp_path / 'absent.ckpt')
+    assert out is diff
+    for k, t in diff.model.state_dict().items():
+        assert torch.equal(t, before[k]), k
+
+
+@pytest.mark.parametrize('missing', ['absent.ckpt', None])
+def test_load_diffusion_params_warns_on_a_missing_file(tmp_path, missing):
+    """As ``red_diffeq_tpu.io.checkpoints.load_diffusion_params``: a missing
+    file (or no path) warns and the model keeps its random weights."""
+    path = None if missing is None else tmp_path / missing
+    torch.manual_seed(1)
+    diff = GaussianDiffusion(Unet(dim=8, dim_mults=(1, 2)), image_size=8,
+                             device='cpu')
+    before = {k: t.clone() for k, t in diff.model.state_dict().items()}
+    named = 'None' if missing is None else f'.*{missing}'
+    with pytest.warns(UserWarning,
+                      match=f'pretrained model not found at {named}'):
+        assert checkpoints.load_diffusion_params(diff, path) is diff
+    after = diff.model.state_dict()
+    assert all(torch.equal(after[k], t) for k, t in before.items())

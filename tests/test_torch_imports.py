@@ -74,10 +74,15 @@ def test_kernel_wrappers_use_plain_versions_only_on_cpu():
         stencil.bwd_reverse_chunk(z, z, z, z, z, z, z, z, z, z, isz=1,
                                   igz=1, g0=0, ng=2)
     with pytest.raises(ValueError, match='unsupported device'):
+        stencil.bwd_reverse_steps(z, z, z, z, z, z, z, z, z, z, isz=1,
+                                  igz=1, g0=0, ng=2)
+    with pytest.raises(ValueError, match='unsupported device'):
         stencil.tape_chunk(z, z, z, z, z, z, z, isz=1)
     with pytest.raises(ValueError, match='unsupported device'):
         stencil.bwd_tape_chunk(z, z, z, z, z, z, z, z, isz=1, igz=1, g0=0,
                                ng=2)
+    with pytest.raises(ValueError, match='unsupported device'):
+        stencil.sum_shots(z, z, z)
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -34,6 +34,7 @@ from red_diffeq_tpu_torch.regularization.base import make_reg_fn
 from red_diffeq_tpu_torch.ops.stencil import resolve_run_config
 from red_diffeq_tpu_torch.solvers.acoustic import FWIForward, Geometry
 from red_diffeq_tpu_torch.utils import data_trans as tdt
+from red_diffeq_tpu_torch.utils.seed_utils import SeedContext
 
 CTX = dict(n_grid=16, nt=40, dx=10.0, dt=0.001, nbc=60, f=15.0, sz=10,
            gz=10, ng=16, ns=2)
@@ -195,3 +196,32 @@ def test_reg_dispatch():
                              timesteps=20, device='cpu')
     with pytest.raises(NotImplementedError, match='patched'):
         make_reg_fn('diffusion', diff)(torch.zeros(1, 1, 18, 40))
+
+
+def test_optimize_without_a_generator_draws_anew_and_repeats_under_set_seed():
+    """Without a generator, ``optimize`` takes the next one of the global
+    sequence, as the JAX engine takes ``next_key()``: two calls draw
+    different sigma_x0 and RED noise (different models and RED losses),
+    and ``set_seed`` (here through ``SeedContext``) repeats them."""
+    v_true, mu0 = _problem()
+    op = FWIForward(dict(CTX, nt=20), v_denorm_func=tdt.v_denormalize,
+                    s_norm_func=tdt.s_normalize_none, device='cpu')
+    y = op(tdt.v_normalize(torch.from_numpy(v_true)))
+    torch.manual_seed(0)
+    diff = GaussianDiffusion(Unet(dim=8, dim_mults=(1, 2)), image_size=18,
+                             timesteps=20, device='cpu')
+    engine = inversion.InversionEngine(diff, regularization='diffusion',
+                                       sigma_x0=SIGMA, device='cpu')
+
+    def run():
+        mu, per_model = engine.optimize(mu0, v_true, y, op, ts=1, lr=LR,
+                                        reg_lambda=LAM)
+        return mu, [c['reg_losses'][0] for c in per_model]
+
+    with SeedContext(3):
+        first, second = run(), run()
+    assert not torch.equal(first[0], second[0])
+    assert first[1] != second[1]
+    with SeedContext(3):
+        again = run()
+    assert torch.equal(again[0], first[0]) and again[1] == first[1]

@@ -12,12 +12,15 @@ The tape-free 'reverse' adjoint is held at nbc=60 (``STABLE``), where the
 t2 guard picks it; the taped adjoint at nbc=8 (``HARSH``), where the guard
 picks 'tape' and even the JAX reverse adjoint disagrees with XLA.
 """
+import shutil
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from cuda_host.host_build import build_host_library, use_host_library
 from red_diffeq_tpu.ops import stencil as jstencil
 from red_diffeq_tpu.solvers import acoustic as jacoustic
 from red_diffeq_tpu.utils.data_trans import v_denormalize as jv_denorm
@@ -404,3 +407,155 @@ def test_tape_and_reverse_adjoints_agree():
              for mode in ('tape', 'reverse')}
     assert float(np.abs(grads['tape']).max()) > 0
     assert _max_rel(grads['reverse'], grads['tape']) < 1e-4
+
+
+@pytest.mark.parametrize('n', [1, 3, 8])
+def test_edge_pad_matches_jnp_pad_and_replicate(n):
+    """``edge_pad`` (replicate forward, fixed-order backward) against
+    ``jnp.pad(mode='edge')`` and ``jax.grad`` through it, and against
+    ``F.pad(mode='replicate')``'s own backward: max-rel 1e-6."""
+    rng = np.random.RandomState(n)
+    v = rng.standard_normal((2, 1, 7, 9)).astype(np.float32)
+    w = rng.standard_normal((2, 1, 7 + 2 * n, 9 + 2 * n)).astype(np.float32)
+
+    def jloss(x):
+        return jnp.sum(jnp.pad(x, ((0, 0), (0, 0), (n, n), (n, n)),
+                               mode='edge') * w)
+
+    jpad = np.asarray(jnp.pad(jnp.asarray(v), ((0, 0), (0, 0), (n, n),
+                                              (n, n)), mode='edge'))
+    jgrad = np.asarray(jax.grad(jloss)(jnp.asarray(v)))
+    grads = {}
+    for name, pad in (('edge_pad', lambda x: tacoustic.edge_pad(x, n)),
+                      ('replicate', lambda x: torch.nn.functional.pad(
+                          x, (n, n, n, n), mode='replicate'))):
+        x = torch.from_numpy(v.copy()).requires_grad_(True)
+        out = pad(x)
+        np.testing.assert_array_equal(out.detach().numpy(), jpad)
+        (out * torch.from_numpy(w)).sum().backward()
+        grads[name] = x.grad.numpy()
+    assert _max_rel(grads['edge_pad'], jgrad) < 1e-6
+    assert _max_rel(grads['edge_pad'], grads['replicate']) < 1e-6
+
+
+def test_fwi_forward_pads_with_edge_pad(monkeypatch):
+    """``FWIForward`` pads the velocity through ``edge_pad``, so its
+    backward is the fixed-order one."""
+    calls = []
+
+    def spy(v, n):
+        calls.append(n)
+        return tacoustic.EdgePad.apply(v, n)
+
+    monkeypatch.setattr(tacoustic, 'edge_pad', spy)
+    _torch_op(_ctx(nt=20), 'plain')(torch.from_numpy(_velocity()))
+    assert calls == [STABLE['nbc']]
+
+
+@pytest.mark.parametrize('chunk', [20, 7])
+def test_bwd_reverse_chunk_plain_matches_pallas_at_nbc60(chunk):
+    """``bwd_reverse_chunk`` on CPU tensors (the plain version of
+    ``bwd_reverse_step``, whose coefficient cotangents are summed per shot
+    and then over shots) against ``_run_bwd_reverse`` in interpret mode, at
+    a geometry the guard routes to 'reverse' (nbc=60), for a chunk of 20
+    and an uneven one of 7 (JAX unroll 1): max-rel 1e-5 per output."""
+    geom = jacoustic.Geometry.from_ctx(dict(
+        n_grid=12, nt=chunk, dx=10.0, dt=0.001, nbc=60, f=15.0, sz=10,
+        gz=20, ng=12, ns=2))
+    assert tstencil.resolve_run_config(geom, chunk)[0] == 'reverse'
+    d = _chunk_inputs(seed=8, hp=72, wp=80, chunk=chunk)
+    d['grec'] = np.random.RandomState(9).standard_normal(
+        (2, 2, chunk, geom.ng)).astype(np.float32)
+    J, T = jnp.asarray, torch.from_numpy
+    unroll = jstencil.pick_unroll(chunk)
+    p0o, p1o, _ = jstencil._run_fwd(
+        J(d['p0']), J(d['p1']), J(d['alpha']), J(d['t1']), J(d['t2']),
+        J(d['inj']), J(d['src']), geom=geom, chunk=chunk, unroll=unroll,
+        interpret=True)
+    p0o, p1o = np.array(p0o), np.array(p1o)
+    g0 = geom.igx[0]
+    grec_full = np.zeros((2, 2, chunk, 80), np.float32)
+    grec_full[..., g0:g0 + geom.ng] = d['grec']
+    want = jstencil._run_bwd_reverse(
+        J(p0o), J(p1o), J(d['gp0']), J(d['gp1']), J(grec_full),
+        J(d['alpha']), J(d['t1']), J(d['t2']), J(d['inj']), J(d['src']),
+        geom=geom, chunk=chunk, unroll=unroll, interpret=True)
+    got = tstencil.bwd_reverse_chunk(
+        T(p0o), T(p1o), T(d['gp0']), T(d['gp1']), T(d['grec']),
+        T(d['alpha']), T(d['t1']), T(d['t2']), T(d['inj']), T(d['src']),
+        **_geo(geom))
+    for name, w, o in zip(('gp0', 'gp1', 'galpha', 'gt1', 'gt2', 'ginj'),
+                          want, got):
+        assert tuple(o.shape) == tuple(w.shape), name
+        assert _max_rel(o.numpy(), np.asarray(w)) < 1e-5, name
+
+
+def test_reverse_route_grad_matches_jax_with_an_uneven_last_chunk():
+    """The kernel backend's tape-free route at nbc=60 with nt=50 (chunk
+    20, so the last chunk is 10 steps of source padded with zeros) against
+    JAX's Pallas reverse adjoint in interpret mode: max-rel 1e-4 on the
+    velocity gradient of a masked L1 loss."""
+    ctx = _ctx(nt=50)
+    v = _velocity(seed=4)
+    y = np.asarray(_jax_op(ctx, 'xla')(jnp.asarray(v + 0.05)))
+    mask = np.ones_like(y)
+    mask[:, :, :, 5] = 0.0
+    want = _jax_masked_l1_grad(
+        _jax_op(ctx, 'pallas_interpret', adjoint='reverse'), v, y, mask)
+    got = _masked_l1_grad(_torch_op(ctx, 'kernel'), v, y, mask)
+    assert _max_rel(got, want) < 1e-4
+
+
+def test_sum_shots_plain_adds_in_shot_order():
+    """The shot sum of the adjoint's per-shot cotangents is
+    ((p0 + p1) + p2) + ..., bit for bit, and the wrapper takes it on the
+    CPU."""
+    p = torch.from_numpy(np.random.RandomState(10).standard_normal(
+        (2, 4, 5, 6)).astype(np.float32))
+    want = ((p[:, 0:1] + p[:, 1:2]) + p[:, 2:3]) + p[:, 3:4]
+    got = tstencil.sum_shots_plain(p)
+    assert got.is_contiguous() and torch.equal(got, want)
+    for out in tstencil.sum_shots(p, p * 2, p * 3):
+        assert tuple(out.shape) == (2, 1, 5, 6)
+    assert torch.equal(tstencil.sum_shots_plain(p[:, :1]), p[:, :1])
+
+
+@pytest.fixture(scope='module')
+def host_library(tmp_path_factory):
+    """``stencil.cu`` built for the host with g++ (``tests/cuda_host``), the
+    one place the blocked kernels' windows and steps per launch are
+    compiled in."""
+    gxx = shutil.which('g++')
+    if gxx is None:
+        pytest.skip('g++ is not available to build the kernels for the host')
+    return build_host_library(tstencil._CSRC,
+                              tmp_path_factory.mktemp('cuda_host'), gxx)
+
+
+@pytest.mark.parametrize('kernel', ['fwd_step', 'bwd_reverse_step'])
+def test_pick_blocking_fits_the_halo_in_the_field(kernel, host_library,
+                                                  monkeypatch):
+    """Steps per launch, as the CUDA library computes them: the most
+    compiled in (4) whose two halos of 2U cells fit in the field's shorter
+    side; the tile is the kernel's window less the halos; a field too small
+    for U=1 raises, and the launcher refuses a U that does not fit."""
+    st = use_host_library(monkeypatch, tstencil, host_library)
+    u_max, ty, tx = st.pick_blocking(kernel, 310, 310)
+    assert u_max == 4
+    wy, wx = ty + 4 * u_max, tx + 4 * u_max
+    assert st.pick_blocking(kernel, 150, 150) == (u_max, ty, tx)
+    assert st.pick_blocking(kernel, 9, 40) == (2, wy - 8, wx - 8)
+    assert st.pick_blocking(kernel, 5, 5) == (1, wy - 4, wx - 4)
+    with pytest.raises(ValueError, match='too small'):
+        st.pick_blocking(kernel, 3, 40)
+    with pytest.raises(ValueError, match='not a blocked kernel'):
+        st.pick_blocking('tape_step', 310, 310)
+    lib = st._load()
+    for u in (0, 3, u_max + 1):
+        # (B, ns, H, W) = (1, 1, 9, 40): U=3 needs 12 rows.
+        geo = [1, 1, 9, 40, 0, 0, 0, 1, 4, u, None]
+        if kernel == 'fwd_step':
+            err = lib.rdt_fwd_chunk(*[None] * 12, *geo)
+        else:
+            err = lib.rdt_bwd_reverse_chunk(*[None] * 16, *geo)
+        assert err != 0, u

@@ -13,9 +13,11 @@ from red_diffeq_tpu.core import metrics as jmetrics
 from red_diffeq_tpu.io import synthetic as jsynth
 from red_diffeq_tpu.utils import data_trans as jdt
 from red_diffeq_tpu.utils import diffusion_utils as jdu
+from red_diffeq_tpu.utils import seed_utils as jseed
 from red_diffeq_tpu_torch.core import losses, metrics
 from red_diffeq_tpu_torch.io import synthetic
 from red_diffeq_tpu_torch.utils import data_trans, diffusion_utils, ssim
+from red_diffeq_tpu_torch.utils import seed_utils as tseed
 
 # ``red_diffeq_tpu.utils`` re-exports the function ``ssim`` under the
 # module's name.
@@ -105,3 +107,58 @@ def test_diffusion_pad_crop_extract_match():
         diffusion_utils.extract(torch.from_numpy(a), torch.from_numpy(t),
                                 4).numpy(),
         np.asarray(jdu.extract(jnp.asarray(a), jnp.asarray(t), 4)))
+
+
+def _jax_draw(key):
+    import jax
+    return np.asarray(jax.random.normal(key, (4,)))
+
+
+def _torch_draw(gen):
+    return torch.randn(4, generator=gen).numpy()
+
+
+def _torch_key():
+    return tseed.next_key('cpu')
+
+
+@pytest.mark.parametrize('mod,key,draw',
+                         [(jseed, jseed.next_key, _jax_draw),
+                          (tseed, _torch_key, _torch_draw)],
+                         ids=['jax', 'torch'])
+def test_seed_sequence_behaves_as_in_jax(mod, key, draw):
+    """The port's seed sequence behaves as the JAX package's (the numbers
+    differ): ``next_key`` draws anew on each call, ``set_seed`` repeats the
+    sequence, and ``SeedContext`` restores it on exit. The module's state
+    is restored afterwards."""
+    with mod.SeedContext(0):
+        _seed_sequence_checks(mod, key, draw)
+
+
+def _seed_sequence_checks(mod, key, draw):
+    mod.set_seed(5)
+    a = [draw(key()) for _ in range(3)]
+    assert not np.array_equal(a[0], a[1])
+    mod.set_seed(5)
+    assert all(np.array_equal(x, draw(key())) for x in a[:2])
+    host = np.random.get_state()[1].copy()
+    with mod.SeedContext(9):
+        inner = draw(key())
+        np.random.rand()
+    assert np.array_equal(np.random.get_state()[1], host)
+    assert np.array_equal(draw(key()), a[2])
+    mod.set_seed(9)
+    assert np.array_equal(draw(key()), inner)
+
+
+def test_next_key_places_the_generator_on_the_device(monkeypatch):
+    """``next_key`` puts the generator on the device asked for; with none,
+    on the card, as every entry point of the port, and so it raises
+    without one."""
+    tseed.set_seed(2)
+    gen = tseed.next_key('cpu')
+    assert gen.device.type == 'cpu'
+    assert isinstance(tseed.get_key(), torch.Generator)
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tseed.next_key()

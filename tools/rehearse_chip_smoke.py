@@ -1,0 +1,73 @@
+#!/usr/bin/env python3
+"""Rehearse ``chip_smoke.py`` on the CPU, at a tiny size, before a card run.
+
+Run from the repository root (the shipped prior's path is relative):
+
+    python3 tools/rehearse_chip_smoke.py [BUILD_DIR]
+
+The CUDA source is built with g++ against ``tests/cuda_host/cuda_host.h``
+(each CUDA thread a fiber) into BUILD_DIR (default: a temporary
+directory), and the kernel wrappers are pointed at their launchers, so the
+kernels' own code runs, launch counters included. The card's name, timings,
+occupancy query and ``nvidia-smi`` are stubbed; every check of
+``chip_smoke.py`` runs for real, at a 14x14 model with nbc=60 (tape-free
+route) and nbc=8 (taped route), batch 2, 3 inversion steps. Times printed
+are meaningless. Exits with ``chip_smoke.main()``'s code. About ten minutes.
+"""
+import ctypes
+import shutil
+import sys
+import tempfile
+import types
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / 'tests'))
+
+
+def main():
+    import torch
+    from cuda_host.host_build import build_host_library
+    from red_diffeq_tpu_torch.ops import stencil as S
+    from red_diffeq_tpu_torch.solvers import acoustic as A
+
+    out = Path(sys.argv[1]) if len(sys.argv) > 1 else Path(tempfile.mkdtemp())
+    out.mkdir(parents=True, exist_ok=True)
+    lib = build_host_library(S._CSRC, out, shutil.which('g++') or 'g++')
+    S.build = lambda verbose=False: lib
+    S._lib = None
+    S._stream = lambda device: ctypes.c_void_p(0)
+    S.kernel_info = lambda name: dict(regs=0, local_bytes=0, blocks_per_sm=2)
+    for name in ('fwd_chunk', 'bwd_reverse_steps', 'bwd_reverse_chunk',
+                 'sum_shots', 'tape_chunk', 'bwd_tape_chunk'):
+        setattr(S, name, getattr(S, f'_{name}_kernel'))
+    init = A.FWIForward.__init__
+
+    def kernel_backend(self, *a, **kw):
+        init(self, *a, **kw)
+        if kw.get('backend', 'auto') == 'auto':
+            self.backend = 'kernel'
+
+    A.FWIForward.__init__ = kernel_backend
+    torch.cuda.is_available = lambda: True
+    torch.cuda.synchronize = lambda *a: None
+    torch.cuda.get_device_name = lambda *a: 'CPU rehearsal'
+    torch.cuda.device_count = lambda: 1
+
+    src = (ROOT / 'chip_smoke.py').read_text()
+    src = src.replace("dev = torch.device('cuda')", "dev = torch.device('cpu')")
+    ns = {'__name__': 'chip_smoke_rehearsal'}
+    exec(compile(src, 'chip_smoke.py', 'exec'), ns)
+    ns['HEADLINE'] = dict(n_grid=14, nt=60, dx=10.0, dt=0.001, nbc=60,
+                          f=15.0, sz=10, gz=10, ng=14, ns=5)
+    ns['NARROW'] = dict(ns['HEADLINE'], nbc=8)
+    ns['BATCH'], ns['TS'] = 2, 3
+    ns['cuda_ms'] = lambda fn, reps: (fn(), 0.0)[1]
+    smi = types.SimpleNamespace(stdout='CPU rehearsal, 0 W\n')
+    ns['subprocess'] = types.SimpleNamespace(run=lambda *a, **k: smi)
+    return ns['main']()
+
+
+if __name__ == '__main__':
+    sys.exit(main())
