@@ -21,11 +21,14 @@ Phases, each printing its wall time:
    against their plain versions chunk by chunk over a whole reverse pass
    (max-rel 2e-5 per output, the per-shot sums and their shot sums alike,
    the cotangents gp0/gp1 bit for bit), the steps and the shot sums each
-   timed on their own, one
-   chunk of 7 steps (a short last group for either kernel) of each
-   blocked kernel against its plain version, and the velocity gradient of
-   a masked-L1 observation loss through the kernels against plain eager
-   autograd (max-rel 1e-4);
+   timed on their own (``sum_shots`` and PyTorch's ``torch.sum`` over the
+   shot axis both as device time, the pass's 50 calls captured once in a
+   CUDA graph and replayed, and per call with the host's launch between
+   CUDA events), one chunk of 7 steps (a short last group for each
+   blocked kernel) of the forward and of both adjoint chunk launchers
+   against their plain versions, and the velocity gradient of a masked-L1
+   observation loss through the kernels against plain eager autograd
+   (max-rel 1e-4);
 5. determinism: the velocity gradient at the headline (tape-free
    adjoint) and at nbc=40 (taped adjoint), each computed twice from the
    same inputs, must agree bit for bit; a third run under
@@ -33,8 +36,9 @@ Phases, each printing its wall time:
    any operation PyTorch calls nondeterministic;
 6. the tape kernels at the headline shape, with the taped route forced:
    ``tape_step`` against its plain version on every slot of every chunk's
-   tape of one pass, ``bwd_tape_step`` against its plain version chunk by
-   chunk over a whole reverse pass (max-rel 2e-5 per output), and the
+   tape of one pass, ``bwd_tape_step`` (blocked) and ``sum_shots`` against
+   their plain versions chunk by chunk over a whole reverse pass (max-rel
+   2e-5 per output, gp0/gp1 bit for bit), the steps timed alone, and the
    velocity gradient under ``adjoint='tape'`` against ``'reverse'``
    (max-rel 1e-4; at nbc=120 both adjoints are valid);
 7. a small inversion (16x16 model, dim-8 U-Net) run on the card through
@@ -53,9 +57,9 @@ Phases, each printing its wall time:
 9. the narrow-sponge slice: the headline settings with nbc=40, where the
    guard itself takes the taped adjoint. The velocity gradient through the
    tape kernels against plain eager autograd (max-rel 1e-4), then a few
-   RED-DiffEq steps with the forward kernel's blocked launches, the tape
-   kernels once per FD step, the tape-free adjoint never and the plain
-   path unused.
+   RED-DiffEq steps with the forward kernel's and the taped adjoint's
+   blocked launches, one ``sum_shots`` per chunk, ``tape_step`` once per FD
+   step, the tape-free adjoint never and the plain path unused.
 
 Then one JSON line with each kernel's launches and the steps per launch
 its wrapper handed its launcher (both read in the slice that takes its
@@ -90,7 +94,8 @@ PEAK_FP32_PER_S = 67e12
 # per FD step, one thread per cell) and seconds per headline inversion
 # step, printed beside this run's: chip runs on an NVIDIA H100 80GB HBM3 at
 # 700 W recorded in PERF.md.
-EARLIER_MS = {'fwd_step': 20.680, 'bwd_reverse_step': 86.645}
+EARLIER_MS = {'fwd_step': 20.680, 'bwd_reverse_step': 86.645,
+              'bwd_tape_step': 72.499}
 EARLIER_S_PER_STEP = 0.1240
 
 
@@ -133,6 +138,28 @@ def cuda_ms(fn, reps):
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps):
+    """Mean device milliseconds of ``fn()``: its launches captured once in a
+    CUDA graph, replayed ``reps`` times between CUDA events after one
+    warm-up call and one warm-up replay, so the host's launch rate is not
+    in it."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
@@ -202,10 +229,12 @@ def bounds(p, steps, n_calls):
         # The replay reads the start carry and writes the chunk + 2 slots.
         'tape_step': (4 * n_calls * ((chunk + 4) * field + 3 * coef + row
                                      + chunk), fwd_ops),
-        # The taped adjoint needs tape slots 0 .. chunk (not the chunk-end
-        # state), the two cotangents in and the two out.
+        # The taped adjoint's steps without the shot sums: tape slots
+        # 0 .. chunk (not the chunk-end state), the two cotangents in, the
+        # two out and the per-shot alpha, t1, t2 cotangents (three fields,
+        # not three coefficient maps) out.
         'bwd_tape_step': (
-            4 * n_calls * ((chunk + 5) * field + recs + 6 * coef + row
+            4 * n_calls * ((chunk + 8) * field + recs + 3 * coef + row
                            + chunk),
             steps * (30 * field + b * ns * ng + 2 * row)),
     }
@@ -231,7 +260,9 @@ def phase_kernel_info(shapes):
         tiles = '; '.join(
             f'{hp}x{wp}: U={u}, tile {ty}x{tx}' for hp, wp in shapes
             for u, ty, tx in [stencil.pick_blocking(name, hp, wp)]
-        ) if blocked else 'one thread per cell, one step a launch'
+        ) if blocked else ('four cells a thread, once per chunk'
+                           if name == 'sum_shots' else
+                           'one thread per cell, one step a launch')
         print(f'{name}: {k["regs"]} registers, {k["local_bytes"]} local '
               f'bytes, {k["blocks_per_sm"]} blocks per SM ({tiles})',
               flush=True)
@@ -357,43 +388,51 @@ def reverse_pass(p, fn, chunk_args, compare=None, kernel=None, errs=None,
     return err
 
 
-def time_reverse_pass(p, name, fn, plain_fn, chunk_args, names=GRADS,
-                      timed=None):
-    """Gate kernel ``name`` (wrapper ``fn``, outputs ``names``) against
-    ``plain_fn`` over a whole reverse pass, printing each output's max abs
-    err and keeping the gated pass's launch counts, then time a pass of
-    each of ``timed`` = (kernel's wrapper, its plain version), by default
-    ``fn`` and ``plain_fn``."""
-    from red_diffeq_tpu_torch.ops import stencil
-    errs = {}
-    stencil.reset_launches()
-    err = reverse_pass(p, fn, chunk_args, compare=plain_fn, kernel=name,
-                       errs=errs, names=names)
-    launched = dict(stencil.launches)
-    print(f'{name} vs plain over {len(p["src"])} chunks: max abs err '
-          + ', '.join(f'{k} {v:.3e}' for k, v in errs.items()), flush=True)
-    fn, plain_fn = timed or (fn, plain_fn)
-    ms = cuda_ms(lambda: reverse_pass(p, fn, chunk_args), 5)
-    plain_ms = cuda_ms(lambda: reverse_pass(p, plain_fn, chunk_args), 2)
-    print(f'{name} pass ({len(p["src"]) * CHUNK} steps): kernel {ms:.3f} '
-          f'ms, plain {plain_ms:.3f} ms', flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, errs=errs,
-                launched=launched)
-
-
-# The tape-free adjoint's outputs: its steps' (the alpha, t1, t2
-# cotangents per shot), then their shot sums.
+# An adjoint's outputs: its steps' (the alpha, t1, t2 cotangents per
+# shot), then their shot sums.
 REVERSE_OUT = ('gp0', 'gp1', 'pa', 'pt1', 'pt2', 'ginj', 'galpha', 'gt1',
                'gt2')
 
 
 def reverse_chunk(steps_fn, sum_fn):
-    """The tape-free adjoint of one chunk as ``steps_fn`` and ``sum_fn``
-    over its per-shot sums, returning every output of both."""
+    """An adjoint of one chunk as ``steps_fn`` and ``sum_fn`` over its
+    per-shot sums, returning every output of both."""
     def fn(*args, **geo):
         gp0, gp1, pa, p1, p2, ginj = steps_fn(*args, **geo)
         return (gp0, gp1, pa, p1, p2, ginj, *sum_fn(pa, p1, p2))
     return fn
+
+
+def adjoint_pass(p, name, steps_fn, steps_plain, chunk_args):
+    """Gate adjoint kernel ``name`` (steps wrapper ``steps_fn``) and
+    ``sum_shots`` against their plain versions over a whole reverse pass:
+    every output max-rel 2e-5, gp0 and gp1 bit for bit, each output's max
+    abs err printed. Then time a pass of the steps alone and of their plain
+    version. Returns the times and the steps' largest abs error."""
+    from red_diffeq_tpu_torch.ops import stencil
+    errs = {}
+    stencil.reset_launches()
+    reverse_pass(
+        p, reverse_chunk(steps_fn, stencil.sum_shots), chunk_args,
+        compare=reverse_chunk(
+            steps_plain, lambda *q: [stencil.sum_shots_plain(t) for t in q]),
+        kernel=name, errs=errs, names=REVERSE_OUT)
+    n_chunks = len(p['src'])
+    print(f'{name} vs plain over {n_chunks} chunks: max abs err '
+          + ', '.join(f'{k} {v:.3e}' for k, v in errs.items())
+          + f"; U={stencil.last_unroll[name]}, "
+          f"{stencil.launches[name] / n_chunks:g} launches per chunk",
+          flush=True)
+    for out in ('gp0', 'gp1'):
+        check(errs[out] == 0.0, f'{name} {out} differs from its plain '
+              f'version by {errs[out]:.3e}')
+    ms = cuda_ms(lambda: reverse_pass(p, steps_fn, chunk_args), 5)
+    plain_ms = cuda_ms(lambda: reverse_pass(p, steps_plain, chunk_args), 2)
+    print(f'{name} pass ({n_chunks * CHUNK} steps), steps alone: kernel '
+          f'{ms:.3f} ms (one launch per step, shot sums in the kernel: '
+          f'{EARLIER_MS[name]:.3f} ms), plain {plain_ms:.3f} ms', flush=True)
+    return dict(max_abs_err=max(errs[k] for k in REVERSE_OUT[:6]), ms=ms,
+                plain_ms=plain_ms)
 
 
 def phase_adjoint(p, carries, grad_problem):
@@ -402,26 +441,11 @@ def phase_adjoint(p, carries, grad_problem):
 
     grecs = random_grecs(p)
     coef = (p['alpha'], p['t1'], p['t2'], p['inj'])
-    # Gated: the steps and the shot sums, every output of each; timed:
-    # the steps alone (``sum_shots`` is timed on its own below).
-    res = time_reverse_pass(
-        p, 'bwd_reverse_step',
-        reverse_chunk(stencil.bwd_reverse_steps, stencil.sum_shots),
-        reverse_chunk(stencil.bwd_reverse_steps_plain,
-                      lambda *q: [stencil.sum_shots_plain(t) for t in q]),
+    res = adjoint_pass(
+        p, 'bwd_reverse_step', stencil.bwd_reverse_steps,
+        stencil.bwd_reverse_steps_plain,
         lambda i, gp0, gp1: (*carries[i + 1], gp0, gp1, grecs[i], *coef,
-                             p['src'][i]),
-        names=REVERSE_OUT, timed=(stencil.bwd_reverse_steps,
-                                  stencil.bwd_reverse_steps_plain))
-    res['max_abs_err'] = max(res['errs'][k] for k in REVERSE_OUT[:6])
-    n_chunks, launched = len(p['src']), res['launched']
-    print(f"bwd_reverse_step: U={stencil.last_unroll['bwd_reverse_step']}, "
-          f"{launched['bwd_reverse_step'] / n_chunks:g} launches and "
-          f"{launched['sum_shots'] / n_chunks:g} sum_shots per chunk",
-          flush=True)
-    for name in ('gp0', 'gp1'):
-        check(res['errs'][name] == 0.0, f'bwd_reverse_step {name} differs '
-              f'from its plain version by {res["errs"][name]:.3e}')
+                             p['src'][i]))
     # The shot sums alone, on per-shot partials of the main path's shape.
     gen = torch.Generator(device=p['alpha'].device).manual_seed(5)
     parts = [[torch.randn(p['shape'], generator=gen,
@@ -432,20 +456,33 @@ def phase_adjoint(p, carries, grad_problem):
                             [stencil.sum_shots_plain(t) for t in q],
                             f'partials {i}')
               for i, q in enumerate(parts))
-    ms = cuda_ms(lambda: [stencil.sum_shots(*q) for q in parts], 5)
+    # Device time: a pass's calls captured in a CUDA graph and replayed;
+    # per call: each call launched from the host between CUDA events.
+    # PyTorch's own reduction over the shot axis, one call per partial sum,
+    # is the yardstick both ways.
+    def kernel_pass():
+        return [stencil.sum_shots(*q) for q in parts]
+
+    def library_pass():
+        return [[t.sum(dim=1, keepdim=True) for t in q] for q in parts]
+
+    ms, library_ms = graph_ms(kernel_pass, 20), graph_ms(library_pass, 20)
+    host_ms = cuda_ms(kernel_pass, 5)
+    library_host_ms = cuda_ms(library_pass, 5)
     plain_ms = cuda_ms(lambda: [[stencil.sum_shots_plain(t) for t in q]
                                 for q in parts], 2)
-    # PyTorch's own reduction over the shot axis, one call per partial sum.
-    library_ms = cuda_ms(lambda: [[t.sum(dim=1, keepdim=True) for t in q]
-                                  for q in parts], 5)
     print(f'sum_shots vs plain, {len(parts)} calls: max abs err {err:.3e}; '
-          f'kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, torch.sum '
-          f'{library_ms:.3f} ms per pass', flush=True)
+          f'device time (CUDA graph) kernel {ms:.3f} ms, torch.sum '
+          f'{library_ms:.3f} ms per pass; per call with the host\'s launch: '
+          f'kernel {host_ms:.3f} ms, torch.sum {library_host_ms:.3f} ms, '
+          f'plain {plain_ms:.3f} ms per pass', flush=True)
     print(f"tape-free adjoint pass, bwd_reverse_step + sum_shots: "
           f"{res['ms'] + ms:.3f} ms (one launch per step, shot sums in the "
           f"kernel: {EARLIER_MS['bwd_reverse_step']:.3f} ms)", flush=True)
     res['sum_shots'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            library_ms=library_ms)
+                            library_ms=library_ms,
+                            ms_per_call_with_host=host_ms,
+                            library_ms_per_call_with_host=library_host_ms)
     del parts
     phase_short_chunk(p, carries, grecs[0])
     # Velocity gradient of a masked-L1 observation loss: kernels vs plain
@@ -458,7 +495,9 @@ def phase_adjoint(p, carries, grad_problem):
 def phase_short_chunk(p, carries, grec, steps=7):
     """One chunk of ``steps`` FD steps (U does not divide it, so the last
     group of each blocked kernel is short) from a mid-pass carry: the
-    forward and the tape-free adjoint against their plain versions."""
+    forward, the tape-free adjoint and the taped adjoint (on the plain
+    replay's tape), each adjoint through its chunk launcher with its
+    ``sum_shots`` launch, against their plain versions."""
     from red_diffeq_tpu_torch.ops import stencil
 
     coef = (p['alpha'], p['t1'], p['t2'], p['inj'])
@@ -474,8 +513,17 @@ def phase_short_chunk(p, carries, grec, steps=7):
                         stencil.bwd_reverse_chunk(*args, **p['geo']),
                         stencil.bwd_reverse_chunk_plain(*args, **p['geo']),
                         f'{steps}-step chunk')
+    tape = stencil.tape_chunk_plain(*carries[i], *coef, src,
+                                    isz=p['geo']['isz'])
+    args = (tape, *carries[i + 1], grec[:, :, :steps].contiguous(),
+            *coef[:3], src)
+    e_t = check_outputs('bwd_tape_step', GRADS,
+                        stencil.bwd_tape_chunk(*args, **p['geo']),
+                        stencil.bwd_tape_chunk_plain(*args, **p['geo']),
+                        f'{steps}-step chunk')
     print(f'{steps}-step chunk (short last group) vs plain: fwd_step max abs '
-          f'err {e_f:.3e}, bwd_reverse_step {e_b:.3e}', flush=True)
+          f'err {e_f:.3e}, bwd_reverse_step {e_b:.3e}, bwd_tape_step '
+          f'{e_t:.3e}', flush=True)
 
 
 def phase_determinism(problems):
@@ -555,9 +603,9 @@ def phase_tape(p, carries, grad_problem):
           f'plain {tape_plain_ms:.3f} ms', flush=True)
 
     grecs = random_grecs(p)
-    bwd = time_reverse_pass(
-        p, 'bwd_tape_step', stencil.bwd_tape_chunk,
-        stencil.bwd_tape_chunk_plain,
+    bwd = adjoint_pass(
+        p, 'bwd_tape_step', stencil.bwd_tape_steps,
+        stencil.bwd_tape_steps_plain,
         lambda i, gp0, gp1: (tapes[i], gp0, gp1, grecs[i], *coef[:3],
                              p['src'][i]))
     del tapes
@@ -688,11 +736,13 @@ def slice_problem(dev, ctx):
 
 def phase_slice(dev, diffusion, ctx, problem, route, adjoint=None):
     """``TS`` RED-DiffEq steps of ``InversionEngine.optimize`` at ``ctx``
-    after a one-step warm-up. Checks that the solver took ``route``, that
-    the forward kernel and that route's two kernels (the tape-free adjoint,
-    or the tape replay and the taped adjoint) each launched once per FD
-    step, the other route's kernels never, the plain path never, and that
-    every sample's observation loss fell. Returns (launches, s/step)."""
+    after a one-step warm-up. Checks that the solver took ``route``; that
+    the blocked kernels of the route (the forward and the tape-free or the
+    taped adjoint) launched ceil(chunk/U) times per chunk, ``sum_shots``
+    once per chunk and, on the taped route, ``tape_step`` once per FD step;
+    the other route's kernels never, the plain path never; and that every
+    sample's observation loss fell. Returns (launches, s/step, the U each
+    wrapper last handed its launcher)."""
     import torch
     from red_diffeq_tpu_torch.core.inversion import InversionEngine
     from red_diffeq_tpu_torch.ops import stencil
@@ -742,11 +792,12 @@ def phase_slice(dev, diffusion, ctx, problem, route, adjoint=None):
 
     want = dict.fromkeys(counts, 0)
     want['fwd_step'] = chunks * per_chunk('fwd_step')
+    want['sum_shots'] = chunks
     if route == 'reverse':
         want['bwd_reverse_step'] = chunks * per_chunk('bwd_reverse_step')
-        want['sum_shots'] = chunks
     else:
-        want['tape_step'] = want['bwd_tape_step'] = chunks * CHUNK
+        want['tape_step'] = chunks * CHUNK
+        want['bwd_tape_step'] = chunks * per_chunk('bwd_tape_step')
     print(f'nbc={ctx["nbc"]}, adjoint {route!r}: launches {counts}, plain '
           f'chunks {plain_calls}', flush=True)
     for name in counts:
@@ -853,8 +904,9 @@ def main():
     bnd = bounds(p, steps, n_chunks)
     kernels = []
     # Each kernel's launches, and the steps per launch its wrapper handed
-    # the launcher, come from the slice that takes its route; one
-    # inversion step is one pass of each of that route's kernels.
+    # the launcher, come from the slice that takes its route (sum_shots:
+    # the headline's); one inversion step is one pass of each of that
+    # route's kernels.
     for name, res, line, launched, unroll in (
             ('fwd_step', fwd, 150, counts, unrolls),
             ('bwd_reverse_step', bwd, 352, counts, unrolls),
@@ -873,6 +925,13 @@ def main():
             bound_ms=bnd[name]['bound_ms'], bound_by=bnd[name]['bound_by'],
             library_ms=res.get('library_ms'), unroll=unroll[name],
             launches_per_pass=launched[name] // TS))
+    # sum_shots runs on both routes: its launches on the taped one too, and
+    # its times per call with the host's launch beside its device time.
+    kernels[2].update(
+        launches_taped_route=narrow_counts['sum_shots'],
+        ms_per_call_with_host=bwd['sum_shots']['ms_per_call_with_host'],
+        library_ms_per_call_with_host=bwd['sum_shots'][
+            'library_ms_per_call_with_host'])
     print(f'fwd_step at nbc={NARROW["nbc"]} ({hn}x{hn}): '
           f'{fwd_narrow["ms"]:.3f} ms per pass, max abs err '
           f'{fwd_narrow["max_abs_err"]:.3e}', flush=True)

@@ -5,12 +5,13 @@
 //
 // fwd_step replaces _fwd_kernel (red_diffeq_tpu/ops/stencil.py:150-231,
 // launched by _run_fwd at :510). bwd_reverse_step replaces
-// _bwd_reverse_kernel (:352-443, launched by _run_bwd_reverse at :632);
-// sum_shots does its cross-shot sum of the coefficient cotangents (the
-// shot-shared coefficient block the JAX kernel adds into, :435-437).
+// _bwd_reverse_kernel (:352-443, launched by _run_bwd_reverse at :632).
 // tape_step replaces _tape_kernel (:233-268, launched by _run_tape at :550)
 // and bwd_tape_step replaces _bwd_kernel (:271-349, launched by _run_bwd at
-// :582); the JAX package takes that pair when its t2 guard trips.
+// :582); the JAX package takes that pair when its t2 guard trips. sum_shots
+// does both adjoints' cross-shot sum of the coefficient cotangents (the
+// shot-shared coefficient blocks the JAX kernels add into, :341-343 and
+// :435-437).
 //
 // Recursion, per (sample b, shot s) field of Hp x Wp cells:
 //   s_m = t1*s_{m-1} - t2*s_{m-2} + alpha*L(s_{m-1}),  then row isz += inj*src[k]
@@ -20,40 +21,41 @@
 // step the forward and the tape replay do 14 fp32 operations, the tape-free
 // adjoint 35 and the taped adjoint 30. Counting each chunk call's inputs and
 // outputs once, one 1000-step pass at the headline (B=4, ns=5, 310x310,
-// chunk 20) is bound at 0.53 ms by bytes (forward), 1.01 ms by operations
-// (tape-free adjoint) and about 2.8 ms by bytes for each of the taped pair;
-// chip_smoke.py computes them all.
+// chunk 20) is bound by bytes for the forward (0.53 ms), the tape replay
+// and both adjoints' steps (which write per-shot sums), by operations for
+// the tape-free adjoint's whole chunk; chip_smoke.py computes them all.
 //
-// fwd_step and bwd_reverse_step are temporally blocked: one launch takes U
-// steps (U = 4 at the headline, rdt_blocking below) of one tile of
-// one (sample, shot) field. A 310x310 fp32 field is 384 KB, above the 227 KB
-// of shared memory a block may have, so the TPU's whole-field-resident
-// program becomes tiles with a halo of 2U cells (see "Temporal blocking"
-// below). Their cost is the window's traffic through L2 each launch (a
-// 64x64 window for a 48x48 forward tile, 32x64 for a 16x48 adjoint tile)
-// and the steps' shared-memory and fp32 work on the shrinking halo, not the
-// launch rate: one launch per U steps, state in registers and shared
-// memory between the steps. The adjoint gives each (b, s, cell) to one
-// thread and keeps this shot's alpha/t1/t2 cotangents in per-shot running
-// sums (B, ns, Hp, Wp); sum_shots adds them over shots in shot order once
-// per chunk. No floating-point atomics anywhere: every sum has one fixed
+// fwd_step, bwd_reverse_step and bwd_tape_step are temporally blocked: one
+// launch takes U steps (U = 4 at the headline, rdt_blocking below) of one
+// tile of one (sample, shot) field. A 310x310 fp32 field is 384 KB, above
+// the 227 KB of shared memory a block may have, so the TPU's
+// whole-field-resident program becomes tiles with a halo of 2U cells (see
+// "Temporal blocking" below). Their cost is the window's traffic through L2
+// each launch (a 64x64 window for a 48x48 forward tile, 32x64 for a 16x48
+// adjoint tile) and the steps' shared-memory and fp32 work on the shrinking
+// halo, not the launch rate: one launch per U steps, state in registers and
+// shared memory between the steps. The adjoints give each (b, s, cell) to
+// one thread and keep this shot's alpha/t1/t2 cotangents in per-shot
+// running sums (B, ns, Hp, Wp); sum_shots adds them over shots in shot
+// order once per chunk, launched by the chunk's launcher after its last
+// group. No floating-point atomics anywhere: every sum has one fixed
 // order, so results repeat bit for bit. Build with -fmad=false: every
 // multiply and add rounds as in the plain PyTorch version (same grouping
 // as ops/stencil.py), which the rebuild's divide by t2 (error growth up to
 // (1/t2)^chunk) needs; halo cells repeat their owner's operations, so the
 // blocked kernels equal their plain versions bit for bit.
 //
-// The taped pair is one launch per time step, one thread per cell. It does
-// not keep the TPU's haloed tape blocks (U+2 states per grid iteration, so
-// that one VMEM block serves one iteration): its tape is flat, chunk+2
-// states of (B, ns, Hp, Wp) with slot i = s_{i-1}, so slots 0 and 1 are the
-// chunk-start carry. tape_step reads slots m and m-1 and writes slot m+1;
+// The taped pair does not keep the TPU's haloed tape blocks (U+2 states
+// per grid iteration, so that one VMEM block serves one iteration): its
+// tape is flat, chunk+2 states of (B, ns, Hp, Wp) with slot i = s_{i-1}, so
+// slots 0 and 1 are the chunk-start carry. tape_step is one launch per time
+// step, one thread per cell: it reads slots m and m-1 and writes slot m+1.
 // bwd_tape_step reads s_{m-1} and s_{m-2} from slots m and m-1 where
-// bwd_reverse_step rebuilds s_{m-2}, and never divides by t2. Its threads
-// each take one (b, y, x) and loop over the shots, so its coefficient
-// cotangents are summed step by step, shots in order. The tape lives only
-// during one chunk's backward, as in the JAX custom VJP; at the headline it
-// is above the L2, so the taped pair streams from HBM.
+// bwd_reverse_step rebuilds s_{m-2}, and never divides by t2; it reads the
+// tape only at its tile and 2 cells around it, each slot once a launch.
+// The tape lives only during one chunk's backward, as in the JAX custom
+// VJP; at the headline it is above the L2, so the taped pair streams from
+// HBM.
 
 #include <cuda_runtime.h>
 
@@ -657,84 +659,382 @@ __global__ void __launch_bounds__(BwdL::THREADS, 2) bwd_reverse_step(
   }
 }
 
-// The shot sum of the adjoint's coefficient cotangents, once per chunk:
-// galpha[b] = ((pa[b, 0] + pa[b, 1]) + ...) + pa[b, ns-1], likewise gt1 and
-// gt2, one thread per (b, y, x), in one fixed order and with no atomics.
-__global__ void sum_shots(const float* __restrict__ pa,
-                          const float* __restrict__ p1,
-                          const float* __restrict__ p2,
-                          float* __restrict__ galpha, float* __restrict__ gt1,
-                          float* __restrict__ gt2, int B, int ns, int hw) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= B * hw) return;
-  const size_t o = (size_t)(idx / hw) * ns * hw + idx % hw;
-  float sa = pa[o], s1 = p1[o], s2 = p2[o];
-  for (int s = 1; s < ns; ++s) {
-    sa = sa + pa[o + (size_t)s * hw];
-    s1 = s1 + p1[o + (size_t)s * hw];
-    s2 = s2 + p2[o + (size_t)s * hw];
-  }
-  galpha[idx] = sa;
-  gt1[idx] = s1;
-  gt2[idx] = s2;
+// The shot sum of the adjoint's per-shot coefficient cotangents, once per
+// chunk: galpha[b] = ((pa[b, 0] + pa[b, 1]) + ...) + pa[b, ns-1], likewise
+// gt1 and gt2, in one fixed order and with no atomics. One thread takes 4
+// consecutive cells of one sample's plane and issues the loads of up to
+// MAXNS shots of all three inputs before it adds them (16-byte loads when
+// every plane starts 16-byte aligned, hw % 4 == 0; else, and at a plane's
+// ragged end, one cell at a time). It reads 3 (B, ns) and writes 3 (B, 1)
+// planes: bound by bytes.
+constexpr int kSumThreads = 128;
+
+__device__ __forceinline__ float4 add4(const float4& a, const float4& b) {
+  float4 r;
+  r.x = a.x + b.x; r.y = a.y + b.y; r.z = a.z + b.z; r.w = a.w + b.w;
+  return r;
 }
 
-// One reversed step m (k = m - 1) of the taped adjoint, one thread per
-// (b, y, x) looping over the shots: bwd_reverse_step with s_{m-2} read from
-// the tape instead of rebuilt.
-//   u_in, v_in: cotangents of s_{m-1}, s_m (v before the receiver injection)
-//   u_out, v_out: cotangents of s_{m-2}, s_{m-1}
-//   s_m1, s_m2: tape slots m and m-1, holding s_{m-1} and s_{m-2}
-__global__ void bwd_tape_step(
+// acc = x at shot 0, acc + x at every later shot: the sum in shot order.
+__device__ __forceinline__ void shot_add(float& acc, float x, int shot) {
+  acc = shot == 0 ? x : acc + x;
+}
+
+__device__ __forceinline__ void shot_add(float4& acc, const float4& x,
+                                         int shot) {
+  acc = shot == 0 ? x : add4(acc, x);
+}
+
+// Shots s0 .. s0+MAXNS-1 (those below ns) of the three inputs at offset o,
+// loaded first, then added to acc in shot order.
+template <int MAXNS, class T>
+__device__ __forceinline__ void sum_batch(const float* const (&in)[3],
+                                          T (&acc)[3], size_t o, int s0,
+                                          int ns, int hw) {
+  T x[3][MAXNS];
+#pragma unroll
+  for (int s = 0; s < MAXNS; ++s) {
+    if (s0 + s >= ns) break;
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      x[a][s] = *reinterpret_cast<const T*>(in[a] + o +
+                                            (size_t)(s0 + s) * hw);
+  }
+#pragma unroll
+  for (int s = 0; s < MAXNS; ++s) {
+    if (s0 + s >= ns) break;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) shot_add(acc[a], x[a][s], s0 + s);
+  }
+}
+
+template <int MAXNS>
+__global__ void __launch_bounds__(kSumThreads) sum_shots(
+    const float* __restrict__ pa, const float* __restrict__ p1,
+    const float* __restrict__ p2, float* __restrict__ galpha,
+    float* __restrict__ gt1, float* __restrict__ gt2, int B, int ns,
+    int hw) {
+  const int per = (hw + 3) / 4;         // groups of 4 cells per plane
+  const int q = blockIdx.x * kSumThreads + threadIdx.x;
+  if (q >= B * per) return;
+  const int b = q / per, c = 4 * (q - b * per);
+  const float* const in[3] = {pa, p1, p2};
+  float* const out[3] = {galpha, gt1, gt2};
+  const size_t o = (size_t)b * ns * hw + c, r = (size_t)b * hw + c;
+  if (hw % 4 == 0) {
+    float4 acc[3];
+    for (int s0 = 0; s0 < ns; s0 += MAXNS)
+      sum_batch<MAXNS>(in, acc, o, s0, ns, hw);
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      *reinterpret_cast<float4*>(out[a] + r) = acc[a];
+    return;
+  }
+  const int cells = hw - c < 4 ? hw - c : 4;
+  for (int e = 0; e < cells; ++e) {
+    float acc[3];
+    for (int s0 = 0; s0 < ns; s0 += MAXNS)
+      sum_batch<MAXNS>(in, acc, o + e, s0, ns, hw);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) out[a][r + e] = acc[a];
+  }
+}
+
+// Launch sum_shots on stream st, its loads unrolled over the shot count
+// (in batches of 8 beyond 8 shots). Returns the launch error, 0 if none.
+inline int launch_sum_shots(const float* pa, const float* p1, const float* p2,
+                            float* galpha, float* gt1, float* gt2, int B,
+                            int ns, int hw, cudaStream_t st) {
+  const long long groups = (long long)B * ((hw + 3) / 4);
+  const unsigned grid = (unsigned)((groups + kSumThreads - 1) / kSumThreads);
+#define RDT_SUM_SHOTS(N)                                                   \
+  sum_shots<N><<<grid, kSumThreads, 0, st>>>(pa, p1, p2, galpha, gt1, gt2, \
+                                             B, ns, hw)
+  switch (ns) {
+    case 1: RDT_SUM_SHOTS(1); break;
+    case 2: RDT_SUM_SHOTS(2); break;
+    case 3: RDT_SUM_SHOTS(3); break;
+    case 4: RDT_SUM_SHOTS(4); break;
+    case 5: RDT_SUM_SHOTS(5); break;
+    case 6: RDT_SUM_SHOTS(6); break;
+    case 7: RDT_SUM_SHOTS(7); break;
+    default: RDT_SUM_SHOTS(8); break;
+  }
+#undef RDT_SUM_SHOTS
+  return (int)cudaGetLastError();
+}
+
+// The tape's cells that one block of bwd_tape_step reads: the tile, cut to
+// the field, and 2 cells around it (where L(s_{m-1}) is taken for the
+// tile's sums); never the window's 2U-cell halo, which only the cotangent
+// needs. Each thread's share of them, in coalesced order, is worked out
+// once a launch (window and field offsets, the same for every slot), so a
+// slot's copy is N cp.async a thread and nothing else.
+template <class L>
+struct TapeCopy {
+  static constexpr int N = (L::LY * L::LX + L::THREADS - 1) / L::THREADS;
+  int win[N], fld[N], n = 0;
+  __device__ TapeCopy(const Cells<L>& m, const int* gyv, const int* gxv,
+                      int H, int W) {
+    const int ry = (m.ty < H - m.y0 ? m.ty : H - m.y0) + 4;
+    const int rx = (m.tx < W - m.x0 ? m.tx : W - m.x0) + 4;
+    const int tid = threadIdx.y * L::NTX + threadIdx.x;
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+      const int i = tid + r * L::THREADS;
+      if (i >= ry * rx) break;
+      const int y = m.h - 2 + i / rx, x = m.h - 2 + i % rx;
+      win[r] = L::at(y, x);
+      fld[r] = gyv[y] * W + gxv[x];
+      n = r + 1;
+    }
+  }
+  // This thread's cells of one slot (of this field) into window buffer buf.
+  __device__ void load(float* buf, const float* slot) const {
+#pragma unroll
+    for (int r = 0; r < N; ++r)
+      if (r < n) {
+        copy_async(&buf[win[r]], slot + fld[r]);
+      }
+  }
+};
+
+// The tape adjoint's share of the tile's cells for its sums: U steps a
+// launch (compile-time) give a TY x TX tile; thread t takes the cells
+// t, t + THREADS, ... of the tile in row-major order (K at most), so every
+// warp takes its part and a warp's cells lie side by side.
+template <class L, int U>
+struct TileShare {
+  static constexpr int TY = L::LY - 4 * U, TX = L::LX - 4 * U;
+  static constexpr int K = (TY * TX + L::THREADS - 1) / L::THREADS;
+  static __device__ int row(int tid, int e) { return (tid + e * L::THREADS) / TX; }
+  static __device__ int col(int tid, int e) { return (tid + e * L::THREADS) % TX; }
+  // Cell e's offset in a window, recomputed where needed.
+  static __device__ int at(int tid, int e) {
+    return L::at(2 * U + row(tid, e), 2 * U + col(tid, e));
+  }
+};
+
+// Reversed steps k_hi down to k_hi-n+1 (n <= U) of the taped adjoint, one
+// block per (tile, sample*shot), in the adjoint's blocking (BwdL; a 16x48
+// tile at U=4): bwd_reverse_step with s_{m-1} and s_{m-2} read from the
+// tape instead of rebuilt, and no divide by t2.
+//   u_in, v_in: cotangents of s_{m-1}, s_m (m = k_hi + 1; v before the
+//     receiver injection); u_out, v_out: those of the group's last step.
+//   tape: chunk + 2 slots of `slot` cells, slot i = s_{i-1}; step k reads
+//     s_{m-1} and s_{m-2} from slots k+1 and k.
+//   pa, p1, p2: this shot's running alpha, t1 and t2 cotangents
+//     (B, ns, H, W), added to in step order; ginj: (B, ns, 1, W).
+// Each step has two parts between one barrier and the next:
+//   the sums, at the tile's cells (TileShare: K cells a thread, every
+//     thread): galpha += v*L(s_{m-1}), gt1 += v*s_{m-1}, gt2 -= v*s_{m-2},
+//     and on the source row ginj += v*src[k]; the running sums stay in
+//     registers for the launch;
+//   the cotangent, at every live cell (an MY x MX micro-tile a thread, in
+//     registers): v' = u + t1*v + L(alpha*v), u' = -t2*v, the next step's
+//     receiver cotangent added to v'; alpha*v' and v' go to the next shared
+//     windows (alpha*v for the neighbours' Laplacian, v for the sums).
+// The tape is read only at the tile and 2 cells around it: slot k, loaded
+// at step k+1 as s_{m-1}, is step k's s_{m-2}, so a group of n steps loads
+// n+1 slots, each once, into three buffers used in turn; the next slot's
+// copy (cp.async) is issued before a step's arithmetic and waited for at
+// its barrier.
+//
+// It replaces _bwd_kernel (red_diffeq_tpu/ops/stencil.py:271-349, launched
+// by _run_bwd at :582), which keeps a whole (b, s) field and U+2 haloed tape
+// states in VMEM and carries the cotangents through its grid. At one launch
+// per step the per-step traffic (u, v, two tape slots in, u, v out) and the
+// launch rate bound it; blocked, one launch per U steps moves u, v, alpha,
+// t1, t2 and the per-shot sums once, and the tape's n+1 slots at the tile
+// plus 2 cells (1.35x the tile's cells at 16x48). What is left bounds it:
+// the window load through L2 and the steps' shared-memory latency at two
+// blocks per SM; the sums' share of a step is spread over every warp.
+// At U=1 (a field under 8 cells a side) each thread keeps 7 cells' sums;
+// one block per SM lets those fit in registers.
+template <int U>
+__global__ void __launch_bounds__(BwdL::THREADS, U > 1 ? 2 : 1) bwd_tape_step(
     const float* __restrict__ u_in, const float* __restrict__ v_in,
     float* __restrict__ u_out, float* __restrict__ v_out,
-    const float* __restrict__ s_m1, const float* __restrict__ s_m2,
-    const float* __restrict__ grec, const float* __restrict__ alpha,
-    const float* __restrict__ t1, const float* __restrict__ t2,
-    const float* __restrict__ src, int k, float* __restrict__ galpha,
-    float* __restrict__ gt1, float* __restrict__ gt2,
-    float* __restrict__ ginj, int B, int ns, int H, int W, int isz, int igz,
-    int g0, int ng, int chunk) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  const int hw = H * W;
-  if (idx >= B * hw) return;
-  const int x = idx % W;
-  const int y = (idx / W) % H;
-  const int b = idx / hw;
-  const int cy = y * W + x;
-  const float* al = alpha + (size_t)b * hw;
-  const float tt1 = t1[idx];
-  const float tt2 = t2[idx];
-  const float srck = src[k];
-  const Nbr n = neighbours(y, x, H, W);
-  float ga = galpha[idx], g1 = gt1[idx], g2 = gt2[idx];
-  for (int s = 0; s < ns; ++s) {
-    const int bs = b * ns + s;
-    const size_t f = (size_t)bs * hw;
-    const float* vf = v_in + f;
-    const float* sf = s_m1 + f;
-    const float* gr = grec + ((size_t)bs * chunk + k) * ng;
-    // v after the receiver injection, at any cell.
-    const auto vv_at = [&](int yy, int xx) {
-      float val = vf[yy * W + xx];
-      if (yy == igz && xx >= g0 && xx < g0 + ng) val = val + gr[xx - g0];
-      return val;
-    };
-    const auto s_at = [&](int yy, int xx) { return sf[yy * W + xx]; };
-    const auto w_at = [&](int yy, int xx) { return al[yy * W + xx] * vv_at(yy, xx); };
-    const float vv = vv_at(y, x);
-    const float sm1 = sf[cy];
-    const float lap_s = lap4(s_at, n, y, x);
-    if (y == isz) ginj[bs * W + x] = ginj[bs * W + x] + vv * srck;
-    ga = ga + vv * lap_s;
-    g1 = g1 + vv * sm1;
-    g2 = g2 - vv * s_m2[f + cy];
-    v_out[f + cy] = (u_in[f + cy] + tt1 * vv) + lap4(w_at, n, y, x);
-    u_out[f + cy] = -tt2 * vv;
+    const float* __restrict__ tape, float* __restrict__ pa,
+    float* __restrict__ p1, float* __restrict__ p2,
+    float* __restrict__ ginj, const float* __restrict__ grec,
+    const float* __restrict__ alpha, const float* __restrict__ t1,
+    const float* __restrict__ t2, const float* __restrict__ src, int k_hi,
+    int n, int ns, int H, int W, int isz, int igz, int g0, int ng, int chunk,
+    long long slot) {
+  using L = BwdL;
+  using T = TileShare<L, U>;
+  constexpr int MX = L::MX, MY = L::MY, K = T::K;
+  extern __shared__ float smem[];
+  // Window offsets in smem: alpha*v and v each in turn, the tape buffers in
+  // turn (s_{m-1}, s_{m-2}, the next slot's copy), alpha, t1, t2.
+  int wc = 0, wn = L::SIZE, vc = 2 * L::SIZE, vn = 3 * L::SIZE;
+  int tc = 4 * L::SIZE, tp = 5 * L::SIZE, tq = 6 * L::SIZE;
+  constexpr int WA = 7 * L::SIZE, W1 = 8 * L::SIZE, W2 = 9 * L::SIZE;
+  Cells<L> m(U);
+  const int bs = blockIdx.z;
+  const size_t f = (size_t)bs * H * W;
+  const size_t cb = (size_t)(bs / ns) * H * W;
+  const float* gr = grec + (size_t)bs * chunk * ng;
+  const float* tf = tape + f;
+  float* ginjr = ginj + (size_t)bs * W;
+  int* gyv = reinterpret_cast<int*>(smem + 10 * L::SIZE);
+  int* gxv = gyv + L::LY;
+  window_index<L>(gyv, gxv, m.y0 - m.h, m.x0 - m.h, H, W);
+  zero_pads<L>(smem, 2);
+  __syncthreads();
+  m.classify(gyv, gxv, H, W, isz, igz, g0, ng);
+  const int tid = threadIdx.y * L::NTX + threadIdx.x;
+  // This thread's tile cells: which lie in the field and which on the
+  // source row; their running sums, read here, written at the end.
+  unsigned mine = 0, on_src = 0;
+  float qa[K], q1[K], q2[K];
+#pragma unroll
+  for (int e = 0; e < K; ++e) {
+    const int r = T::row(tid, e), x = T::col(tid, e);
+    if (r < T::TY && m.y0 + r < H && m.x0 + x < W) {
+      mine |= 1u << e;
+      on_src |= (unsigned)(gyv[m.h + r] == isz) << e;
+      const size_t g = f + (size_t)gyv[m.h + r] * W + gxv[m.h + x];
+      qa[e] = pa[g];
+      q1[e] = p1[g];
+      q2[e] = p2[g];
+    }
   }
-  galpha[idx] = ga;
-  gt1[idx] = g1;
-  gt2[idx] = g2;
+  // The window, in coalesced order: u and v into the two alpha*v windows
+  // (each thread then reads its own cells), alpha, t1, t2; the tape's
+  // slots k_hi+1 and k_hi at the tile.
+  for (int i = tid; i < L::LY * L::LX; i += L::THREADS) {
+    const int y = i / L::LX, x = i % L::LX, c = L::at(y, x);
+    const size_t gc = cb + (size_t)gyv[y] * W + gxv[x];
+    const size_t g = f + (size_t)gyv[y] * W + gxv[x];
+    copy_async(&smem[wn + c], u_in + g);
+    copy_async(&smem[wc + c], v_in + g);
+    copy_async(&smem[WA + c], alpha + gc);
+    copy_async(&smem[W1 + c], t1 + gc);
+    copy_async(&smem[W2 + c], t2 + gc);
+  }
+  const TapeCopy<L> tape_copy(m, gyv, gxv, H, W);
+  tape_copy.load(&smem[tc], tf + (size_t)(k_hi + 1) * slot);
+  tape_copy.load(&smem[tp], tf + (size_t)k_hi * slot);
+  copy_wait();
+  __syncthreads();
+  float u[MY][MX], v[MY][MX];
+#pragma unroll
+  for (int j = 0; j < MY; ++j) {
+    float a[MX], w[MX];
+    load_row(&smem[wn + L::at(m.ly + j, m.lx)], u[j]);
+    load_row(&smem[wc + L::at(m.ly + j, m.lx)], v[j]);
+    load_row(&smem[WA + L::at(m.ly + j, m.lx)], a);
+#pragma unroll
+    for (int i = 0; i < MX; ++i) {
+      if (m.rec(j, i))
+        v[j][i] = v[j][i] + gr[(size_t)k_hi * ng + (m.gx(i) - g0)];
+      w[i] = a[i] * v[j][i];
+    }
+    store_row(&smem[wc + L::at(m.ly + j, m.lx)], w);
+    store_row(&smem[vc + L::at(m.ly + j, m.lx)], v[j]);
+  }
+  __syncthreads();
+  for (int s = 0; s < n; ++s) {
+    const int k = k_hi - s;
+    // Slot k-1, the next step's s_{m-2}, while this step computes.
+    if (s + 1 < n) tape_copy.load(&smem[tq], tf + (size_t)(k - 1) * slot);
+    {
+      // The tile's sums, at this thread's share of its cells.
+      const float sk = src[k];
+      const float* s1 = &smem[tc];
+#pragma unroll
+      for (int e = 0; e < K; ++e) {
+        if (!(mine >> e & 1u)) continue;
+        const int c = T::at(tid, e);
+        const float vv = smem[vc + c];
+        const float sv = s1[c];
+        const float ls =
+            kC2 * (((s1[c - L::SX] + s1[c + L::SX]) + s1[c - 1]) + s1[c + 1]) +
+            kC3 * (((s1[c - 2 * L::SX] + s1[c + 2 * L::SX]) + s1[c - 2]) +
+                   s1[c + 2]);
+        qa[e] = qa[e] + vv * ls;
+        q1[e] = q1[e] + vv * sv;
+        q2[e] = q2[e] - vv * smem[tp + c];
+        if (on_src >> e & 1u) {
+          const int gx = gxv[m.h + T::col(tid, e)];
+          ginjr[gx] = ginjr[gx] + vv * sk;
+        }
+      }
+    }
+    if (m.live(2 * (U - n + 1 + s))) {
+      {
+        float w[MY][MX];
+#pragma unroll
+        for (int j = 0; j < MY; ++j) {
+          float a[MX];
+          load_row(&smem[WA + L::at(m.ly + j, m.lx)], a);
+#pragma unroll
+          for (int i = 0; i < MX; ++i) w[j][i] = a[i] * v[j][i];
+        }
+        const Edges<L> e(&smem[wc], m.ly, m.lx);
+#pragma unroll
+        for (int j = 0; j < MY; ++j) {
+          float l2, l1, r1, r2, c1[MX], c2[MX];
+          load_pair(&smem[wc + L::at(m.ly + j, m.lx - 2)], l2, l1);
+          load_pair(&smem[wc + L::at(m.ly + j, m.lx + MX)], r1, r2);
+          load_row(&smem[W1 + L::at(m.ly + j, m.lx)], c1);
+          load_row(&smem[W2 + L::at(m.ly + j, m.lx)], c2);
+          const bool rec_next = s + 1 < n;
+#pragma unroll
+          for (int i = 0; i < MX; ++i) {
+            const float vv = v[j][i];
+            float nv = (u[j][i] + c1[i] * vv) +
+                       lap_cell<L>(w, e, l2, l1, r1, r2, j, i);
+            if (rec_next && m.rec(j, i))
+              nv = nv + gr[(size_t)(k - 1) * ng + (m.gx(i) - g0)];
+            u[j][i] = -c2[i] * vv;
+            v[j][i] = nv;
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < MY; ++j) {
+        float a[MX], w[MX];
+        load_row(&smem[WA + L::at(m.ly + j, m.lx)], a);
+#pragma unroll
+        for (int i = 0; i < MX; ++i) w[i] = a[i] * v[j][i];
+        store_row(&smem[wn + L::at(m.ly + j, m.lx)], w);
+        store_row(&smem[vn + L::at(m.ly + j, m.lx)], v[j]);
+      }
+    }
+    copy_wait();
+    __syncthreads();
+    int t;
+    t = tc; tc = tp; tp = tq; tq = t;
+    t = wc; wc = wn; wn = t;
+    t = vc; vc = vn; vn = t;
+  }
+  // The sums from registers; u and v to two windows, then the tile leaves
+  // in coalesced order.
+#pragma unroll
+  for (int e = 0; e < K; ++e) {
+    if (!(mine >> e & 1u)) continue;
+    const int r = T::row(tid, e), x = T::col(tid, e);
+    const size_t g = f + (size_t)gyv[m.h + r] * W + gxv[m.h + x];
+    pa[g] = qa[e];
+    p1[g] = q1[e];
+    p2[g] = q2[e];
+  }
+#pragma unroll
+  for (int j = 0; j < MY; ++j) {
+    store_row(&smem[wc + L::at(m.ly + j, m.lx)], u[j]);
+    store_row(&smem[wn + L::at(m.ly + j, m.lx)], v[j]);
+  }
+  __syncthreads();
+  for (int i = tid; i < L::LY * L::LX; i += L::THREADS) {
+    const int y = i / L::LX, x = i % L::LX, c = L::at(y, x);
+    if (!tile_cell(m, y, x, H, W)) continue;
+    const size_t g = f + (size_t)gyv[y] * W + gxv[x];
+    u_out[g] = smem[wc + c];
+    v_out[g] = smem[wn + c];
+  }
 }
 
 inline unsigned blocks(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
@@ -745,8 +1045,12 @@ constexpr size_t kFwdSmem =
 constexpr size_t kBwdSmem =
     (8 * BwdL::SIZE + 3 * BwdL::LY * BwdL::LX) * sizeof(float) +
     (BwdL::LY + BwdL::LX) * sizeof(int);
+// The taped adjoint: ten windows (its running sums are in registers).
+constexpr size_t kTapeSmem =
+    10 * BwdL::SIZE * sizeof(float) + (BwdL::LY + BwdL::LX) * sizeof(int);
 
-// Most steps per launch of each blocked kernel.
+// Most steps per launch of each blocked kernel (the two adjoints share
+// theirs).
 constexpr int kFwdMaxUnroll = 4, kBwdMaxUnroll = 4;
 
 // Whether `unroll` steps a launch suit a blocked kernel of at most `max_u`
@@ -814,15 +1118,16 @@ extern "C" int rdt_fwd_chunk(const float* p0, const float* p1, float* x0,
 // cotangents of the chunk's start states end in x[0], x[1] when the number
 // of groups is odd and in y[0], y[1] when it is even. pa, p1, p2
 // (B, ns, H, W) and ginj (B, ns, 1, W) accumulate and must be zeroed by the
-// caller; rdt_sum_shots then sums pa, p1, p2 over shots. Returns the first
-// launch error, 0 if none.
+// caller. Unless galpha is null, one sum_shots launch after the last group
+// then adds pa, p1, p2 over shots into galpha, gt1, gt2 (B, 1, H, W).
+// Returns the first launch error, 0 if none.
 extern "C" int rdt_bwd_reverse_chunk(
     const float* u, const float* v, const float* s_m, const float* s_m1,
     float* const* x, float* const* y, float* pa, float* p1, float* p2,
-    float* ginj, const float* grec, const float* alpha, const float* t1,
-    const float* t2, const float* inj, const float* src, int B, int ns,
-    int H, int W, int isz, int igz, int g0, int ng, int chunk, int unroll,
-    void* stream) {
+    float* ginj, float* galpha, float* gt1, float* gt2, const float* grec,
+    const float* alpha, const float* t1, const float* t2, const float* inj,
+    const float* src, int B, int ns, int H, int W, int isz, int igz, int g0,
+    int ng, int chunk, int unroll, void* stream) {
   if (!unroll_fits(unroll, kBwdMaxUnroll, H, W))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -846,7 +1151,9 @@ extern "C" int rdt_bwd_reverse_chunk(
     for (int i = 0; i < 4; ++i) in[i] = out[i];
     out = out == x ? y : x;
   }
-  return 0;
+  return galpha == nullptr ? 0
+                           : launch_sum_shots(pa, p1, p2, galpha, gt1, gt2,
+                                              B, ns, H * W, st);
 }
 
 // The shot sums of the adjoint's per-shot coefficient cotangents on
@@ -856,14 +1163,12 @@ extern "C" int rdt_sum_shots(const float* pa, const float* p1,
                              const float* p2, float* galpha, float* gt1,
                              float* gt2, int B, int ns, int hw,
                              void* stream) {
-  sum_shots<<<blocks((long long)B * hw), kThreads, 0,
-              static_cast<cudaStream_t>(stream)>>>(pa, p1, p2, galpha, gt1,
-                                                   gt2, B, ns, hw);
-  return (int)cudaGetLastError();
+  return launch_sum_shots(pa, p1, p2, galpha, gt1, gt2, B, ns, hw,
+                          static_cast<cudaStream_t>(stream));
 }
 
-// The blocking of blocked kernel `which` (0 fwd_step, 1 bwd_reverse_step)
-// on an H x W field: the most steps per launch U whose two halos of 2U cells
+// The blocking of blocked kernel `which` (0 fwd_step, 1 bwd_reverse_step,
+// 3 bwd_tape_step) on an H x W field: the most steps per launch U whose two halos of 2U cells
 // fit in the field's shorter side, and the tile (the window less the
 // halos) that one block then writes. Returns cudaErrorInvalidValue for
 // another kernel or a field too small for U = 1, 0 otherwise.
@@ -872,7 +1177,8 @@ extern "C" int rdt_blocking(int which, int H, int W, int* unroll,
   int max_u, ly, lx;
   switch (which) {
     case 0: max_u = kFwdMaxUnroll; ly = FwdL::LY; lx = FwdL::LX; break;
-    case 1: max_u = kBwdMaxUnroll; ly = BwdL::LY; lx = BwdL::LX; break;
+    case 1:
+    case 3: max_u = kBwdMaxUnroll; ly = BwdL::LY; lx = BwdL::LX; break;
     default: return (int)cudaErrorInvalidValue;
   }
   int u = (H < W ? H : W) / 4;
@@ -887,8 +1193,8 @@ extern "C" int rdt_blocking(int which, int H, int W, int* unroll,
 // Registers per thread, local (spill) bytes per thread and resident blocks
 // per SM of kernel `which` (0 fwd_step, 1 bwd_reverse_step, 2 tape_step,
 // 3 bwd_tape_step, 4 sum_shots) at its launch configuration; the blocked
-// kernels with their shared memory. Returns a CUDA error,
-// 0 if none.
+// kernels with their shared memory, bwd_tape_step as launched for U=4 and
+// sum_shots for 5 shots (the headline's). Returns a CUDA error, 0 if none.
 extern "C" int rdt_kernel_info(int which,
                                int* regs, int* local_bytes, int* blocks_per_sm) {
   const void* fn;
@@ -900,8 +1206,9 @@ extern "C" int rdt_kernel_info(int which,
     case 1: fn = (const void*)bwd_reverse_step; threads = BwdL::THREADS;
             smem = kBwdSmem; break;
     case 2: fn = (const void*)tape_step; break;
-    case 3: fn = (const void*)bwd_tape_step; break;
-    case 4: fn = (const void*)sum_shots; break;
+    case 3: fn = (const void*)bwd_tape_step<4>; threads = BwdL::THREADS;
+            smem = kTapeSmem; break;
+    case 4: fn = (const void*)sum_shots<5>; threads = kSumThreads; break;
     default: return (int)cudaErrorInvalidValue;
   }
   cudaError_t err;
@@ -941,29 +1248,65 @@ extern "C" int rdt_tape_chunk(float* tape, const float* alpha, const float* t1,
 }
 
 // The taped adjoint of one chunk on PyTorch's stream, steps chunk-1 down to
-// 0, reading the tape written by rdt_tape_chunk (slots 0 .. chunk). (u, v)
-// and (u2, v2) alternate as in rdt_bwd_reverse_chunk; galpha, gt1, gt2 and
-// ginj accumulate and must be zeroed by the caller. Returns the first launch
+// 0 in groups of `unroll` (the last may be shorter), one bwd_tape_step
+// launch per group, reading the tape written by rdt_tape_chunk (slots
+// 0 .. chunk). u, v (cotangents of s_{chunk-1}, s_chunk) are only read; the
+// groups write (x0, x1) and (y0, y1) in turn, so the cotangents of the
+// chunk's start states end in (x0, x1) when the number of groups is odd and
+// in (y0, y1) when it is even. pa, p1, p2 (B, ns, H, W) and ginj
+// (B, ns, 1, W) accumulate and must be zeroed by the caller. Unless galpha
+// is null, one sum_shots launch after the last group then adds pa, p1, p2
+// over shots into galpha, gt1, gt2 (B, 1, H, W). Returns the first launch
 // error, 0 if none.
 extern "C" int rdt_bwd_tape_chunk(
-    float* u, float* v, float* u2, float* v2, const float* tape,
-    const float* grec, const float* alpha, const float* t1, const float* t2,
-    const float* src, float* galpha, float* gt1, float* gt2, float* ginj,
+    const float* u, const float* v, const float* tape, float* x0, float* x1,
+    float* y0, float* y1, float* pa, float* p1, float* p2, float* ginj,
+    float* galpha, float* gt1, float* gt2, const float* grec,
+    const float* alpha, const float* t1, const float* t2, const float* src,
     int B, int ns, int H, int W, int isz, int igz, int g0, int ng, int chunk,
-    void* stream) {
+    int unroll, void* stream) {
+  if (!unroll_fits(unroll, kBwdMaxUnroll, H, W))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t slot = (size_t)B * ns * H * W;
-  const unsigned grid = blocks((long long)B * H * W);
-  for (int k = chunk - 1; k >= 0; --k) {
-    bwd_tape_step<<<grid, kThreads, 0, st>>>(
-        u, v, u2, v2, tape + (k + 1) * slot, tape + k * slot, grec, alpha, t1,
-        t2, src, k, galpha, gt1, gt2, ginj, B, ns, H, W, isz, igz, g0, ng,
-        chunk);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    float* t;
-    t = u; u = u2; u2 = t;
-    t = v; v = v2; v2 = t;
+  const size_t smem = kTapeSmem;
+  const void* kernel;
+  switch (unroll) {
+    case 1: kernel = (const void*)bwd_tape_step<1>; break;
+    case 2: kernel = (const void*)bwd_tape_step<2>; break;
+    case 3: kernel = (const void*)bwd_tape_step<3>; break;
+    default: kernel = (const void*)bwd_tape_step<4>; break;
   }
-  return 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid = tile_grid<BwdL>(unroll, B, ns, H, W);
+  const dim3 block(BwdL::NTX, BwdL::NTY);
+  const long long slot = (long long)B * ns * H * W;
+  const float* a0 = u;
+  const float* a1 = v;
+  float* b0 = x0;
+  float* b1 = x1;
+  for (int k_hi = chunk - 1; k_hi >= 0; k_hi -= unroll) {
+    const int n = k_hi + 1 < unroll ? k_hi + 1 : unroll;
+#define RDT_BWD_TAPE_STEP(U)                                                \
+  bwd_tape_step<U><<<grid, block, smem, st>>>(                              \
+      a0, a1, b0, b1, tape, pa, p1, p2, ginj, grec, alpha, t1, t2, src,     \
+      k_hi, n, ns, H, W, isz, igz, g0, ng, chunk, slot)
+    switch (unroll) {
+      case 1: RDT_BWD_TAPE_STEP(1); break;
+      case 2: RDT_BWD_TAPE_STEP(2); break;
+      case 3: RDT_BWD_TAPE_STEP(3); break;
+      default: RDT_BWD_TAPE_STEP(4); break;
+    }
+#undef RDT_BWD_TAPE_STEP
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    a0 = b0;
+    a1 = b1;
+    b0 = b0 == x0 ? y0 : x0;
+    b1 = b1 == x1 ? y1 : x1;
+  }
+  return galpha == nullptr ? 0
+                           : launch_sum_shots(pa, p1, p2, galpha, gt1, gt2,
+                                              B, ns, H * W, st);
 }

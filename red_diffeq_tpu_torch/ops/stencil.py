@@ -17,24 +17,26 @@ JAX package are ported, in ``csrc/stencil.cu``:
   slot of a flat tape of ``chunk + 2`` states (slot i = s_{i-1}; slots 0
   and 1 are the chunk-start carry), with no receiver rows.
 * ``_bwd_kernel`` (launcher ``_run_bwd``, ``stencil.py:271-349, 582``)
-  becomes ``bwd_tape_step``: one step of the taped adjoint, reading s_{m-1}
-  and s_{m-2} from the tape instead of rebuilding them.
+  becomes ``bwd_tape_step``: U steps of the taped adjoint on one tile,
+  reading s_{m-1} and s_{m-2} from the tape instead of rebuilding them,
+  and ``sum_shots`` over its per-shot coefficient cotangents, as for the
+  tape-free adjoint.
 
 The taped pair is the JAX package's route when the t2 guard trips (a
 narrow or strong sponge: at dx=10, dt=1e-3 any nbc <= 55), or when the
 caller asks for ``adjoint='tape'``. As in the JAX custom VJP, the tape
 lives only during one chunk's backward.
 
-``fwd_step`` and ``bwd_reverse_step`` are temporally blocked: one launch
-takes U steps (the last group of a chunk may be shorter) of one tile of one
-(sample, shot) field, loaded into shared memory with a halo of 2U cells a
-side; :func:`pick_blocking` picks U from the field size, and the tile is
-the kernel's compiled window less the halos. A chunk is ceil(chunk/U)
-launches of each, and the tape-free adjoint adds one ``sum_shots`` launch.
-``tape_step`` and ``bwd_tape_step`` are one launch per time step, one
-thread per cell. The TPU kernels keep a whole field in VMEM; one 310x310
-fp32 field is 384 KB, above the 227 KB of shared memory one Hopper block
-may have, hence tiles. No kernel adds with floating-point atomics, so
+``fwd_step``, ``bwd_reverse_step`` and ``bwd_tape_step`` are temporally
+blocked: one launch takes U steps (the last group of a chunk may be
+shorter) of one tile of one (sample, shot) field, loaded into shared memory
+with a halo of 2U cells a side; :func:`pick_blocking` picks U from the
+field size, and the tile is the kernel's compiled window less the halos. A
+chunk is ceil(chunk/U) launches of each, and each adjoint's chunk launcher
+adds one ``sum_shots`` launch after its last group. ``tape_step`` is one
+launch per time step, one thread per cell. The TPU kernels keep a whole
+field in VMEM; one 310x310 fp32 field is 384 KB, above the 227 KB of
+shared memory one Hopper block may have, hence tiles. No kernel adds with floating-point atomics, so
 every result repeats bit for bit.
 The TPU-only x-stencil layouts (``'roll'``, ``'mxu'``, ``'mxu_xy'``,
 ``'halo'``, env ``RDT_X_STENCIL``) are lowerings of the same Laplacian and
@@ -42,11 +44,12 @@ have no meaning here.
 
 Beside each kernel is its plain PyTorch version (``fwd_chunk_plain``,
 ``bwd_reverse_steps_plain``, ``sum_shots_plain``, ``tape_chunk_plain``,
-``bwd_tape_chunk_plain``) with the same fp32 arithmetic, step for step and
-in the same order of summation; ``bwd_reverse_chunk_plain`` is
-``bwd_reverse_steps_plain`` followed by ``sum_shots_plain``. The wrappers
-(``fwd_chunk``, ``bwd_reverse_steps``, ``bwd_reverse_chunk`` (the two
-adjoint kernels in turn), ``sum_shots``, ``tape_chunk``,
+``bwd_tape_steps_plain``) with the same fp32 arithmetic, step for step and
+in the same order of summation; ``bwd_reverse_chunk_plain`` and
+``bwd_tape_chunk_plain`` are the adjoint's steps followed by
+``sum_shots_plain``. The wrappers (``fwd_chunk``, ``bwd_reverse_steps``,
+``bwd_reverse_chunk`` (the steps, then ``sum_shots``, in one library
+call), ``sum_shots``, ``tape_chunk``, ``bwd_tape_steps``,
 ``bwd_tape_chunk``) take the plain version only for tensors on the CPU; on
 a CUDA tensor they launch the kernel or raise.
 """
@@ -92,7 +95,7 @@ def pick_unroll(chunk: int) -> int:
 
 # The temporally blocked kernels; their windows and most steps per launch
 # are compiled into csrc/stencil.cu and read through pick_blocking.
-BLOCKED = ('fwd_step', 'bwd_reverse_step')
+BLOCKED = ('fwd_step', 'bwd_reverse_step', 'bwd_tape_step')
 
 
 def pick_blocking(kernel: str, hp: int, wp: int):
@@ -218,11 +221,11 @@ def bwd_reverse_steps_plain(p0o, p1o, gp0o, gp1o, grec, alpha, t1, t2, inj,
 
       s_{m-2} = (t1*s_{m-1} + alpha*L(s_{m-1}) + inj_m - s_m) / t2,
 
-    into the tape layout, and the sweep of :func:`bwd_tape_chunk_plain`
-    runs over them; each step's arithmetic is ``bwd_reverse_step``'s, and
-    as in that kernel the coefficient cotangents are summed per shot over
-    the steps. Returns (gp0, gp1, pa, p1, p2, ginj), the sums of the alpha,
-    t1 and t2 cotangents (B, ns, Hp, Wp)."""
+    into the tape layout, and :func:`bwd_tape_steps_plain` sweeps them;
+    each step's arithmetic is ``bwd_reverse_step``'s, and as in that kernel
+    the coefficient cotangents are summed per shot over the steps. Returns
+    (gp0, gp1, pa, p1, p2, ginj), the sums of the alpha, t1 and t2
+    cotangents (B, ns, Hp, Wp)."""
     inv_t2 = 1.0 / t2
     states = [p1o, p0o]                         # s_K, s_{K-1}, ..., s_{-1}
     for k in range(src_chunk.shape[0] - 1, -1, -1):
@@ -231,9 +234,9 @@ def bwd_reverse_steps_plain(p0o, p1o, gp0o, gp1o, grec, alpha, t1, t2, inj,
         inj_field[:, :, isz, :] = inj[:, :, 0, :] * src_chunk[k]
         states.append((t1 * s_m1 + alpha * laplacian4(s_m1) + inj_field
                        - s_m) * inv_t2)
-    return _adjoint_sweep(torch.stack(states[::-1]), gp0o, gp1o, grec, alpha,
-                          t1, t2, src_chunk, isz=isz, igz=igz, g0=g0, ng=ng,
-                          per_shot=True)
+    return bwd_tape_steps_plain(torch.stack(states[::-1]), gp0o, gp1o, grec,
+                                alpha, t1, t2, src_chunk, isz=isz, igz=igz,
+                                g0=g0, ng=ng)
 
 
 def sum_shots_plain(partial):
@@ -247,49 +250,44 @@ def sum_shots_plain(partial):
 
 def bwd_tape_chunk_plain(tape, gp0o, gp1o, grec, alpha, t1, t2, src_chunk,
                          *, isz, igz, g0, ng):
-    """Taped adjoint of :func:`fwd_chunk_plain`, reading s_{m-1} and s_{m-2}
-    from slots m and m-1 of the tape of :func:`tape_chunk_plain`. Per
-    reversed step m (k = m - 1):
+    """Taped adjoint of :func:`fwd_chunk_plain`:
+    :func:`bwd_tape_steps_plain`, then the per-shot coefficient cotangents
+    summed over the shots (:func:`sum_shots_plain`), as ``bwd_tape_step``
+    and ``sum_shots`` do. Returns (gp0, gp1, galpha, gt1, gt2, ginj)."""
+    gp0, gp1, pa, p1, p2, ginj = bwd_tape_steps_plain(
+        tape, gp0o, gp1o, grec, alpha, t1, t2, src_chunk, isz=isz, igz=igz,
+        g0=g0, ng=ng)
+    return (gp0, gp1, *(sum_shots_plain(t) for t in (pa, p1, p2)), ginj)
+
+
+def bwd_tape_steps_plain(tape, gp0o, gp1o, grec, alpha, t1, t2, src_chunk,
+                         *, isz, igz, g0, ng):
+    """The steps of :func:`bwd_tape_chunk_plain`, reading s_{m-1} and
+    s_{m-2} from slots m and m-1 of the tape of :func:`tape_chunk_plain`,
+    the coefficient cotangents left as per-shot sums. Per reversed step m
+    (k = m - 1):
 
       v += G^T grec[k]
       galpha += v*L(s_{m-1}); gt1 += v*s_{m-1}; gt2 -= v*s_{m-2}
       ginj += v[isz]*src[k]
       (u, v) <- (-t2*v, u + t1*v + L(alpha*v))
 
-    The coefficient cotangents are summed step by step and, within a step,
-    over shots in shot order, as ``bwd_tape_step`` does. Returns (gp0, gp1,
-    galpha, gt1, gt2, ginj)."""
-    return _adjoint_sweep(tape, gp0o, gp1o, grec, alpha, t1, t2, src_chunk,
-                          isz=isz, igz=igz, g0=g0, ng=ng, per_shot=False)
-
-
-def _adjoint_sweep(tape, gp0o, gp1o, grec, alpha, t1, t2, src_chunk, *, isz,
-                   igz, g0, ng, per_shot):
-    """The reversed sweep over a tape of the chunk's states. ``per_shot``:
-    the coefficient cotangents are summed per shot and returned so
-    (``bwd_reverse_step``); else each step's shots are added in turn
-    (``bwd_tape_step``)."""
-    ns, wp = gp0o.shape[1], gp0o.shape[-1]
+    As in ``bwd_tape_step`` (and in ``bwd_reverse_step``, whose plain
+    version sweeps its rebuilt states with this function), the coefficient
+    cotangents are summed per shot over the steps. Returns (gp0, gp1, pa,
+    p1, p2, ginj), the sums of the alpha, t1 and t2 cotangents (B, ns, Hp,
+    Wp)."""
     u, v = gp0o, gp1o
-    acc = torch.zeros_like(gp0o if per_shot else alpha)
-    galpha, gt1, gt2 = acc, acc.clone(), acc.clone()
-    ginj = gp0o.new_zeros(gp0o.shape[0], ns, 1, wp)
+    galpha, gt1, gt2 = (torch.zeros_like(gp0o) for _ in range(3))
+    ginj = gp0o.new_zeros(gp0o.shape[0], gp0o.shape[1], 1, gp0o.shape[-1])
     for k in range(src_chunk.shape[0] - 1, -1, -1):
         v = v.clone()
         v[:, :, igz, g0:g0 + ng] = v[:, :, igz, g0:g0 + ng] + grec[:, :, k]
         s_m1, s_m2 = tape[k + 1], tape[k]
-        lap_s = laplacian4(s_m1)
         ginj = ginj + v[:, :, isz:isz + 1, :] * src_chunk[k]
-        if per_shot:
-            galpha = galpha + v * lap_s
-            gt1 = gt1 + v * s_m1
-            gt2 = gt2 - v * s_m2
-        else:
-            for s in range(ns):
-                vs = v[:, s:s + 1]
-                galpha = galpha + vs * lap_s[:, s:s + 1]
-                gt1 = gt1 + vs * s_m1[:, s:s + 1]
-                gt2 = gt2 - vs * s_m2[:, s:s + 1]
+        galpha = galpha + v * laplacian4(s_m1)
+        gt1 = gt1 + v * s_m1
+        gt2 = gt2 - v * s_m2
         u, v = -t2 * v, u + t1 * v + laplacian4(alpha * v)
     return u, v, galpha, gt1, gt2, ginj
 
@@ -349,13 +347,13 @@ def _load():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rdt_fwd_chunk.argtypes = [p] * 12 + [i] * 10 + [p]
         lib.rdt_fwd_chunk.restype = i
-        lib.rdt_bwd_reverse_chunk.argtypes = [p] * 16 + [i] * 10 + [p]
+        lib.rdt_bwd_reverse_chunk.argtypes = [p] * 19 + [i] * 10 + [p]
         lib.rdt_bwd_reverse_chunk.restype = i
         lib.rdt_sum_shots.argtypes = [p] * 6 + [i] * 3 + [p]
         lib.rdt_sum_shots.restype = i
         lib.rdt_tape_chunk.argtypes = [p] * 6 + [i] * 6 + [p]
         lib.rdt_tape_chunk.restype = i
-        lib.rdt_bwd_tape_chunk.argtypes = [p] * 14 + [i] * 9 + [p]
+        lib.rdt_bwd_tape_chunk.argtypes = [p] * 19 + [i] * 10 + [p]
         lib.rdt_bwd_tape_chunk.restype = i
         ip = ctypes.POINTER(i)
         lib.rdt_kernel_info.argtypes = [i] + [ip] * 3
@@ -502,15 +500,37 @@ def _ptrs(ts):
 
 def _bwd_reverse_chunk_kernel(p0o, p1o, gp0o, gp1o, grec, alpha, t1, t2, inj,
                               src_chunk, *, isz, igz, g0, ng):
-    gp0, gp1, pa, p1, p2, ginj = _bwd_reverse_steps_kernel(
-        p0o, p1o, gp0o, gp1o, grec, alpha, t1, t2, inj, src_chunk, isz=isz,
-        igz=igz, g0=g0, ng=ng)
-    galpha, gt1, gt2 = sum_shots(pa, p1, p2)
-    return gp0, gp1, galpha, gt1, gt2, ginj
+    return _bwd_reverse_kernel(p0o, p1o, gp0o, gp1o, grec, alpha, t1, t2,
+                               inj, src_chunk, isz=isz, igz=igz, g0=g0, ng=ng,
+                               shot_sums=True)
 
 
 def _bwd_reverse_steps_kernel(p0o, p1o, gp0o, gp1o, grec, alpha, t1, t2,
                               inj, src_chunk, *, isz, igz, g0, ng):
+    return _bwd_reverse_kernel(p0o, p1o, gp0o, gp1o, grec, alpha, t1, t2,
+                               inj, src_chunk, isz=isz, igz=igz, g0=g0, ng=ng,
+                               shot_sums=False)
+
+
+def _adjoint_sums(gp0o, shot_sums):
+    """The per-shot sums of the alpha, t1, t2 cotangents (zeroed, as the
+    launchers add to them), and, with ``shot_sums``, the three (B, 1, Hp,
+    Wp) outputs of the chunk launcher's ``sum_shots`` launch with their
+    pointers (null pointers without)."""
+    parts = [torch.zeros_like(gp0o) for _ in range(3)]
+    if not shot_sums:
+        return parts, [], [ctypes.c_void_p(None)] * 3
+    b, _, hp, wp = gp0o.shape
+    sums = [gp0o.new_empty((b, 1, hp, wp)) for _ in range(3)]
+    return parts, sums, [_ptr(t) for t in sums]
+
+
+def _bwd_reverse_kernel(p0o, p1o, gp0o, gp1o, grec, alpha, t1, t2, inj,
+                        src_chunk, *, isz, igz, g0, ng, shot_sums):
+    """One library call: the blocked steps and, with ``shot_sums``, the
+    chunk's ``sum_shots`` launch. Returns (gp0, gp1, galpha, gt1, gt2,
+    ginj), or with per-shot sums (B, ns, Hp, Wp) in place of the shot
+    sums."""
     b, ns, hp, wp = _check_args(
         {'p0o': p0o, 'p1o': p1o, 'gp0o': gp0o, 'gp1o': gp1o}, alpha, t1, t2,
         src_chunk, isz=isz, igz=igz, g0=g0, ng=ng, inj=inj)
@@ -523,22 +543,23 @@ def _bwd_reverse_steps_kernel(p0o, p1o, gp0o, gp1o, grec, alpha, t1, t2,
     # per-shot sums of the alpha, t1, t2 cotangents; the injection row's.
     x = [torch.empty_like(gp0o) for _ in range(4)]
     y = [torch.empty_like(gp0o) for _ in range(4)]
-    pa, p1, p2 = (torch.zeros_like(gp0o) for _ in range(3))
+    parts, sums, sum_ptrs = _adjoint_sums(gp0o, shot_sums)
     ginj = torch.zeros_like(inj)
-    xp, yp = _ptrs(x), _ptrs(y)
     err = lib.rdt_bwd_reverse_chunk(
-        _ptr(gp0o), _ptr(gp1o), _ptr(p1o), _ptr(p0o), xp, yp, _ptr(pa),
-        _ptr(p1), _ptr(p2), _ptr(ginj), _ptr(grec), _ptr(alpha), _ptr(t1),
-        _ptr(t2), _ptr(inj), _ptr(src_chunk), b, ns, hp, wp, isz, igz, g0,
-        ng, chunk, unroll, _stream(dev))
+        _ptr(gp0o), _ptr(gp1o), _ptr(p1o), _ptr(p0o), _ptrs(x), _ptrs(y),
+        *map(_ptr, parts), _ptr(ginj), *sum_ptrs, _ptr(grec), _ptr(alpha),
+        _ptr(t1), _ptr(t2), _ptr(inj), _ptr(src_chunk), b, ns, hp, wp, isz,
+        igz, g0, ng, chunk, unroll, _stream(dev))
     if err != 0:
         raise RuntimeError(f'bwd_reverse_step launch failed: CUDA error '
                            f'{err}')
     groups = -(-chunk // unroll)
     launches['bwd_reverse_step'] += groups
     last_unroll['bwd_reverse_step'] = unroll
+    if shot_sums:
+        launches['sum_shots'] += 1
     out = x if groups % 2 else y
-    return out[0], out[1], pa, p1, p2, ginj
+    return (out[0], out[1], *(sums or parts), ginj)
 
 
 def sum_shots(pa, p1, p2):
@@ -603,9 +624,9 @@ def _tape_chunk_kernel(p0, p1, alpha, t1, t2, inj, src_chunk, *, isz):
 
 def bwd_tape_chunk(tape, gp0o, gp1o, grec, alpha, t1, t2, src_chunk, *, isz,
                    igz, g0, ng):
-    """The taped adjoint of one chunk: the CUDA kernel ``bwd_tape_step``
-    for CUDA tensors, :func:`bwd_tape_chunk_plain` for CPU tensors. Returns
-    (gp0, gp1, galpha, gt1, gt2, ginj)."""
+    """The taped adjoint of one chunk: the CUDA kernels ``bwd_tape_step``
+    and ``sum_shots`` for CUDA tensors, :func:`bwd_tape_chunk_plain` for
+    CPU tensors. Returns (gp0, gp1, galpha, gt1, gt2, ginj)."""
     if gp0o.device.type == 'cpu':
         return bwd_tape_chunk_plain(tape, gp0o, gp1o, grec, alpha, t1, t2,
                                     src_chunk, isz=isz, igz=igz, g0=g0,
@@ -616,32 +637,66 @@ def bwd_tape_chunk(tape, gp0o, gp1o, grec, alpha, t1, t2, src_chunk, *, isz,
                                   src_chunk, isz=isz, igz=igz, g0=g0, ng=ng)
 
 
+def bwd_tape_steps(tape, gp0o, gp1o, grec, alpha, t1, t2, src_chunk, *, isz,
+                   igz, g0, ng):
+    """The steps of the taped adjoint of one chunk, without the shot sums:
+    the CUDA kernel ``bwd_tape_step`` for CUDA tensors,
+    :func:`bwd_tape_steps_plain` for CPU tensors. Returns (gp0, gp1, pa,
+    p1, p2, ginj), the alpha, t1 and t2 cotangents per shot."""
+    if gp0o.device.type == 'cpu':
+        return bwd_tape_steps_plain(tape, gp0o, gp1o, grec, alpha, t1, t2,
+                                    src_chunk, isz=isz, igz=igz, g0=g0,
+                                    ng=ng)
+    if gp0o.device.type != 'cuda':
+        raise ValueError(f'unsupported device {gp0o.device}')
+    return _bwd_tape_steps_kernel(tape, gp0o, gp1o, grec, alpha, t1, t2,
+                                  src_chunk, isz=isz, igz=igz, g0=g0, ng=ng)
+
+
 def _bwd_tape_chunk_kernel(tape, gp0o, gp1o, grec, alpha, t1, t2, src_chunk,
                            *, isz, igz, g0, ng):
+    return _bwd_tape_kernel(tape, gp0o, gp1o, grec, alpha, t1, t2, src_chunk,
+                            isz=isz, igz=igz, g0=g0, ng=ng, shot_sums=True)
+
+
+def _bwd_tape_steps_kernel(tape, gp0o, gp1o, grec, alpha, t1, t2, src_chunk,
+                           *, isz, igz, g0, ng):
+    return _bwd_tape_kernel(tape, gp0o, gp1o, grec, alpha, t1, t2, src_chunk,
+                            isz=isz, igz=igz, g0=g0, ng=ng, shot_sums=False)
+
+
+def _bwd_tape_kernel(tape, gp0o, gp1o, grec, alpha, t1, t2, src_chunk, *,
+                     isz, igz, g0, ng, shot_sums):
+    """One library call: the blocked steps and, with ``shot_sums``, the
+    chunk's ``sum_shots`` launch; returns as :func:`_bwd_reverse_kernel`."""
     b, ns, hp, wp = _check_args({'gp0o': gp0o, 'gp1o': gp1o}, alpha, t1, t2,
                                 src_chunk, isz=isz, igz=igz, g0=g0, ng=ng)
     chunk = src_chunk.shape[0]
     dev = gp0o.device
     _check('tape', tape, (chunk + 2, b, ns, hp, wp), dev)
     _check('grec', grec, (b, ns, chunk, ng), dev)
+    unroll = pick_blocking('bwd_tape_step', hp, wp)[0]
     lib = _load()
-    u, v = gp0o.clone(), gp1o.clone()   # ping-pong with u2, v2
-    u2, v2 = torch.empty_like(u), torch.empty_like(v)
-    galpha = torch.zeros_like(alpha)
-    gt1 = torch.zeros_like(alpha)
-    gt2 = torch.zeros_like(alpha)
-    ginj = torch.zeros((b, ns, 1, wp), device=dev, dtype=torch.float32)
+    # (u, v) written by the groups in turn to x and y; the per-shot sums of
+    # the alpha, t1, t2 cotangents; the injection row's.
+    x = [torch.empty_like(gp0o) for _ in range(2)]
+    y = [torch.empty_like(gp0o) for _ in range(2)]
+    parts, sums, sum_ptrs = _adjoint_sums(gp0o, shot_sums)
+    ginj = gp0o.new_zeros((b, ns, 1, wp))
     err = lib.rdt_bwd_tape_chunk(
-        _ptr(u), _ptr(v), _ptr(u2), _ptr(v2), _ptr(tape), _ptr(grec),
-        _ptr(alpha), _ptr(t1), _ptr(t2), _ptr(src_chunk), _ptr(galpha),
-        _ptr(gt1), _ptr(gt2), _ptr(ginj), b, ns, hp, wp, isz, igz, g0, ng,
-        chunk, _stream(dev))
+        _ptr(gp0o), _ptr(gp1o), _ptr(tape), *map(_ptr, x + y),
+        *map(_ptr, parts), _ptr(ginj), *sum_ptrs, _ptr(grec), _ptr(alpha),
+        _ptr(t1), _ptr(t2), _ptr(src_chunk), b, ns, hp, wp, isz, igz, g0, ng,
+        chunk, unroll, _stream(dev))
     if err != 0:
         raise RuntimeError(f'bwd_tape_step launch failed: CUDA error {err}')
-    launches['bwd_tape_step'] += chunk
-    last_unroll['bwd_tape_step'] = 1
-    gp0, gp1 = (u, v) if chunk % 2 == 0 else (u2, v2)
-    return gp0, gp1, galpha, gt1, gt2, ginj
+    groups = -(-chunk // unroll)
+    launches['bwd_tape_step'] += groups
+    last_unroll['bwd_tape_step'] = unroll
+    if shot_sums:
+        launches['sum_shots'] += 1
+    out = x if groups % 2 else y
+    return (out[0], out[1], *(sums or parts), ginj)
 
 
 _KERNEL_IDS = {'fwd_step': 0, 'bwd_reverse_step': 1, 'tape_step': 2,

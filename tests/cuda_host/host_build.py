@@ -19,7 +19,7 @@ def host_source(src: str) -> str:
     src = src.replace('#include <cuda_runtime.h>', '#include "cuda_host.h"')
     src = src.replace('extern __shared__ float smem[];',
                       'float* smem = host::shared.data();')
-    return re.sub(r'(\w+)<<<(.*?)>>>\(',
+    return re.sub(r'(\w+(?:<\w+>)?)<<<(.*?)>>>\(',
                   lambda m: f'host::launch({m.group(1)}, {m.group(2)})(',
                   src, flags=re.S)
 

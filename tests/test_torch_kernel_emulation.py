@@ -5,6 +5,7 @@ plain PyTorch versions bit for bit.
 nvcc). g++ builds it against ``tests/cuda_host/cuda_host.h``, which runs
 every thread of a block as a fiber between its barriers, and the kernel
 launchers (``stencil._fwd_chunk_kernel``, ``_bwd_reverse_chunk_kernel``,
+``_bwd_tape_steps_kernel``, ``_bwd_tape_chunk_kernel``,
 ``_sum_shots_kernel``) drive that library on CPU tensors. This holds the
 temporal blocking itself (windows, wrapped halos, shrinking regions, short
 last groups, own-cell sums, ping-pong buffers) to the plain versions, which
@@ -61,10 +62,13 @@ def _inputs(seed, b, ns, hp, wp, chunk, isz, igz, g0, ng):
 
 # (B, ns, Hp, Wp, chunk, isz, igz, g0, ng): one tile smaller than the
 # window (halos wrap over the field), several tiles with ragged edges and
-# a short last group (chunk 7 at U=4), a field small enough for U=2.
+# a short last group (chunk 7 at U=4), fields small enough for U=3, U=2
+# and U=1 (each its own instantiation of bwd_tape_step).
 CASES = [(2, 2, 24, 28, 20, 9, 10, 8, 12),
          (1, 3, 70, 90, 7, 61, 62, 60, 12),
-         (1, 2, 9, 12, 3, 0, 8, 0, 12)]
+         (1, 2, 14, 15, 9, 3, 12, 1, 13),
+         (1, 2, 9, 12, 3, 0, 8, 0, 12),
+         (2, 1, 6, 9, 5, 2, 4, 0, 9)]
 
 
 @pytest.mark.parametrize('case', CASES, ids=lambda c: f'{c[2]}x{c[3]}c{c[4]}')
@@ -86,13 +90,50 @@ def test_blocked_kernels_match_plain_versions(host_kernels, case):
     u = stencil.pick_blocking('fwd_step', hp, wp)[0]
     assert stencil.launches['fwd_step'] == -(-chunk // u)
     assert stencil.launches['bwd_reverse_step'] == -(-chunk // u)
+    assert stencil.launches['sum_shots'] == 1
     assert stencil.last_unroll['fwd_step'] == u
     assert stencil.last_unroll['bwd_reverse_step'] == u
 
 
-def test_sum_shots_kernel_matches_plain(host_kernels):
-    g = torch.Generator().manual_seed(0)
-    parts = [torch.randn(3, 5, 17, 19, generator=g) for _ in range(3)]
+@pytest.mark.parametrize('case', CASES, ids=lambda c: f'{c[2]}x{c[3]}c{c[4]}')
+def test_blocked_tape_adjoint_matches_plain_version(host_kernels, case):
+    """``bwd_tape_step`` (blocked) and the chunk's ``sum_shots`` against
+    the plain versions on a tape from ``tape_chunk_plain``: every output
+    bit for bit, the per-shot sums and their shot sums alike, with
+    ceil(chunk/U) launches and one shot sum per chunk."""
+    b, ns, hp, wp, chunk, isz, igz, g0, ng = case
+    d = _inputs(hp * wp + chunk + 1, *case)
+    geo = dict(isz=isz, igz=igz, g0=g0, ng=ng)
+    tape = stencil.tape_chunk_plain(d['p0'], d['p1'], d['alpha'], d['t1'],
+                                    d['t2'], d['inj'], d['src'], isz=isz)
+    args = (tape, d['gp0'], d['gp1'], d['grec'], d['alpha'], d['t1'],
+            d['t2'], d['src'])
+    names = ('gp0', 'gp1', 'pa', 'pt1', 'pt2', 'ginj')
+    want = stencil.bwd_tape_steps_plain(*args, **geo)
+    got = stencil._bwd_tape_steps_kernel(*args, **geo)
+    for name, g, w in zip(names, got, want):
+        assert torch.equal(g, w), name
+    u = stencil.pick_blocking('bwd_tape_step', hp, wp)[0]
+    assert stencil.launches['bwd_tape_step'] == -(-chunk // u)
+    assert stencil.launches['sum_shots'] == 0
+    want = stencil.bwd_tape_chunk_plain(*args, **geo)
+    got = stencil._bwd_tape_chunk_kernel(*args, **geo)
+    for name, g, w in zip(('gp0', 'gp1', 'galpha', 'gt1', 'gt2', 'ginj'),
+                          got, want):
+        assert torch.equal(g, w), name
+    assert stencil.launches['bwd_tape_step'] == 2 * -(-chunk // u)
+    assert stencil.launches['sum_shots'] == 1
+    assert stencil.last_unroll['bwd_tape_step'] == u
+
+
+@pytest.mark.parametrize('ns', [1, 5, 9])
+@pytest.mark.parametrize('hw', [(16, 19), (17, 19)], ids=lambda s: f'{s[0]}x{s[1]}')
+def test_sum_shots_kernel_matches_plain(host_kernels, hw, ns):
+    """``sum_shots`` bit for bit, on planes of a multiple of 4 cells (16-byte
+    loads across row ends) and of 17x19 cells (one cell at a time), with
+    one shot, the headline's 5 and 9 (two batches of loads)."""
+    g = torch.Generator().manual_seed(ns)
+    parts = [torch.randn(3, ns, *hw, generator=g) for _ in range(3)]
     got = stencil._sum_shots_kernel(*parts)
     for o, p in zip(got, parts):
         assert torch.equal(o, stencil.sum_shots_plain(p))

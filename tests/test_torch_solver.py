@@ -532,7 +532,8 @@ def host_library(tmp_path_factory):
                               tmp_path_factory.mktemp('cuda_host'), gxx)
 
 
-@pytest.mark.parametrize('kernel', ['fwd_step', 'bwd_reverse_step'])
+@pytest.mark.parametrize('kernel', ['fwd_step', 'bwd_reverse_step',
+                                    'bwd_tape_step'])
 def test_pick_blocking_fits_the_halo_in_the_field(kernel, host_library,
                                                   monkeypatch):
     """Steps per launch, as the CUDA library computes them: the most
@@ -556,6 +557,8 @@ def test_pick_blocking_fits_the_halo_in_the_field(kernel, host_library,
         geo = [1, 1, 9, 40, 0, 0, 0, 1, 4, u, None]
         if kernel == 'fwd_step':
             err = lib.rdt_fwd_chunk(*[None] * 12, *geo)
+        elif kernel == 'bwd_reverse_step':
+            err = lib.rdt_bwd_reverse_chunk(*[None] * 19, *geo)
         else:
-            err = lib.rdt_bwd_reverse_chunk(*[None] * 16, *geo)
+            err = lib.rdt_bwd_tape_chunk(*[None] * 19, *geo)
         assert err != 0, u

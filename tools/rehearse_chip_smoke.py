@@ -40,7 +40,8 @@ def main():
     S._stream = lambda device: ctypes.c_void_p(0)
     S.kernel_info = lambda name: dict(regs=0, local_bytes=0, blocks_per_sm=2)
     for name in ('fwd_chunk', 'bwd_reverse_steps', 'bwd_reverse_chunk',
-                 'sum_shots', 'tape_chunk', 'bwd_tape_chunk'):
+                 'sum_shots', 'tape_chunk', 'bwd_tape_steps',
+                 'bwd_tape_chunk'):
         setattr(S, name, getattr(S, f'_{name}_kernel'))
     init = A.FWIForward.__init__
 
@@ -64,6 +65,7 @@ def main():
     ns['NARROW'] = dict(ns['HEADLINE'], nbc=8)
     ns['BATCH'], ns['TS'] = 2, 3
     ns['cuda_ms'] = lambda fn, reps: (fn(), 0.0)[1]
+    ns['graph_ms'] = ns['cuda_ms']
     smi = types.SimpleNamespace(stdout='CPU rehearsal, 0 W\n')
     ns['subprocess'] = types.SimpleNamespace(run=lambda *a, **k: smi)
     return ns['main']()
