@@ -11,6 +11,8 @@ Phases, each printing its wall time:
 2. build the CUDA kernels from ``red_diffeq_tpu_torch/ops/csrc`` with nvcc,
    and read each kernel's registers, spills and resident blocks per SM
    (the blocked kernels must not spill and must fit two blocks on an SM);
+   ``tape_step`` at both shapes with its blocks per cluster and the
+   clusters resident at once (no spills, at least TAPE_MIN_CLUSTERS);
 3. the forward kernel ``fwd_step`` (temporally blocked, U steps a launch)
    against its plain PyTorch version at the headline shape (B=4, ns=5,
    310x310, chunk 20, nt=1000), full seismogram and every chunk carry:
@@ -25,8 +27,9 @@ Phases, each printing its wall time:
    shot axis both as device time, the pass's 50 calls captured once in a
    CUDA graph and replayed, and per call with the host's launch between
    CUDA events), one chunk of 7 steps (a short last group for each
-   blocked kernel) of the forward and of both adjoint chunk launchers
-   against their plain versions, and the velocity gradient of a masked-L1
+   blocked kernel) of the forward, of ``tape_step`` (bit for bit) and of
+   both adjoint chunk launchers against their plain versions, and the
+   velocity gradient of a masked-L1
    observation loss through the kernels against plain eager autograd
    (max-rel 1e-4);
 5. determinism: the velocity gradient at the headline (tape-free
@@ -35,8 +38,11 @@ Phases, each printing its wall time:
    ``torch.use_deterministic_algorithms(True, warn_only=True)`` prints
    any operation PyTorch calls nondeterministic;
 6. the tape kernels at the headline shape, with the taped route forced:
-   ``tape_step`` against its plain version on every slot of every chunk's
-   tape of one pass, ``bwd_tape_step`` (blocked) and ``sum_shots`` against
+   ``tape_step`` (one launch per chunk, one field per thread-block cluster)
+   against its plain version bit for bit on every slot of every chunk's
+   tape of one pass, its slot chunk against the forward kernel's s_{K-1},
+   and its time per pass; the same at the nbc=40 shape, its own route;
+   ``bwd_tape_step`` (blocked) and ``sum_shots`` against
    their plain versions chunk by chunk over a whole reverse pass (max-rel
    2e-5 per output, gp0/gp1 bit for bit), the steps timed alone, and the
    velocity gradient under ``adjoint='tape'`` against ``'reverse'``
@@ -58,14 +64,14 @@ Phases, each printing its wall time:
    guard itself takes the taped adjoint. The velocity gradient through the
    tape kernels against plain eager autograd (max-rel 1e-4), then a few
    RED-DiffEq steps with the forward kernel's and the taped adjoint's
-   blocked launches, one ``sum_shots`` per chunk, ``tape_step`` once per FD
-   step, the tape-free adjoint never and the plain path unused.
+   blocked launches, one ``sum_shots`` and one ``tape_step`` per chunk, the
+   tape-free adjoint never and the plain path unused.
 
 Then one JSON line with each kernel's launches and the steps per launch
-its wrapper handed its launcher (both read in the slice that takes its
-route), launches per 1000-step pass (those launches over the slice's
-inversion steps), error, times and bound, the card's line from nvidia-smi,
-and last
+its wrapper handed its launcher (``tape_step``: the blocks per cluster;
+both read in the slice that takes its route), launches per 1000-step pass
+(those launches over the slice's inversion steps), error, times and bound,
+the card's line from nvidia-smi, and last
 ``{"ok": true, "device": ...}``.
 Any failed check raises and the script exits non-zero. Without a CUDA
 device, or without the package beside it, it exits non-zero and prints no
@@ -95,8 +101,12 @@ PEAK_FP32_PER_S = 67e12
 # step, printed beside this run's: chip runs on an NVIDIA H100 80GB HBM3 at
 # 700 W recorded in PERF.md.
 EARLIER_MS = {'fwd_step': 20.680, 'bwd_reverse_step': 86.645,
-              'bwd_tape_step': 72.499}
+              'bwd_tape_step': 72.499, 'tape_step': 21.320}
 EARLIER_S_PER_STEP = 0.1240
+# Clusters of tape_step (16 blocks, one per SM) resident at once that its
+# design counts on: the headline's 20 fields in 3 waves (7 on an H100 SXM
+# at 700 W, PERF.md).
+TAPE_MIN_CLUSTERS = 7
 
 
 class Phase:
@@ -226,9 +236,11 @@ def bounds(p, steps, n_calls):
         # cotangents in (three fields), their sums out, once per chunk.
         'sum_shots': (4 * n_calls * (3 * field + 3 * coef),
                       n_calls * 3 * (ns - 1) * coef),
-        # The replay reads the start carry and writes the chunk + 2 slots.
-        'tape_step': (4 * n_calls * ((chunk + 4) * field + 3 * coef + row
-                                     + chunk), fwd_ops),
+        # The replay reads the start carry and writes the chunk + 1 slots
+        # the taped adjoint reads; it takes chunk - 1 steps a chunk.
+        'tape_step': (4 * n_calls * ((chunk + 3) * field + 3 * coef + row
+                                     + chunk),
+                      n_calls * (chunk - 1) * (14 * field + 2 * row)),
         # The taped adjoint's steps without the shot sums: tape slots
         # 0 .. chunk (not the chunk-end state), the two cotangents in, the
         # two out and the per-shot alpha, t1, t2 cotangents (three fields,
@@ -252,17 +264,33 @@ def phase_kernel_info(shapes):
     """Registers, spill bytes and resident blocks per SM of every kernel,
     and the blocked kernels' U and tile at each field shape of
     ``shapes``. The blocked kernels must not spill and must fit two blocks
-    on an SM."""
+    on an SM. ``tape_step`` at each shape: its blocks per cluster and the
+    clusters resident at once; it must not spill and must keep at least
+    TAPE_MIN_CLUSTERS resident. Returns tape_step's info at the first
+    shape."""
     from red_diffeq_tpu_torch.ops import stencil
+    tape = None
+    for hp, wp in shapes:
+        k = stencil.kernel_info('tape_step', hp, wp)
+        print(f'tape_step at {hp}x{wp}: {k["regs"]} registers, '
+              f'{k["local_bytes"]} local bytes, {k["blocks_per_sm"]} block(s) '
+              f'per SM, clusters of {k["ranks"]} blocks, {k["clusters"]} '
+              f'clusters resident at once', flush=True)
+        check(k['local_bytes'] == 0, 'tape_step spills to local memory')
+        check(k['blocks_per_sm'] >= 1, 'a tape_step block does not fit an SM')
+        check(k['clusters'] >= TAPE_MIN_CLUSTERS, f'tape_step: only '
+              f'{k["clusters"]} clusters resident, the design counts on '
+              f'{TAPE_MIN_CLUSTERS}')
+        tape = tape or k
     for name in stencil.launches:
+        if name == 'tape_step':
+            continue
         k = stencil.kernel_info(name)
         blocked = name in stencil.BLOCKED
         tiles = '; '.join(
             f'{hp}x{wp}: U={u}, tile {ty}x{tx}' for hp, wp in shapes
             for u, ty, tx in [stencil.pick_blocking(name, hp, wp)]
-        ) if blocked else ('four cells a thread, once per chunk'
-                           if name == 'sum_shots' else
-                           'one thread per cell, one step a launch')
+        ) if blocked else 'four cells a thread, once per chunk'
         print(f'{name}: {k["regs"]} registers, {k["local_bytes"]} local '
               f'bytes, {k["blocks_per_sm"]} blocks per SM ({tiles})',
               flush=True)
@@ -270,6 +298,7 @@ def phase_kernel_info(shapes):
             check(k['local_bytes'] == 0, f'{name} spills to local memory')
             check(k['blocks_per_sm'] >= 2, f'{name}: only '
                   f'{k["blocks_per_sm"]} block(s) fit on an SM')
+    return tape
 
 
 def phase_forward(p, label='headline', full=True):
@@ -495,9 +524,11 @@ def phase_adjoint(p, carries, grad_problem):
 def phase_short_chunk(p, carries, grec, steps=7):
     """One chunk of ``steps`` FD steps (U does not divide it, so the last
     group of each blocked kernel is short) from a mid-pass carry: the
-    forward, the tape-free adjoint and the taped adjoint (on the plain
-    replay's tape), each adjoint through its chunk launcher with its
-    ``sum_shots`` launch, against their plain versions."""
+    forward, the tape replay (bit for bit), the tape-free adjoint and the
+    taped adjoint (on the plain replay's tape), each adjoint through its
+    chunk launcher with its ``sum_shots`` launch, against their plain
+    versions."""
+    import torch
     from red_diffeq_tpu_torch.ops import stencil
 
     coef = (p['alpha'], p['t1'], p['t2'], p['inj'])
@@ -515,6 +546,9 @@ def phase_short_chunk(p, carries, grec, steps=7):
                         f'{steps}-step chunk')
     tape = stencil.tape_chunk_plain(*carries[i], *coef, src,
                                     isz=p['geo']['isz'])
+    check(torch.equal(stencil.tape_chunk(*carries[i], *coef, src,
+                                         isz=p['geo']['isz']), tape),
+          f'tape_step differs from its plain version on a {steps}-step chunk')
     args = (tape, *carries[i + 1], grec[:, :, :steps].contiguous(),
             *coef[:3], src)
     e_t = check_outputs('bwd_tape_step', GRADS,
@@ -522,8 +556,8 @@ def phase_short_chunk(p, carries, grec, steps=7):
                         stencil.bwd_tape_chunk_plain(*args, **p['geo']),
                         f'{steps}-step chunk')
     print(f'{steps}-step chunk (short last group) vs plain: fwd_step max abs '
-          f'err {e_f:.3e}, bwd_reverse_step {e_b:.3e}, bwd_tape_step '
-          f'{e_t:.3e}', flush=True)
+          f'err {e_f:.3e}, tape_step bit for bit, bwd_reverse_step {e_b:.3e}, '
+          f'bwd_tape_step {e_t:.3e}', flush=True)
 
 
 def phase_determinism(problems):
@@ -568,10 +602,13 @@ def compare_grads(ctx, mu, y, mask, label, ref, **kw):
     return r
 
 
-def phase_tape(p, carries, grad_problem):
-    """The tape kernels at the headline shape with the taped route forced:
-    each against its plain version over a whole pass, their pass times,
-    and the taped gradient against the tape-free one."""
+def tape_replays(p, carries, label):
+    """``tape_step`` against ``tape_chunk_plain`` on every chunk of a pass
+    from the forward kernel's carries, every slot bit for bit, and slot
+    chunk (s_{K-1}) against the forward kernel's next carry; then both
+    timed over a pass, device time between CUDA events. Returns the tapes,
+    the times and the blocks per cluster."""
+    import torch
     from red_diffeq_tpu_torch.ops import stencil
 
     coef = (p['alpha'], p['t1'], p['t2'], p['inj'])
@@ -581,40 +618,68 @@ def phase_tape(p, carries, grad_problem):
         return fn(*carries[i], *coef, p['src'][i], isz=isz)
 
     tapes, err = [], 0.0
+    stencil.reset_launches()
     for i in range(len(p['src'])):
         tape = replay(stencil.tape_chunk, i)
-        err = max(err, check_outputs(
-            'tape_step', [f'slot {j}' for j in range(len(tape))], tape,
-            replay(stencil.tape_chunk_plain, i), f'chunk {i}'))
-        # The last two slots are the forward kernel's end carry.
-        check_outputs('tape_step', ('s_{K-1}', 's_K'), tape[-2:],
-                      carries[i + 1], f'chunk {i} vs fwd_step')
+        want = replay(stencil.tape_chunk_plain, i)
+        check(tuple(tape.shape) == tuple(want.shape) == (CHUNK + 1,
+                                                         *p['shape']),
+              f'tape_step at {label}: tape of shape {tuple(tape.shape)}')
+        for j in range(len(tape)):
+            d = float((tape[j] - want[j]).abs().max())
+            err = max(err, d)
+            check(torch.equal(tape[j], want[j]), f'tape_step at {label} '
+                  f'chunk {i} slot {j} differs from plain by {d:.3e}')
+        # Slot chunk is s_{K-1}, the forward kernel's next p0.
+        check(torch.equal(tape[-1], carries[i + 1][0]), f'tape_step at '
+              f'{label} chunk {i}: slot {CHUNK} is not fwd_step\'s s_{{K-1}}')
         tapes.append(tape)
-    print(f'tape_step vs plain: {len(tapes)} tapes of {len(tapes[0])} '
-          f'slots, max abs err {err:.3e}', flush=True)
+    ranks, launched = stencil.last_ranks['tape_step'], stencil.launches[
+        'tape_step']
+    check(launched == len(tapes), f'tape_step launched {launched} times for '
+          f'{len(tapes)} chunks')
+    print(f'tape_step vs plain at {label} {p["shape"]}: {len(tapes)} tapes '
+          f'of {len(tapes[0])} slots, every slot bit for bit, slot {CHUNK} = '
+          f'fwd_step\'s s_{{K-1}}; clusters of {ranks} blocks, one launch a '
+          f'chunk', flush=True)
 
     def tape_pass(fn):
         for i in range(len(tapes)):
             replay(fn, i)
 
-    tape_ms = cuda_ms(lambda: tape_pass(stencil.tape_chunk), 5)
-    tape_plain_ms = cuda_ms(lambda: tape_pass(stencil.tape_chunk_plain), 2)
-    print(f'tape pass ({len(tapes) * CHUNK} steps): kernel {tape_ms:.3f} ms, '
-          f'plain {tape_plain_ms:.3f} ms', flush=True)
+    ms = cuda_ms(lambda: tape_pass(stencil.tape_chunk), 5)
+    plain_ms = cuda_ms(lambda: tape_pass(stencil.tape_chunk_plain), 2)
+    print(f'tape pass at {label} ({len(tapes) * CHUNK} steps): kernel '
+          f'{ms:.3f} ms (one launch per step, headline: '
+          f'{EARLIER_MS["tape_step"]:.3f} ms), plain {plain_ms:.3f} ms',
+          flush=True)
+    return tapes, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       ranks=ranks)
 
+
+def phase_tape(p, carries, grad_problem, pn, carries_n):
+    """The tape kernels at the headline shape with the taped route forced:
+    ``tape_step`` against its plain version over a whole pass, at the
+    headline and at nbc=40 (``pn``, ``carries_n``), ``bwd_tape_step``
+    against its plain version, their pass times, and the taped gradient
+    against the tape-free one."""
+    from red_diffeq_tpu_torch.ops import stencil
+
+    _, narrow = tape_replays(pn, carries_n, f'nbc={NARROW["nbc"]}')
+    tapes, res = tape_replays(p, carries, f'nbc={HEADLINE["nbc"]}')
+    res.update(ms_nbc40=narrow['ms'], plain_ms_nbc40=narrow['plain_ms'])
+    coef = (p['alpha'], p['t1'], p['t2'])
     grecs = random_grecs(p)
     bwd = adjoint_pass(
         p, 'bwd_tape_step', stencil.bwd_tape_steps,
         stencil.bwd_tape_steps_plain,
-        lambda i, gp0, gp1: (tapes[i], gp0, gp1, grecs[i], *coef[:3],
+        lambda i, gp0, gp1: (tapes[i], gp0, gp1, grecs[i], *coef,
                              p['src'][i]))
     del tapes
     r = compare_grads(HEADLINE, *grad_problem,
                       f"adjoint='tape' vs 'reverse' at nbc={HEADLINE['nbc']}",
                       ('kernel', {'adjoint': 'reverse'}), adjoint='tape')
-    return dict(tape_step=dict(max_abs_err=err, ms=tape_ms,
-                               plain_ms=tape_plain_ms),
-                bwd_tape_step=bwd, grad_max_rel=r)
+    return dict(tape_step=res, bwd_tape_step=bwd, grad_max_rel=r)
 
 
 def phase_small_reference(dev):
@@ -739,10 +804,11 @@ def phase_slice(dev, diffusion, ctx, problem, route, adjoint=None):
     after a one-step warm-up. Checks that the solver took ``route``; that
     the blocked kernels of the route (the forward and the tape-free or the
     taped adjoint) launched ceil(chunk/U) times per chunk, ``sum_shots``
-    once per chunk and, on the taped route, ``tape_step`` once per FD step;
+    once per chunk and, on the taped route, ``tape_step`` once per chunk;
     the other route's kernels never, the plain path never; and that every
     sample's observation loss fell. Returns (launches, s/step, the U each
-    wrapper last handed its launcher)."""
+    wrapper last handed its launcher with tape_step's blocks per
+    cluster)."""
     import torch
     from red_diffeq_tpu_torch.core.inversion import InversionEngine
     from red_diffeq_tpu_torch.ops import stencil
@@ -781,7 +847,8 @@ def phase_slice(dev, diffusion, ctx, problem, route, adjoint=None):
     mu, per_model = run(TS)
     run_s = time.perf_counter() - t0
     counts = dict(stencil.launches)
-    unrolls = dict(stencil.last_unroll)
+    unrolls = dict(stencil.last_unroll, tape_step=stencil.last_ranks[
+        'tape_step'])
     plain_calls = acoustic.plain_chunk_calls['chunk']
 
     chunks = TS * len(acoustic.source_chunks(op.geom, CHUNK, 'cpu'))
@@ -796,7 +863,7 @@ def phase_slice(dev, diffusion, ctx, problem, route, adjoint=None):
     if route == 'reverse':
         want['bwd_reverse_step'] = chunks * per_chunk('bwd_reverse_step')
     else:
-        want['tape_step'] = chunks * CHUNK
+        want['tape_step'] = chunks
         want['bwd_tape_step'] = chunks * per_chunk('bwd_tape_step')
     print(f'nbc={ctx["nbc"]}, adjoint {route!r}: launches {counts}, plain '
           f'chunks {plain_calls}', flush=True)
@@ -864,18 +931,18 @@ def main():
         print(f'built {stencil.build(verbose=True)}', flush=True)
         hp = HEADLINE['n_grid'] + 2 * HEADLINE['nbc']
         hn = NARROW['n_grid'] + 2 * NARROW['nbc']
-        phase_kernel_info(((hp, hp), (hn, hn)))
+        tape_info = phase_kernel_info(((hp, hp), (hn, hn)))
     with Phase('forward kernel'):
         p = headline_problem(dev)
         fwd, carries, seis = phase_forward(p)
         grad_problem = gradient_problem(p['v_true'],
                                         seis[:, :, :HEADLINE['nt']])
         pn = headline_problem(dev, NARROW)
-        fwd_narrow, _, seis_n = phase_forward(pn, f'nbc={NARROW["nbc"]}',
-                                              full=False)
+        fwd_narrow, carries_n, seis_n = phase_forward(
+            pn, f'nbc={NARROW["nbc"]}', full=False)
         narrow_grad_problem = gradient_problem(pn['v_true'],
                                                seis_n[:, :, :NARROW['nt']])
-        del pn, seis_n
+        del seis_n
     with Phase('adjoint kernel'):
         bwd = phase_adjoint(p, carries, grad_problem)
     with Phase('determinism'):
@@ -883,8 +950,8 @@ def main():
                            (NARROW, *narrow_grad_problem)))
         del narrow_grad_problem
     with Phase('tape kernels'):
-        tape = phase_tape(p, carries, grad_problem)
-        del carries
+        tape = phase_tape(p, carries, grad_problem, pn, carries_n)
+        del carries, pn, carries_n
     with Phase('small inversion vs CPU'):
         phase_small_reference(dev)
     with Phase('slice'):
@@ -923,7 +990,9 @@ def main():
             launches=launched[name], max_abs_err=res['max_abs_err'],
             ms=res['ms'], plain_ms=res['plain_ms'],
             bound_ms=bnd[name]['bound_ms'], bound_by=bnd[name]['bound_by'],
-            library_ms=res.get('library_ms'), unroll=unroll[name],
+            library_ms=res.get('library_ms'),
+            **({'ranks': unroll[name]} if name == 'tape_step'
+               else {'unroll': unroll[name]}),
             launches_per_pass=launched[name] // TS))
     # sum_shots runs on both routes: its launches on the taped one too, and
     # its times per call with the host's launch beside its device time.
@@ -932,6 +1001,12 @@ def main():
         ms_per_call_with_host=bwd['sum_shots']['ms_per_call_with_host'],
         library_ms_per_call_with_host=bwd['sum_shots'][
             'library_ms_per_call_with_host'])
+    # tape_step at nbc=40, its own route, and its registers and resident
+    # clusters at the headline.
+    kernels[3].update(ms_nbc40=tape['tape_step']['ms_nbc40'],
+                      plain_ms_nbc40=tape['tape_step']['plain_ms_nbc40'],
+                      registers=tape_info['regs'],
+                      clusters=tape_info['clusters'])
     print(f'fwd_step at nbc={NARROW["nbc"]} ({hn}x{hn}): '
           f'{fwd_narrow["ms"]:.3f} ms per pass, max abs err '
           f'{fwd_narrow["max_abs_err"]:.3e}', flush=True)

@@ -1,6 +1,6 @@
 // Acoustic FD time stepper for Hopper (sm_90a): the forward, the tape-free
-// adjoint and its shot sum, and the taped pair (tape replay step, taped
-// adjoint step), with a plain C interface loaded through ctypes
+// adjoint and its shot sum, and the taped pair (tape replay, taped adjoint
+// step), with a plain C interface loaded through ctypes
 // (red_diffeq_tpu_torch/ops/stencil.py).
 //
 // fwd_step replaces _fwd_kernel (red_diffeq_tpu/ops/stencil.py:150-231,
@@ -22,8 +22,9 @@
 // adjoint 35 and the taped adjoint 30. Counting each chunk call's inputs and
 // outputs once, one 1000-step pass at the headline (B=4, ns=5, 310x310,
 // chunk 20) is bound by bytes for the forward (0.53 ms), the tape replay
-// and both adjoints' steps (which write per-shot sums), by operations for
-// the tape-free adjoint's whole chunk; chip_smoke.py computes them all.
+// (2.7 ms: it writes chunk + 1 fields a chunk) and both adjoints' steps
+// (which write per-shot sums), by operations for the tape-free adjoint's
+// whole chunk; chip_smoke.py computes them all.
 //
 // fwd_step, bwd_reverse_step and bwd_tape_step are temporally blocked: one
 // launch takes U steps (U = 4 at the headline, rdt_blocking below) of one
@@ -47,62 +48,32 @@
 //
 // The taped pair does not keep the TPU's haloed tape blocks (U+2 states
 // per grid iteration, so that one VMEM block serves one iteration): its
-// tape is flat, chunk+2 states of (B, ns, Hp, Wp) with slot i = s_{i-1}, so
-// slots 0 and 1 are the chunk-start carry. tape_step is one launch per time
-// step, one thread per cell: it reads slots m and m-1 and writes slot m+1.
-// bwd_tape_step reads s_{m-1} and s_{m-2} from slots m and m-1 where
-// bwd_reverse_step rebuilds s_{m-2}, and never divides by t2; it reads the
-// tape only at its tile and 2 cells around it, each slot once a launch.
-// The tape lives only during one chunk's backward, as in the JAX custom
-// VJP; at the headline it is above the L2, so the taped pair streams from
-// HBM.
+// tape is flat, chunk+1 states of (B, ns, Hp, Wp) with slot i = s_{i-1}, so
+// slots 0 and 1 are the chunk-start carry and slot chunk is s_{chunk-1};
+// the chunk-end state, which the sweep never reads, is not replayed.
+// tape_step replays a whole chunk in one launch, the TPU kernel's
+// whole-field residency kept by a thread-block cluster: one (sample, shot)
+// field a cluster of up to 16 blocks on neighbouring SMs, each a strip of
+// rows in shared memory, halo rows exchanged through distributed shared
+// memory (see "The tape replay" below). bwd_tape_step reads s_{m-1} and
+// s_{m-2} from slots m and m-1 where bwd_reverse_step rebuilds s_{m-2},
+// and never divides by t2; it reads the tape only at its tile and 2 cells
+// around it, each slot once a launch. The tape lives only during one
+// chunk's backward, as in the JAX custom VJP; at the headline it is above
+// the L2, so the taped pair streams from HBM.
 
 #include <cuda_runtime.h>
+#include <cooperative_groups.h>
 
 namespace {
 
 constexpr float kC2 = (float)(4.0 / 3.0);
 constexpr float kC3 = (float)(-1.0 / 12.0);
-constexpr int kThreads = 256;
 
-struct Nbr {
-  int ym2, ym1, yp1, yp2, xm2, xm1, xp1, xp2;
-};
-
-__device__ __forceinline__ Nbr neighbours(int y, int x, int H, int W) {
-  Nbr n;
-  n.ym1 = y == 0 ? H - 1 : y - 1;
-  n.ym2 = n.ym1 == 0 ? H - 1 : n.ym1 - 1;
-  n.yp1 = y == H - 1 ? 0 : y + 1;
-  n.yp2 = n.yp1 == H - 1 ? 0 : n.yp1 + 1;
-  n.xm1 = x == 0 ? W - 1 : x - 1;
-  n.xm2 = n.xm1 == 0 ? W - 1 : n.xm1 - 1;
-  n.xp1 = x == W - 1 ? 0 : x + 1;
-  n.xp2 = n.xp1 == W - 1 ? 0 : n.xp1 + 1;
-  return n;
-}
-
-// L(f) at (y, x) for a field read through f(yy, xx), in the grouping of
-// red_diffeq_tpu/solvers/acoustic.py:188-191 (roll(p, 1)[y] = p[y - 1]).
-template <typename F>
-__device__ __forceinline__ float lap4(const F& f, const Nbr& n, int y, int x) {
-  return kC2 * (((f(n.ym1, x) + f(n.yp1, x)) + f(y, n.xm1)) + f(y, n.xp1)) +
-         kC3 * (((f(n.ym2, x) + f(n.yp2, x)) + f(y, n.xm2)) + f(y, n.xp2));
-}
-
-// s_m at cell (y, x) of field bs: p2 is s_{m-2} there, f1 the field
-// s_{m-1}, c the cell's index in the (B, 1, H, W) coefficient fields.
-__device__ __forceinline__ float step_cell(
-    float p2, const float* __restrict__ f1, const float* __restrict__ alpha,
-    const float* __restrict__ t1, const float* __restrict__ t2,
-    const float* __restrict__ inj, const float* __restrict__ src, int k,
-    int bs, int c, int y, int x, int H, int W, int isz) {
-  const Nbr n = neighbours(y, x, H, W);
-  const auto at = [&](int yy, int xx) { return f1[yy * W + xx]; };
-  float p = (t1[c] * f1[y * W + x] - t2[c] * p2) + alpha[c] * lap4(at, n, y, x);
-  if (y == isz) p = p + inj[bs * W + x] * src[k];
-  return p;
-}
+// Every kernel takes the circular Laplacian L in the grouping of
+// red_diffeq_tpu/solvers/acoustic.py:188-191 (roll(p, 1)[y] = p[y - 1]):
+//   kC2*(((p[y-1] + p[y+1]) + p[x-1]) + p[x+1])
+//     + kC3*(((p[y-2] + p[y+2]) + p[x-2]) + p[x+2]).
 
 // ---------------------------------------------------------------------------
 // Temporal blocking. A block owns a tile of one (sample, shot) field and
@@ -173,7 +144,7 @@ struct Edges {
 
 // L(f) at cell (j, i) of a micro-tile f, whose field values are f itself
 // at its own cells, the edge rows e above and below, and l2, l1 | r1, r2
-// left and right of row j. In the grouping of lap4; j and i are constants
+// left and right of row j. In the grouping of L; j and i are constants
 // after unrolling, so every neighbour is a register.
 template <class L>
 __device__ __forceinline__ float lap_cell(const float (&f)[L::MY][L::MX],
@@ -414,27 +385,213 @@ __global__ void __launch_bounds__(FwdL::THREADS, 2) fwd_step(
   }
 }
 
-// One step m (k = m - 1) of the tape replay: prev and cur hold s_{m-2} and
-// s_{m-1} (tape slots m-1 and m), out receives s_m (slot m+1). The
-// arithmetic of fwd_step, with no receiver rows.
-__global__ void tape_step(const float* __restrict__ prev,
-                          const float* __restrict__ cur,
-                          float* __restrict__ out,
-                          const float* __restrict__ alpha,
-                          const float* __restrict__ t1,
-                          const float* __restrict__ t2,
-                          const float* __restrict__ inj,
-                          const float* __restrict__ src, int k, int B, int ns,
-                          int H, int W, int isz) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  const int hw = H * W;
-  if (idx >= B * ns * hw) return;
-  const int x = idx % W;
-  const int y = (idx / W) % H;
-  const int bs = idx / hw;
-  const int c = (bs / ns) * hw + y * W + x;
-  out[idx] = step_cell(prev[idx], cur + (size_t)bs * hw, alpha, t1, t2, inj,
-                       src, k, bs, c, y, x, H, W, isz);
+// ---------------------------------------------------------------------------
+// The tape replay: one launch per chunk, one (sample, shot) field per
+// thread-block cluster of `ranks` blocks (16 for a field of 32 rows or
+// more). Block `rank` owns the rows [rank*H/ranks, (rank+1)*H/ranks) of the
+// field (a strip of at least 2 rows, the halo depth) at every column; x
+// wraps inside the block. In shared memory it keeps two buffers of its
+// strip with 2 halo rows above and below, s_k and s_{k-1} (own rows only),
+// used in turn, its cells' alpha, t1 and t2, and the field's injection row,
+// all loaded once a launch. A step computes s_{k+1} over s_{k-1} in place
+// (each cell read and written by one thread), stores each cell to the
+// step's tape slot from its register (a warp's stores of one row are one
+// coalesced line), and writes the strip's first and last 2 rows straight
+// into the halo rows of the ranks above and below (rank 0 wraps to rank
+// ranks-1) through distributed shared memory. One cluster barrier a step
+// (arrive releases those writes, wait acquires the neighbours') orders the
+// block's own rows and its halo rows before the next step. A block writes
+// into a neighbour's buffer only the halo rows that the neighbour reads
+// after the next barrier, and the neighbour last read them before the
+// barrier of the step before. The last step writes no halo rows, so a
+// block may leave after it.
+//
+// A thread takes one column of a band of the strip's rows (as many bands
+// of at least kTapeBand rows as keep the block's threads busy; neighbouring
+// threads on neighbouring columns) and walks down it with the column's
+// s_k at rows y-2 .. y+2 in registers, so a cell reads 9 shared values (6
+// of the states, alpha, t1, t2). No global load is left inside a step: a
+// cell that waited for one would hold the whole cluster at the barrier.
+//
+// What bounds it (H100, chip_smoke.py and PERF.md): the tape's bytes,
+// (chunk + 3) fields a chunk, would take 2.7 ms a 1000-step pass at the
+// headline. Per step a cluster of 16 blocks takes about 1 us for the
+// cluster barrier and 2-3 us for its 6200 cells a block (about 50
+// instructions a cell, issue-bound), and the 20 fields of the headline run
+// in 3 waves of 7 resident clusters. The coefficients live in shared
+// memory: in registers (512 threads a block) they spilled, and the design
+// that kept them there ran slower. Shared memory is the size limit
+// (tape_fits): (5*rows + 9)*Wp floats for the largest strip of `rows`,
+// 416x416 or 310x430 and smaller at 16 blocks a field.
+// ---------------------------------------------------------------------------
+
+namespace cg = cooperative_groups;
+
+// The cluster calls of the tape replay: this block's rank in its cluster,
+// a pointer into another rank's shared memory at the offset of p in this
+// block's, and the cluster barrier in its two halves: arrive (releasing
+// this thread's writes, local and remote, to the cluster) and wait (until
+// every thread of the cluster has arrived; acquiring their writes).
+__device__ __forceinline__ int cluster_rank() {
+  return (int)cg::this_cluster().block_rank();
+}
+
+__device__ __forceinline__ float* cluster_map(float* p, int rank) {
+  return cg::this_cluster().map_shared_rank(p, rank);
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+#elif !defined(__CUDACC__)
+  cg::this_cluster().barrier_arrive();    // the host build's stand-in
+#endif
+}
+
+__device__ __forceinline__ void cluster_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+#elif !defined(__CUDACC__)
+  cg::this_cluster().barrier_wait();
+#endif
+}
+
+constexpr int kTapeThreads = 1024;
+constexpr int kTapeBand = 4;       // fewest rows of a band
+constexpr int kTapeMaxRanks = 16;  // a non-portable cluster size
+constexpr size_t kMaxSmem = 232448;  // 227 KB a block
+
+// First row of rank r's strip.
+__host__ __device__ __forceinline__ int strip_start(int r, int ranks,
+                                                    int H) {
+  return (int)((long long)r * H / ranks);
+}
+
+// Rows of the largest strip.
+__host__ __device__ __forceinline__ int strip_rows(int ranks, int H) {
+  return (H + ranks - 1) / ranks;
+}
+
+// The replay of one chunk from its start carry into the tape: chunk + 1
+// slots of `slot` cells, slot i = s_{i-1}. p0, p1 hold s_{-1}, s_0 and go
+// to slots 0 and 1; steps k = 0 .. chunk-2 write s_{k+1} to slot k+2, so
+// the chunk-end state s_chunk, which the taped adjoint never reads, is not
+// computed. Grid (ranks, B*ns), clusters of (ranks, 1, 1). Shared memory:
+// two buffers of (largest strip + 4 halo rows) x W, then alpha, t1, t2 at
+// the strip, and the field's injection row.
+__global__ void __launch_bounds__(kTapeThreads, 1) tape_step(
+    float* __restrict__ tape, const float* __restrict__ p0,
+    const float* __restrict__ p1, const float* __restrict__ alpha,
+    const float* __restrict__ t1, const float* __restrict__ t2,
+    const float* __restrict__ inj, const float* __restrict__ src, int chunk,
+    int ns, int H, int W, int isz, int ranks, long long slot) {
+  extern __shared__ float smem[];
+  const int rank = cluster_rank();
+  const int bs = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int r0 = strip_start(rank, ranks, H);
+  const int rows = strip_start(rank + 1, ranks, H) - r0;
+  const int rmax = strip_rows(ranks, H);
+  const int bsz = (rmax + 4) * W;        // one state buffer
+  const int own = 2 * W;                 // its row 0, after 2 halo rows
+  float* const sa = smem + 2 * bsz;      // alpha, t1, t2 at the strip
+  float* const s1 = sa + rmax * W;
+  float* const s2 = s1 + rmax * W;
+  float* const si = s2 + rmax * W;       // the field's injection row
+  // Where this strip's first 2 rows go in the rank above (its bottom halo
+  // rows) and its last 2 rows in the rank below (its top halo rows), at
+  // buffer 0, as offsets from the strip's row 0 there.
+  const int up = (rank + ranks - 1) % ranks, dn = (rank + 1) % ranks;
+  const int up_rows = strip_start(up + 1, ranks, H) - strip_start(up, ranks, H);
+  float* const to_up = cluster_map(smem, up) + own + up_rows * W;
+  float* const to_dn = cluster_map(smem, dn) + own - rows * W;
+  const size_t f = (size_t)bs * H * W;
+  const size_t fs = f + (size_t)r0 * W;    // the strip's first cell
+  const size_t cb = (size_t)(bs / ns) * H * W + (size_t)r0 * W;
+  const int n = rows * W;
+  // This thread's share of a step, worked out once: one column of one of
+  // `bands` bands of the strip's rows, as many bands (each of kTapeBand
+  // rows or more) as keep the block's threads busy; with W above
+  // kTapeThreads, one band and the columns x0, x0 + kTapeThreads, ...
+  int bands = kTapeThreads / W;
+  if (bands > rows / kTapeBand) bands = rows / kTapeBand;
+  if (bands < 1) bands = 1;
+  const bool wide = W > kTapeThreads;
+  const int band = wide ? 0 : tid / W;
+  const int x0 = wide ? tid : tid % W;
+  const int xstep = wide ? kTapeThreads : W;
+  const bool busy = band < bands;
+  const int ya = band * rows / bands, yb = (band + 1) * rows / bands;
+  // s_{-1} at the strip of buffer 1 and the coefficients; s_0 at the strip
+  // and its halo rows of buffer 0; both states to their tape slots.
+  for (int i = tid; i < n; i += kTapeThreads) {
+    const float v = p0[fs + i];
+    smem[bsz + own + i] = v;
+    tape[fs + i] = v;
+    sa[i] = alpha[cb + i];
+    s1[i] = t1[cb + i];
+    s2[i] = t2[cb + i];
+  }
+  for (int i = tid; i < (rows + 4) * W; i += kTapeThreads) {
+    const int y = i / W - 2, x = i % W;
+    const float v = p1[f + (size_t)wrap(r0 + y, H) * W + x];
+    smem[own + y * W + x] = v;
+    if (y >= 0 && y < rows) tape[slot + fs + y * W + x] = v;
+  }
+  for (int i = tid; i < W; i += kTapeThreads) si[i] = inj[(size_t)bs * W + i];
+  float sk = src[0];    // src[k], read a step ahead
+  // Every block of the cluster is running (before any write to another's
+  // shared memory) and has loaded its strip.
+  cluster_arrive();
+  cluster_wait();
+  int cur = 0, nxt = bsz;    // offsets of the buffers of s_k and s_{k-1}
+  for (int k = 0; k + 1 < chunk; ++k) {
+    const float sk_next = src[k + 1];
+    const bool halo = k + 2 < chunk;    // the next step reads halo rows
+    // s_k is only read, and s_{k-1} only at a thread's own cells: no
+    // pointer aliases another, so a row's loads need not wait for the
+    // stores of the row before.
+    const float* __restrict__ c = &smem[cur + own];
+    float* __restrict__ o = &smem[nxt + own];
+    float* __restrict__ out = tape + (size_t)(k + 2) * slot + fs;
+    float* const hu = to_up + nxt;    // + row*W + x
+    float* const hd = to_dn + nxt;
+    for (int x = x0; busy && x < W; x += xstep) {
+      const int xm1 = x == 0 ? W - 1 : x - 1;
+      const int xm2 = xm1 == 0 ? W - 1 : xm1 - 1;
+      const int xp1 = x == W - 1 ? 0 : x + 1;
+      const int xp2 = xp1 == W - 1 ? 0 : xp1 + 1;
+      // s_k at rows y-2 .. y+1 of column x, rolled down a row a cell.
+      float ym2 = c[(ya - 2) * W + x], ym1 = c[(ya - 1) * W + x];
+      float cc = c[ya * W + x], yp1 = c[(ya + 1) * W + x];
+#pragma unroll 2
+      for (int y = ya; y < yb; ++y) {
+        const int at = y * W + x;
+        const float yp2 = c[at + 2 * W];
+        const float* r = c + y * W;
+        const float lap = kC2 * (((ym1 + yp1) + r[xm1]) + r[xp1]) +
+                          kC3 * (((ym2 + yp2) + r[xm2]) + r[xp2]);
+        float p = (s1[at] * cc - s2[at] * o[at]) + sa[at] * lap;
+        if (r0 + y == isz) p = p + si[x] * sk;
+        o[at] = p;
+        out[at] = p;
+        if (halo) {
+          if (y < 2) hu[at] = p;
+          if (y >= rows - 2) hd[at] = p;
+        }
+        ym2 = ym1;
+        ym1 = cc;
+        cc = yp1;
+        yp1 = yp2;
+      }
+    }
+    if (halo) {
+      cluster_arrive();
+      cluster_wait();
+    }
+    const int t = cur; cur = nxt; nxt = t;
+    sk = sk_next;
+  }
 }
 
 // The adjoint's blocking: 4x2 cells a thread, 16x16 threads, a 64-column,
@@ -821,7 +978,7 @@ struct TileShare {
 // tape instead of rebuilt, and no divide by t2.
 //   u_in, v_in: cotangents of s_{m-1}, s_m (m = k_hi + 1; v before the
 //     receiver injection); u_out, v_out: those of the group's last step.
-//   tape: chunk + 2 slots of `slot` cells, slot i = s_{i-1}; step k reads
+//   tape: chunk + 1 slots of `slot` cells, slot i = s_{i-1}; step k reads
 //     s_{m-1} and s_{m-2} from slots k+1 and k.
 //   pa, p1, p2: this shot's running alpha, t1 and t2 cotangents
 //     (B, ns, H, W), added to in step order; ginj: (B, ns, 1, W).
@@ -1037,8 +1194,6 @@ __global__ void __launch_bounds__(BwdL::THREADS, U > 1 ? 2 : 1) bwd_tape_step(
   }
 }
 
-inline unsigned blocks(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
-
 // Shared memory of one block of each blocked kernel, in bytes.
 constexpr size_t kFwdSmem =
     5 * FwdL::SIZE * sizeof(float) + (FwdL::LY + FwdL::LX) * sizeof(int);
@@ -1065,6 +1220,51 @@ template <class L>
 dim3 tile_grid(int unroll, int B, int ns, int H, int W) {
   const int ty = L::LY - 4 * unroll, tx = L::LX - 4 * unroll;
   return dim3((W + tx - 1) / tx, (H + ty - 1) / ty, B * ns);
+}
+
+// Shared memory of one tape_step block at `ranks` blocks a field: two
+// state buffers of the largest strip and its 4 halo rows, alpha, t1 and t2
+// at the strip, the injection row.
+inline size_t tape_smem(int ranks, int H, int W) {
+  const size_t rmax = strip_rows(ranks, H);
+  return (5 * rmax + 9) * W * sizeof(float);
+}
+
+// Whether tape_step takes an H x W field in clusters of `ranks` blocks: a
+// cluster size it is built for, strips of at least 2 rows (the halo
+// depth), a block's shared memory within 227 KB.
+inline bool tape_fits(int ranks, int H, int W) {
+  if (ranks < 1 || ranks > kTapeMaxRanks || (ranks & (ranks - 1)) != 0)
+    return false;
+  return H / ranks >= 2 && W >= 1 && tape_smem(ranks, H, W) <= kMaxSmem;
+}
+
+// The launch configuration of tape_step: grid (ranks, fields), clusters of
+// (ranks, 1, 1); attr must outlive the launch.
+inline cudaLaunchConfig_t tape_config(int ranks, int fields, int H, int W,
+                                      cudaLaunchAttribute* attr,
+                                      cudaStream_t st) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ranks, fields, 1);
+  cfg.blockDim = dim3(kTapeThreads, 1, 1);
+  cfg.dynamicSmemBytes = tape_smem(ranks, H, W);
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = ranks;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Allow tape_step its shared memory and a cluster size above 8.
+inline cudaError_t tape_attributes(size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      tape_step, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(
+      tape_step, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
 }
 
 }  // namespace
@@ -1190,28 +1390,60 @@ extern "C" int rdt_blocking(int which, int H, int W, int* unroll,
   return 0;
 }
 
+// Blocks per cluster of tape_step for an H x W field: the most (16, 8, 4,
+// 2, 1) that leave every strip 2 rows or more. Returns
+// cudaErrorInvalidValue when the field is beyond tape_step's size limit
+// (tape_fits at that cluster size), 0 otherwise.
+extern "C" int rdt_tape_ranks(int H, int W, int* ranks) {
+  int r = kTapeMaxRanks;
+  while (r > 1 && H / r < 2) r /= 2;
+  if (!tape_fits(r, H, W)) return (int)cudaErrorInvalidValue;
+  *ranks = r;
+  return 0;
+}
+
 // Registers per thread, local (spill) bytes per thread and resident blocks
 // per SM of kernel `which` (0 fwd_step, 1 bwd_reverse_step, 2 tape_step,
 // 3 bwd_tape_step, 4 sum_shots) at its launch configuration; the blocked
 // kernels with their shared memory, bwd_tape_step as launched for U=4 and
-// sum_shots for 5 shots (the headline's). Returns a CUDA error, 0 if none.
-extern "C" int rdt_kernel_info(int which,
-                               int* regs, int* local_bytes, int* blocks_per_sm) {
+// sum_shots for 5 shots (the headline's). tape_step as launched for an
+// H x W field (H and W are read for it alone), with its shared memory and
+// cluster size (*ranks), and in *clusters the clusters that can be
+// resident on the card at once (0 for the other kernels). Returns a CUDA
+// error, 0 if none.
+extern "C" int rdt_kernel_info(int which, int H, int W, int* regs,
+                               int* local_bytes, int* blocks_per_sm,
+                               int* ranks, int* clusters) {
   const void* fn;
-  int threads = kThreads;
+  int threads;
   size_t smem = 0;
+  cudaError_t err;
+  *ranks = 0;
+  *clusters = 0;
   switch (which) {
     case 0: fn = (const void*)fwd_step; threads = FwdL::THREADS;
             smem = kFwdSmem; break;
     case 1: fn = (const void*)bwd_reverse_step; threads = BwdL::THREADS;
             smem = kBwdSmem; break;
-    case 2: fn = (const void*)tape_step; break;
+    case 2: {
+      threads = kTapeThreads;
+      if (rdt_tape_ranks(H, W, ranks) != 0) return (int)cudaErrorInvalidValue;
+      fn = (const void*)tape_step;
+      smem = tape_smem(*ranks, H, W);
+      err = tape_attributes(smem);
+      if (err != cudaSuccess) return (int)err;
+      cudaLaunchAttribute attr;
+      const cudaLaunchConfig_t cfg =
+          tape_config(*ranks, 1, H, W, &attr, nullptr);
+      err = cudaOccupancyMaxActiveClusters(clusters, tape_step, &cfg);
+      if (err != cudaSuccess) return (int)err;
+      break;
+    }
     case 3: fn = (const void*)bwd_tape_step<4>; threads = BwdL::THREADS;
             smem = kTapeSmem; break;
     case 4: fn = (const void*)sum_shots<5>; threads = kSumThreads; break;
     default: return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err;
   if (smem > 0) {
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
@@ -1226,31 +1458,33 @@ extern "C" int rdt_kernel_info(int which,
       blocks_per_sm, fn, threads, smem);
 }
 
-// The tape of one chunk on PyTorch's stream: chunk + 2 states of B*ns*H*W
-// cells, slot i = s_{i-1}. The caller fills slots 0 and 1 with the
-// chunk-start carry; steps k = 0 .. chunk-1 write slots 2 .. chunk+1.
-// Returns the first launch error, 0 if none.
-extern "C" int rdt_tape_chunk(float* tape, const float* alpha, const float* t1,
+// The tape of one chunk on PyTorch's stream, in one tape_step launch:
+// chunk + 1 states of B*ns*H*W cells, slot i = s_{i-1} for i = 0 .. chunk,
+// the slots the taped adjoint reads. p0, p1 (s_{-1}, s_0) are only read and
+// go to slots 0 and 1. `ranks` blocks a field (rdt_tape_ranks). Returns
+// the launch error, 0 if none.
+extern "C" int rdt_tape_chunk(float* tape, const float* p0, const float* p1,
+                              const float* alpha, const float* t1,
                               const float* t2, const float* inj,
                               const float* src, int B, int ns, int H, int W,
-                              int isz, int chunk, void* stream) {
+                              int isz, int chunk, int ranks, void* stream) {
+  if (chunk < 1 || !tape_fits(ranks, H, W)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t slot = (size_t)B * ns * H * W;
-  const unsigned grid = blocks((long long)slot);
-  for (int k = 0; k < chunk; ++k) {
-    tape_step<<<grid, kThreads, 0, st>>>(tape + k * slot, tape + (k + 1) * slot,
-                                         tape + (k + 2) * slot, alpha, t1, t2,
-                                         inj, src, k, B, ns, H, W, isz);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+  cudaError_t err = tape_attributes(tape_smem(ranks, H, W));
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = tape_config(ranks, B * ns, H, W, &attr, st);
+  const long long slot = (long long)B * ns * H * W;
+  err = cudaLaunchKernelEx(&cfg, tape_step, tape, p0, p1, alpha, t1, t2, inj,
+                           src, chunk, ns, H, W, isz, ranks, slot);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 // The taped adjoint of one chunk on PyTorch's stream, steps chunk-1 down to
 // 0 in groups of `unroll` (the last may be shorter), one bwd_tape_step
-// launch per group, reading the tape written by rdt_tape_chunk (slots
-// 0 .. chunk). u, v (cotangents of s_{chunk-1}, s_chunk) are only read; the
+// launch per group, reading the tape written by rdt_tape_chunk (its chunk
+// + 1 slots, 0 .. chunk). u, v (cotangents of s_{chunk-1}, s_chunk) are only read; the
 // groups write (x0, x1) and (y0, y1) in turn, so the cotangents of the
 // chunk's start states end in (x0, x1) when the number of groups is odd and
 // in (y0, y1) when it is even. pa, p1, p2 (B, ns, H, W) and ginj

@@ -13,9 +13,10 @@ JAX package are ported, in ``csrc/stencil.cu``:
   sums its per-shot coefficient cotangents over shots once per chunk (the
   JAX kernel adds every shot into one shot-shared block, ``:435-437``).
 * ``_tape_kernel`` (launcher ``_run_tape``, ``stencil.py:233-268, 550``)
-  becomes ``tape_step``: one step of the chunk's replay, writing s_m to its
-  slot of a flat tape of ``chunk + 2`` states (slot i = s_{i-1}; slots 0
-  and 1 are the chunk-start carry), with no receiver rows.
+  becomes ``tape_step``: the chunk's whole replay in one launch, into a
+  flat tape of ``chunk + 1`` states (slot i = s_{i-1}; slots 0 and 1 are
+  the chunk-start carry; the chunk-end state, which the taped adjoint never
+  reads, is not replayed), with no receiver rows.
 * ``_bwd_kernel`` (launcher ``_run_bwd``, ``stencil.py:271-349, 582``)
   becomes ``bwd_tape_step``: U steps of the taped adjoint on one tile,
   reading s_{m-1} and s_{m-2} from the tape instead of rebuilding them,
@@ -33,11 +34,23 @@ shorter) of one tile of one (sample, shot) field, loaded into shared memory
 with a halo of 2U cells a side; :func:`pick_blocking` picks U from the
 field size, and the tile is the kernel's compiled window less the halos. A
 chunk is ceil(chunk/U) launches of each, and each adjoint's chunk launcher
-adds one ``sum_shots`` launch after its last group. ``tape_step`` is one
-launch per time step, one thread per cell. The TPU kernels keep a whole
-field in VMEM; one 310x310 fp32 field is 384 KB, above the 227 KB of
-shared memory one Hopper block may have, hence tiles. No kernel adds with floating-point atomics, so
-every result repeats bit for bit.
+adds one ``sum_shots`` launch after its last group. The TPU kernels keep a
+whole field in VMEM; one 310x310 fp32 field is 384 KB, above the 227 KB of
+shared memory one Hopper block may have, hence tiles.
+
+``tape_step`` keeps the TPU kernel's whole-field residency across a
+thread-block cluster instead: one launch per chunk, one (sample, shot)
+field per cluster of up to 16 blocks (:func:`pick_ranks`), each block a
+strip of the field's rows in shared memory with its coefficients, the
+strips' 2 boundary rows written into the neighbours' halo rows through
+distributed shared memory, one cluster barrier a step. It writes only the
+tape, and only the ``chunk + 1`` slots the taped adjoint reads; its bound
+is those bytes. A field whose strip does not fit a block's 227 KB,
+(5*ceil(Hp/16) + 9) * Wp floats, raises: 416x416 and 310x430 fit, 420x420
+does not.
+
+No kernel adds with floating-point atomics, so every result repeats bit
+for bit.
 The TPU-only x-stencil layouts (``'roll'``, ``'mxu'``, ``'mxu_xy'``,
 ``'halo'``, env ``RDT_X_STENCIL``) are lowerings of the same Laplacian and
 have no meaning here.
@@ -71,15 +84,20 @@ C1, C2, C3 = -2.5, 4.0 / 3.0, -1.0 / 12.0
 # every kernel launch it makes, and nowhere else.
 launches = {'fwd_step': 0, 'bwd_reverse_step': 0, 'sum_shots': 0,
             'tape_step': 0, 'bwd_tape_step': 0}
-# FD steps per launch that each stepping kernel's wrapper last handed its
-# launcher (None until it launches; ``sum_shots`` takes no steps).
+# FD steps per launch that each blocked kernel's wrapper last handed its
+# launcher (None until it launches; ``sum_shots`` takes no steps and
+# ``tape_step`` a whole chunk).
 last_unroll = dict.fromkeys(launches)
+# Blocks per cluster (one field a cluster) that the ``tape_step`` wrapper
+# last handed its launcher.
+last_ranks = {'tape_step': None}
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
         last_unroll[k] = None
+    last_ranks['tape_step'] = None
 
 
 def pick_unroll(chunk: int) -> int:
@@ -113,6 +131,23 @@ def pick_blocking(kernel: str, hp: int, wp: int):
         raise ValueError(f'a {hp}x{wp} field is too small for the halo of '
                          f'{kernel}')
     return tuple(v.value for v in vals)
+
+
+def pick_ranks(hp: int, wp: int) -> int:
+    """Blocks per cluster of ``tape_step`` for an Hp x Wp field, as the CUDA
+    library picks them (``rdt_tape_ranks``): the most of 16, 8, 4, 2, 1
+    that leave each block's strip of rows 2 rows or more. Raises for a
+    field beyond the kernel's size limit."""
+    ranks = ctypes.c_int()
+    if _load().rdt_tape_ranks(hp, wp, ctypes.byref(ranks)) != 0:
+        raise ValueError(
+            f'a {hp}x{wp} field is beyond the size limit of tape_step, which '
+            f'holds one field in a cluster of 16 blocks, each with its strip '
+            f'of ceil(Hp/16) rows in shared memory (two states with 2 halo '
+            f'rows a side, alpha, t1, t2, the injection row): '
+            f'(5*ceil(Hp/16) + 9) * Wp floats must fit in 227 KB (232448 '
+            f'bytes); 310x430 and 416x416 fit, 420x420 does not')
+    return ranks.value
 
 
 # Default adjoint: 'reverse' rebuilds past states by inverting the damped
@@ -191,9 +226,11 @@ def fwd_chunk_plain(p0, p1, alpha, t1, t2, inj, src_chunk, *, isz, igz, g0,
 
 def tape_chunk_plain(p0, p1, alpha, t1, t2, inj, src_chunk, *, isz):
     """The chunk's replay from its start carry (p0 = s_{-1}, p1 = s_0):
-    the tape (chunk + 2, B, ns, Hp, Wp) with slot i = s_{i-1}."""
+    the tape (chunk + 1, B, ns, Hp, Wp) with slot i = s_{i-1}, the slots
+    the taped adjoint reads. The chunk's last step, whose state s_chunk no
+    slot holds, is not taken."""
     tape = [p0, p1]
-    for k in range(src_chunk.shape[0]):
+    for k in range(src_chunk.shape[0] - 1):
         tape.append(_step_plain(tape[-2], tape[-1], alpha, t1, t2, inj,
                                 src_chunk[k], isz))
     return torch.stack(tape)
@@ -234,7 +271,8 @@ def bwd_reverse_steps_plain(p0o, p1o, gp0o, gp1o, grec, alpha, t1, t2, inj,
         inj_field[:, :, isz, :] = inj[:, :, 0, :] * src_chunk[k]
         states.append((t1 * s_m1 + alpha * laplacian4(s_m1) + inj_field
                        - s_m) * inv_t2)
-    return bwd_tape_steps_plain(torch.stack(states[::-1]), gp0o, gp1o, grec,
+    # s_{-1} .. s_{K-1}: the tape layout, without the chunk-end state.
+    return bwd_tape_steps_plain(torch.stack(states[:0:-1]), gp0o, gp1o, grec,
                                 alpha, t1, t2, src_chunk, isz=isz, igz=igz,
                                 g0=g0, ng=ng)
 
@@ -351,15 +389,17 @@ def _load():
         lib.rdt_bwd_reverse_chunk.restype = i
         lib.rdt_sum_shots.argtypes = [p] * 6 + [i] * 3 + [p]
         lib.rdt_sum_shots.restype = i
-        lib.rdt_tape_chunk.argtypes = [p] * 6 + [i] * 6 + [p]
+        lib.rdt_tape_chunk.argtypes = [p] * 8 + [i] * 7 + [p]
         lib.rdt_tape_chunk.restype = i
         lib.rdt_bwd_tape_chunk.argtypes = [p] * 19 + [i] * 10 + [p]
         lib.rdt_bwd_tape_chunk.restype = i
         ip = ctypes.POINTER(i)
-        lib.rdt_kernel_info.argtypes = [i] + [ip] * 3
+        lib.rdt_kernel_info.argtypes = [i] * 3 + [ip] * 5
         lib.rdt_kernel_info.restype = i
         lib.rdt_blocking.argtypes = [i] * 3 + [ip] * 3
         lib.rdt_blocking.restype = i
+        lib.rdt_tape_ranks.argtypes = [i, i, ip]
+        lib.rdt_tape_ranks.restype = i
         _lib = lib
     return _lib
 
@@ -594,7 +634,7 @@ def _sum_shots_kernel(pa, p1, p2):
 def tape_chunk(p0, p1, alpha, t1, t2, inj, src_chunk, *, isz):
     """The replay of one chunk into its tape: the CUDA kernel ``tape_step``
     for CUDA tensors, :func:`tape_chunk_plain` for CPU tensors. Returns the
-    tape (chunk + 2, B, ns, Hp, Wp), slot i = s_{i-1}."""
+    tape (chunk + 1, B, ns, Hp, Wp), slot i = s_{i-1}."""
     if p0.device.type == 'cpu':
         return tape_chunk_plain(p0, p1, alpha, t1, t2, inj, src_chunk,
                                 isz=isz)
@@ -607,18 +647,20 @@ def _tape_chunk_kernel(p0, p1, alpha, t1, t2, inj, src_chunk, *, isz):
     b, ns, hp, wp = _check_args({'p0': p0, 'p1': p1}, alpha, t1, t2,
                                 src_chunk, isz=isz, inj=inj)
     chunk = src_chunk.shape[0]
+    if chunk < 1:
+        raise ValueError('a chunk takes at least one step')
+    ranks = pick_ranks(hp, wp)
     lib = _load()
-    tape = torch.empty((chunk + 2, b, ns, hp, wp), device=p0.device,
+    tape = torch.empty((chunk + 1, b, ns, hp, wp), device=p0.device,
                        dtype=torch.float32)
-    tape[0].copy_(p0)
-    tape[1].copy_(p1)
     err = lib.rdt_tape_chunk(
-        _ptr(tape), _ptr(alpha), _ptr(t1), _ptr(t2), _ptr(inj),
-        _ptr(src_chunk), b, ns, hp, wp, isz, chunk, _stream(p0.device))
+        _ptr(tape), _ptr(p0), _ptr(p1), _ptr(alpha), _ptr(t1), _ptr(t2),
+        _ptr(inj), _ptr(src_chunk), b, ns, hp, wp, isz, chunk, ranks,
+        _stream(p0.device))
     if err != 0:
         raise RuntimeError(f'tape_step launch failed: CUDA error {err}')
-    launches['tape_step'] += chunk
-    last_unroll['tape_step'] = 1
+    launches['tape_step'] += 1
+    last_ranks['tape_step'] = ranks
     return tape
 
 
@@ -673,7 +715,7 @@ def _bwd_tape_kernel(tape, gp0o, gp1o, grec, alpha, t1, t2, src_chunk, *,
                                 src_chunk, isz=isz, igz=igz, g0=g0, ng=ng)
     chunk = src_chunk.shape[0]
     dev = gp0o.device
-    _check('tape', tape, (chunk + 2, b, ns, hp, wp), dev)
+    _check('tape', tape, (chunk + 1, b, ns, hp, wp), dev)
     _check('grec', grec, (b, ns, chunk, ng), dev)
     unroll = pick_blocking('bwd_tape_step', hp, wp)[0]
     lib = _load()
@@ -703,17 +745,20 @@ _KERNEL_IDS = {'fwd_step': 0, 'bwd_reverse_step': 1, 'tape_step': 2,
                'bwd_tape_step': 3, 'sum_shots': 4}
 
 
-def kernel_info(name: str):
+def kernel_info(name: str, hp: int = 0, wp: int = 0):
     """Registers per thread, local (spill) bytes per thread and resident
     blocks per SM of kernel ``name`` on the current card, at its launch
-    configuration (CUDA's function attributes and occupancy calculator)."""
-    vals = [ctypes.c_int() for _ in range(3)]
-    err = _load().rdt_kernel_info(_KERNEL_IDS[name],
+    configuration (CUDA's function attributes and occupancy calculator);
+    for ``tape_step`` as launched for an ``hp`` x ``wp`` field, with its
+    blocks per cluster (``ranks``) and the clusters that can be resident at
+    once (``clusters``; 0 for the other kernels)."""
+    vals = [ctypes.c_int() for _ in range(5)]
+    err = _load().rdt_kernel_info(_KERNEL_IDS[name], hp, wp,
                                   *map(ctypes.byref, vals))
     if err != 0:
         raise RuntimeError(f'kernel_info({name!r}) failed: CUDA error {err}')
-    return dict(zip(('regs', 'local_bytes', 'blocks_per_sm'),
-                    (v.value for v in vals)))
+    return dict(zip(('regs', 'local_bytes', 'blocks_per_sm', 'ranks',
+                     'clusters'), (v.value for v in vals)))
 
 
 class StencilChunk(torch.autograd.Function):

@@ -1,18 +1,32 @@
 // Host stand-in for the subset of CUDA that red_diffeq_tpu_torch/ops/csrc/
 // stencil.cu uses, so that g++ can build the source for the CPU tests
-// (tests/test_torch_kernel_emulation.py). Every thread of a block runs as a
-// fiber (ucontext) on one host thread; __syncthreads() switches to the next
-// fiber, so a block runs phase by phase between its barriers as on the card.
-// Launches run block after block. The test rewrites `extern __shared__` and
-// the `<<<...>>>` launches to the functions below before compiling.
+// (tests/test_torch_kernel_emulation.py). Every thread runs as a fiber
+// (ucontext) on one host thread. The blocks of one thread-block cluster
+// run together as one group of fibers, each block with its own shared
+// memory, filled with NaN at the launch so that a read of a cell nothing
+// wrote shows in the results. A fiber runs until its next barrier:
+// __syncthreads() releases the fibers of its own block once all of them
+// have arrived, and the cluster barrier (cooperative_groups::this_cluster()
+// .sync(), or its halves barrier_arrive() and barrier_wait()) those of the
+// whole cluster once all of its threads have arrived, so a read of a cell
+// that another block writes (through map_shared_rank) that no cluster
+// barrier orders after the write sees NaN or a stale value. A launch without a cluster dimension runs each
+// block as a cluster of one. Clusters run one after another. The test
+// rewrites `extern __shared__`, the cooperative_groups include and the
+// `<<<...>>>` launches to the functions below before compiling.
 #pragma once
 #include <cmath>
 #include <cstddef>
+#include <cstdio>
+#include <cstdlib>
+#include <cstdint>
 #include <functional>
+#include <sys/mman.h>
 #include <ucontext.h>
 #include <vector>
 
 #define __global__
+#define __host__
 #define __device__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
@@ -28,8 +42,26 @@ struct alignas(8) float2 { float x, y; };
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef void* cudaStream_t;
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+enum cudaFuncAttribute {
+  cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaFuncAttributeNonPortableClusterSizeAllowed
+};
 struct cudaFuncAttributes { int numRegs; size_t localSizeBytes; };
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension };
+struct cudaLaunchAttributeValue {
+  struct { unsigned x, y, z; } clusterDim;
+};
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  cudaLaunchAttributeValue val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
@@ -44,56 +76,155 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t
   *n = 0;
   return cudaSuccess;
 }
+template <class F>
+cudaError_t cudaOccupancyMaxActiveClusters(int* n, F, const cudaLaunchConfig_t*) {
+  *n = 0;
+  return cudaSuccess;
+}
 
 namespace host {
-inline dim3 block_idx, thread_idx, block_dim;
-inline std::vector<float> shared;       // the block's dynamic shared memory
+struct Block {
+  dim3 idx;
+  std::vector<float> shared;   // the block's dynamic shared memory
+  int arrived = 0, live = 0;   // at its barrier; threads not yet returned
+  unsigned gen = 0;            // barrier releases so far
+};
+struct Fiber {
+  ucontext_t ctx;
+  dim3 tid;
+  int block = 0;               // its block's rank in the cluster
+  int wait = 0;                // 0 running, 1 block barrier, 2 cluster's
+  unsigned bgen = 0, cgen = 0;  // releases of the block's and cluster's
+                                // barriers when it last arrived at each
+  bool done = false;
+};
+constexpr size_t kStack = 1 << 16;
+inline dim3 block_idx, thread_idx;
+inline std::vector<Block> blocks;    // the running cluster's, by rank
+inline std::vector<Fiber> fibers;
+inline std::vector<char*> stacks;    // reserved, touched only as used
+inline int cl_arrived = 0, cl_live = 0;
+inline unsigned cl_gen = 0;
 inline ucontext_t scheduler;
-inline std::vector<ucontext_t> fibers;
-inline std::vector<dim3> ids;
-inline std::vector<char> done;
-inline std::vector<std::vector<char>> stacks;
 inline int current = 0;
 inline std::function<void()> body;
 
-inline void enter() {
-  thread_idx = ids[current];
-  body();
-  done[current] = 1;
-  swapcontext(&fibers[current], &scheduler);
+inline void resume_state() {
+  const Fiber& f = fibers[current];
+  thread_idx = f.tid;
+  block_idx = blocks[f.block].idx;
 }
 
-// Run every thread of one block, round after round, each up to its next
-// barrier, until all have returned.
-inline void run_block(dim3 block) {
-  const int n = block.x * block.y * block.z;
-  fibers.assign(n, ucontext_t());
-  ids.resize(n);
-  done.assign(n, 0);
-  if ((int)stacks.size() < n) stacks.resize(n, std::vector<char>(1 << 16));
-  for (int t = 0; t < n; ++t) {
-    ids[t] = dim3(t % block.x, (t / block.x) % block.y, t / (block.x * block.y));
-    getcontext(&fibers[t]);
-    fibers[t].uc_stack.ss_sp = stacks[t].data();
-    fibers[t].uc_stack.ss_size = stacks[t].size();
-    fibers[t].uc_link = nullptr;
-    makecontext(&fibers[t], enter, 0);
+inline void enter() {
+  resume_state();
+  body();
+  Fiber& f = fibers[current];
+  f.done = true;
+  Block& b = blocks[f.block];
+  // A returned thread no longer holds back its block's or cluster's barrier.
+  if (--b.live > 0 && b.arrived == b.live) { b.arrived = 0; ++b.gen; }
+  if (--cl_live > 0 && cl_arrived == cl_live) { cl_arrived = 0; ++cl_gen; }
+  swapcontext(&f.ctx, &scheduler);
+}
+
+inline float* shared_mem() { return blocks[fibers[current].block].shared.data(); }
+
+// Yield to the scheduler until the barrier this fiber waits at (wait 1:
+// its block's, 2: the cluster's) has been released since it arrived.
+inline void block_until_released(int wait) {
+  Fiber& f = fibers[current];
+  if (wait == 1 ? blocks[f.block].gen != f.bgen : cl_gen != f.cgen) return;
+  f.wait = wait;
+  swapcontext(&f.ctx, &scheduler);
+  resume_state();
+}
+
+// __syncthreads(): arrive at the block barrier, return once released.
+inline void block_barrier() {
+  Fiber& f = fibers[current];
+  Block& b = blocks[f.block];
+  f.bgen = b.gen;
+  if (++b.arrived == b.live) { b.arrived = 0; ++b.gen; }
+  block_until_released(1);
+}
+
+// The cluster barrier's two halves: arrive, and wait until every thread of
+// the cluster has arrived. An arriving thread yields, so that the threads
+// of its block that arrive after it run on first.
+inline void cluster_arrive() {
+  Fiber& f = fibers[current];
+  f.cgen = cl_gen;
+  if (++cl_arrived == cl_live) { cl_arrived = 0; ++cl_gen; }
+  f.wait = 0;
+  swapcontext(&f.ctx, &scheduler);
+  resume_state();
+}
+
+inline void cluster_wait() { block_until_released(2); }
+
+// Run every thread of the cluster's blocks (block_ids, in rank order)
+// until all have returned: round after round, the lowest-ranked block with
+// a thread free to run runs each such thread up to its next barrier (or
+// cluster arrive). Block 0 thus runs as far ahead of the others as its
+// barriers allow, so that a read its barriers do not order after another
+// block's write sees the old value. Aborts if every thread left waits at a
+// barrier that can no longer be released.
+inline void run_cluster(const std::vector<dim3>& block_ids, dim3 block,
+                        size_t smem) {
+  const int per = block.x * block.y * block.z;
+  const int nb = (int)block_ids.size(), n = nb * per;
+  blocks.assign(nb, Block());
+  for (int i = 0; i < nb; ++i) {
+    blocks[i].idx = block_ids[i];
+    blocks[i].shared.assign(smem / sizeof(float) + 4, NAN);
+    blocks[i].live = per;
   }
-  block_dim = block;
-  for (bool running = true; running;) {
-    running = false;
+  cl_arrived = 0;
+  cl_live = n;
+  cl_gen = 0;
+  fibers.assign(n, Fiber());
+  while ((int)stacks.size() < n) {
+    void* p = mmap(nullptr, kStack, PROT_READ | PROT_WRITE,
+                   MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE, -1, 0);
+    if (p == MAP_FAILED) { std::perror("mmap"); std::abort(); }
+    stacks.push_back(static_cast<char*>(p));
+  }
+  for (int t = 0; t < n; ++t) {
+    const int i = t % per;
+    fibers[t].block = t / per;
+    fibers[t].tid = dim3(i % block.x, (i / block.x) % block.y,
+                         i / (block.x * block.y));
+    getcontext(&fibers[t].ctx);
+    fibers[t].ctx.uc_stack.ss_sp = stacks[t];
+    fibers[t].ctx.uc_stack.ss_size = kStack;
+    fibers[t].ctx.uc_link = nullptr;
+    makecontext(&fibers[t].ctx, enter, 0);
+  }
+  for (int left = n; left > 0;) {
+    bool moved = false;
     for (int t = 0; t < n; ++t) {
-      if (done[t]) continue;
+      if (moved && t % per == 0) break;    // one block a round
+      Fiber& f = fibers[t];
+      if (f.done) continue;
+      if (f.wait == 1 && blocks[f.block].gen == f.bgen) continue;
+      if (f.wait == 2 && cl_gen == f.cgen) continue;
+      f.wait = 0;
       current = t;
-      swapcontext(&scheduler, &fibers[t]);
-      running |= !done[t];
+      swapcontext(&scheduler, &f.ctx);
+      moved = true;
+      if (fibers[t].done) --left;
+    }
+    if (!moved) {
+      std::fprintf(stderr, "cuda_host: every thread left waits at a barrier "
+                           "that cannot be released\n");
+      std::abort();
     }
   }
 }
 
 // kernel<<<grid, block, smem, stream>>>(args...) becomes
-// launch(kernel, grid, block, smem, stream)(args...). Shared memory starts
-// as NaN, so a read of a cell that nothing wrote shows in the results.
+// launch(kernel, grid, block, smem, stream)(args...): each block a cluster
+// of one.
 template <class K>
 auto launch(K kernel, dim3 grid, dim3 block, size_t smem = 0,
             cudaStream_t = nullptr) {
@@ -101,19 +232,61 @@ auto launch(K kernel, dim3 grid, dim3 block, size_t smem = 0,
     for (unsigned z = 0; z < grid.z; ++z)
       for (unsigned y = 0; y < grid.y; ++y)
         for (unsigned x = 0; x < grid.x; ++x) {
-          block_idx = dim3(x, y, z);
-          shared.assign(smem / sizeof(float) + 4, NAN);
           body = [&]() { kernel(args...); };
-          run_block(block);
+          run_cluster({dim3(x, y, z)}, block, smem);
         }
   };
 }
 }  // namespace host
 
+// A launch with a cluster dimension among its attributes: the grid's
+// clusters, each run as one group of fibers.
+template <class... P, class... A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* c, void (*k)(P...),
+                               A&&... args) {
+  dim3 cd(1, 1, 1);
+  for (unsigned i = 0; i < c->numAttrs; ++i)
+    if (c->attrs[i].id == cudaLaunchAttributeClusterDimension) {
+      const auto& v = c->attrs[i].val.clusterDim;
+      cd = dim3(v.x, v.y, v.z);
+    }
+  const dim3 g = c->gridDim;
+  if (g.x % cd.x || g.y % cd.y || g.z % cd.z) return cudaErrorInvalidValue;
+  host::body = [&]() { k(static_cast<P>(args)...); };
+  for (unsigned cz = 0; cz < g.z; cz += cd.z)
+    for (unsigned cy = 0; cy < g.y; cy += cd.y)
+      for (unsigned cx = 0; cx < g.x; cx += cd.x) {
+        std::vector<dim3> ids;   // rank order: x fastest
+        for (unsigned z = 0; z < cd.z; ++z)
+          for (unsigned y = 0; y < cd.y; ++y)
+            for (unsigned x = 0; x < cd.x; ++x)
+              ids.push_back(dim3(cx + x, cy + y, cz + z));
+        host::run_cluster(ids, c->blockDim, c->dynamicSmemBytes);
+      }
+  return cudaSuccess;
+}
+
 #define blockIdx host::block_idx
 #define threadIdx host::thread_idx
-#define blockDim host::block_dim
-inline void __syncthreads() {
-  swapcontext(&host::fibers[host::current], &host::scheduler);
-  host::thread_idx = host::ids[host::current];
-}
+inline void __syncthreads() { host::block_barrier(); }
+
+// The cluster calls of cooperative_groups that stencil.cu makes.
+namespace cooperative_groups {
+struct cluster_group {
+  unsigned block_rank() const { return (unsigned)host::fibers[host::current].block; }
+  void sync() const {
+    host::cluster_arrive();
+    host::cluster_wait();
+  }
+  void barrier_arrive() const { host::cluster_arrive(); }
+  void barrier_wait() const { host::cluster_wait(); }
+  template <class T>
+  T* map_shared_rank(T* p, int rank) const {
+    const std::ptrdiff_t o = reinterpret_cast<char*>(p) -
+                             reinterpret_cast<char*>(host::shared_mem());
+    return reinterpret_cast<T*>(
+        reinterpret_cast<char*>(host::blocks[rank].shared.data()) + o);
+  }
+};
+inline cluster_group this_cluster() { return cluster_group(); }
+}  // namespace cooperative_groups

@@ -15,10 +15,14 @@ HERE = Path(__file__).resolve().parent
 
 def host_source(src: str) -> str:
     """The CUDA source with its CUDA-only spellings rewritten for
-    cuda_host.h: the header, the dynamic shared memory, the launches."""
+    cuda_host.h: the headers (cuda_host.h stands in for
+    cooperative_groups), each block's dynamic shared memory, the
+    ``<<<...>>>`` launches. ``cudaLaunchKernelEx`` launches, which carry
+    the cluster dimension, need no rewrite."""
     src = src.replace('#include <cuda_runtime.h>', '#include "cuda_host.h"')
+    src = src.replace('#include <cooperative_groups.h>', '')
     src = src.replace('extern __shared__ float smem[];',
-                      'float* smem = host::shared.data();')
+                      'float* smem = host::shared_mem();')
     return re.sub(r'(\w+(?:<\w+>)?)<<<(.*?)>>>\(',
                   lambda m: f'host::launch({m.group(1)}, {m.group(2)})(',
                   src, flags=re.S)
@@ -52,4 +56,6 @@ def use_host_library(monkeypatch, stencil, lib: Path):
                         dict.fromkeys(stencil.launches, 0))
     monkeypatch.setattr(stencil, 'last_unroll',
                         dict.fromkeys(stencil.launches))
+    monkeypatch.setattr(stencil, 'last_ranks',
+                        dict.fromkeys(stencil.last_ranks))
     return stencil

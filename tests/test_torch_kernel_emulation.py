@@ -6,10 +6,15 @@ nvcc). g++ builds it against ``tests/cuda_host/cuda_host.h``, which runs
 every thread of a block as a fiber between its barriers, and the kernel
 launchers (``stencil._fwd_chunk_kernel``, ``_bwd_reverse_chunk_kernel``,
 ``_bwd_tape_steps_kernel``, ``_bwd_tape_chunk_kernel``,
-``_sum_shots_kernel``) drive that library on CPU tensors. This holds the
-temporal blocking itself (windows, wrapped halos, shrinking regions, short
-last groups, own-cell sums, ping-pong buffers) to the plain versions, which
-the parity tests hold to the JAX package. Both sides round every fp32
+``_sum_shots_kernel``, ``_tape_chunk_kernel``) drive that library on CPU
+tensors. This holds the temporal blocking itself (windows, wrapped halos,
+shrinking regions, short last groups, own-cell sums, ping-pong buffers) and
+the tape replay's thread-block clusters (strips, halo rows written into
+the neighbours' shared memory, cluster barriers) to the plain versions,
+which the parity tests hold to the JAX package. The harness runs a
+cluster's blocks as one group of fibers, each block with its own shared
+memory, and lets block 0 run as far ahead as its barriers allow, so a
+missing block or cluster barrier shows as a wrong cell. Both sides round every fp32
 operation alone (g++ -ffp-contract=off, nvcc -fmad=false), so the
 comparison is exact. The card's compiler, occupancy and speed are
 ``chip_smoke.py``'s to check.
@@ -138,3 +143,66 @@ def test_sum_shots_kernel_matches_plain(host_kernels, hw, ns):
     for o, p in zip(got, parts):
         assert torch.equal(o, stencil.sum_shots_plain(p))
     assert stencil.launches['sum_shots'] == 1
+
+
+# (B, ns, Hp, Wp, chunk, isz, ranks): the library's pick of blocks per
+# cluster for each field (16 from 32 rows, 8, 4, 2), strips whose rows do
+# not divide evenly (37 rows in 16), several bands of rows a block (128
+# rows: 8 a strip), a field wider than a block's 1024 threads, non-square
+# fields, the source on a strip's first and last row, chunks of 20, 7 and
+# 1 step; then clusters of 1 and 2 blocks forced on fields that would take
+# more (a block its own neighbour, or both neighbours the same block).
+TAPE_CASES = [(1, 2, 37, 10, 20, 20, None), (1, 1, 128, 20, 7, 70, None),
+              (2, 1, 17, 13, 20, 3, None), (1, 1, 9, 8, 7, 8, None),
+              (1, 2, 6, 9, 5, 2, None), (1, 1, 6, 1030, 3, 3, None),
+              (1, 1, 8, 7, 1, 2, None), (1, 1, 12, 11, 7, 4, 1),
+              (1, 2, 9, 6, 20, 5, 2)]
+
+
+@pytest.mark.parametrize('case', TAPE_CASES,
+                         ids=lambda c: f'{c[2]}x{c[3]}c{c[4]}r{c[6] or "lib"}')
+def test_tape_replay_matches_plain_version(host_kernels, monkeypatch, case):
+    """``tape_step`` (one launch per chunk, one field per cluster) against
+    ``tape_chunk_plain``: every slot of the chunk + 1 slot tape bit for
+    bit, one launch, and the blocks per cluster the wrapper handed its
+    launcher."""
+    b, ns, hp, wp, chunk, isz, ranks = case
+    if ranks is not None:
+        monkeypatch.setattr(stencil, 'pick_ranks', lambda h, w: ranks)
+    d = _inputs(hp * wp + chunk + 2, b, ns, hp, wp, chunk, isz, 0, 0, 1)
+    args = (d['p0'], d['p1'], d['alpha'], d['t1'], d['t2'], d['inj'],
+            d['src'])
+    want = stencil.tape_chunk_plain(*args, isz=isz)
+    got = stencil._tape_chunk_kernel(*args, isz=isz)
+    assert tuple(got.shape) == (chunk + 1, b, ns, hp, wp)
+    for i in range(chunk + 1):
+        np.testing.assert_array_equal(got[i].numpy(), want[i].numpy(),
+                                      err_msg=f'slot {i}')
+    assert stencil.launches['tape_step'] == 1
+    assert stencil.last_ranks['tape_step'] == (ranks or
+                                               stencil.pick_ranks(hp, wp))
+
+
+def test_tape_replay_size_limit(host_kernels):
+    """Blocks per cluster as the library picks them, and the size limit:
+    a strip of ceil(Hp/16) rows must fit a block's shared memory, so
+    310x430 (Marmousi and Overthrust at nbc=120) and 416x416 take 16
+    blocks a field, 420x420 raises with the limit in its message, and the
+    launcher refuses a cluster size it is not built for or one that leaves
+    a strip under 2 rows."""
+    assert stencil.pick_ranks(310, 310) == 16
+    assert stencil.pick_ranks(150, 150) == 16
+    assert stencil.pick_ranks(310, 430) == 16
+    assert stencil.pick_ranks(416, 416) == 16
+    assert [stencil.pick_ranks(h, 9) for h in (31, 16, 15, 8, 7, 5)] == \
+        [8, 8, 4, 4, 2, 2]
+    with pytest.raises(ValueError, match='size limit of tape_step'):
+        stencil.pick_ranks(420, 420)
+    z = torch.zeros(1, 1, 420, 420)
+    with pytest.raises(ValueError, match=r'\(5\*ceil\(Hp/16\) \+ 9\)'):
+        stencil._tape_chunk_kernel(z, z, z, z, z, torch.zeros(1, 1, 1, 420),
+                                   torch.zeros(3), isz=1)
+    lib = stencil._load()
+    for ranks, h in ((3, 64), (32, 64), (16, 31)):
+        assert lib.rdt_tape_chunk(*[None] * 8, 1, 1, h, 9, 0, 4, ranks,
+                                  None) != 0, (ranks, h)

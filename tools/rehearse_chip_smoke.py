@@ -6,10 +6,11 @@ Run from the repository root (the shipped prior's path is relative):
     python3 tools/rehearse_chip_smoke.py [BUILD_DIR]
 
 The CUDA source is built with g++ against ``tests/cuda_host/cuda_host.h``
-(each CUDA thread a fiber) into BUILD_DIR (default: a temporary
-directory), and the kernel wrappers are pointed at their launchers, so the
-kernels' own code runs, launch counters included. The card's name, timings,
-occupancy query and ``nvidia-smi`` are stubbed; every check of
+(each CUDA thread a fiber, a thread-block cluster a group of them) into
+BUILD_DIR (default: a temporary directory), and the kernel wrappers are
+pointed at their launchers, so the kernels' own code runs, launch counters
+included. The card's name, timings, occupancy query (7 resident clusters)
+and ``nvidia-smi`` are stubbed; every check of
 ``chip_smoke.py`` runs for real, at a 14x14 model with nbc=60 (tape-free
 route) and nbc=8 (taped route), batch 2, 3 inversion steps. Times printed
 are meaningless. Exits with ``chip_smoke.main()``'s code. About ten minutes.
@@ -38,7 +39,9 @@ def main():
     S.build = lambda verbose=False: lib
     S._lib = None
     S._stream = lambda device: ctypes.c_void_p(0)
-    S.kernel_info = lambda name: dict(regs=0, local_bytes=0, blocks_per_sm=2)
+    S.kernel_info = lambda name, hp=0, wp=0: dict(
+        regs=0, local_bytes=0, blocks_per_sm=2,
+        ranks=S.pick_ranks(hp, wp) if hp else 0, clusters=7)
     for name in ('fwd_chunk', 'bwd_reverse_steps', 'bwd_reverse_chunk',
                  'sum_shots', 'tape_chunk', 'bwd_tape_steps',
                  'bwd_tape_chunk'):

@@ -29,6 +29,27 @@ instead times the ``sum_shots`` wrapper of the checkout at ROOT (any with
 ``stencil.sum_shots(pa, p1, p2)``, so also an earlier one) and PyTorch's
 ``torch.sum`` over the shot axis on the 50 per-shot partials of a headline
 pass, as device time: the pass captured once in a CUDA graph and replayed.
+
+    python3 tools/torch_stencil_breakdown.py --tape-pass ROOT
+
+instead times the ``tape_chunk`` wrapper of the checkout at ROOT (any with
+``stencil.tape_chunk(p0, p1, alpha, t1, t2, inj, src, isz=)``, so also an
+earlier one) over a 1000-step pass at the headline and nbc=40 shapes, in
+device time between CUDA events, with its launches per pass.
+
+    python3 tools/torch_stencil_breakdown.py --tape
+
+instead times ``tape_step`` (one launch per 20-step chunk, one field per
+cluster of 16 blocks) at the headline and nbc=40 shapes, in ms per
+1000-step pass of device time between CUDA events: as built, at chunks of
+1, 2, 5, 10 and 20 steps (the launch's fixed part and the per-step slope),
+and four variants: without the tape stores; without the halo rows written
+into the neighbours' shared memory and with a block barrier in place of the
+cluster barrier (each block then steps alone); both cut; and both cut with
+each cell's stencil replaced by one add (what the loop, the loads and the
+barriers cost alone). The variants compute wrong values and exist only to
+be timed. Then one launch's timeline at each shape: every block's start
+and end (``%globaltimer``) and SM, so the waves of resident clusters show.
 """
 import re
 import subprocess
@@ -88,6 +109,42 @@ def sum_shots_device_time(root):
     return 0
 
 
+def tape_pass_time(root):
+    """ms per 1000-step pass of the ``tape_chunk`` wrapper of the checkout
+    at ``root``, at the headline and nbc=40 shapes, from random carries."""
+    import torch
+    import chip_smoke as C           # this checkout's: shapes, cuda_ms
+    sys.path.insert(0, str(Path(root).resolve()))
+    from red_diffeq_tpu_torch.ops import stencil as S
+
+    if not torch.cuda.is_available():
+        print('no CUDA device is available', file=sys.stderr)
+        return 1
+    dev = torch.device('cuda')
+    cells = []
+    for ctx in (C.HEADLINE, C.NARROW):
+        p = C.headline_problem(dev, ctx)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        carry = [torch.randn(p['shape'], generator=gen, device=dev)
+                 for _ in range(2)]
+        coef = (p['alpha'], p['t1'], p['t2'], p['inj'])
+
+        def tpass():
+            for s_ in p['src']:
+                S.tape_chunk(*carry, *coef, s_, isz=p['geo']['isz'])
+
+        tpass()
+        S.reset_launches()
+        tpass()
+        launched = S.launches['tape_step']
+        cells.append(f"nbc={ctx['nbc']} {C.cuda_ms(tpass, 5):.3f} ms "
+                     f'({launched} launches)')
+    print(f'tape_step of {S.__file__}, ms per pass: ' + ', '.join(cells),
+          flush=True)
+    print(card_line())
+    return 0
+
+
 def tape_unroll_sweep(C, S, dev):
     """ms per 1000-step pass of bwd_tape_step (20-step chunks, no shot
     sums) at each U that fits, at the headline and nbc=40 shapes."""
@@ -98,7 +155,7 @@ def tape_unroll_sweep(C, S, dev):
         g = p['geo']
         # u, v, the two ping-pong pairs, the per-shot sums, ginj.
         x = [torch.randn(p['shape'], device=dev) for _ in range(10)]
-        tape = torch.randn((C.CHUNK + 2, *p['shape']), device=dev)
+        tape = torch.randn((C.CHUNK + 1, *p['shape']), device=dev)
         grecs = C.random_grecs(p)
         lib, st = S._load(), S._stream(dev)
         cells = []
@@ -121,9 +178,132 @@ def tape_unroll_sweep(C, S, dev):
               + ', '.join(cells), flush=True)
 
 
+# tape_step's variants: each a list of (text, replacement) in the source.
+_HALO = """        if (halo) {
+          if (y < 2) hu[at] = p;
+          if (y >= rows - 2) hd[at] = p;
+        }
+"""
+_BARRIER = """    if (halo) {
+      cluster_arrive();
+      cluster_wait();
+    }
+"""
+_STORE = "        out[at] = p;\n"
+_STENCIL = """        const float lap = kC2 * (((ym1 + yp1) + r[xm1]) + r[xp1]) +
+                          kC3 * (((ym2 + yp2) + r[xm2]) + r[xp2]);
+        float p = (s1[at] * cc - s2[at] * o[at]) + sa[at] * lap;
+"""
+_LOCAL = [(_HALO, ''), (_BARRIER, '    __syncthreads();\n')]
+TAPE_CUTS = {
+    'no tape stores': [(_STORE, '')],
+    'no DSMEM, block barrier': _LOCAL,
+    'no DSMEM, block barrier, no stores': _LOCAL + [(_STORE, '')],
+    'one add a cell, no DSMEM, block barrier, no stores':
+        _LOCAL + [(_STORE, ''), (_STENCIL, '        float p = cc + yp2;\n')],
+}
+# The timeline: each block's start, end and SM, written by thread 0 into
+# the first cells of tape slot 0 (as 64-bit words) at the end of the launch.
+_TIMELINE = [
+    ("  extern __shared__ float smem[];\n  const int rank = cluster_rank();",
+     "  extern __shared__ float smem[];\n  unsigned long long t_start;\n"
+     "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t_start));\n"
+     "  const int rank = cluster_rank();"),
+    ("    sk = sk_next;\n  }\n}",
+     "    sk = sk_next;\n  }\n  __syncthreads();\n  if (tid == 0) {\n"
+     "    unsigned long long t_end;\n    unsigned smid;\n"
+     "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t_end));\n"
+     "    asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(smid));\n"
+     "    unsigned long long* d = reinterpret_cast<unsigned long long*>(tape)"
+     " + 4 * (blockIdx.y * ranks + rank);\n"
+     "    d[0] = t_start;\n    d[1] = t_end;\n    d[2] = smid;\n  }\n}"),
+]
+
+
+def _edit(src, cuts, name):
+    for old, new in cuts:
+        if src.count(old) != 1:
+            raise RuntimeError(f'variant {name!r}: {old!r} not in source once')
+        src = src.replace(old, new)
+    return src
+
+
+def tape_breakdown():
+    """tape_step as built and cut (TAPE_CUTS), ms per pass at the headline
+    and nbc=40 shapes, then one launch's timeline at each."""
+    import torch
+    import chip_smoke as C
+    from red_diffeq_tpu_torch.ops import stencil as S
+
+    if not torch.cuda.is_available():
+        print('no CUDA device is available', file=sys.stderr)
+        return 1
+    dev = torch.device('cuda')
+    probs = []
+    for ctx in (C.HEADLINE, C.NARROW):
+        p = C.headline_problem(dev, ctx)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        carry = [torch.randn(p['shape'], generator=gen, device=dev)
+                 for _ in range(2)]
+        probs.append((ctx['nbc'], p, carry))
+    real = S._CSRC
+    S.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+
+    def timed(args, steps=C.CHUNK):
+        p, carry = args
+        coef = (p['alpha'], p['t1'], p['t2'], p['inj'])
+        srcs = [s_[:steps].contiguous() for s_ in p['src']]
+        return C.cuda_ms(lambda: [S.tape_chunk(*carry, *coef, s_,
+                                               isz=p['geo']['isz'])
+                                  for s_ in srcs], 5)
+
+    for name in ('as built', *TAPE_CUTS):
+        if name == 'as built':
+            S._CSRC = real
+        else:
+            path = S.BUILD_DIR / ('tape-' + re.sub(r'\W+', '-', name) + '.cu')
+            path.write_text(_edit(real.read_text(), TAPE_CUTS[name], name))
+            S._CSRC = path
+        S._lib = None
+        cells = []
+        for nbc, p, carry in probs:
+            cells.append(f'nbc={nbc} {timed((p, carry)):.3f}')
+            if name == 'as built':
+                cells.append('chunks of ' + ', '.join(
+                    f'{n}: {timed((p, carry), n):.3f}'
+                    for n in (1, 2, 5, 10)))
+        print(f'tape_step {name}, ms per pass: ' + '; '.join(cells),
+              flush=True)
+    path = S.BUILD_DIR / 'tape-timeline.cu'
+    path.write_text(_edit(real.read_text(), _TIMELINE, 'timeline'))
+    S._CSRC, S._lib = path, None
+    for nbc, p, carry in probs:
+        coef = (p['alpha'], p['t1'], p['t2'], p['inj'])
+        tape = S.tape_chunk(*carry, *coef, p['src'][3], isz=p['geo']['isz'])
+        ranks = S.last_ranks['tape_step']
+        fields = p['shape'][0] * p['shape'][1]
+        d = tape[0].reshape(-1).view(torch.int64)[:4 * fields * ranks]
+        d = d.reshape(fields, ranks, 4).cpu()
+        t0 = int(d[..., 0].min())
+        start = (d[..., 0] - t0).min(1).values.double() / 1e3
+        end = (d[..., 1] - t0).max(1).values.double() / 1e3
+        waves = sorted({round(float(s_), -1) for s_ in start})
+        print(f'tape_step timeline at nbc={nbc}: {fields} clusters of {ranks} '
+              f'blocks, launch {float(end.max()):.2f} us, a cluster '
+              f'{float((end - start).mean()):.2f} us on average, cluster '
+              f'starts (us, to 10) {waves}', flush=True)
+    S._CSRC, S._lib = real, None
+    print(card_line())
+    return 0
+
+
 def main():
     if sys.argv[1:2] == ['--sum-shots']:
         return sum_shots_device_time(sys.argv[2])
+    if sys.argv[1:2] == ['--tape']:
+        return tape_breakdown()
+    if sys.argv[1:2] == ['--tape-pass']:
+        return tape_pass_time(sys.argv[2])
     import torch
     import chip_smoke as C
     from red_diffeq_tpu_torch.ops import stencil as S
@@ -143,8 +323,9 @@ def main():
     u = S.pick_blocking('fwd_step', hp, wp)[0]
     assert u == S.pick_blocking('bwd_reverse_step', hp, wp)[0]
     assert u == S.pick_blocking('bwd_tape_step', hp, wp)[0]
-    # A tape of one chunk (slot i = s_{i-1}); its values do not matter here.
-    tape = torch.randn((C.CHUNK + 2, *p['shape']), device=dev)
+    # A tape of one chunk (chunk + 1 slots, slot i = s_{i-1}); its values
+    # do not matter here.
+    tape = torch.randn((C.CHUNK + 1, *p['shape']), device=dev)
     null = [None] * 3           # no sum_shots launch
     real = S._CSRC
     S.BUILD_DIR.mkdir(parents=True, exist_ok=True)
