@@ -58,20 +58,50 @@ Phases, each printing its wall time:
    settings, where the t2 guard takes the tape-free adjoint, with the
    launch counts of that route's kernels (ceil(chunk/U) launches per chunk
    of each blocked kernel, one ``sum_shots`` per chunk), the tape kernels
-   never and the plain path unused; then the same steps with the taped
-   adjoint forced, for its time per step;
+   never and the plain path unused, one U-Net call a step; then the same
+   steps with the taped adjoint forced. Each prints s/step by the host
+   clock and by the CUDA events a forward hook on the U-Net instance
+   records at its calls;
 9. the narrow-sponge slice: the headline settings with nbc=40, where the
    guard itself takes the taped adjoint. The velocity gradient through the
    tape kernels against plain eager autograd (max-rel 1e-4), then a few
    RED-DiffEq steps with the forward kernel's and the taped adjoint's
    blocked launches, one ``sum_shots`` and one ``tape_step`` per chunk, the
-   tape-free adjoint never and the plain path unused.
+   tape-free adjoint never and the plain path unused;
+10. the wide slice, the Marmousi preset's width (70x190 model, 310x430
+   field, nbc=120). A synthetic 2-sample dataset at that width with
+   observations from the refined operator (plain path), the presets
+   ``configs/marmousi/red-diffeq.yaml``, ``configs/marmousi/tv.yaml`` and
+   ``configs/overthrust/tikhonov.yaml`` read and written back with the
+   port's own config reader and writer, pointed at it and at the shipped
+   prior. The RED-DiffEq preset through the inversion CLI
+   (``red_diffeq_tpu_torch.cli.run_inversion.main``) for 20 steps of
+   sample 0: ceil(chunk/U) launches of ``fwd_step`` and
+   ``bwd_reverse_step`` and one ``sum_shots`` per chunk, the tape kernels
+   never, the plain path unused, one U-Net call a step with the patched
+   RED's 3 windows, the observation loss falling, the run directory's
+   ``config.yaml`` and ``0_results.npz`` with its nine keys, finite, the
+   model 70x190; its time per step by the events a forward hook on the
+   CLI's U-Net instance records. Then the TV and Tikhonov presets for 5
+   steps each with noise (laplace, then gaussian) and 19 receivers
+   missing: the mask that reaches the observation loss zeroes exactly 19
+   receivers per sample on every shot, no U-Net call, losses finite, the
+   observation loss falling;
+11. the wide kernels: every kernel at the 310x430 field against its plain
+   version over a pass (as in phases 3, 4 and 6) with its time (the plain
+   version's over one pass) and bound, the velocity gradient through the
+   kernels against plain eager autograd and with the tape forced against
+   'reverse' (max-rel 1e-4).
+
+With ``--write-wide-dataset DIR`` the script only writes the wide slice's
+dataset and configs under DIR (for a longer run of the CLI) and stops.
 
 Then one JSON line with each kernel's launches and the steps per launch
 its wrapper handed its launcher (``tape_step``: the blocks per cluster;
 both read in the slice that takes its route), launches per 1000-step pass
 (those launches over the slice's inversion steps), error, times and bound,
-the card's line from nvidia-smi, and last
+and under ``wide`` the same at the 310x430 field with the launches of the
+wide slice's CLI run; the card's line from nvidia-smi, and last
 ``{"ok": true, "device": ...}``.
 Any failed check raises and the script exits non-zero. Without a CUDA
 device, or without the package beside it, it exits non-zero and prints no
@@ -138,11 +168,12 @@ def max_rel(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
-def cuda_ms(fn, reps):
-    """Mean milliseconds of ``fn()`` over ``reps`` runs after one warm-up,
-    between CUDA events."""
+def cuda_ms(fn, reps, warm=True):
+    """Mean milliseconds of ``fn()`` over ``reps`` runs between CUDA events,
+    after one warm-up run unless ``warm`` is False."""
     import torch
-    fn()
+    if warm:
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -175,7 +206,32 @@ def graph_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def headline_problem(dev, ctx=None):
+def step_events(model):
+    """Record a CUDA event behind each forward of ``model`` (the U-Net
+    instance, called once per RED step) and its batch; returns the lists
+    and the hook's handle. The events' spacing is the period of a step as
+    the card's stream sees it."""
+    import torch
+    seen = dict(events=[], batches=[])
+
+    def hook(module, args, out):
+        seen['batches'].append(args[0].shape[0])
+        seen['events'].append(torch.cuda.Event(enable_timing=True))
+        seen['events'][-1].record()
+
+    return seen, model.register_forward_hook(hook)
+
+
+def step_period(events):
+    """Seconds per step between the events of the second and the last
+    U-Net call (the first step warms up)."""
+    return events[1].elapsed_time(events[-1]) / (len(events) - 2) / 1e3
+
+
+def headline_problem(dev, ctx=None, batch=BATCH, rows=None):
+    """Kernel inputs for ``batch`` synthetic models of ``rows`` (default:
+    square) by ``ctx['n_grid']`` cells under ``ctx`` (the headline's by
+    default)."""
     import torch
     import torch.nn.functional as F
     from red_diffeq_tpu_torch.io.synthetic import generate_mixed_dataset
@@ -185,7 +241,7 @@ def headline_problem(dev, ctx=None):
     ctx = ctx or HEADLINE
     geom = acoustic.Geometry.from_ctx(ctx)
     n = ctx['n_grid']
-    v_true = generate_mixed_dataset(BATCH, h=n, w=n, seed=8888)
+    v_true = generate_mixed_dataset(batch, h=rows or n, w=n, seed=8888)
     v_pad = F.pad(torch.from_numpy(v_true).to(dev), (geom.nbc,) * 4,
                   mode='replicate')
     alpha, t1, t2, beta_pts = acoustic.coefficients(v_pad, geom)
@@ -195,7 +251,7 @@ def headline_problem(dev, ctx=None):
     geo = dict(isz=geom.isz, igz=geom.igz, g0=geom.igx[0], ng=geom.ng)
     return dict(v_true=v_true, alpha=alpha, t1=t1, t2=t2,
                 inj=inj, src=src, geo=geo,
-                shape=(BATCH, geom.ns, *v_pad.shape[-2:]))
+                shape=(batch, geom.ns, *v_pad.shape[-2:]))
 
 
 def forward_pass(fn, p, keep=False):
@@ -301,10 +357,11 @@ def phase_kernel_info(shapes):
     return tape
 
 
-def phase_forward(p, label='headline', full=True):
+def phase_forward(p, label='headline', full=True, plain_reps=2):
     """``fwd_step`` against its plain version over one pass (seismogram and
     every chunk carry), with max abs err per output; its time per pass,
-    and the plain version's with ``full``."""
+    and with ``full`` the plain version's over ``plain_reps`` passes (1:
+    one pass, no warm-up beyond the comparison's)."""
     import torch
     from red_diffeq_tpu_torch.ops import stencil
 
@@ -331,12 +388,13 @@ def phase_forward(p, label='headline', full=True):
           + f' (max |seis| {float(seis_p.abs().max()):.3e}); U={u}, '
           f'{per_chunk:g} launches per chunk', flush=True)
     ms = cuda_ms(lambda: forward_pass(stencil.fwd_chunk, p), 5)
-    plain_ms = (cuda_ms(lambda: forward_pass(stencil.fwd_chunk_plain, p), 2)
+    plain_ms = (cuda_ms(lambda: forward_pass(stencil.fwd_chunk_plain, p),
+                        plain_reps, warm=plain_reps > 1)
                 if full else None)
     print(f'fwd pass at the {label} shape ({seis_k.shape[2]} steps): kernel '
           f'{ms:.3f} ms'
           + (f' (one launch per step: {EARLIER_MS["fwd_step"]:.3f} ms)'
-             if full else '')
+             if label == 'headline' else '')
           + (f', plain {plain_ms:.3f} ms' if full else ''), flush=True)
     return (dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms),
             carries_k, seis_k)
@@ -432,12 +490,15 @@ def reverse_chunk(steps_fn, sum_fn):
     return fn
 
 
-def adjoint_pass(p, name, steps_fn, steps_plain, chunk_args):
+def adjoint_pass(p, name, steps_fn, steps_plain, chunk_args, earlier=True,
+                 plain_reps=2):
     """Gate adjoint kernel ``name`` (steps wrapper ``steps_fn``) and
     ``sum_shots`` against their plain versions over a whole reverse pass:
     every output max-rel 2e-5, gp0 and gp1 bit for bit, each output's max
     abs err printed. Then time a pass of the steps alone and of their plain
-    version. Returns the times and the steps' largest abs error."""
+    version over ``plain_reps`` passes (with ``earlier``, beside the
+    headline's time in the previous design). Returns the times and the
+    steps' largest abs error."""
     from red_diffeq_tpu_torch.ops import stencil
     errs = {}
     stencil.reset_launches()
@@ -456,16 +517,18 @@ def adjoint_pass(p, name, steps_fn, steps_plain, chunk_args):
         check(errs[out] == 0.0, f'{name} {out} differs from its plain '
               f'version by {errs[out]:.3e}')
     ms = cuda_ms(lambda: reverse_pass(p, steps_fn, chunk_args), 5)
-    plain_ms = cuda_ms(lambda: reverse_pass(p, steps_plain, chunk_args), 2)
+    plain_ms = cuda_ms(lambda: reverse_pass(p, steps_plain, chunk_args),
+                       plain_reps, warm=plain_reps > 1)
     print(f'{name} pass ({n_chunks * CHUNK} steps), steps alone: kernel '
-          f'{ms:.3f} ms (one launch per step, shot sums in the kernel: '
-          f'{EARLIER_MS[name]:.3f} ms), plain {plain_ms:.3f} ms', flush=True)
+          f'{ms:.3f} ms'
+          + (f' (one launch per step, shot sums in the kernel: '
+             f'{EARLIER_MS[name]:.3f} ms)' if earlier else '')
+          + f', plain {plain_ms:.3f} ms', flush=True)
     return dict(max_abs_err=max(errs[k] for k in REVERSE_OUT[:6]), ms=ms,
                 plain_ms=plain_ms)
 
 
 def phase_adjoint(p, carries, grad_problem):
-    import torch
     from red_diffeq_tpu_torch.ops import stencil
 
     grecs = random_grecs(p)
@@ -475,7 +538,27 @@ def phase_adjoint(p, carries, grad_problem):
         stencil.bwd_reverse_steps_plain,
         lambda i, gp0, gp1: (*carries[i + 1], gp0, gp1, grecs[i], *coef,
                              p['src'][i]))
-    # The shot sums alone, on per-shot partials of the main path's shape.
+    res['sum_shots'] = sum_shots_pass(p)
+    print(f"tape-free adjoint pass, bwd_reverse_step + sum_shots: "
+          f"{res['ms'] + res['sum_shots']['ms']:.3f} ms (one launch per step, "
+          f"shot sums in the kernel: {EARLIER_MS['bwd_reverse_step']:.3f} ms)",
+          flush=True)
+    phase_short_chunk(p, carries, grecs[0])
+    # Velocity gradient of a masked-L1 observation loss: kernels vs plain
+    # eager autograd through the checkpointed plain path.
+    res['grad_max_rel'] = compare_grads(
+        HEADLINE, *grad_problem, 'kernels vs plain autograd', ('plain', {}))
+    return res
+
+
+def sum_shots_pass(p, plain_reps=2):
+    """``sum_shots`` alone against its plain version on a pass's per-shot
+    partials of ``p``'s shape, and its time: device time (the pass's calls
+    captured in a CUDA graph and replayed) and per call with the host's
+    launch, each beside PyTorch's ``torch.sum`` over the shot axis."""
+    import torch
+    from red_diffeq_tpu_torch.ops import stencil
+
     gen = torch.Generator(device=p['alpha'].device).manual_seed(5)
     parts = [[torch.randn(p['shape'], generator=gen,
                           device=p['alpha'].device) for _ in range(3)]
@@ -499,26 +582,16 @@ def phase_adjoint(p, carries, grad_problem):
     host_ms = cuda_ms(kernel_pass, 5)
     library_host_ms = cuda_ms(library_pass, 5)
     plain_ms = cuda_ms(lambda: [[stencil.sum_shots_plain(t) for t in q]
-                                for q in parts], 2)
+                                for q in parts], plain_reps,
+                       warm=plain_reps > 1)
     print(f'sum_shots vs plain, {len(parts)} calls: max abs err {err:.3e}; '
           f'device time (CUDA graph) kernel {ms:.3f} ms, torch.sum '
           f'{library_ms:.3f} ms per pass; per call with the host\'s launch: '
           f'kernel {host_ms:.3f} ms, torch.sum {library_host_ms:.3f} ms, '
           f'plain {plain_ms:.3f} ms per pass', flush=True)
-    print(f"tape-free adjoint pass, bwd_reverse_step + sum_shots: "
-          f"{res['ms'] + ms:.3f} ms (one launch per step, shot sums in the "
-          f"kernel: {EARLIER_MS['bwd_reverse_step']:.3f} ms)", flush=True)
-    res['sum_shots'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            library_ms=library_ms,
-                            ms_per_call_with_host=host_ms,
-                            library_ms_per_call_with_host=library_host_ms)
-    del parts
-    phase_short_chunk(p, carries, grecs[0])
-    # Velocity gradient of a masked-L1 observation loss: kernels vs plain
-    # eager autograd through the checkpointed plain path.
-    res['grad_max_rel'] = compare_grads(
-        HEADLINE, *grad_problem, 'kernels vs plain autograd', ('plain', {}))
-    return res
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, ms_per_call_with_host=host_ms,
+                library_ms_per_call_with_host=library_host_ms)
 
 
 def phase_short_chunk(p, carries, grec, steps=7):
@@ -602,12 +675,13 @@ def compare_grads(ctx, mu, y, mask, label, ref, **kw):
     return r
 
 
-def tape_replays(p, carries, label):
+def tape_replays(p, carries, label, plain_reps=2):
     """``tape_step`` against ``tape_chunk_plain`` on every chunk of a pass
     from the forward kernel's carries, every slot bit for bit, and slot
     chunk (s_{K-1}) against the forward kernel's next carry; then both
-    timed over a pass, device time between CUDA events. Returns the tapes,
-    the times and the blocks per cluster."""
+    timed over a pass (the plain version over ``plain_reps`` passes),
+    device time between CUDA events. Returns the tapes, the times and the
+    blocks per cluster."""
     import torch
     from red_diffeq_tpu_torch.ops import stencil
 
@@ -648,7 +722,8 @@ def tape_replays(p, carries, label):
             replay(fn, i)
 
     ms = cuda_ms(lambda: tape_pass(stencil.tape_chunk), 5)
-    plain_ms = cuda_ms(lambda: tape_pass(stencil.tape_chunk_plain), 2)
+    plain_ms = cuda_ms(lambda: tape_pass(stencil.tape_chunk_plain),
+                       plain_reps, warm=plain_reps > 1)
     print(f'tape pass at {label} ({len(tapes) * CHUNK} steps): kernel '
           f'{ms:.3f} ms (one launch per step, headline: '
           f'{EARLIER_MS["tape_step"]:.3f} ms), plain {plain_ms:.3f} ms',
@@ -806,9 +881,10 @@ def phase_slice(dev, diffusion, ctx, problem, route, adjoint=None):
     taped adjoint) launched ceil(chunk/U) times per chunk, ``sum_shots``
     once per chunk and, on the taped route, ``tape_step`` once per chunk;
     the other route's kernels never, the plain path never; and that every
-    sample's observation loss fell. Returns (launches, s/step, the U each
-    wrapper last handed its launcher with tape_step's blocks per
-    cluster)."""
+    sample's observation loss fell; one U-Net call a step at the batch.
+    Returns (launches, s/step by the host clock around the steps and by
+    the CUDA events behind the U-Net calls, the U each wrapper last handed
+    its launcher with tape_step's blocks per cluster)."""
     import torch
     from red_diffeq_tpu_torch.core.inversion import InversionEngine
     from red_diffeq_tpu_torch.ops import stencil
@@ -833,7 +909,8 @@ def phase_slice(dev, diffusion, ctx, problem, route, adjoint=None):
         gen = torch.Generator(device=dev).manual_seed(8888)
         out = engine.optimize(problem['mu0'], problem['v_true'],
                               problem['y'], op, ts=ts, lr=0.03,
-                              reg_lambda=0.75, generator=gen)
+                              reg_lambda=0.75, generator=gen,
+                              progress=False)
         torch.cuda.synchronize()
         return out
 
@@ -841,11 +918,18 @@ def phase_slice(dev, diffusion, ctx, problem, route, adjoint=None):
     run(1)                      # warm-up: cuDNN plans, allocator
     warm_s = time.perf_counter() - t0
 
+    seen, handle = step_events(diffusion.model)
     stencil.reset_launches()
     acoustic.plain_chunk_calls['chunk'] = 0
     t0 = time.perf_counter()
-    mu, per_model = run(TS)
+    try:
+        mu, per_model = run(TS)
+    finally:
+        handle.remove()
     run_s = time.perf_counter() - t0
+    check(seen['batches'] == [BATCH] * TS, f'U-Net calls {seen["batches"]}, '
+          f'expected {TS} of batch {BATCH}')
+    times = dict(host=run_s / TS, events=step_period(seen['events']))
     counts = dict(stencil.launches)
     unrolls = dict(stencil.last_unroll, tape_step=stencil.last_ranks[
         'tape_step'])
@@ -885,9 +969,10 @@ def phase_slice(dev, diffusion, ctx, problem, route, adjoint=None):
               f'SSIM {curves["ssim"][0]:.4f} -> {curves["ssim"][-1]:.4f}, '
               f'MAE {curves["mae"][-1]:.4f}', flush=True)
     print(f'inversion at nbc={ctx["nbc"]}, adjoint {route!r}: {TS} steps in '
-          f'{run_s:.3f} s, {run_s / TS:.4f} s/step (warm-up step '
+          f'{run_s:.3f} s, {times["host"]:.4f} s/step by the host clock, '
+          f'{times["events"]:.4f} by the U-Net calls\' events (warm-up step '
           f'{warm_s:.2f} s)', flush=True)
-    return counts, run_s / TS, unrolls
+    return counts, times, unrolls
 
 
 def phase_narrow(dev, diffusion):
@@ -898,13 +983,280 @@ def phase_narrow(dev, diffusion):
                       *gradient_problem(problem['v_true'], problem['y']),
                       f'tape kernels vs plain autograd at nbc={NARROW["nbc"]}',
                       ('plain', {}))
-    counts, s_step, unrolls = phase_slice(dev, diffusion, NARROW, problem,
-                                          'tape')
-    return counts, s_step, unrolls, r
+    counts, times, unrolls = phase_slice(dev, diffusion, NARROW, problem,
+                                         'tape')
+    return counts, times, unrolls, r
 
 
-def main():
+WIDE_PRESET = 'configs/marmousi/red-diffeq.yaml'
+# The TV and Tikhonov presets of the wide slice, each with its observation
+# noise type.
+BASELINES = (('configs/marmousi/tv.yaml', 'laplace'),
+             ('configs/overthrust/tikhonov.yaml', 'gaussian'))
+WIDE_ROWS, WIDE_SEED = 70, 1234
+WIDE_TS, BASELINE_TS, WIDE_NOISE, WIDE_MISSING = 20, 5, 0.05, 19
+
+
+def write_wide_dataset(dev, root):
+    """The synthetic dataset and configs of the wide slice under ``root``:
+    2 models of WIDE_ROWS x the preset's width
+    (``generate_mixed_dataset(2, seed=WIDE_SEED)``) with observations from
+    the refined operator (dx/2, dt/2, ``sample_temporal=2``) on the plain
+    path (its receiver line is strided, which the kernels do not take),
+    saved as ``<root>/<Dataset>/{Seismic,Velocity}_Data/synthetic.npy``
+    for each preset's dataset; and each preset (WIDE_PRESET and the
+    BASELINES) read with the port's ``load_config``, pointed at that data,
+    at the shipped prior and at ``<root>/results``, and written back with
+    ``save_config``. Returns {preset: config path}."""
+    from pathlib import Path
     import torch
+    from red_diffeq_tpu_torch.config import load_config, save_config
+    from red_diffeq_tpu_torch.io.synthetic import generate_mixed_dataset
+    from red_diffeq_tpu_torch.solvers import acoustic
+    from red_diffeq_tpu_torch.utils.data_trans import (
+        s_normalize_none, v_denormalize, v_normalize,
+    )
+
+    t0 = time.perf_counter()
+    root = Path(root)
+    ctx = load_config(WIDE_PRESET).pde.to_dict()
+    v_true = generate_mixed_dataset(2, h=WIDE_ROWS, w=ctx['n_grid'],
+                                    seed=WIDE_SEED)
+    op_obs = acoustic.FWIForward(
+        acoustic.refined_ctx(ctx, factor=2), sample_temporal=2,
+        v_denorm_func=v_denormalize, s_norm_func=s_normalize_none,
+        backend='plain', chunk=CHUNK, device=dev)
+    with torch.no_grad():
+        y = op_obs(v_normalize(torch.from_numpy(
+            acoustic.upsample_velocity(v_true, 2)).to(dev))).cpu().numpy()
+    check(y.shape == (2, ctx['ns'], ctx['nt'], ctx['ng'])
+          and bool(np.isfinite(y).all()), 'wide observations are malformed')
+    paths = {}
+    for preset in (WIDE_PRESET, *(b[0] for b in BASELINES)):
+        cfg = load_config(preset)
+        check(cfg.pde.to_dict() == ctx, f'{preset}: another geometry')
+        name = Path(cfg.data.seismic_data_dir).parts[-2]
+        for key, sub, arr in (('seismic_data_dir', 'Seismic_Data', y),
+                              ('velocity_data_dir', 'Velocity_Data',
+                               v_true)):
+            (root / name / sub).mkdir(parents=True, exist_ok=True)
+            np.save(root / name / sub / 'synthetic.npy', arr)
+            cfg.data[key] = str(root / name / sub)
+        cfg.diffusion.model_path = str(Path(CKPT).resolve())
+        cfg.experiment.results_dir = str(root / 'results')
+        paths[preset] = root / f'{name.lower()}-{Path(preset).name}'
+        save_config(cfg, paths[preset])
+    print(f'wide dataset {v_true.shape}, observations {y.shape} (refined '
+          f'x2, plain path) in {time.perf_counter() - t0:.2f} s', flush=True)
+    return paths
+
+
+def run_cli(dev, argv):
+    """``red_diffeq_tpu_torch.cli.run_inversion.main(argv)`` on ``dev``,
+    with the launch counters and the plain path's chunk count set to 0
+    just before it and read just after; the batch of each call of the
+    U-Net instance the CLI builds and a CUDA event recorded behind it
+    (``step_events``); and the mask that reaches the observation loss."""
+    import torch
+    from red_diffeq_tpu_torch.cli import run_inversion
+    from red_diffeq_tpu_torch.core import inversion
+    from red_diffeq_tpu_torch.ops import stencil
+    from red_diffeq_tpu_torch.solvers import acoustic
+
+    seen = dict(batches=[], events=[], masks=[])
+    build = run_inversion.build_diffusion_model
+    loss = inversion.observation_loss
+
+    def build_and_hook(*args, **kw):
+        diffusion = build(*args, **kw)
+        hooked, _ = step_events(diffusion.model)
+        seen.update(hooked)
+        return diffusion
+
+    def spy(predicted, y, mask):
+        if not seen['masks']:
+            seen['masks'].append(mask)
+        return loss(predicted, y, mask)
+
+    run_inversion.build_diffusion_model = build_and_hook
+    inversion.observation_loss = spy
+    try:
+        stencil.reset_launches()
+        acoustic.plain_chunk_calls['chunk'] = 0
+        t0 = time.perf_counter()
+        seen['out'] = run_inversion.main([*argv, '--device', str(dev)])
+        torch.cuda.synchronize()
+        seen['wall_s'] = time.perf_counter() - t0
+        seen['launches'] = dict(stencil.launches)
+        seen['unrolls'] = dict(stencil.last_unroll)
+        seen['plain'] = acoustic.plain_chunk_calls['chunk']
+    finally:
+        run_inversion.build_diffusion_model = build
+        inversion.observation_loss = loss
+    return seen
+
+
+NPZ_KEYS = ('result', 'initial_velocity', 'ground_truth', 'total_losses',
+            'obs_losses', 'reg_losses', 'ssim', 'mae', 'rmse')
+
+
+def check_run(seen, ts, label, rows, cols):
+    """The run directory's ``config.yaml`` and sample 0's results: the nine
+    keys, finite, the model ``rows`` x ``cols``, ``ts`` steps, the
+    observation loss falling. Returns the curves."""
+    out = seen['out']
+    check((out / 'config.yaml').is_file(), f'{label}: no config.yaml')
+    npz = sorted(out.glob('*/0_results.npz'))
+    check(len(npz) == 1, f'{label}: {len(npz)} results for sample 0')
+    d = np.load(npz[0])
+    check(sorted(d.files) == sorted(NPZ_KEYS), f'{label}: keys {d.files}')
+    check(all(np.isfinite(d[k]).all() for k in NPZ_KEYS),
+          f'{label}: results are not finite')
+    check(d['result'].shape == (rows, cols)
+          and d['initial_velocity'].shape == (rows, cols),
+          f'{label}: result of shape {d["result"].shape}')
+    check(all(len(d[k]) == ts for k in NPZ_KEYS[3:]),
+          f'{label}: curves are not {ts} steps long')
+    obs = d['obs_losses']
+    check(obs[-1] < obs[1], f'{label}: obs loss did not fall '
+          f'({obs[1]:.5g} -> {obs[-1]:.5g})')
+    print(f'{label}: {npz[0].relative_to(out.parents[2])}: obs {obs[0]:.5g} '
+          f'-> {obs[-1]:.5g}, total {d["total_losses"][0]:.5g} -> '
+          f'{d["total_losses"][-1]:.5g}, SSIM {d["ssim"][0]:.4f} -> '
+          f'{d["ssim"][-1]:.4f}, MAE {d["mae"][-1]:.4f}', flush=True)
+    return d
+
+
+def phase_wide(dev, root):
+    """The wide slice: the Marmousi preset through the CLI on the kernels
+    (the tape-free route, the 3 windows of the patched RED in one U-Net
+    call a step), then the TV and Tikhonov presets with corrupted
+    observations. Returns (launches, s per step by the U-Net calls'
+    events, U by kernel, the preset's pde settings)."""
+    import torch
+    from red_diffeq_tpu_torch.config import load_config
+    from red_diffeq_tpu_torch.ops import stencil
+    from red_diffeq_tpu_torch.solvers import acoustic
+
+    paths = write_wide_dataset(dev, root)
+    ctx = load_config(paths[WIDE_PRESET]).pde.to_dict()
+    geom = acoustic.Geometry.from_ctx(ctx)
+    hp, wp = WIDE_ROWS + 2 * ctx['nbc'], ctx['n_grid'] + 2 * ctx['nbc']
+    route = stencil.resolve_run_config(geom, CHUNK, None)[0]
+    check(route == 'reverse', f'the wide preset takes {route!r}')
+
+    seen = run_cli(dev, ['--config', str(paths[WIDE_PRESET]), '--ts',
+                    str(WIDE_TS), '--sample_index', '0'])
+    counts, chunks = seen['launches'], WIDE_TS * -(-ctx['nt'] // CHUNK)
+    want = dict.fromkeys(counts, 0)
+    for name in ('fwd_step', 'bwd_reverse_step'):
+        want[name] = chunks * -(-CHUNK // stencil.pick_blocking(name, hp,
+                                                                wp)[0])
+    want['sum_shots'] = chunks
+    print(f'wide slice {hp}x{wp}, adjoint {route!r}: launches {counts}, '
+          f'plain chunks {seen["plain"]}, U-Net batches {seen["batches"]}',
+          flush=True)
+    for name in counts:
+        check(counts[name] == want[name],
+              f'wide: {name} launched {counts[name]} times, expected '
+              f'{want[name]}')
+    check(seen['plain'] == 0, f'wide: the plain path ran {seen["plain"]} '
+          'chunks')
+    k = -(-ctx['n_grid'] // WIDE_ROWS)
+    check(seen['batches'] == [k] * WIDE_TS, f'wide: U-Net calls '
+          f'{seen["batches"]}, expected {WIDE_TS} of batch {k}')
+    check_run(seen, WIDE_TS, 'wide slice', WIDE_ROWS, ctx['n_grid'])
+    s_step = step_period(seen['events'])
+    print(f'wide slice: {s_step:.4f} s per inversion step by the U-Net '
+          f'calls\' events (calls 1 to {WIDE_TS - 1}); the CLI took '
+          f'{seen["wall_s"]:.2f} s for {WIDE_TS} steps', flush=True)
+
+    for preset, noise_type in BASELINES:
+        label = f'{preset} ({noise_type} noise)'
+        base = run_cli(dev, [
+            '--config', str(paths[preset]), '--ts', str(BASELINE_TS),
+            '--sample_index', '0', '--noise_std', str(WIDE_NOISE),
+            '--noise_type', noise_type, '--missing_number',
+            str(WIDE_MISSING)])
+        check(not base['batches'], f'{label}: the U-Net ran')
+        check(base['launches']['fwd_step'] > 0 and base['plain'] == 0,
+              f'{label}: the kernels did not run the solver')
+        mask = base['masks'][0]
+        dead = mask == 0
+        check(tuple(mask.shape) == (1, ctx['ns'], ctx['nt'], ctx['ng'])
+              and torch.equal(dead, dead[:, :1, :1].expand_as(dead))
+              and bool((dead[:, 0, 0].sum(dim=-1) == WIDE_MISSING).all()),
+              f'{label}: the mask does not zero {WIDE_MISSING} receivers '
+              'per sample on every shot')
+        d = check_run(base, BASELINE_TS, label, WIDE_ROWS, ctx['n_grid'])
+        check(np.isfinite(d['reg_losses']).all() and d['reg_losses'][0] > 0,
+              f'{label}: no regulariser')
+    return counts, s_step, seen['unrolls'], ctx
+
+
+def wide_kernels(dev, ctx):
+    """Each kernel at the wide field (1 sample, 5 shots, the preset's
+    padded field) against its plain version over a pass, with its time
+    (the plain version's over one pass): the forward (seismogram and
+    carries rtol 2e-5 / atol 1e-7), the tape-free adjoint and
+    ``sum_shots``, ``tape_step`` (bit for bit) and the taped adjoint; then
+    the velocity gradient through the kernels against plain eager autograd
+    and with ``adjoint='tape'`` forced against 'reverse' (max-rel 1e-4)."""
+    from red_diffeq_tpu_torch.ops import stencil
+
+    hp, wp = WIDE_ROWS + 2 * ctx['nbc'], ctx['n_grid'] + 2 * ctx['nbc']
+    p = headline_problem(dev, ctx, batch=1, rows=WIDE_ROWS)
+    check(p['shape'][-2:] == (hp, wp), f'wide field {p["shape"]}')
+    label = f'{hp}x{wp}'
+    fwd, carries, seis = phase_forward(p, label, plain_reps=1)
+    grad_problem = gradient_problem(p['v_true'], seis[:, :, :ctx['nt']])
+    del seis
+    coef = (p['alpha'], p['t1'], p['t2'], p['inj'])
+    grecs = random_grecs(p)
+    bwd = adjoint_pass(
+        p, 'bwd_reverse_step', stencil.bwd_reverse_steps,
+        stencil.bwd_reverse_steps_plain,
+        lambda i, gp0, gp1: (*carries[i + 1], gp0, gp1, grecs[i], *coef,
+                             p['src'][i]), earlier=False, plain_reps=1)
+    sums = sum_shots_pass(p, plain_reps=1)
+    tapes, tape = tape_replays(p, carries, label, plain_reps=1)
+    btape = adjoint_pass(
+        p, 'bwd_tape_step', stencil.bwd_tape_steps,
+        stencil.bwd_tape_steps_plain,
+        lambda i, gp0, gp1: (tapes[i], gp0, gp1, grecs[i], *coef[:3],
+                             p['src'][i]), earlier=False, plain_reps=1)
+    del tapes, carries
+    r_plain = compare_grads(ctx, *grad_problem,
+                            f'kernels vs plain autograd at {label}',
+                            ('plain', {}))
+    r_tape = compare_grads(ctx, *grad_problem,
+                           f"adjoint='tape' vs 'reverse' at {label}",
+                           ('kernel', {'adjoint': 'reverse'}),
+                           adjoint='tape')
+    n_chunks = len(p['src'])
+    bnd = bounds(p, n_chunks * CHUNK, n_chunks)
+    res = dict(fwd_step=fwd, bwd_reverse_step=bwd, sum_shots=sums,
+               tape_step=tape, bwd_tape_step=btape)
+    for name, r in res.items():
+        r.update(shape=list(p['shape']), bound_ms=bnd[name]['bound_ms'],
+                 bound_by=bnd[name]['bound_by'])
+        print(f'{name} at {label}: {r["ms"]:.3f} ms per pass, bound '
+              f'{r["bound_ms"]:.3f} ms ({r["bound_by"]}), plain '
+              f'{r["plain_ms"]:.3f} ms', flush=True)
+    res['grad_max_rel'] = dict(plain=r_plain, tape=r_tape)
+    return res
+
+
+def main(argv=None):
+    """Run every phase (no arguments), or with ``--write-wide-dataset DIR``
+    only write the wide slice's dataset and configs under DIR."""
+    import argparse
+    import torch
+    args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    args.add_argument('--write-wide-dataset', metavar='DIR',
+                      help='write the wide slice\'s synthetic dataset and '
+                           'preset configs under DIR, and stop')
+    args = args.parse_args(argv or [])
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device is available', file=sys.stderr)
         return 1
@@ -918,6 +1270,11 @@ def main():
 
     dev = torch.device('cuda')
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.write_wide_dataset:
+        for preset, path in write_wide_dataset(
+                dev, args.write_wide_dataset).items():
+            print(f'{preset}: {path}')
+        return 0
     print(f'python {sys.version.split()[0]}, torch {torch.__version__}, '
           f'CUDA {torch.version.cuda}', flush=True)
 
@@ -965,6 +1322,14 @@ def main():
     with Phase('narrow-sponge slice'):
         narrow_counts, s_narrow, narrow_unrolls, narrow_grad = phase_narrow(
             dev, diffusion)
+    del diffusion
+    with Phase('wide slice'):
+        import tempfile
+        with tempfile.TemporaryDirectory() as root:
+            wide_counts, s_wide, wide_unrolls, wide_ctx = phase_wide(dev,
+                                                                     root)
+    with Phase('wide kernels'):
+        wide = wide_kernels(dev, wide_ctx)
 
     n_chunks = len(p['src'])
     steps = n_chunks * CHUNK
@@ -1003,6 +1368,16 @@ def main():
             'library_ms_per_call_with_host'])
     # tape_step at nbc=40, its own route, and its registers and resident
     # clusters at the headline.
+    # Each kernel at the wide preset's field, with its launches in the
+    # wide slice's CLI run (the tape-free route).
+    for k in kernels:
+        w = wide[k['name']]
+        k['wide'] = dict(shape=w['shape'], launches=wide_counts[k['name']],
+                         unroll=wide_unrolls[k['name']],
+                         max_abs_err=w['max_abs_err'], ms=w['ms'],
+                         plain_ms=w['plain_ms'], bound_ms=w['bound_ms'],
+                         bound_by=w['bound_by'],
+                         library_ms=w.get('library_ms'))
     kernels[3].update(ms_nbc40=tape['tape_step']['ms_nbc40'],
                       plain_ms_nbc40=tape['tape_step']['plain_ms_nbc40'],
                       registers=tape_info['regs'],
@@ -1010,14 +1385,21 @@ def main():
     print(f'fwd_step at nbc={NARROW["nbc"]} ({hn}x{hn}): '
           f'{fwd_narrow["ms"]:.3f} ms per pass, max abs err '
           f'{fwd_narrow["max_abs_err"]:.3e}', flush=True)
-    print(f'slice: {s_per_step:.4f} s per inversion step at the headline '
-          f"(adjoint 'reverse'; one launch per step: "
-          f"{EARLIER_S_PER_STEP:.4f}), "
-          f"{s_tape_forced:.4f} with 'tape' forced, "
-          f"{s_narrow:.4f} at nbc={NARROW['nbc']} ('tape'); velocity "
+    print(f'slice: s per inversion step by the host clock [by the U-Net '
+          f"calls' events]: {s_per_step['host']:.4f} "
+          f"[{s_per_step['events']:.4f}] at the headline (adjoint 'reverse'; "
+          f'one launch per step: {EARLIER_S_PER_STEP:.4f}), '
+          f"{s_tape_forced['host']:.4f} [{s_tape_forced['events']:.4f}] with "
+          f"'tape' forced, {s_narrow['host']:.4f} [{s_narrow['events']:.4f}] "
+          f"at nbc={NARROW['nbc']} ('tape'); velocity "
           f'gradient max-rel {bwd["grad_max_rel"]:.3e} (kernels vs plain), '
           f'{tape["grad_max_rel"]:.3e} (tape vs reverse), {narrow_grad:.3e} '
           f'(tape kernels vs plain, nbc={NARROW["nbc"]})', flush=True)
+    print(f'wide slice: {s_wide:.4f} s per inversion step (U-Net calls\' '
+          'events); '
+          f'velocity gradient max-rel {wide["grad_max_rel"]["plain"]:.3e} '
+          f'(kernels vs plain), {wide["grad_max_rel"]["tape"]:.3e} (tape vs '
+          'reverse)', flush=True)
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {
@@ -1027,4 +1409,4 @@ def main():
 
 
 if __name__ == '__main__':
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

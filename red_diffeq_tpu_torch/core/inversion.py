@@ -20,12 +20,18 @@ import torch
 from red_diffeq_tpu_torch.core.losses import observation_loss, total_loss
 from red_diffeq_tpu_torch.core.metrics import calculate_metrics
 from red_diffeq_tpu_torch.regularization.base import make_reg_fn
-from red_diffeq_tpu_torch.utils.data_trans import v_normalize
+from red_diffeq_tpu_torch.utils.data_trans import (
+    add_noise_to_seismic, missing_trace, v_normalize,
+)
 from red_diffeq_tpu_torch.utils.device import resolve_device
+from red_diffeq_tpu_torch.utils.profiling import StepTimer
 from red_diffeq_tpu_torch.utils.seed_utils import next_key
 
 _VALID_REG = ('diffusion', 'l2', 'tv', 'hybrid', None)
 _F32 = torch.float32
+# With ``progress``, metrics are printed every this many steps, as in the
+# JAX engine's default.
+_LOG_INTERVAL = 50
 
 
 def cosine_decay_schedule(init_value: float, decay_steps: int):
@@ -130,17 +136,28 @@ class InversionEngine:
 
     def optimize(self, mu, mu_true, y, fwi_forward, ts: int = 300,
                  lr: float = 0.03, reg_lambda: float = 0.01,
+                 noise_std: float = 0.0, noise_type: str = 'gaussian',
+                 missing_number: int = 0,
                  regularization: Optional[str] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 noise_draw: Optional[torch.Tensor] = None,
+                 trace_mask: Optional[torch.Tensor] = None,
+                 progress: bool = True):
         """Run ``ts`` steps; returns (mu_cropped, per-sample metric curves).
 
         ``mu``: initial model, padded (B, 1, H+2, W+2), in [-1, 1].
         ``mu_true``: ground truth in m/s, (B, 1, H, W).
-        ``y``: observed seismograms (B, ns, nt, ng).
-        ``generator``: source of every step's draws; when None, the next
-        generator of the global sequence (:func:`next_key`) on the
-        engine's device, so two calls draw differently and ``set_seed``
-        repeats them."""
+        ``y``: observed seismograms (B, ns, nt, ng), corrupted once before
+        the loop by :func:`add_noise_to_seismic` (``noise_std``,
+        ``noise_type``; its draw ``noise_draw`` if given) and
+        :func:`missing_trace` (``missing_number``; the (B, ng) receiver
+        mask ``trace_mask`` if given).
+        ``generator``: source of the corruption's draws, then of every
+        step's; when None, the next generator of the global sequence
+        (:func:`next_key`) on the engine's device, so two calls draw
+        differently and ``set_seed`` repeats them.
+        ``progress``: print MAE, RMSE and SSIM every ``_LOG_INTERVAL`` steps
+        and at the last, then the host's time per step."""
         if mu.shape[0] != y.shape[0]:
             raise ValueError(
                 'Batch size mismatch between velocity and seismic data')
@@ -161,9 +178,12 @@ class InversionEngine:
         mu_true_norm = v_normalize(torch.as_tensor(mu_true, dtype=_F32,
                                                    device=dev))
         y = torch.as_tensor(y, dtype=_F32, device=dev)
-        mask = torch.ones_like(y)
         if generator is None:
             generator = next_key(dev)
+        y = add_noise_to_seismic(y, noise_std, noise_type=noise_type,
+                                 generator=generator, draw=noise_draw)
+        y, mask = missing_trace(y, missing_number, generator=generator,
+                                trace_mask=trace_mask)
 
         reg_fn = make_reg_fn(reg_name, self.diffusion_model,
                              use_time_weight=self.use_time_weight,
@@ -173,11 +193,23 @@ class InversionEngine:
                                    reg_lambda, self.sigma_x0, is_diffusion)
         opt_state = optimizer.init(mu)
         history = []
-        for _ in range(ts):
-            mu, opt_state, m = step(mu, opt_state, y=y, mask=mask,
-                                    mu_true_norm=mu_true_norm,
-                                    generator=generator)
+        timer = StepTimer()
+        for i in range(ts):
+            with timer:
+                mu, opt_state, m = step(mu, opt_state, y=y, mask=mask,
+                                        mu_true_norm=mu_true_norm,
+                                        generator=generator)
             history.append(m)
+            if progress and (i % _LOG_INTERVAL == 0 or i == ts - 1):
+                t_str = (f"  t {int(round(float(m['t'].float().mean())))}"
+                         if 't' in m else '')
+                print(f"step {i:4d}/{ts}"
+                      f"  MAE {float(m['mae'].mean()):.4f}"
+                      f"  RMSE {float(m['rmse'].mean()):.4f}"
+                      f"  SSIM {float(m['ssim'].mean()):.4f}"
+                      + t_str, flush=True)
+        if progress and timer.times:
+            print(f'timing: {timer.summary()}', flush=True)
 
         keys = ('total_losses', 'obs_losses', 'reg_losses', 'ssim', 'mae',
                 'rmse')

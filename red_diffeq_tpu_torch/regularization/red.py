@@ -3,15 +3,41 @@
 Counterpart of ``red_diffeq_tpu/regularization/red.py``. The velocity model
 is noised to a random timestep, denoised once by the U-Net, and the
 residual score (eps_hat - eps), detached, multiplies the model linearly, so
-d(reg)/d(mu) = mean(score) without backpropagation through the U-Net. The
-patched variant for models wider than the denoiser input (Marmousi,
-Overthrust) is not ported yet.
+d(reg)/d(mu) = mean(score) without backpropagation through the U-Net.
+
+For models wider than the denoiser input (Marmousi and Overthrust, 70x190)
+overlapping square windows are scored in one batched U-Net call of k*B
+windows and blended with weight 0.5 on the overlaps.
 """
-from typing import Optional
+import math
+from typing import List, Optional, Tuple
 
 import torch
 
-from red_diffeq_tpu_torch.utils.diffusion_utils import extract
+from red_diffeq_tpu_torch.utils.diffusion_utils import (
+    diffusion_crop, diffusion_pad, extract,
+)
+
+
+def calculate_patches(width: int, height: int
+                      ) -> Tuple[List[Tuple[int, int]], List[int]]:
+    """Overlapping square-window layout: ([(start_x, end_x), ...],
+    [overlap_i]) for k = ceil(width / height) windows of side ``height``
+    spread evenly over ``width``, the last pinned to the right edge."""
+    m, n = height, width
+    k = math.ceil(n / m)
+    if k == 1:
+        return [(0, n)], []
+    s = (n - m) / (k - 1)
+    positions = []
+    for i in range(k):
+        if i == k - 1:
+            positions.append((n - m, n))
+        else:
+            start = int(i * s)
+            positions.append((start, min(start + m, n)))
+    overlaps = [positions[i][1] - positions[i + 1][0] for i in range(k - 1)]
+    return positions, overlaps
 
 
 def _score_residual(diffusion, mu, t, noise):
@@ -40,19 +66,26 @@ class RED_DiffEq:
         self.fixed_timestep = fixed_timestep
         self.input_size = diffusion_model.image_size[0]
 
+    def _draws(self, shape, t, noise, generator, device, dtype):
+        """``t`` (B,) and ``noise`` of ``shape``, each drawn from
+        ``generator`` (t first) unless given."""
+        if t is None:
+            max_t = (self.fixed_timestep if self.fixed_timestep is not None
+                     else self.diffusion_model.num_timesteps)
+            t = torch.randint(0, max_t, (shape[0],), generator=generator,
+                              device=device)
+        if noise is None:
+            noise = torch.randn(shape, generator=generator, device=device,
+                                dtype=dtype)
+        return t, noise
+
     def get_reg_loss(self, mu, t=None, noise=None, generator=None):
         """Unpatched RED loss. ``t`` (B,) and ``noise`` (shape of ``mu``)
         are drawn from ``generator`` unless given. Returns
         (reg_per_sample, gradient_per_sample, t)."""
         b = mu.shape[0]
-        if t is None:
-            max_t = (self.fixed_timestep if self.fixed_timestep is not None
-                     else self.diffusion_model.num_timesteps)
-            t = torch.randint(0, max_t, (b,), generator=generator,
-                              device=mu.device)
-        if noise is None:
-            noise = torch.randn(mu.shape, generator=generator,
-                                device=mu.device, dtype=mu.dtype)
+        t, noise = self._draws(mu.shape, t, noise, generator, mu.device,
+                               mu.dtype)
         gradient_field = _score_residual(self.diffusion_model, mu, t, noise)
         reg_field = gradient_field * mu
         if self.use_time_weight:
@@ -60,22 +93,64 @@ class RED_DiffEq:
         return (reg_field.reshape(b, -1).mean(dim=1),
                 gradient_field.reshape(b, -1).mean(dim=1), t)
 
+    def get_reg_loss_patched(self, mu, t=None, noise=None, generator=None):
+        """Patched RED loss for a padded model ``mu`` (B, C, H+2, W+2)
+        wider than the denoiser. ``noise`` has the unpadded shape (B, C, H,
+        W); each window of it is zero-padded like the model's, so its pad
+        ring is zero. The k windows go to the U-Net as one batch of k*B,
+        window-major, with ``t`` repeated k times to match. The scores are
+        cropped, weighted (0.5 on overlaps) and divided by the summed
+        weights. Returns (reg_per_sample, gradient_per_sample, t)."""
+        d = self.diffusion_model
+        mu_unpadded = diffusion_crop(mu)
+        b, c, h, w = mu_unpadded.shape
+        positions, overlaps = calculate_patches(w, h)
+        k = len(positions)
+        t, noise = self._draws(mu_unpadded.shape, t, noise, generator,
+                               mu.device, mu.dtype)
+
+        x_stack = torch.cat([diffusion_pad(mu_unpadded[:, :, :, sx:ex])
+                             for sx, ex in positions])
+        n_stack = torch.cat([diffusion_pad(noise[:, :, :, sx:ex])
+                             for sx, ex in positions])
+        grad_stack = diffusion_crop(
+            _score_residual(d, x_stack, t.repeat(k), n_stack))
+        m = positions[0][1] - positions[0][0]
+        grad_patches = grad_stack.reshape(k, b, c, h, m)
+
+        gradient_field = torch.zeros_like(mu_unpadded)
+        weight_map = torch.zeros_like(mu_unpadded)
+        for idx, (sx, ex) in enumerate(positions):
+            pw = ex - sx
+            weight = torch.ones(pw, dtype=mu.dtype, device=mu.device)
+            if idx > 0:
+                weight[:overlaps[idx - 1]] = 0.5
+            if idx < k - 1:
+                weight[pw - overlaps[idx]:] = 0.5
+            gradient_field[:, :, :, sx:ex] += grad_patches[idx, :, :, :, :pw] \
+                * weight
+            weight_map[:, :, :, sx:ex] += weight
+        gradient_field = gradient_field / weight_map.clamp_min(1e-8)
+        reg_field = gradient_field * mu_unpadded
+        if self.use_time_weight:
+            reg_field = _time_weight(d, reg_field, t)
+        return (reg_field.reshape(b, -1).mean(dim=1),
+                gradient_field.reshape(b, -1).mean(dim=1), t)
+
 
 def make_red_reg_fn(diffusion, use_time_weight: bool = False,
                     fixed_timestep: Optional[int] = None):
     """The engine-facing ``reg_fn(mu, t=None, noise=None, generator=None)
-    -> (loss, t)``."""
+    -> (loss, t)``, patched for a model wider or taller than the denoiser's
+    input."""
     red = RED_DiffEq(diffusion, use_time_weight=use_time_weight,
                      fixed_timestep=fixed_timestep)
 
     def reg_fn(mu, t=None, noise=None, generator=None):
         h, w = mu.shape[2], mu.shape[3]
-        if w > red.input_size or h > red.input_size:
-            raise NotImplementedError(
-                f'a {h}x{w} model is wider than the {red.input_size}px '
-                'denoiser: the patched RED variant is not ported yet')
-        reg, _, t = red.get_reg_loss(mu, t=t, noise=noise,
-                                     generator=generator)
+        patched = w > red.input_size or h > red.input_size
+        fn = red.get_reg_loss_patched if patched else red.get_reg_loss
+        reg, _, t = fn(mu, t=t, noise=noise, generator=generator)
         return reg, t
 
     return reg_fn

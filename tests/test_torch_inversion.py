@@ -19,6 +19,7 @@ import optax
 import pytest
 import torch
 
+from red_diffeq_tpu.core.inversion import InversionEngine as JaxEngine
 from red_diffeq_tpu.core.inversion import \
     make_inversion_step as jax_make_step
 from red_diffeq_tpu.models.diffusion import GaussianDiffusion as JaxDiffusion
@@ -39,13 +40,14 @@ from red_diffeq_tpu_torch.utils.seed_utils import SeedContext
 CTX = dict(n_grid=16, nt=40, dx=10.0, dt=0.001, nbc=60, f=15.0, sz=10,
            gz=10, ng=16, ns=2)
 TAPE_CTX = dict(CTX, nbc=8)
+WIDE_CTX = dict(CTX, n_grid=40, ng=40)
 TS, LR, LAM, SIGMA = 3, 0.03, 0.75, 1e-4
 KEYS = ('total_losses', 'obs_losses', 'reg_losses', 'mae', 'rmse', 'ssim')
 
 
-def _problem():
+def _problem(width=16):
     rng = np.random.RandomState(7)
-    v_true = np.full((2, 1, 16, 16), 2000.0, np.float32)
+    v_true = np.full((2, 1, 16, width), 2000.0, np.float32)
     v_true[:, :, 9:] = 3200.0
     v_true += rng.uniform(-50, 50, v_true.shape).astype(np.float32)
     init = np.concatenate([jdt.prepare_initial_model(v_true[i:i + 1],
@@ -56,9 +58,12 @@ def _problem():
 
 
 def _jax_steps(ctx, backend):
-    """Three JAX inversion steps on ``backend``; returns the problem, the
-    draws, every step's mu and metrics, and the U-Net's weights."""
-    v_true, mu0 = _problem()
+    """Three JAX inversion steps on ``backend`` at the model width
+    ``ctx['n_grid']``; returns the problem, the draws, every step's mu and
+    metrics, and the U-Net's weights. A model wider than the denoiser's 18
+    cells takes the patched RED, whose noise has the unpadded shape."""
+    v_true, mu0 = _problem(ctx['n_grid'])
+    patched = mu0.shape[-1] > 18
     op = JaxFWI(ctx, normalize=True, v_denorm_func=jdt.v_denormalize,
                 s_norm_func=jdt.s_normalize_none, backend=backend, chunk=20)
     y = op(jdt.v_normalize(jnp.asarray(v_true)))
@@ -79,7 +84,8 @@ def _jax_steps(ctx, backend):
         draws.append(dict(
             x0_noise=np.asarray(jax.random.normal(key_x0, mu0.shape)),
             t=np.asarray(jax.random.randint(kt, (2,), 0, 20)),
-            reg_noise=np.asarray(jax.random.normal(kn, mu0.shape))))
+            reg_noise=np.asarray(jax.random.normal(
+                kn, v_true.shape if patched else mu0.shape))))
         carry, m = run(carry, key)
         mus.append(np.asarray(carry[0]))
         metrics.append({k: np.asarray(v) for k, v in m.items()})
@@ -108,6 +114,45 @@ def test_three_steps_match_jax_on_the_tape_route():
     assert resolve_run_config(geom, 20)[0] == 'tape'
     _check_three_steps(_jax_steps(TAPE_CTX, 'pallas_interpret'), TAPE_CTX,
                        'kernel')
+
+
+def test_three_wide_steps_match_jax():
+    """A 16x40 model (18x42 padded), wider than the 18-cell denoiser: both
+    packages take the patched RED (3 windows in one U-Net call)."""
+    _check_three_steps(_jax_steps(WIDE_CTX, 'xla'), WIDE_CTX, 'plain')
+
+
+def test_optimize_with_corrupted_observations_matches_jax():
+    """Three ``optimize`` steps with TV on observations with gaussian noise
+    and 5 of 16 receivers missing, the port fed JAX's corruption draws: mu
+    atol 1e-5, curves rtol 1e-4."""
+    v_true, mu0 = _problem()
+    op = JaxFWI(CTX, normalize=True, v_denorm_func=jdt.v_denormalize,
+                s_norm_func=jdt.s_normalize_none, backend='xla', chunk=20)
+    y = np.array(op(jdt.v_normalize(jnp.asarray(v_true))))
+    kw = dict(ts=TS, lr=LR, reg_lambda=0.5, noise_std=0.05,
+              noise_type='gaussian', missing_number=5, regularization='tv')
+    key = jax.random.PRNGKey(13)
+    want_mu, want = JaxEngine(regularization='tv').optimize(
+        mu0, v_true, y, op, key=key, progress=False, **kw)
+    _, k_noise, k_miss = jax.random.split(key, 3)
+    trace_mask = np.ones((2, 16), np.float32)
+    for b, k in enumerate(jax.random.split(k_miss, 2)):
+        trace_mask[b, np.asarray(jax.random.permutation(k, 16))[:5]] = 0.0
+    port = FWIForward(CTX, v_denorm_func=tdt.v_denormalize,
+                      s_norm_func=tdt.s_normalize_none, device='cpu')
+    mu, got = inversion.InversionEngine(
+        regularization='tv', device='cpu').optimize(
+        mu0, v_true, y, port, progress=False,
+        noise_draw=torch.from_numpy(np.array(jax.random.normal(k_noise,
+                                                               y.shape))),
+        trace_mask=torch.from_numpy(trace_mask), **kw)
+    np.testing.assert_allclose(mu.numpy(), np.asarray(want_mu), atol=1e-5,
+                               rtol=0)
+    for curves, want_curves in zip(got, want):
+        for k in KEYS:
+            np.testing.assert_allclose(curves[k], want_curves[k], rtol=1e-4,
+                                       err_msg=k)
 
 
 def _check_three_steps(r, ctx, backend):
@@ -187,15 +232,21 @@ def test_reg_dispatch():
     for name in (None, 'none', 'hybrid'):
         reg, t = make_reg_fn(name)(mu)
         assert t is None and torch.equal(reg, torch.zeros(3))
-    for name in ('l2', 'tv'):
-        with pytest.raises(NotImplementedError):
-            make_reg_fn(name)
+    ramp = torch.arange(16.0).reshape(1, 1, 4, 4).repeat(3, 1, 1, 1)
+    for name, want in (('l2', 1.0 + 16.0), ('tv', 1.0 + 4.0)):
+        reg, t = make_reg_fn(name)(ramp)
+        assert t is None and torch.equal(reg, torch.full((3,), want))
     with pytest.raises(ValueError):
         make_reg_fn('diffusion')
     diff = GaussianDiffusion(Unet(dim=8, dim_mults=(1, 2)), image_size=18,
                              timesteps=20, device='cpu')
-    with pytest.raises(NotImplementedError, match='patched'):
-        make_reg_fn('diffusion', diff)(torch.zeros(1, 1, 18, 40))
+    calls = []
+    diff.model.register_forward_hook(
+        lambda m, args, out: calls.append(tuple(args[0].shape)))
+    reg, t = make_reg_fn('diffusion', diff)(
+        torch.zeros(1, 1, 18, 40), generator=torch.Generator().manual_seed(0))
+    assert reg.shape == (1,) and t.shape == (1,)
+    assert calls == [(3, 1, 18, 18)]    # the wide model's 3 windows at once
 
 
 def test_optimize_without_a_generator_draws_anew_and_repeats_under_set_seed():

@@ -68,8 +68,11 @@ def _inputs(seed, b, ns, hp, wp, chunk, isz, igz, g0, ng):
 # (B, ns, Hp, Wp, chunk, isz, igz, g0, ng): one tile smaller than the
 # window (halos wrap over the field), several tiles with ragged edges and
 # a short last group (chunk 7 at U=4), fields small enough for U=3, U=2
-# and U=1 (each its own instantiation of bwd_tape_step).
+# and U=1 (each its own instantiation of bwd_tape_step); a wide field
+# (Hp < Wp, three column tiles of fwd_step with a partial last one), the
+# aspect of the Marmousi and Overthrust presets' 310x430.
 CASES = [(2, 2, 24, 28, 20, 9, 10, 8, 12),
+         (1, 2, 24, 106, 20, 9, 10, 8, 60),
          (1, 3, 70, 90, 7, 61, 62, 60, 12),
          (1, 2, 14, 15, 9, 3, 12, 1, 13),
          (1, 2, 9, 12, 3, 0, 8, 0, 12),
@@ -149,14 +152,15 @@ def test_sum_shots_kernel_matches_plain(host_kernels, hw, ns):
 # cluster for each field (16 from 32 rows, 8, 4, 2), strips whose rows do
 # not divide evenly (37 rows in 16), several bands of rows a block (128
 # rows: 8 a strip), a field wider than a block's 1024 threads, non-square
-# fields, the source on a strip's first and last row, chunks of 20, 7 and
-# 1 step; then clusters of 1 and 2 blocks forced on fields that would take
-# more (a block its own neighbour, or both neighbours the same block).
+# fields (one at the 310x430 presets' aspect), the source on a strip's
+# first and last row, chunks of 20, 7 and 1 step; then clusters of 1 and 2
+# blocks forced on fields that would take more (a block its own neighbour,
+# or both neighbours the same block).
 TAPE_CASES = [(1, 2, 37, 10, 20, 20, None), (1, 1, 128, 20, 7, 70, None),
               (2, 1, 17, 13, 20, 3, None), (1, 1, 9, 8, 7, 8, None),
               (1, 2, 6, 9, 5, 2, None), (1, 1, 6, 1030, 3, 3, None),
               (1, 1, 8, 7, 1, 2, None), (1, 1, 12, 11, 7, 4, 1),
-              (1, 2, 9, 6, 20, 5, 2)]
+              (1, 2, 9, 6, 20, 5, 2), (1, 2, 24, 106, 20, 9, None)]
 
 
 @pytest.mark.parametrize('case', TAPE_CASES,

@@ -162,3 +162,87 @@ def test_next_key_places_the_generator_on_the_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tseed.next_key()
+
+
+def test_seismic_normalisation_matches():
+    s = np.random.RandomState(3).uniform(-20, 60, (2, 3, 5, 4)).astype(
+        np.float32)
+    np.testing.assert_allclose(
+        data_trans.s_normalize(torch.from_numpy(s)).numpy(),
+        np.asarray(jdt.s_normalize(jnp.asarray(s))), rtol=1e-6)
+    np.testing.assert_allclose(
+        data_trans.s_denormalize(torch.from_numpy(s / 60.0)).numpy(),
+        np.asarray(jdt.s_denormalize(jnp.asarray(s / 60.0))), rtol=1e-6)
+
+
+@pytest.mark.parametrize('noise_type', ['gaussian', 'laplace'])
+def test_noise_matches_jax_on_its_draws(noise_type):
+    """``add_noise_to_seismic`` fed JAX's own draw (the standard normal or
+    the uniform of its key) gives JAX's noisy observations, rtol 1e-6; a
+    scale of 0 leaves them as they are."""
+    import jax
+    y = np.random.RandomState(4).standard_normal((2, 3, 20, 12)).astype(
+        np.float32)
+    key = jax.random.PRNGKey(6)
+    want = jdt.add_noise_to_seismic(jnp.asarray(y), 0.3,
+                                    noise_type=noise_type, key=key)
+    sample = (jax.random.normal if noise_type == 'gaussian'
+              else jax.random.uniform)
+    draw = torch.from_numpy(np.array(sample(key, y.shape)))
+    got = data_trans.add_noise_to_seismic(torch.from_numpy(y), 0.3,
+                                          noise_type=noise_type, draw=draw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-7)
+    yt = torch.from_numpy(y)
+    assert data_trans.add_noise_to_seismic(yt, 0.0) is yt
+    drawn = data_trans.add_noise_to_seismic(
+        yt, 0.3, noise_type=noise_type,
+        generator=torch.Generator().manual_seed(1))
+    assert drawn.shape == yt.shape and not torch.equal(drawn, yt)
+    with pytest.raises(ValueError):
+        data_trans.add_noise_to_seismic(yt, 0.3, noise_type='cauchy')
+
+
+def test_missing_trace_matches_jax_on_its_draws():
+    """``missing_trace`` fed JAX's per-sample receiver masks gives JAX's
+    observations and mask; drawing its own, it zeroes exactly
+    ``num_missing`` receivers per sample, the same on every shot."""
+    import jax
+    y = np.random.RandomState(5).standard_normal((3, 2, 10, 16)).astype(
+        np.float32)
+    key = jax.random.PRNGKey(7)
+    want_y, want_mask = jdt.missing_trace(jnp.asarray(y), 4, key=key)
+    trace_mask = np.ones((3, 16), np.float32)
+    for b, k in enumerate(jax.random.split(key, 3)):
+        trace_mask[b, np.asarray(jax.random.permutation(k, 16))[:4]] = 0.0
+    got_y, got_mask = data_trans.missing_trace(
+        torch.from_numpy(y), 4, trace_mask=torch.from_numpy(trace_mask))
+    np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y), rtol=1e-6)
+    np.testing.assert_array_equal(got_mask.numpy(), np.asarray(want_mask))
+
+    _, mask = data_trans.missing_trace(
+        torch.from_numpy(y), 4, generator=torch.Generator().manual_seed(2))
+    dead = mask[:, :, :, :] == 0
+    assert torch.equal(dead, dead[:, :1, :1].expand_as(dead))
+    assert (dead[:, 0, 0].sum(dim=1) == 4).all()
+    yt = torch.from_numpy(y)
+    kept, ones = data_trans.missing_trace(yt, 0)
+    assert kept is yt and torch.equal(ones, torch.ones_like(yt))
+
+
+def test_step_timer_leaves_out_the_first_step_as_in_jax(monkeypatch):
+    """Steps of 5, 1, 2 and 3 s on a fake clock: both timers keep the
+    last three and summarise them alike; with no step kept, zeros."""
+    from red_diffeq_tpu.utils import profiling as jprofiling
+    from red_diffeq_tpu_torch.utils import profiling
+
+    for timer in (profiling.StepTimer(), jprofiling.StepTimer()):
+        assert timer.summary() == '0 steps, 0.00 ms/step (0.00 steps/s)'
+        clock = iter([0.0, 5.0, 5.0, 6.0, 6.0, 8.0, 8.0, 11.0])
+        monkeypatch.setattr('time.perf_counter', lambda: next(clock))
+        for _ in range(4):
+            with timer:
+                pass
+        monkeypatch.undo()
+        assert timer.times == [1.0, 2.0, 3.0] and timer.mean == 2.0
+        assert timer.summary() == '3 steps, 2000.00 ms/step (0.50 steps/s)'

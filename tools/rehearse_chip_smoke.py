@@ -9,11 +9,13 @@ The CUDA source is built with g++ against ``tests/cuda_host/cuda_host.h``
 (each CUDA thread a fiber, a thread-block cluster a group of them) into
 BUILD_DIR (default: a temporary directory), and the kernel wrappers are
 pointed at their launchers, so the kernels' own code runs, launch counters
-included. The card's name, timings, occupancy query (7 resident clusters)
-and ``nvidia-smi`` are stubbed; every check of
-``chip_smoke.py`` runs for real, at a 14x14 model with nbc=60 (tape-free
-route) and nbc=8 (taped route), batch 2, 3 inversion steps. Times printed
-are meaningless. Exits with ``chip_smoke.main()``'s code. About ten minutes.
+included. The card's name, timings and CUDA events, occupancy query (7 resident
+clusters) and ``nvidia-smi`` are stubbed; every check of ``chip_smoke.py``
+runs for real, at a 14x14 model with nbc=60 (tape-free route) and nbc=8
+(taped route), batch 2, 3 inversion steps, and the wide phases at the
+presets' width with nt=60 and nbc=60, 3 steps a CLI run. Times printed are
+meaningless. Exits with ``chip_smoke.main()``'s code. About fifteen
+minutes.
 """
 import ctypes
 import shutil
@@ -30,6 +32,7 @@ sys.path.insert(0, str(ROOT / 'tests'))
 def main():
     import torch
     from cuda_host.host_build import build_host_library
+    import red_diffeq_tpu_torch.config as C
     from red_diffeq_tpu_torch.ops import stencil as S
     from red_diffeq_tpu_torch.solvers import acoustic as A
 
@@ -59,6 +62,29 @@ def main():
     torch.cuda.get_device_name = lambda *a: 'CPU rehearsal'
     torch.cuda.device_count = lambda: 1
 
+    class Event:
+        def __init__(self, **kw):
+            pass
+
+        def record(self):
+            pass
+
+        def synchronize(self):
+            pass
+
+        def elapsed_time(self, other):
+            return 0.0
+
+    torch.cuda.Event = Event
+    load_config = C.load_config
+
+    def small_preset(path):
+        cfg = load_config(path)
+        cfg.pde.nt, cfg.pde.nbc = 60, 60
+        return cfg
+
+    C.load_config = small_preset
+
     src = (ROOT / 'chip_smoke.py').read_text()
     src = src.replace("dev = torch.device('cuda')", "dev = torch.device('cpu')")
     ns = {'__name__': 'chip_smoke_rehearsal'}
@@ -67,7 +93,8 @@ def main():
                           f=15.0, sz=10, gz=10, ng=14, ns=5)
     ns['NARROW'] = dict(ns['HEADLINE'], nbc=8)
     ns['BATCH'], ns['TS'] = 2, 3
-    ns['cuda_ms'] = lambda fn, reps: (fn(), 0.0)[1]
+    ns['WIDE_TS'], ns['BASELINE_TS'] = 3, 3
+    ns['cuda_ms'] = lambda fn, reps, warm=True: (fn(), 0.0)[1]
     ns['graph_ms'] = ns['cuda_ms']
     smi = types.SimpleNamespace(stdout='CPU rehearsal, 0 W\n')
     ns['subprocess'] = types.SimpleNamespace(run=lambda *a, **k: smi)
