@@ -92,16 +92,39 @@ Phases, each printing its wall time:
    version's over one pass) and bound, the velocity gradient through the
    kernels against plain eager autograd and with the tape forced against
    'reverse' (max-rel 1e-4).
+12. the bench slice: the competitor methods DiffusionFWI and ILVR-FWI
+   through their CLI (``red_diffeq_tpu_torch.cli.run_bench.main``) on a
+   synthetic 2-sample set per preset (70 rows, refined observations,
+   sample 0), the shipped prior in place of the presets' absent
+   ``model-4.ckpt``: the OpenFWI ablation preset
+   ``ablation_all_tricks_dt30_ts10`` at its full depth (30 outer x 10 inner
+   steps, 290 gradients and 30 evaluating forwards) and width (70x70,
+   310x310 field, dim-64 U-Net at 72x72), then the Marmousi one (70x190,
+   310x430, 3 windows in one U-Net call) with its outer steps cut to
+   BENCH_WIDE_DIFFUSION_TS; each with the exact launch counts of the
+   tape-free route, the plain path unused, one U-Net call an outer step,
+   the eight ``.npz`` keys, the model finite in [-1, 1] and device memory
+   flat over the outer steps; SSIM at the initial model and at the end, s
+   per outer step and the U-Net's share printed. Then a DDIM sample (batch
+   4, 250 steps) in [0, 1], a short DiffusionFWI run on the kernels against
+   the plain backend on the card (curves rtol 1e-4, the model atol 1e-4 on
+   all but 1% of its cells and 0.1 lr on all), the kernels' device time
+   per outer step. The observation loss of every outer step is printed,
+   with how often the inner FWI loops lowered it, but not gated: on the
+   card it rises and falls between outer steps (each starts with a
+   denoise), and the loops lower it in about half of them.
 
-With ``--write-wide-dataset DIR`` the script only writes the wide slice's
-dataset and configs under DIR (for a longer run of the CLI) and stops.
+With ``--write-wide-dataset DIR`` (``--write-bench-dataset DIR``) the
+script only writes the wide (bench) slice's datasets and configs under DIR
+(for a longer run of a CLI) and stops.
 
 Then one JSON line with each kernel's launches and the steps per launch
 its wrapper handed its launcher (``tape_step``: the blocks per cluster;
 both read in the slice that takes its route), launches per 1000-step pass
 (those launches over the slice's inversion steps), error, times and bound,
 and under ``wide`` the same at the 310x430 field with the launches of the
-wide slice's CLI run; the card's line from nvidia-smi, and last
+wide slice's CLI run and under ``bench`` the launches of the bench slice's
+DiffusionFWI run; the card's line from nvidia-smi, and last
 ``{"ok": true, "device": ...}``.
 Any failed check raises and the script exits non-zero. Without a CUDA
 device, or without the package beside it, it exits non-zero and prints no
@@ -997,31 +1020,15 @@ WIDE_ROWS, WIDE_SEED = 70, 1234
 WIDE_TS, BASELINE_TS, WIDE_NOISE, WIDE_MISSING = 20, 5, 0.05, 19
 
 
-def write_wide_dataset(dev, root):
-    """The synthetic dataset and configs of the wide slice under ``root``:
-    2 models of WIDE_ROWS x the preset's width
-    (``generate_mixed_dataset(2, seed=WIDE_SEED)``) with observations from
-    the refined operator (dx/2, dt/2, ``sample_temporal=2``) on the plain
-    path (its receiver line is strided, which the kernels do not take),
-    saved as ``<root>/<Dataset>/{Seismic,Velocity}_Data/synthetic.npy``
-    for each preset's dataset; and each preset (WIDE_PRESET and the
-    BASELINES) read with the port's ``load_config``, pointed at that data,
-    at the shipped prior and at ``<root>/results``, and written back with
-    ``save_config``. Returns {preset: config path}."""
-    from pathlib import Path
+def refined_observations(dev, ctx, v_true):
+    """Observations of ``v_true`` (m/s) under ``ctx`` from the refined
+    operator (dx/2, dt/2, ``sample_temporal=2``) on the plain path (its
+    receiver line is strided, which the kernels do not take), as numpy."""
     import torch
-    from red_diffeq_tpu_torch.config import load_config, save_config
-    from red_diffeq_tpu_torch.io.synthetic import generate_mixed_dataset
     from red_diffeq_tpu_torch.solvers import acoustic
     from red_diffeq_tpu_torch.utils.data_trans import (
         s_normalize_none, v_denormalize, v_normalize,
     )
-
-    t0 = time.perf_counter()
-    root = Path(root)
-    ctx = load_config(WIDE_PRESET).pde.to_dict()
-    v_true = generate_mixed_dataset(2, h=WIDE_ROWS, w=ctx['n_grid'],
-                                    seed=WIDE_SEED)
     op_obs = acoustic.FWIForward(
         acoustic.refined_ctx(ctx, factor=2), sample_temporal=2,
         v_denorm_func=v_denormalize, s_norm_func=s_normalize_none,
@@ -1029,8 +1036,30 @@ def write_wide_dataset(dev, root):
     with torch.no_grad():
         y = op_obs(v_normalize(torch.from_numpy(
             acoustic.upsample_velocity(v_true, 2)).to(dev))).cpu().numpy()
-    check(y.shape == (2, ctx['ns'], ctx['nt'], ctx['ng'])
-          and bool(np.isfinite(y).all()), 'wide observations are malformed')
+    check(y.shape == (len(v_true), ctx['ns'], ctx['nt'], ctx['ng'])
+          and bool(np.isfinite(y).all()), 'observations are malformed')
+    return y
+
+
+def write_wide_dataset(dev, root):
+    """The synthetic dataset and configs of the wide slice under ``root``:
+    2 models of WIDE_ROWS x the preset's width
+    (``generate_mixed_dataset(2, seed=WIDE_SEED)``) with observations from
+    :func:`refined_observations`, saved as ``<root>/<Dataset>/{Seismic,Velocity}_Data/synthetic.npy``
+    for each preset's dataset; and each preset (WIDE_PRESET and the
+    BASELINES) read with the port's ``load_config``, pointed at that data,
+    at the shipped prior and at ``<root>/results``, and written back with
+    ``save_config``. Returns {preset: config path}."""
+    from pathlib import Path
+    from red_diffeq_tpu_torch.config import load_config, save_config
+    from red_diffeq_tpu_torch.io.synthetic import generate_mixed_dataset
+
+    t0 = time.perf_counter()
+    root = Path(root)
+    ctx = load_config(WIDE_PRESET).pde.to_dict()
+    v_true = generate_mixed_dataset(2, h=WIDE_ROWS, w=ctx['n_grid'],
+                                    seed=WIDE_SEED)
+    y = refined_observations(dev, ctx, v_true)
     paths = {}
     for preset in (WIDE_PRESET, *(b[0] for b in BASELINES)):
         cfg = load_config(preset)
@@ -1247,15 +1276,418 @@ def wide_kernels(dev, ctx):
     return res
 
 
+# The bench slice: the competitor methods through their CLI at the OpenFWI
+# ablation preset's full depth and width, and the Marmousi ablation preset
+# (the patched route) with its outer steps cut to BENCH_WIDE_DIFFUSION_TS.
+BENCH_PRESET = 'configs/ablation/OpenFWI_Ablation/ablation_all_tricks_dt30_ts10.yaml'
+BENCH_WIDE_PRESET = ('configs/ablation/Marmousi_Ablation/'
+                     'ablation_all_tricks_dt30_ts10.yaml')
+BENCH_METHODS = ('diffusionfwi', 'ilvr')
+BENCH_SEED = 4321
+# (diffusion_ts, ts) of every bench run, None for the presets' own.
+BENCH_DEPTH = None
+BENCH_WIDE_DIFFUSION_TS = 4
+# The DDIM sampler's steps (the presets' sampling_timesteps) and batch.
+SAMPLER_STEPS, SAMPLER_BATCH = 250, 4
+BENCH_NPZ_KEYS = tuple(k for k in NPZ_KEYS if k != 'reg_losses')
+# Growth of the allocated and peak device memory allowed between the second
+# and the last outer step of a bench run.
+MEMORY_SLACK = 2 << 20
+# Share of the model's cells that may differ by more than 1e-4 between the
+# kernels and the plain backend after a short DiffusionFWI run
+# (bench_kernels_vs_plain says why any do).
+BENCH_PLAIN_SHARE = 0.01
+
+
+def write_bench_dataset(dev, root):
+    """2 synthetic models of 70 x each bench preset's width
+    (``generate_mixed_dataset(2, seed=BENCH_SEED)``) with observations from
+    :func:`refined_observations`, saved as the wide slice's are, and each
+    preset read with the port's ``load_config``, pointed at its data, at
+    sample 0 (``data.sample_index``), at the shipped prior (standing in for
+    the presets' ``model-4.ckpt``, which the repository does not hold) and
+    at ``<root>/results``, and written back. Returns {preset: config
+    path}."""
+    from pathlib import Path
+    from red_diffeq_tpu_torch.config import load_config, save_config
+    from red_diffeq_tpu_torch.io.synthetic import generate_mixed_dataset
+
+    t0 = time.perf_counter()
+    root = Path(root)
+    paths = {}
+    for preset in (BENCH_PRESET, BENCH_WIDE_PRESET):
+        cfg = load_config(preset)
+        ctx = cfg.pde.to_dict()
+        v_true = generate_mixed_dataset(2, h=WIDE_ROWS, w=ctx['n_grid'],
+                                        seed=BENCH_SEED)
+        y = refined_observations(dev, ctx, v_true)
+        name = Path(cfg.data.seismic_data_dir).parts[-2]
+        for key, sub, arr in (('seismic_data_dir', 'Seismic_Data', y),
+                              ('velocity_data_dir', 'Velocity_Data',
+                               v_true)):
+            (root / name / sub).mkdir(parents=True, exist_ok=True)
+            np.save(root / name / sub / 'synthetic.npy', arr)
+            cfg.data[key] = str(root / name / sub)
+        cfg.data.sample_index = 0
+        cfg.diffusion.model_path = str(Path(CKPT).resolve())
+        cfg.experiment.results_dir = str(root / 'results')
+        paths[preset] = root / f'{name.lower()}-{Path(preset).name}'
+        save_config(cfg, paths[preset])
+        print(f'{preset}: dataset {v_true.shape}, observations {y.shape} '
+              f'(refined x2, plain path); prior {CKPT} in place of '
+              f'{load_config(preset).diffusion.model_path}', flush=True)
+    print(f'bench datasets in {time.perf_counter() - t0:.2f} s', flush=True)
+    return paths
+
+
+def unet_timer(model, seen):
+    """CUDA events before and after each forward of the U-Net instance
+    ``model`` (once per outer step), its batch, and the device memory
+    allocated and its peak at its end, into ``seen``."""
+    import torch
+
+    def pre(module, args):
+        seen['starts'].append(torch.cuda.Event(enable_timing=True))
+        seen['starts'][-1].record()
+
+    def post(module, args, out):
+        seen['batches'].append(args[0].shape[0])
+        seen['events'].append(torch.cuda.Event(enable_timing=True))
+        seen['events'][-1].record()
+        seen['allocated'].append(torch.cuda.memory_allocated())
+        seen['peak'].append(torch.cuda.max_memory_allocated())
+
+    return (model.register_forward_pre_hook(pre),
+            model.register_forward_hook(post))
+
+
+def run_bench_cli(dev, argv):
+    """``red_diffeq_tpu_torch.cli.run_bench.main(argv)`` on ``dev``, with
+    the launch counters, the plain path's chunk count and the peak memory
+    reset just before it and read just after, :func:`unet_timer` on the
+    U-Net instance the CLI builds, and every observation loss the method
+    computes (in its inner FWI steps, with autograd on, and at its
+    evaluations) in order."""
+    import torch
+    from red_diffeq_tpu_torch.bench_methods import diffusion_fwi
+    from red_diffeq_tpu_torch.cli import run_bench
+    from red_diffeq_tpu_torch.ops import stencil
+    from red_diffeq_tpu_torch.solvers import acoustic
+
+    seen = dict(starts=[], batches=[], events=[], allocated=[], peak=[],
+                losses=[])
+    build = run_bench.build_diffusion_model
+    loss = diffusion_fwi.observation_loss
+
+    def build_and_time(*args, **kw):
+        diffusion = build(*args, **kw)
+        unet_timer(diffusion.model, seen)
+        return diffusion
+
+    def spy(predicted, y, mask):
+        out = loss(predicted, y, mask)
+        seen['losses'].append((torch.is_grad_enabled(), out.detach()))
+        return out
+
+    run_bench.build_diffusion_model = build_and_time
+    diffusion_fwi.observation_loss = spy
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        stencil.reset_launches()
+        acoustic.plain_chunk_calls['chunk'] = 0
+        t0 = time.perf_counter()
+        seen['out'] = run_bench.main([*argv, '--device', str(dev)])
+        torch.cuda.synchronize()
+        seen['wall_s'] = time.perf_counter() - t0
+        seen['launches'] = dict(stencil.launches)
+        seen['plain'] = acoustic.plain_chunk_calls['chunk']
+    finally:
+        run_bench.build_diffusion_model = build
+        diffusion_fwi.observation_loss = loss
+    return seen
+
+
+def bench_run(dev, path, method, label, extra=()):
+    """One bench CLI run of the preset config at ``path`` with ``method``:
+    exact launch counts (per gradient a pass of ``fwd_step`` and of the
+    tape-free adjoint, ``bwd_reverse_step`` and one ``sum_shots`` a chunk;
+    per outer step an evaluating forward), the tape kernels never, the plain
+    path never; one U-Net call of all windows an outer step; the eight
+    ``.npz`` keys, finite, the model in [-1, 1] of the data's shape, one
+    curve entry an outer step, the observation loss lower at the last
+    outer step than at the first; device memory flat across outer steps.
+    Prints SSIM at the initial model and at the end, s per outer step by
+    the U-Net calls' events and the U-Net's share. Returns a summary."""
+    import torch
+    from red_diffeq_tpu_torch.config import load_config
+    from red_diffeq_tpu_torch.core.metrics import calculate_metrics
+    from red_diffeq_tpu_torch.ops import stencil
+    from red_diffeq_tpu_torch.solvers import acoustic
+    from red_diffeq_tpu_torch.utils.data_trans import v_normalize
+
+    seen = run_bench_cli(dev, ['--config', str(path), '--method', method,
+                               *extra])
+    cfg = load_config(seen['out'] / 'config.yaml')
+    o, ctx = cfg.optimization, cfg.pde.to_dict()
+    dts, ts, chunk = o.diffusion_ts, o.ts, int(cfg.tpu.solver_chunk)
+    grads, evals = (dts - 1) * ts, dts
+    geom = acoustic.Geometry.from_ctx(ctx)
+    route = stencil.resolve_run_config(geom, chunk, None)[0]
+    check(route == 'reverse', f'{label}: the preset takes {route!r}')
+    hp, wp = WIDE_ROWS + 2 * ctx['nbc'], ctx['n_grid'] + 2 * ctx['nbc']
+    chunks = len(acoustic.source_chunks(geom, chunk, 'cpu'))
+
+    def per_chunk(name):
+        return -(-chunk // stencil.pick_blocking(name, hp, wp)[0])
+
+    counts = seen['launches']
+    want = dict.fromkeys(counts, 0)
+    want['fwd_step'] = (grads + evals) * chunks * per_chunk('fwd_step')
+    want['bwd_reverse_step'] = grads * chunks * per_chunk('bwd_reverse_step')
+    want['sum_shots'] = grads * chunks
+    print(f'{label}: {dts} outer x {ts} inner steps ({grads} gradients, '
+          f'{evals} evaluations) at {hp}x{wp}: launches {counts}, plain '
+          f'chunks {seen["plain"]}, U-Net batches {seen["batches"]}',
+          flush=True)
+    for name in counts:
+        check(counts[name] == want[name], f'{label}: {name} launched '
+              f'{counts[name]} times, expected {want[name]}')
+    check(seen['plain'] == 0, f'{label}: the plain path ran {seen["plain"]} '
+          'chunks')
+    kernel = o.get('patch_kernel_size') or [WIDE_ROWS, WIDE_ROWS]
+    stride = o.get('patch_stride') or [1, 1]
+    windows = ((WIDE_ROWS - kernel[0]) // stride[0] + 1) * (
+        (ctx['n_grid'] - kernel[1]) // stride[1] + 1)
+    check(seen['batches'] == [windows] * dts, f'{label}: U-Net calls '
+          f'{seen["batches"]}, expected {dts} of batch {windows}')
+
+    out = seen['out']
+    check((out / 'config.yaml').is_file(), f'{label}: no config.yaml')
+    npz = sorted(out.glob('*/0_results.npz'))
+    check(len(npz) == 1, f'{label}: {len(npz)} results for sample 0')
+    d = np.load(npz[0])
+    check(sorted(d.files) == sorted(BENCH_NPZ_KEYS), f'{label}: keys '
+          f'{d.files}')
+    check(all(np.isfinite(d[k]).all() for k in BENCH_NPZ_KEYS),
+          f'{label}: results are not finite')
+    check(d['result'].shape == d['initial_velocity'].shape
+          == (WIDE_ROWS, ctx['n_grid']), f'{label}: result of shape '
+          f'{d["result"].shape}')
+    check(float(np.abs(d['result']).max()) <= 1.0, f'{label}: the model '
+          'leaves [-1, 1]')
+    check(all(len(d[k]) == dts for k in BENCH_NPZ_KEYS[3:]),
+          f'{label}: curves are not {dts} outer steps long')
+    obs = d['obs_losses']
+    # The method's own losses in order: per outer step with FWI, ts inner
+    # steps (autograd on), then the evaluation; at t = 0 the evaluation.
+    losses = [(grad, float(v[0])) for grad, v in seen['losses']]
+    fwi, i = [], 0
+    for step in range(dts - 1, -1, -1):
+        if step:
+            check(all(g for g, _ in losses[i:i + ts]), f'{label}: outer '
+                  f'step {step} has no {ts} inner losses')
+            start, i = losses[i][1], i + ts
+        check(not losses[i][0], f'{label}: no evaluation at outer step '
+              f'{step}')
+        if step:
+            fwi.append((start, losses[i][1]))
+        i += 1
+    check(i == len(losses) and np.allclose([e for _, e in fwi] + [
+        losses[-1][1]], obs, rtol=1e-6), f'{label}: the evaluations are not '
+          'the saved curve')
+    first = calculate_metrics(
+        torch.from_numpy(d['initial_velocity'])[None, None],
+        v_normalize(torch.from_numpy(d['ground_truth'])[None, None]))[2]
+    # Memory: what is allocated and its peak stay flat from the second
+    # outer step on (each of the first steps holds one gradient's worth).
+    mib = 1 << 20
+    grew = (seen['allocated'][-1] - seen['allocated'][1],
+            seen['peak'][-1] - seen['peak'][1])
+    print(f'{label}: observation loss by outer step '
+          + ' '.join(f'{x:.4g}' for x in obs) + '; SSIM '
+          + ' '.join(f'{x:.4f}' for x in d['ssim']) + '; inner FWI loops '
+          f'lowered it in {sum(e < b for b, e in fwi)} of {len(fwi)} outer '
+          f'steps, by {np.mean([1 - e / b for b, e in fwi]):.1%} on average',
+          flush=True)
+    print(f'{label}: {npz[0].relative_to(out.parents[2])}: obs '
+          f'{obs[0]:.5g} -> {obs[-1]:.5g}, SSIM {float(first):.4f} at the '
+          f'initial model -> {d["ssim"][-1]:.4f}, MAE {d["mae"][-1]:.4f}; '
+          f'device memory at the U-Net calls: allocated '
+          f'{seen["allocated"][1] / mib:.1f} -> '
+          f'{seen["allocated"][-1] / mib:.1f} MiB, peak '
+          f'{seen["peak"][1] / mib:.1f} -> {seen["peak"][-1] / mib:.1f} MiB',
+          flush=True)
+    check(max(grew) <= MEMORY_SLACK, f'{label}: device memory grew by '
+          f'{max(grew) / mib:.1f} MiB over the outer steps')
+    period = (step_period(seen['events']) if len(seen['events']) > 2
+              else float('nan'))
+    unet_ms = float(np.mean([a.elapsed_time(b) for a, b in
+                             zip(seen['starts'], seen['events'])]))
+    share = unet_ms / (period * 1e3) if period else float('nan')
+    print(f'{label}: {period:.4f} s per outer step by the U-Net calls\' '
+          f'events (calls 1 to {dts - 1}), the U-Net {unet_ms:.2f} ms a call '
+          f'({share:.1%}); the CLI took {seen["wall_s"]:.2f} s', flush=True)
+    return dict(counts=counts, s_per_outer_step=period, unet_ms=unet_ms,
+                ts=ts, dts=dts, ssim=(float(first), float(d['ssim'][-1])),
+                wall_s=seen['wall_s'], fwi=fwi)
+
+
+def bench_kernel_ms(dev, ctx):
+    """Device time (ms) of one pass of the forward kernel and of the
+    tape-free adjoint (``bwd_reverse_step`` with its ``sum_shots``) at
+    ``ctx`` for one sample, between CUDA events."""
+    from red_diffeq_tpu_torch.ops import stencil
+    p = headline_problem(dev, ctx, batch=1, rows=WIDE_ROWS)
+    _, carries = forward_pass(stencil.fwd_chunk, p, keep=True)
+    grecs = random_grecs(p)
+    coef = (p['alpha'], p['t1'], p['t2'], p['inj'])
+    fwd = cuda_ms(lambda: forward_pass(stencil.fwd_chunk, p), 5)
+    adj = cuda_ms(lambda: reverse_pass(
+        p, reverse_chunk(stencil.bwd_reverse_steps, stencil.sum_shots),
+        lambda i, gp0, gp1: (*carries[i + 1], gp0, gp1, grecs[i], *coef,
+                             p['src'][i])), 5)
+    return fwd, adj
+
+
+def bench_kernels_vs_plain(dev, diffusion, path):
+    """One short ``DiffusionFWI.optimize`` (2 outer x 2 inner steps, the
+    preset's tricks, sample 0 of its dataset) on the kernels and on the
+    plain backend, on the card: the curves rtol 1e-4; the model atol 1e-4 on
+    all but BENCH_PLAIN_SHARE of its cells and within a tenth of one Adam
+    step (0.1 lr) on every cell. The kernels' velocity gradient differs
+    from the plain path's by max-rel ~1e-5 of its largest value; the max-abs
+    normalisation and Adam's per-cell normalised step turn that into a
+    different fraction of a full step (lr) wherever a cell's gradient is
+    within that error of 0, so the model's max-abs difference is not
+    bounded by 1e-4 (on the card 1.7e-3 at 4 of 4900 cells). Returns the
+    largest difference and the share of cells beyond 1e-4."""
+    import torch
+    from red_diffeq_tpu_torch.bench_methods import DiffusionFWI
+    from red_diffeq_tpu_torch.config import load_config
+    from red_diffeq_tpu_torch.solvers.acoustic import FWIForward
+    from red_diffeq_tpu_torch.utils.data_trans import (
+        prepare_initial_model, s_normalize_none, v_denormalize,
+    )
+
+    cfg = load_config(path)
+    o = cfg.optimization
+    v_true = np.load(f'{cfg.data.velocity_data_dir}/synthetic.npy')[:1]
+    y = np.load(f'{cfg.data.seismic_data_dir}/synthetic.npy')[:1]
+    mu0 = prepare_initial_model(v_true, o.initial_type, sigma=o.sigma)
+    runs = {}
+    for backend in ('kernel', 'plain'):
+        op = FWIForward(cfg.pde.to_dict(), v_denorm_func=v_denormalize,
+                        s_norm_func=s_normalize_none, backend=backend,
+                        chunk=CHUNK, device=dev)
+        t0 = time.perf_counter()
+        runs[backend] = DiffusionFWI(diffusion, op, device=dev).optimize(
+            mu0, v_true, y, op, ts=2, diffusion_ts=2, lr=o.lr,
+            grad_norm=o.grad_norm, grad_smooth=o.grad_smooth,
+            model_blur=o.model_blur, grad_clip=o.grad_clip,
+            generator=torch.Generator(device=dev).manual_seed(0),
+            progress=False)
+        torch.cuda.synchronize()
+        runs[backend + '_s'] = time.perf_counter() - t0
+    (mu_k, c_k), (mu_p, c_p) = runs['kernel'], runs['plain']
+    diff = (mu_k - mu_p).abs()
+    d, share = float(diff.max()), float((diff > 1e-4).float().mean())
+    print(f'DiffusionFWI 2 x 2 steps, kernels vs plain on the card: max |d '
+          f'mu| {d:.3e}, {share:.2%} of the cells beyond 1e-4, mean '
+          f'{float(diff.mean()):.3e}; obs {c_k[0]["obs_losses"][-1]:.6g} vs '
+          f'{c_p[0]["obs_losses"][-1]:.6g}; {runs["kernel_s"]:.2f} s vs '
+          f'{runs["plain_s"]:.2f} s', flush=True)
+
+    check(share <= BENCH_PLAIN_SHARE and d <= 0.1 * o.lr,
+          f'kernels vs plain: max |d mu| {d:.3e} (at most {0.1 * o.lr:.3g}), '
+          f'{share:.2%} of the cells beyond 1e-4 (at most '
+          f'{BENCH_PLAIN_SHARE:.0%})')
+    for k in c_k[0]:
+        np.testing.assert_allclose(c_k[0][k], c_p[0][k], rtol=1e-4,
+                                   atol=1e-7, err_msg=k)
+    return d, share
+
+
+def bench_sampler(dev, path):
+    """The preset's diffusion built by the inversion CLI's
+    ``build_diffusion_model`` with
+    ``sampling_timesteps`` = SAMPLER_STEPS (DDIM), and SAMPLER_BATCH
+    images sampled from it: the shape, finite, in [0, 1]; its time."""
+    import torch
+    from red_diffeq_tpu_torch.cli.run_inversion import build_diffusion_model
+    from red_diffeq_tpu_torch.config import load_config
+
+    cfg = load_config(path)
+    cfg.diffusion.sampling_timesteps = SAMPLER_STEPS
+    diffusion = build_diffusion_model(cfg, device=dev)
+    check(diffusion.is_ddim_sampling
+          and diffusion.sampling_timesteps == SAMPLER_STEPS,
+          'build_diffusion_model did not pass sampling_timesteps')
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    img = diffusion.sample(SAMPLER_BATCH, generator=gen)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    h, w = diffusion.image_size
+    check(tuple(img.shape) == (SAMPLER_BATCH, 1, h, w)
+          and bool(torch.isfinite(img).all()) and float(img.min()) >= 0.0
+          and float(img.max()) <= 1.0, f'DDIM samples of shape '
+          f'{tuple(img.shape)} out of range or not finite')
+    print(f'DDIM sample, batch {SAMPLER_BATCH}, {SAMPLER_STEPS} steps: '
+          f'{took:.2f} s ({took / SAMPLER_STEPS * 1e3:.2f} ms a step), '
+          f'values in [{float(img.min()):.4f}, {float(img.max()):.4f}]',
+          flush=True)
+    return diffusion, took
+
+
+def phase_bench(dev, root):
+    """The bench slice. Returns the launches of the OpenFWI DiffusionFWI
+    run and each run's summary."""
+    from red_diffeq_tpu_torch.config import load_config
+
+    paths = write_bench_dataset(dev, root)
+    depth = ([] if BENCH_DEPTH is None else
+             ['--diffusion_ts', str(BENCH_DEPTH[0]), '--ts',
+              str(BENCH_DEPTH[1])])
+    runs = {}
+    for method in BENCH_METHODS:
+        runs[method] = bench_run(dev, paths[BENCH_PRESET], method,
+                                 f'{method}, OpenFWI ablation preset', depth)
+    cut = ['--diffusion_ts', str(BENCH_WIDE_DIFFUSION_TS), *depth[2:]]
+    for method in BENCH_METHODS:
+        runs[f'{method} wide'] = bench_run(
+            dev, paths[BENCH_WIDE_PRESET], method,
+            f'{method}, Marmousi ablation preset (diffusion_ts cut to '
+            f'{BENCH_WIDE_DIFFUSION_TS})', cut)
+    diffusion, sampler_s = bench_sampler(dev, paths[BENCH_PRESET])
+    d_mu, share = bench_kernels_vs_plain(dev, diffusion, paths[BENCH_PRESET])
+    ctx = load_config(paths[BENCH_PRESET]).pde.to_dict()
+    fwd, adj = bench_kernel_ms(dev, ctx)
+    for method in BENCH_METHODS:
+        r = runs[method]
+        kernels = r['ts'] * (fwd + adj) + fwd
+        print(f'{method}: {r["s_per_outer_step"]:.4f} s per outer step, of '
+              f'which the kernels {kernels:.1f} ms ({r["ts"]} x (forward '
+              f'{fwd:.3f} + adjoint {adj:.3f}) + forward, one sample, '
+              f'device time) and the U-Net {r["unet_ms"]:.2f} ms; '
+              f'{r["wall_s"]:.2f} s for the sample ({r["dts"]} outer steps)',
+              flush=True)
+    return runs[BENCH_METHODS[0]]['counts'], dict(
+        runs=runs, sampler_s=sampler_s, kernels_vs_plain=(d_mu, share))
+
+
 def main(argv=None):
     """Run every phase (no arguments), or with ``--write-wide-dataset DIR``
-    only write the wide slice's dataset and configs under DIR."""
+    or ``--write-bench-dataset DIR`` only write that slice's dataset and
+    configs under DIR."""
     import argparse
     import torch
     args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     args.add_argument('--write-wide-dataset', metavar='DIR',
                       help='write the wide slice\'s synthetic dataset and '
                            'preset configs under DIR, and stop')
+    args.add_argument('--write-bench-dataset', metavar='DIR',
+                      help='write the bench slice\'s synthetic datasets and '
+                           'ablation preset configs under DIR, and stop')
     args = args.parse_args(argv or [])
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device is available', file=sys.stderr)
@@ -1270,11 +1702,12 @@ def main(argv=None):
 
     dev = torch.device('cuda')
     torch.backends.cuda.matmul.allow_tf32 = False
-    if args.write_wide_dataset:
-        for preset, path in write_wide_dataset(
-                dev, args.write_wide_dataset).items():
-            print(f'{preset}: {path}')
-        return 0
+    for root, write in ((args.write_wide_dataset, write_wide_dataset),
+                        (args.write_bench_dataset, write_bench_dataset)):
+        if root:
+            for preset, path in write(dev, root).items():
+                print(f'{preset}: {path}')
+            return 0
     print(f'python {sys.version.split()[0]}, torch {torch.__version__}, '
           f'CUDA {torch.version.cuda}', flush=True)
 
@@ -1330,6 +1763,9 @@ def main(argv=None):
                                                                      root)
     with Phase('wide kernels'):
         wide = wide_kernels(dev, wide_ctx)
+    with Phase('bench slice'):
+        with tempfile.TemporaryDirectory() as root:
+            bench_counts, bench = phase_bench(dev, root)
 
     n_chunks = len(p['src'])
     steps = n_chunks * CHUNK
@@ -1378,6 +1814,10 @@ def main(argv=None):
                          plain_ms=w['plain_ms'], bound_ms=w['bound_ms'],
                          bound_by=w['bound_by'],
                          library_ms=w.get('library_ms'))
+    # Each kernel's launches in the bench slice's DiffusionFWI run of the
+    # OpenFWI ablation preset.
+    for k in kernels:
+        k['bench'] = dict(launches=bench_counts[k['name']])
     kernels[3].update(ms_nbc40=tape['tape_step']['ms_nbc40'],
                       plain_ms_nbc40=tape['tape_step']['plain_ms_nbc40'],
                       registers=tape_info['regs'],
@@ -1400,6 +1840,19 @@ def main(argv=None):
           f'velocity gradient max-rel {wide["grad_max_rel"]["plain"]:.3e} '
           f'(kernels vs plain), {wide["grad_max_rel"]["tape"]:.3e} (tape vs '
           'reverse)', flush=True)
+    for method in BENCH_METHODS:
+        r = bench['runs'][method]
+        print(f'bench slice, {method} (OpenFWI ablation preset, {r["dts"]} x '
+              f'{r["ts"]} steps, one sample): {r["s_per_outer_step"]:.4f} s '
+              f'per outer step, {r["wall_s"]:.2f} s for the sample, SSIM '
+              f'{r["ssim"][0]:.4f} -> {r["ssim"][1]:.4f}, the inner FWI '
+              f'loops lowering the observation loss in '
+              f'{sum(e < b for b, e in r["fwi"])} of {len(r["fwi"])} outer '
+              'steps', flush=True)
+    print(f'bench slice: DDIM sample {bench["sampler_s"]:.2f} s; kernels vs '
+          f'plain max |d mu| {bench["kernels_vs_plain"][0]:.3e} '
+          f'({bench["kernels_vs_plain"][1]:.2%} of the cells beyond 1e-4)',
+          flush=True)
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

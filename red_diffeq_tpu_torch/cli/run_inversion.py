@@ -53,6 +53,7 @@ def build_diffusion_model(config: ConfigDict, load_weights: bool = True,
         model,
         image_size=config.diffusion.image_size,
         timesteps=config.diffusion.timesteps,
+        sampling_timesteps=config.diffusion.get('sampling_timesteps', None),
         objective=config.diffusion.objective,
         device=device,
     )

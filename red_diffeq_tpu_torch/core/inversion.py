@@ -34,6 +34,15 @@ _F32 = torch.float32
 _LOG_INTERVAL = 50
 
 
+def constant_schedule(value: float):
+    """A constant rate in float32, as ``optax.adam(value)`` takes it."""
+
+    def schedule(count: int) -> torch.Tensor:
+        return torch.tensor(value, dtype=_F32)
+
+    return schedule
+
+
 def cosine_decay_schedule(init_value: float, decay_steps: int):
     """``optax.cosine_decay_schedule(init_value, decay_steps, alpha=0)`` in
     float32: lr(k) = init * 0.5 * (1 + cos(pi * min(k, decay) / decay))."""

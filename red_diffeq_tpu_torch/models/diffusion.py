@@ -1,10 +1,14 @@
-"""Gaussian diffusion: the schedule, the forward process and the model's
-predictions.
+"""Gaussian diffusion: the schedule, the forward process, the model's
+predictions and the reverse process (ancestral and DDIM sampling).
 
-Counterpart of ``red_diffeq_tpu/models/diffusion.py:82-267``. Schedule
+Counterpart of ``red_diffeq_tpu/models/diffusion.py:82-389``. Schedule
 coefficients are computed in float64 on the host and stored as float32
 tensors on the device. Public functions keep the JAX package's
-(B, 1, H, W) layout. Sampling and training are not ported yet.
+(B, 1, H, W) layout. The samplers are host loops over the timesteps (the
+JAX package's are one ``lax.scan``); their draws come from a
+``torch.Generator`` unless given as one stacked tensor, so that tests can
+feed JAX's draws. The training loss (``p_losses``, ``loss``) is not
+ported yet.
 """
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
@@ -15,6 +19,7 @@ import torch
 from red_diffeq_tpu_torch.models.unet import Unet
 from red_diffeq_tpu_torch.utils.device import resolve_device
 from red_diffeq_tpu_torch.utils.diffusion_utils import extract
+from red_diffeq_tpu_torch.utils.seed_utils import next_key
 
 
 class ModelPrediction(NamedTuple):
@@ -117,12 +122,29 @@ class DiffusionSchedule:
         )
 
 
+def _normalize(x):
+    return x * 2.0 - 1.0
+
+
+def _unnormalize(x):
+    return (x + 1.0) * 0.5
+
+
+def _identity(x):
+    return x
+
+
 class GaussianDiffusion:
     """The U-Net and its schedule on one device (default ``'cuda'``; without
-    a card it raises unless ``device='cpu'``)."""
+    a card it raises unless ``device='cpu'``). ``sampling_timesteps`` below
+    ``timesteps`` makes :meth:`sample` take DDIM (with ``ddim_sampling_eta``)
+    instead of the ancestral chain; ``auto_normalize`` maps images in
+    [0, 1] to the model's [-1, 1] and back."""
 
     def __init__(self, model: Unet, *, image_size, timesteps: int = 1000,
+                 sampling_timesteps: Optional[int] = None,
                  objective: str = 'pred_noise', beta_schedule: str = 'sigmoid',
+                 ddim_sampling_eta: float = 0.0, auto_normalize: bool = True,
                  device=None):
         if objective not in ('pred_noise', 'pred_x0', 'pred_v'):
             raise ValueError(f'unknown objective {objective}')
@@ -134,6 +156,15 @@ class GaussianDiffusion:
         self.image_size = tuple(image_size)
         self.objective = objective
         self.num_timesteps = int(timesteps)
+        self.sampling_timesteps = int(sampling_timesteps or timesteps)
+        if self.sampling_timesteps > self.num_timesteps:
+            raise ValueError(f'sampling_timesteps ({self.sampling_timesteps}) '
+                             f'exceeds timesteps ({self.num_timesteps})')
+        self.is_ddim_sampling = self.sampling_timesteps < self.num_timesteps
+        self.ddim_sampling_eta = ddim_sampling_eta
+        self.auto_normalize = auto_normalize
+        self.normalize = _normalize if auto_normalize else _identity
+        self.unnormalize = _unnormalize if auto_normalize else _identity
         self.schedule = DiffusionSchedule.create(
             timesteps, beta_schedule, objective, device=self.device)
 
@@ -186,3 +217,137 @@ class GaussianDiffusion:
             x_start = clip(self.predict_start_from_v(x, t, out))
             pred_noise = self.predict_noise_from_start(x, t, x_start)
         return ModelPrediction(pred_noise, x_start)
+
+    def q_posterior(self, x_start, x_t, t):
+        """Mean, variance and clipped log variance of q(x_{t-1} | x_t, x_0)."""
+        s = self.schedule
+        mean = (extract(s.posterior_mean_coef1, t, x_t.ndim) * x_start
+                + extract(s.posterior_mean_coef2, t, x_t.ndim) * x_t)
+        var = extract(s.posterior_variance, t, x_t.ndim)
+        log_var = extract(s.posterior_log_variance_clipped, t, x_t.ndim)
+        return mean, var, log_var
+
+    def p_mean_variance(self, x, t, clip_denoised: bool = True):
+        """(mean, variance, log variance, x_start) of p(x_{t-1} | x_t), the
+        predicted x_start clamped to [-1, 1] with ``clip_denoised``."""
+        x_start = self.model_predictions(x, t).pred_x_start
+        if clip_denoised:
+            x_start = x_start.clamp(-1.0, 1.0)
+        mean, var, log_var = self.q_posterior(x_start, x, t)
+        return mean, var, log_var, x_start
+
+    def _batch_t(self, x, t: int) -> torch.Tensor:
+        return torch.full((x.shape[0],), int(t), dtype=torch.long,
+                          device=x.device)
+
+    def _draw(self, noise, i, shape, generator):
+        """Draw ``i`` of a stacked ``noise`` tensor, else a standard normal
+        of ``shape`` from ``generator``."""
+        if noise is not None:
+            return noise[i]
+        return torch.randn(shape, generator=generator, device=self.device)
+
+    @torch.no_grad()
+    def p_sample(self, x, t: int, noise=None, generator=None):
+        """One ancestral reverse step from timestep ``t``: the posterior
+        mean plus its standard deviation times ``noise`` (drawn from
+        ``generator`` unless given), except at t == 0. Returns
+        (x_{t-1}, x_start)."""
+        mean, _, log_var, x_start = self.p_mean_variance(
+            x, self._batch_t(x, t))
+        if noise is None:
+            noise = torch.randn(x.shape, generator=generator,
+                                device=x.device, dtype=x.dtype)
+        nz = float(t > 0)
+        return mean + nz * torch.exp(0.5 * log_var) * noise, x_start
+
+    @torch.no_grad()
+    def p_sample_deterministic(self, x, t: int):
+        """The posterior mean without noise. Returns (mean, x_start)."""
+        mean, _, _, x_start = self.p_mean_variance(x, self._batch_t(x, t))
+        return mean, x_start
+
+    def _finish(self, img, trail, return_all_timesteps):
+        if return_all_timesteps:
+            img = torch.stack(trail, dim=1)
+        return self.unnormalize(img)
+
+    @torch.no_grad()
+    def p_sample_loop(self, shape, generator=None, noise=None,
+                      return_all_timesteps: bool = False):
+        """The ancestral chain from pure noise over every timestep.
+        ``noise`` (num_timesteps + 1, *shape), if given, holds the start
+        image, then each step's draw in the order the steps run (t from
+        num_timesteps - 1 down to 0). Returns images in [0, 1] (with
+        ``auto_normalize``), or with ``return_all_timesteps`` every image
+        of the chain stacked on axis 1."""
+        img = self._draw(noise, 0, shape, generator)
+        trail = [img]
+        for i, t in enumerate(range(self.num_timesteps - 1, -1, -1)):
+            img, _ = self.p_sample(
+                img, t, noise=self._draw(noise, i + 1, shape, generator))
+            if return_all_timesteps:
+                trail.append(img)
+        return self._finish(img, trail, return_all_timesteps)
+
+    @torch.no_grad()
+    def ddim_sample(self, shape, generator=None, noise=None,
+                    return_all_timesteps: bool = False):
+        """The DDIM sampler over ``sampling_timesteps`` steps of the grid
+        ``linspace(-1, T - 1, sampling_timesteps + 1)``, reversed; the last
+        step returns the clamped x_start. ``noise`` (sampling_timesteps + 1,
+        *shape), if given, holds the start image, then each step's draw
+        (which only ``ddim_sampling_eta`` > 0 lets in)."""
+        total, eta = self.num_timesteps, self.ddim_sampling_eta
+        times = np.linspace(-1, total - 1,
+                            self.sampling_timesteps + 1).astype(int)[::-1]
+        ac = self.schedule.alphas_cumprod
+        img = self._draw(noise, 0, shape, generator)
+        trail = [img]
+        for i, (time, time_next) in enumerate(zip(times[:-1], times[1:])):
+            pred_noise, x_start = self.model_predictions(
+                img, self._batch_t(img, time), clip_x_start=True,
+                rederive_pred_noise=True)
+            step_noise = self._draw(noise, i + 1, shape, generator)
+            if time_next < 0:
+                img = x_start
+            else:
+                alpha, alpha_next = ac[time], ac[time_next]
+                sigma = eta * torch.sqrt((1 - alpha / alpha_next)
+                                         * (1 - alpha_next) / (1 - alpha))
+                c = torch.sqrt((1 - alpha_next - sigma ** 2).clamp_min(0.0))
+                img = (x_start * torch.sqrt(alpha_next) + c * pred_noise
+                       + sigma * step_noise)
+            if return_all_timesteps:
+                trail.append(img)
+        return self._finish(img, trail, return_all_timesteps)
+
+    def sample(self, batch_size: int = 16, generator=None, noise=None,
+               return_all_timesteps: bool = False):
+        """``batch_size`` images from pure noise: DDIM when
+        ``sampling_timesteps`` < ``timesteps``, else the ancestral chain.
+        ``noise`` as the chosen sampler takes it; without ``generator`` the
+        next generator of the global sequence."""
+        if generator is None and noise is None:
+            generator = next_key(self.device)
+        shape = (batch_size, self.channels, *self.image_size)
+        fn = self.ddim_sample if self.is_ddim_sampling else self.p_sample_loop
+        return fn(shape, generator=generator, noise=noise,
+                  return_all_timesteps=return_all_timesteps)
+
+    @torch.no_grad()
+    def interpolate(self, x1, x2, t: Optional[int] = None, lam: float = 0.5,
+                    noise=None, generator=None):
+        """Diffuse ``x1`` and ``x2`` to timestep ``t`` (default T - 1), mix
+        them with weight ``lam`` and run the ancestral chain from t - 1 to
+        0. ``noise`` (t + 2, *x1.shape), if given, holds x1's and x2's
+        forward draws, then each step's."""
+        t = self.num_timesteps - 1 if t is None else t
+        bt = self._batch_t(x1, t)
+        xt1 = self.q_sample(x1, bt, self._draw(noise, 0, x1.shape, generator))
+        xt2 = self.q_sample(x2, bt, self._draw(noise, 1, x1.shape, generator))
+        img = (1 - lam) * xt1 + lam * xt2
+        for i, ti in enumerate(range(t - 1, -1, -1)):
+            img, _ = self.p_sample(
+                img, ti, noise=self._draw(noise, i + 2, x1.shape, generator))
+        return img

@@ -8,6 +8,9 @@ d(reg)/d(mu) = mean(score) without backpropagation through the U-Net.
 For models wider than the denoiser input (Marmousi and Overthrust, 70x190)
 overlapping square windows are scored in one batched U-Net call of k*B
 windows and blended with weight 0.5 on the overlaps.
+
+:class:`RED_DiffEq_POST_PROCESS` polishes a final model with the
+deterministic posterior-mean chain of the same prior.
 """
 import math
 from typing import List, Optional, Tuple
@@ -154,3 +157,36 @@ def make_red_reg_fn(diffusion, use_time_weight: bool = False,
         return reg, t
 
     return reg_fn
+
+
+class RED_DiffEq_POST_PROCESS:
+    """Deterministic reverse-diffusion polish of a final velocity model:
+    noise the [0, 1]-mapped model to timestep ``timesteps`` and run the
+    posterior-mean chain back to t = 0, one U-Net call a step (a host loop
+    where the JAX package runs one ``lax.scan``)."""
+
+    def __init__(self, diffusion_model):
+        self.diffusion_model = diffusion_model
+
+    @torch.no_grad()
+    def diffusion_denoise(self, mu, timesteps: int, noise=None,
+                          generator=None):
+        """``mu`` in [-1, 1] (B, C, H, W) -> the polished model in [0, 1].
+        ``noise`` (shape of ``mu``) is the one forward draw, from
+        ``generator`` unless given."""
+        d = self.diffusion_model
+        if timesteps > d.num_timesteps:
+            raise ValueError(
+                f"timesteps ({timesteps}) exceeds model's num_timesteps "
+                f'({d.num_timesteps})')
+        mu01 = (mu + 1.0) / 2.0
+        t_full = torch.full((mu.shape[0],), min(timesteps, d.num_timesteps - 1),
+                            dtype=torch.long, device=mu.device)
+        if noise is None:
+            noise = torch.randn(mu.shape, generator=generator,
+                                device=mu.device, dtype=mu.dtype)
+        x_t = d.unnormalize(d.q_sample(d.normalize(mu01), t_full, noise))
+        for ti in range(timesteps - 1, -1, -1):
+            x_norm, _ = d.p_sample_deterministic(d.normalize(x_t), ti)
+            x_t = d.unnormalize(x_norm)
+        return x_t

@@ -123,6 +123,8 @@ def test_cli_runs_the_patched_red_with_corrupted_observations(tmp_path):
         cfg.pde[k] = v
     cfg.model.dim, cfg.model.dim_mults = 8, (1, 2)
     cfg.diffusion.image_size, cfg.diffusion.timesteps = 18, 20
+    # build_diffusion_model passes sampling_timesteps, at most timesteps.
+    cfg.diffusion.sampling_timesteps = 20
     cfg.data.seismic_data_dir = str(root / 'Seismic_Data')
     cfg.data.velocity_data_dir = str(root / 'Velocity_Data')
     cfg.experiment.results_dir = str(tmp_path / 'results')

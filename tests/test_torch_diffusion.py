@@ -1,6 +1,7 @@
-"""The port's diffusion schedule and model predictions against the JAX
-package (schedules rtol 1e-6; predictions atol 1e-5 / rtol 1e-4 through a
-dim-8 U-Net on weights carried across)."""
+"""The port's diffusion schedule, model predictions and reverse process
+against the JAX package (schedules rtol 1e-6; predictions, posterior means,
+sampler steps and chains atol 1e-5 / rtol 1e-4 through a dim-8 U-Net on
+weights carried across, the samplers fed JAX's draws)."""
 import flax
 import jax
 import jax.numpy as jnp
@@ -120,3 +121,152 @@ def test_red_gradient_is_the_detached_score(pair):
     from red_diffeq_tpu_torch.regularization.red import _score_residual
     score = _score_residual(td, mu.detach(), t, noise)
     torch.testing.assert_close(mu.grad, score / mu[0].numel())
+
+
+# -- the reverse process ------------------------------------------------
+
+
+def _tt(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _pair_with(timesteps, **kw):
+    """A JAX and a port diffusion over one dim-8 U-Net's weights, with the
+    constructor options ``kw`` on both."""
+    jm = JaxUnet(dim=8, dim_mults=(1, 2), channels=1)
+    jd = jdiff.GaussianDiffusion(jm, image_size=16, timesteps=timesteps,
+                                 **kw)
+    jd.init_params(jax.random.PRNGKey(5))
+    tm = Unet(dim=8, dim_mults=(1, 2), channels=1)
+    tm.load_state_dict(flax_to_state_dict(
+        jax.tree.map(np.asarray, flax.serialization.to_state_dict(
+            jd.params)), tm))
+    return jd, tdiff.GaussianDiffusion(tm, image_size=16,
+                                       timesteps=timesteps, device='cpu',
+                                       **kw)
+
+
+def test_q_posterior_and_p_mean_variance_match(pair):
+    """On x_t diffused from x0 as in the prediction test above."""
+    jd, td = pair
+    x0, noise, t = _inputs(6)
+    x = np.array(jd.q_sample(jnp.asarray(x0), jnp.asarray(t),
+                             noise=jnp.asarray(noise)))
+    for w, g in zip(jd.q_posterior(jnp.asarray(x0), jnp.asarray(x),
+                                   jnp.asarray(t)),
+                    td.q_posterior(torch.from_numpy(x0), torch.from_numpy(x),
+                                   torch.from_numpy(t).long())):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6,
+                                   atol=1e-7)
+    for clip in (False, True):
+        want = jd.p_mean_variance(jnp.asarray(x), jnp.asarray(t),
+                                  clip_denoised=clip)
+        with torch.no_grad():
+            got = td.p_mean_variance(torch.from_numpy(x),
+                                     torch.from_numpy(t).long(),
+                                     clip_denoised=clip)
+        for w, g in zip(want, got):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                       rtol=1e-4)
+
+
+@pytest.mark.parametrize('t', [0, 17])
+def test_p_sample_matches_with_fed_noise(pair, t):
+    """No noise at t == 0; JAX's draw fed to the port elsewhere."""
+    jd, td = pair
+    x, _, _ = _inputs(7)
+    key = jax.random.PRNGKey(t)
+    want = jd.p_sample(jnp.asarray(x), jnp.int32(t), key)
+    got = td.p_sample(torch.from_numpy(x), t,
+                      noise=_tt(jax.random.normal(key, x.shape)))
+    for w, g in zip(want, got):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=1e-4)
+    det = td.p_sample_deterministic(torch.from_numpy(x), t)
+    jdet = jd.p_sample_deterministic(jnp.asarray(x), jnp.int32(t))
+    for w, g in zip(jdet, det):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=1e-4)
+
+
+def _chain_draws(key, shape, steps):
+    """JAX's draws of a sampler: the start image, then one per step."""
+    key, init_key = jax.random.split(key)
+    return torch.stack([_tt(jax.random.normal(init_key, shape))]
+                       + [_tt(jax.random.normal(k, shape))
+                          for k in jax.random.split(key, steps)])
+
+
+@pytest.mark.parametrize('eta', [0.0, 0.5])
+def test_ddim_sample_matches_with_fed_draws(eta):
+    """3 DDIM steps of a 50-step schedule; eta 0.5 lets the step noise in."""
+    jd, td = _pair_with(50, sampling_timesteps=3, ddim_sampling_eta=eta)
+    assert td.is_ddim_sampling and jd.is_ddim_sampling
+    shape = (2, 1, 16, 16)
+    key = jax.random.PRNGKey(11)
+    draws = _chain_draws(key, shape, 3)
+    want = np.asarray(jd.sample(batch_size=2, key=key,
+                                return_all_timesteps=True))
+    got = td.sample(2, noise=draws, return_all_timesteps=True)
+    assert got.shape == want.shape == (2, 4, 1, 16, 16)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(td.ddim_sample(shape, noise=draws).numpy(),
+                               want[:, -1], atol=1e-5, rtol=1e-4)
+
+
+def test_p_sample_loop_and_interpolate_match_with_fed_draws():
+    """The ancestral chain of a 3-step schedule, and interpolate from t=2."""
+    jd, td = _pair_with(3)
+    assert not td.is_ddim_sampling
+    shape = (2, 1, 16, 16)
+    key = jax.random.PRNGKey(12)
+    want = np.asarray(jd.sample(batch_size=2, key=key))
+    got = td.sample(2, noise=_chain_draws(key, shape, 3))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-4)
+    assert float(got.min()) >= -0.5 and float(got.max()) <= 1.5
+
+    x1, x2, _ = _inputs(8)
+    key = jax.random.PRNGKey(13)
+    want = jd.interpolate(jnp.asarray(x1[:2]), jnp.asarray(x2[:2]), key, t=2,
+                          lam=0.3)
+    key, k1, k2 = jax.random.split(key, 3)
+    draws = torch.stack(
+        [_tt(jax.random.normal(k, x1[:2].shape))
+         for k in (k1, k2, *jax.random.split(key, 2))])
+    got = td.interpolate(torch.from_numpy(x1[:2]), torch.from_numpy(x2[:2]),
+                         t=2, lam=0.3, noise=draws)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-4)
+
+
+def test_sample_from_a_generator_is_in_range_and_repeats():
+    _, td = _pair_with(50, sampling_timesteps=3)
+    a = td.sample(2, generator=torch.Generator().manual_seed(0))
+    b = td.sample(2, generator=torch.Generator().manual_seed(0))
+    assert a.shape == (2, 1, 16, 16) and torch.equal(a, b)
+    assert float(a.min()) >= 0.0 and float(a.max()) <= 1.0
+    with pytest.raises(ValueError, match='exceeds timesteps'):
+        tdiff.GaussianDiffusion(Unet(dim=8, dim_mults=(1, 2)), image_size=16,
+                                timesteps=3, sampling_timesteps=4,
+                                device='cpu')
+
+
+def test_post_process_matches_with_fed_noise(pair):
+    """``RED_DiffEq_POST_PROCESS``: 4 deterministic steps from t=4."""
+    from red_diffeq_tpu.regularization.red import \
+        RED_DiffEq_POST_PROCESS as JaxPost
+    from red_diffeq_tpu_torch.regularization.red import \
+        RED_DiffEq_POST_PROCESS
+
+    jd, td = pair
+    mu, _, _ = _inputs(9)
+    key = jax.random.PRNGKey(14)
+    want = JaxPost(jd).diffusion_denoise(jnp.asarray(mu), 4, key)
+    _, kn = jax.random.split(key)
+    got = RED_DiffEq_POST_PROCESS(td).diffusion_denoise(
+        torch.from_numpy(mu), 4, noise=_tt(jax.random.normal(kn, mu.shape)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-4)
+    with pytest.raises(ValueError, match='exceeds'):
+        RED_DiffEq_POST_PROCESS(td).diffusion_denoise(
+            torch.from_numpy(mu), 51)

@@ -40,6 +40,10 @@ def test_import_walk_sees_every_form():
 
 
 def test_entry_points_raise_without_cuda_unless_given_cpu(monkeypatch):
+    from red_diffeq_tpu_torch.bench_methods import (
+        DiffusionFWI, ILVR_FWI, Resizer,
+    )
+    from red_diffeq_tpu_torch.cli import run_bench
     from red_diffeq_tpu_torch.core.inversion import InversionEngine
     from red_diffeq_tpu_torch.models.diffusion import GaussianDiffusion
     from red_diffeq_tpu_torch.models.unet import Unet
@@ -53,12 +57,18 @@ def test_entry_points_raise_without_cuda_unless_given_cpu(monkeypatch):
         'GaussianDiffusion': lambda **d: GaussianDiffusion(
             Unet(dim=8, dim_mults=(1, 2)), image_size=8, **d),
         'InversionEngine': lambda **d: InversionEngine(**d),
+        'DiffusionFWI': lambda **d: DiffusionFWI(None, None, **d),
+        'ILVR_FWI': lambda **d: ILVR_FWI(None, None, **d),
+        'Resizer': lambda **d: Resizer((1, 1, 8, 8), 0.5, **d),
     }
     for name, make in makers.items():
         for kw in ({}, {'device': 'cuda'}):
             with pytest.raises(RuntimeError, match='CUDA'):
                 make(**kw)
         assert make(device='cpu').device.type == 'cpu', name
+    for argv in ([], ['--device', 'cuda']):
+        with pytest.raises(RuntimeError, match='CUDA'):
+            run_bench.main(argv)
     op = FWIForward(ctx, device='cpu')
     assert op.backend == 'plain'
     with pytest.raises(ValueError, match='expected cpu'):

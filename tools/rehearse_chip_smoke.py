@@ -13,9 +13,11 @@ included. The card's name, timings and CUDA events, occupancy query (7 resident
 clusters) and ``nvidia-smi`` are stubbed; every check of ``chip_smoke.py``
 runs for real, at a 14x14 model with nbc=60 (tape-free route) and nbc=8
 (taped route), batch 2, 3 inversion steps, and the wide phases at the
-presets' width with nt=60 and nbc=60, 3 steps a CLI run. Times printed are
-meaningless. Exits with ``chip_smoke.main()``'s code. About fifteen
-minutes.
+presets' width with nt=60 and nbc=60, 3 steps a CLI run, and the bench
+slice's CLI runs at the ablation presets' width with nt=60 and nbc=60, 2
+outer x 2 inner steps each, and a 3-step DDIM sample. Times printed are
+meaningless; device memory reads 0. Exits with ``chip_smoke.main()``'s
+code. About twenty minutes.
 """
 import ctypes
 import shutil
@@ -61,6 +63,9 @@ def main():
     torch.cuda.synchronize = lambda *a: None
     torch.cuda.get_device_name = lambda *a: 'CPU rehearsal'
     torch.cuda.device_count = lambda: 1
+    torch.cuda.memory_allocated = lambda *a: 0
+    torch.cuda.max_memory_allocated = lambda *a: 0
+    torch.cuda.reset_peak_memory_stats = lambda *a: None
 
     class Event:
         def __init__(self, **kw):
@@ -94,6 +99,8 @@ def main():
     ns['NARROW'] = dict(ns['HEADLINE'], nbc=8)
     ns['BATCH'], ns['TS'] = 2, 3
     ns['WIDE_TS'], ns['BASELINE_TS'] = 3, 3
+    ns['BENCH_DEPTH'], ns['BENCH_WIDE_DIFFUSION_TS'] = (2, 2), 2
+    ns['SAMPLER_STEPS'] = 3
     ns['cuda_ms'] = lambda fn, reps, warm=True: (fn(), 0.0)[1]
     ns['graph_ms'] = ns['cuda_ms']
     smi = types.SimpleNamespace(stdout='CPU rehearsal, 0 W\n')
