@@ -113,6 +113,31 @@ Phases, each printing its wall time:
    with how often the inner FWI loops lowered it, but not gated: on the
    card it rises and falls between outer steps (each starts with a
    denoise), and the loops lower it in about half of them.
+13. the tape past the cluster limit: a 320x320 model at nbc=50 (a 420x420
+   field, B=1, ns=5, nt=200), where the t2 guard takes the taped route and
+   the field is too large for ``tape_step``'s cluster: ``tape_step_global``
+   (one launch a step over device memory) against its plain version bit for
+   bit on every slot of one pass, its time per pass, and the velocity
+   gradient through the kernels against plain eager autograd (max-rel
+   1e-4) with its exact launches;
+14. the training slice at the shipped prior's width, through the entry
+   points: ``red-diffeq-torch-datagen --velocity_only`` (4 families x 64
+   models at 70x70), then seismograms of 8 models in one batch on the
+   forward kernel (exact launches, held against the plain path at rtol
+   2e-5) and 2 at 310x430; ``red-diffeq-torch-train`` at its defaults
+   (dim-64 U-Net, 72x72, batch 32, lr 2e-4) for 200 steps with a milestone
+   every 100 and ``--calculate_fid``: the mean loss of the last 20 steps
+   below half that of the first 20, each milestone's checkpoint, 25-sample
+   grid in [0, 1], losses JSON and a finite FID, device memory flat over
+   the steps, s per train step by CUDA events, images/s, peak memory and
+   each milestone's seconds, all under the CLI's own cuDNN settings; then,
+   under deterministic cuDNN, an uninterrupted 110-step reference run with
+   a milestone at 100 (no FID; its s per train step printed too) and a
+   resume of its milestone 1 for 10 steps that repeats its losses (rtol
+   1e-5);
+   the EMA exported by ``tools/export_ema_torch.py``, loaded by
+   ``load_diffusion_params``, and 5 RED-DiffEq steps on it whose
+   observation loss falls.
 
 With ``--write-wide-dataset DIR`` (``--write-bench-dataset DIR``) the
 script only writes the wide (bench) slice's datasets and configs under DIR
@@ -124,7 +149,9 @@ both read in the slice that takes its route), launches per 1000-step pass
 (those launches over the slice's inversion steps), error, times and bound,
 and under ``wide`` the same at the 310x430 field with the launches of the
 wide slice's CLI run and under ``bench`` the launches of the bench slice's
-DiffusionFWI run; the card's line from nvidia-smi, and last
+DiffusionFWI run and under ``training`` those of the training slice's
+seismogram run; then ``tape_step_global`` with the launches of the
+gradient past the cluster limit; the card's line from nvidia-smi, and last
 ``{"ok": true, "device": ...}``.
 Any failed check raises and the script exits non-zero. Without a CUDA
 device, or without the package beside it, it exits non-zero and prints no
@@ -369,11 +396,14 @@ def phase_kernel_info(shapes):
         tiles = '; '.join(
             f'{hp}x{wp}: U={u}, tile {ty}x{tx}' for hp, wp in shapes
             for u, ty, tx in [stencil.pick_blocking(name, hp, wp)]
-        ) if blocked else 'four cells a thread, once per chunk'
+        ) if blocked else {
+            'sum_shots': 'four cells a thread, once per chunk',
+            'tape_step_global': 'one cell a thread, one launch a step, for '
+                                'fields past the cluster limit'}[name]
         print(f'{name}: {k["regs"]} registers, {k["local_bytes"]} local '
               f'bytes, {k["blocks_per_sm"]} blocks per SM ({tiles})',
               flush=True)
-        if blocked:
+        if blocked or name == 'tape_step_global':
             check(k['local_bytes'] == 0, f'{name} spills to local memory')
             check(k['blocks_per_sm'] >= 2, f'{name}: only '
                   f'{k["blocks_per_sm"]} block(s) fit on an SM')
@@ -698,13 +728,15 @@ def compare_grads(ctx, mu, y, mask, label, ref, **kw):
     return r
 
 
-def tape_replays(p, carries, label, plain_reps=2):
-    """``tape_step`` against ``tape_chunk_plain`` on every chunk of a pass
-    from the forward kernel's carries, every slot bit for bit, and slot
-    chunk (s_{K-1}) against the forward kernel's next carry; then both
-    timed over a pass (the plain version over ``plain_reps`` passes),
-    device time between CUDA events. Returns the tapes, the times and the
-    blocks per cluster."""
+def tape_replays(p, carries, label, plain_reps=2, kernel='tape_step'):
+    """The tape replay ``kernel`` (``tape_step``, one launch a chunk, or
+    past its cluster limit ``tape_step_global``, one launch a step, as
+    ``stencil.tape_chunk`` picks it by the field's size) against
+    ``tape_chunk_plain`` on every chunk of a pass from the forward kernel's
+    carries, every slot bit for bit, and slot chunk (s_{K-1}) against the
+    forward kernel's next carry; then both timed over a pass (the plain
+    version over ``plain_reps`` passes), device time between CUDA events.
+    Returns the tapes, the times and the blocks per cluster."""
     import torch
     from red_diffeq_tpu_torch.ops import stencil
 
@@ -732,13 +764,18 @@ def tape_replays(p, carries, label, plain_reps=2):
               f'{label} chunk {i}: slot {CHUNK} is not fwd_step\'s s_{{K-1}}')
         tapes.append(tape)
     ranks, launched = stencil.last_ranks['tape_step'], stencil.launches[
-        'tape_step']
-    check(launched == len(tapes), f'tape_step launched {launched} times for '
-          f'{len(tapes)} chunks')
-    print(f'tape_step vs plain at {label} {p["shape"]}: {len(tapes)} tapes '
+        kernel]
+    per_chunk = 1 if kernel == 'tape_step' else CHUNK - 1
+    check(launched == per_chunk * len(tapes), f'{kernel} launched '
+          f'{launched} times for {len(tapes)} chunks')
+    other = ({'tape_step', 'tape_step_global'} - {kernel}).pop()
+    check(stencil.launches[other] == 0, f'{other} launched at {label}')
+    print(f'{kernel} vs plain at {label} {p["shape"]}: {len(tapes)} tapes '
           f'of {len(tapes[0])} slots, every slot bit for bit, slot {CHUNK} = '
-          f'fwd_step\'s s_{{K-1}}; clusters of {ranks} blocks, one launch a '
-          f'chunk', flush=True)
+          f'fwd_step\'s s_{{K-1}}; '
+          + (f'clusters of {ranks} blocks, one launch a chunk'
+             if kernel == 'tape_step' else
+             f'{per_chunk} launches a chunk, one a step'), flush=True)
 
     def tape_pass(fn):
         for i in range(len(tapes)):
@@ -747,10 +784,11 @@ def tape_replays(p, carries, label, plain_reps=2):
     ms = cuda_ms(lambda: tape_pass(stencil.tape_chunk), 5)
     plain_ms = cuda_ms(lambda: tape_pass(stencil.tape_chunk_plain),
                        plain_reps, warm=plain_reps > 1)
-    print(f'tape pass at {label} ({len(tapes) * CHUNK} steps): kernel '
-          f'{ms:.3f} ms (one launch per step, headline: '
-          f'{EARLIER_MS["tape_step"]:.3f} ms), plain {plain_ms:.3f} ms',
-          flush=True)
+    print(f'tape pass at {label} ({len(tapes) * CHUNK} steps): {kernel} '
+          f'{ms:.3f} ms'
+          + (f' (one launch per step, headline: '
+             f'{EARLIER_MS["tape_step"]:.3f} ms)' if kernel == 'tape_step'
+             else '') + f', plain {plain_ms:.3f} ms', flush=True)
     return tapes, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        ranks=ranks)
 
@@ -1535,7 +1573,8 @@ def bench_run(dev, path, method, label, extra=()):
 def bench_kernel_ms(dev, ctx):
     """Device time (ms) of one pass of the forward kernel and of the
     tape-free adjoint (``bwd_reverse_step`` with its ``sum_shots``) at
-    ``ctx`` for one sample, between CUDA events."""
+    ``ctx`` for one sample, between CUDA events, and each kernel's bound
+    there (:func:`bounds`)."""
     from red_diffeq_tpu_torch.ops import stencil
     p = headline_problem(dev, ctx, batch=1, rows=WIDE_ROWS)
     _, carries = forward_pass(stencil.fwd_chunk, p, keep=True)
@@ -1546,7 +1585,8 @@ def bench_kernel_ms(dev, ctx):
         p, reverse_chunk(stencil.bwd_reverse_steps, stencil.sum_shots),
         lambda i, gp0, gp1: (*carries[i + 1], gp0, gp1, grecs[i], *coef,
                              p['src'][i])), 5)
-    return fwd, adj
+    n_chunks = len(p['src'])
+    return fwd, adj, bounds(p, n_chunks * CHUNK, n_chunks)
 
 
 def bench_kernels_vs_plain(dev, diffusion, path):
@@ -1661,7 +1701,14 @@ def phase_bench(dev, root):
     diffusion, sampler_s = bench_sampler(dev, paths[BENCH_PRESET])
     d_mu, share = bench_kernels_vs_plain(dev, diffusion, paths[BENCH_PRESET])
     ctx = load_config(paths[BENCH_PRESET]).pde.to_dict()
-    fwd, adj = bench_kernel_ms(dev, ctx)
+    fwd, adj, bnd = bench_kernel_ms(dev, ctx)
+    print(f'kernels at B=1 ({WIDE_ROWS + 2 * ctx["nbc"]}x'
+          f'{ctx["n_grid"] + 2 * ctx["nbc"]} field): '
+          f'fwd_step {fwd:.3f} ms a pass, bwd_reverse_step with sum_shots '
+          f'{adj:.3f} ms; bounds: '
+          + ', '.join(f'{k} {bnd[k]["bound_ms"]:.4f} ms ({bnd[k]["bound_by"]})'
+                      for k in ('fwd_step', 'bwd_reverse_step',
+                                'sum_shots')), flush=True)
     for method in BENCH_METHODS:
         r = runs[method]
         kernels = r['ts'] * (fwd + adj) + fwd
@@ -1673,6 +1720,349 @@ def phase_bench(dev, root):
               flush=True)
     return runs[BENCH_METHODS[0]]['counts'], dict(
         runs=runs, sampler_s=sampler_s, kernels_vs_plain=(d_mu, share))
+
+
+# Past tape_step's cluster limit: a 320x320 model at nbc=50 pads to
+# 420x420, whose strip of ceil(420/16) rows does not fit a block's shared
+# memory; at nbc=50 the t2 guard takes the taped route by itself. B=1, a
+# short nt.
+BEYOND = dict(HEADLINE, n_grid=320, ng=320, nbc=50, nt=200)
+
+
+def phase_beyond(dev):
+    """The taped route on a field past ``tape_step``'s cluster limit: the
+    route and the instantiation picked by size, ``tape_step_global`` against
+    ``tape_chunk_plain`` bit for bit on every slot of one pass and its time
+    per pass; then the velocity gradient through the kernels (launches
+    counted from 0 just before and read just after: the forward's and the
+    taped adjoint's blocked launches, one ``sum_shots`` and chunk - 1
+    ``tape_step_global`` a chunk, ``tape_step``, the tape-free adjoint and
+    the plain path never) against plain eager autograd, max-rel 1e-4.
+    Returns the kernel's numbers and the gradient run's launches."""
+    import torch
+    from red_diffeq_tpu_torch.ops import stencil
+    from red_diffeq_tpu_torch.solvers import acoustic
+
+    hp = BEYOND['n_grid'] + 2 * BEYOND['nbc']
+    geom = acoustic.Geometry.from_ctx(BEYOND)
+    mode = stencil.resolve_run_config(geom, CHUNK)[0]
+    ranks = stencil.pick_ranks(hp, hp)
+    check(mode == 'tape' and ranks is None, f'{hp}x{hp} at nbc='
+          f'{BEYOND["nbc"]}: adjoint {mode!r}, tape_step clusters of {ranks} '
+          "blocks; expected 'tape' and no cluster (tape_step_global)")
+    p = headline_problem(dev, BEYOND, batch=1)
+    seis, carries = forward_pass(stencil.fwd_chunk, p, keep=True)
+    _, res = tape_replays(p, carries, f'{hp}x{hp}', plain_reps=1,
+                          kernel='tape_step_global')
+    del carries
+    mu, y, mask = gradient_problem(p['v_true'], seis[:, :, :BEYOND['nt']])
+    stencil.reset_launches()
+    acoustic.plain_chunk_calls['chunk'] = 0
+    got = velocity_grad(BEYOND, 'kernel', mu, y, mask)
+    counts = dict(stencil.launches)
+    plain_calls = acoustic.plain_chunk_calls['chunk']
+    want = velocity_grad(BEYOND, 'plain', mu, y, mask)
+    r = max_rel(got, want)
+    check(bool(torch.isfinite(got).all()) and float(want.abs().max()) > 0,
+          'gradient past the cluster limit is degenerate')
+    check(r <= 1e-4, f'velocity gradient at {hp}x{hp} (tape_step_global) '
+          f'max-rel {r:.3e} > 1e-4')
+    n_chunks = len(p['src'])
+    expect = dict.fromkeys(counts, 0)
+    for name in ('fwd_step', 'bwd_tape_step'):
+        expect[name] = n_chunks * -(-CHUNK // stencil.pick_blocking(
+            name, hp, hp)[0])
+    expect.update(sum_shots=n_chunks, tape_step_global=n_chunks * (CHUNK - 1))
+    for name in counts:
+        check(counts[name] == expect[name], f'{hp}x{hp} gradient: {name} '
+              f'launched {counts[name]} times, expected {expect[name]}')
+    check(plain_calls == 0, f'the plain path ran {plain_calls} chunks')
+    bnd = bounds(p, n_chunks * CHUNK, n_chunks)['tape_step']
+    print(f'velocity gradient at {hp}x{hp} (B=1, nbc={BEYOND["nbc"]}, nt='
+          f'{BEYOND["nt"]}), kernels vs plain autograd: max-rel {r:.3e}; '
+          f'launches {counts}; tape_step_global {res["ms"]:.3f} ms per pass '
+          f'against a bound of {bnd["bound_ms"]:.3f} ms ({bnd["bound_by"]})',
+          flush=True)
+    return dict(res, counts=counts, grad_max_rel=r, shape=p['shape'],
+                bound_ms=bnd['bound_ms'], bound_by=bnd['bound_by'])
+
+
+# The training slice: red-diffeq-torch-datagen, red-diffeq-torch-train at
+# its defaults (the shipped prior's width: a dim-64 U-Net at 72x72, batch
+# 32, lr 2e-4), the resume and the EMA export.
+TRAIN_FAMILY_N = 64          # velocity models a family, 4 families
+TRAIN_STEPS, TRAIN_SAVE_EVERY, RESUME_STEPS = 200, 100, 10
+TRAIN_ARGS = []              # the CLI's defaults
+SIM_N = 8                    # models of the seismogram run, one batch
+RED_TS = 5                   # RED-DiffEq steps on the exported prior
+EXPORT_TOOL = 'tools/export_ema_torch.py'
+
+
+def run_datagen(dev, argv):
+    """``red-diffeq-torch-datagen`` with ``argv`` on ``dev``, the launch
+    counters and the plain path's chunk count set to 0 just before and read
+    just after; returns (dataset root, launches, plain chunks, seconds of
+    each simulated batch)."""
+    import torch
+    from red_diffeq_tpu_torch.cli import datagen
+    from red_diffeq_tpu_torch.ops import stencil
+    from red_diffeq_tpu_torch.solvers import acoustic
+
+    timed, seconds = datagen.FWIForward.__call__, []
+
+    def call(op, v):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = timed(op, v)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    datagen.FWIForward.__call__ = call
+    stencil.reset_launches()
+    acoustic.plain_chunk_calls['chunk'] = 0
+    try:
+        root = datagen.main([*argv, '--device', dev.type])
+    finally:
+        datagen.FWIForward.__call__ = timed
+    return (root, dict(stencil.launches), acoustic.plain_chunk_calls['chunk'],
+            seconds)
+
+
+def train_cli(dev, argv):
+    """``red-diffeq-torch-train`` with ``argv`` on ``dev``. A forward hook
+    on the U-Net instance the CLI builds records a CUDA event and the
+    allocated device memory at each train step's forward (grad enabled;
+    the samplers run without), and each milestone's sampling, FID and save
+    is timed. Returns (trainer, events, memory, milestone seconds)."""
+    import torch
+    from red_diffeq_tpu_torch.cli import diffusion_train
+    from red_diffeq_tpu_torch.models import trainer as trainer_mod
+
+    seen = dict(events=[], memory=[], milestones=[])
+    build = diffusion_train.build_diffusion
+    sample_and_save = trainer_mod.Trainer._sample_and_save
+
+    def hooked(*a, **kw):
+        diffusion = build(*a, **kw)
+
+        def hook(module, args, out):
+            if torch.is_grad_enabled():
+                seen['events'].append(torch.cuda.Event(enable_timing=True))
+                seen['events'][-1].record()
+                seen['memory'].append(torch.cuda.memory_allocated())
+
+        diffusion.model.register_forward_hook(hook)
+        return diffusion
+
+    def timed(self, milestone):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sample_and_save(self, milestone)
+        torch.cuda.synchronize()
+        seen['milestones'].append(time.perf_counter() - t0)
+
+    diffusion_train.build_diffusion = hooked
+    trainer_mod.Trainer._sample_and_save = timed
+    try:
+        trainer = diffusion_train.main([*argv, '--device', dev.type])
+    finally:
+        diffusion_train.build_diffusion = build
+        trainer_mod.Trainer._sample_and_save = sample_and_save
+    torch.cuda.synchronize()
+    return trainer, seen['events'], seen['memory'], seen['milestones']
+
+
+def phase_training(dev, root):
+    """The training half of the system through its entry points: datasets
+    from ``red-diffeq-torch-datagen`` (velocities, then seismograms on the
+    forward kernel, held against the plain path at the forward gate, and a
+    310x430 family), ``red-diffeq-torch-train`` at the shipped prior's
+    width with milestones and the FID proxy, a resume, the EMA export, and
+    RED-DiffEq on the exported prior. Returns the numbers it printed and
+    the seismogram run's launches."""
+    import importlib.util
+    from pathlib import Path
+    import torch
+    from red_diffeq_tpu_torch.core.inversion import InversionEngine
+    from red_diffeq_tpu_torch.io.checkpoints import load_diffusion_params
+    from red_diffeq_tpu_torch.models.diffusion import GaussianDiffusion
+    from red_diffeq_tpu_torch.models.unet import Unet
+    from red_diffeq_tpu_torch.ops import stencil
+    from red_diffeq_tpu_torch.solvers.acoustic import FWIForward
+    from red_diffeq_tpu_torch.utils.data_trans import (
+        prepare_initial_model, s_normalize_none, v_denormalize, v_normalize,
+    )
+
+    root = Path(root)
+    n, nt, ns, nbc = (HEADLINE[k] for k in ('n_grid', 'nt', 'ns', 'nbc'))
+    # 1. Datasets.
+    t0 = time.perf_counter()
+    run_datagen(dev, ['--out', str(root / 'train'), '--n',
+                      str(TRAIN_FAMILY_N), '--velocity_only'])
+    vel_s = time.perf_counter() - t0
+    sim, counts, plain_calls, sim_s = run_datagen(dev, [
+        '--out', str(root / 'sim'), '--n', str(SIM_N), '--families',
+        'FlatVel', '--sim_batch', str(SIM_N), '--height', str(n), '--width',
+        str(n), '--nt', str(nt), '--ns', str(ns), '--nbc', str(nbc)])
+    hp = n + 2 * nbc
+    per_chunk = -(-CHUNK // stencil.pick_blocking('fwd_step', hp, hp)[0])
+    expect = dict.fromkeys(counts, 0)
+    expect['fwd_step'] = -(-nt // CHUNK) * per_chunk
+    check(counts == expect and plain_calls == 0, f'datagen launches '
+          f'{counts}, plain chunks {plain_calls}; expected {expect}, 0')
+    vel = np.load(sim / 'Velocity_Data' / 'FlatVel.npy')
+    seis = np.load(sim / 'Seismic_Data' / 'FlatVel.npy')
+    check(seis.shape == (SIM_N, ns, nt, n) and np.isfinite(seis).all(),
+          f'datagen seismograms of shape {seis.shape}')
+    plain = FWIForward(dict(HEADLINE), v_denorm_func=v_denormalize,
+                       s_norm_func=s_normalize_none, backend='plain',
+                       chunk=CHUNK, device=dev)
+    with torch.no_grad():
+        want = plain(v_normalize(torch.from_numpy(vel).to(dev)))
+    got = torch.from_numpy(seis).to(dev)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-7)
+    seis_err = float((got - want).abs().max())
+    _, wide_counts, _, wide_s = run_datagen(dev, [
+        '--out', str(root / 'wide'), '--n', '2', '--width', '190',
+        '--families', 'CurveFault', '--nt', str(nt), '--nbc', str(nbc)])
+    wide = np.load(root / 'wide' / 'Seismic_Data' / 'CurveFault.npy')
+    check(wide.shape == (2, ns, nt, 190) and np.isfinite(wide).all()
+          and np.abs(wide).max() > 0, f'wide seismograms {wide.shape}')
+    print(f'datagen: {4 * TRAIN_FAMILY_N} velocity models in {vel_s:.2f} s; '
+          f'seismograms of {SIM_N} models ({hp}x{hp}, nt={nt}) in '
+          f'{sim_s[0]:.3f} s a simulated batch, launches {counts}, against '
+          f'the plain path max abs err {seis_err:.3e}; 2 models at 310x430 '
+          f'in {wide_s[0]:.3f} s ({wide_counts["fwd_step"]} fwd_step '
+          'launches)', flush=True)
+
+    # 2. Training at the CLI's defaults (its cuDNN settings included).
+    run = root / 'run'
+    data = ['--data_dir', str(root / 'train' / 'Velocity_Data'),
+            '--save_every', str(TRAIN_SAVE_EVERY), *TRAIN_ARGS]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer, events, memory, milestone_s = train_cli(
+        dev, [*data, '--results_folder', str(run), '--calculate_fid',
+              '--train_num_steps', str(TRAIN_STEPS)])
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = [e['loss'] for e in trainer.training_losses]
+    check(trainer.step == TRAIN_STEPS and len(losses) == TRAIN_STEPS
+          and len(events) == TRAIN_STEPS and np.isfinite(losses).all(),
+          f'trainer at step {trainer.step} with {len(losses)} losses and '
+          f'{len(events)} train forwards')
+    k = min(20, TRAIN_STEPS // 2)
+    first, last = float(np.mean(losses[:k])), float(np.mean(losses[-k:]))
+    check(last < 0.5 * first, f'loss did not fall to half: first {k} steps '
+          f'{first:.4f}, last {k} {last:.4f}')
+    n_ms = TRAIN_STEPS // TRAIN_SAVE_EVERY
+    fid = json.loads((run / 'fid_scores.json').read_text())
+    check(len(fid) == n_ms and all(np.isfinite(e['fid_frozen']) for e in fid),
+          f'fid_scores.json: {fid}')
+    for m in range(1, n_ms + 1):
+        for name in (f'model-{m}.ckpt', f'training_losses-{m}.json'):
+            check((run / name).exists(), f'milestone {m}: no {name}')
+        smp = np.load(run / f'sample-{m}.npy')
+        check(smp.shape == (25, 1, 72, 72) and smp.min() >= 0.0
+              and smp.max() <= 1.0, f'sample-{m}.npy: {smp.shape}, '
+              f'[{smp.min():.3f}, {smp.max():.3f}]')
+    steady = memory[1:]
+    grew = max(steady) - min(steady)
+    check(grew <= MEMORY_SLACK, f'device memory moved by {grew} bytes over '
+          'the train steps')
+    # Spacing of the train steps' events up to the first milestone (the
+    # first step warms up).
+    span = min(TRAIN_SAVE_EVERY, TRAIN_STEPS) - 1
+
+    def per_step(events):
+        return events[1].elapsed_time(events[span]) / (span - 1) / 1e3
+
+    s_step = per_step(events)
+    batch = trainer.batch_size
+    print(f'train: {TRAIN_STEPS} steps in {train_s:.2f} s; '
+          f'{s_step:.4f} s per train step (CUDA events), '
+          f'{batch / s_step:.1f} images/s at batch {batch}; peak device '
+          f'memory {peak / 2**20:.1f} MiB, allocated {min(steady) / 2**20:.1f}'
+          f'-{max(steady) / 2**20:.1f} MiB over the steps; milestones '
+          + ', '.join(f'{t:.2f}' for t in milestone_s)
+          + f' s (25-sample DDIM grid, {trainer.num_fid_samples}-sample '
+          f'FID, save); loss {first:.4f} (first {k}) -> {last:.4f} (last '
+          f'{k}); fid_frozen ' + ', '.join(f'{e["fid_frozen"]:.3f}'
+                                           for e in fid), flush=True)
+
+    # 3. Resume milestone 1 for RESUME_STEPS steps against an uninterrupted
+    # reference run to the same step, both under deterministic cuDNN (the
+    # CLI's default lets cuDNN pick convolution algorithms whose sums may
+    # run in another order each call); without the FID, which the run above
+    # covers.
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    ref_run = root / 'ref'
+    resume_args = [*data, '--results_folder', str(ref_run),
+                   '--train_num_steps', str(TRAIN_SAVE_EVERY + RESUME_STEPS)]
+    try:
+        reference, ref_events, _, _ = train_cli(dev, resume_args)
+        resumed, _, _, _ = train_cli(dev, [*resume_args,
+                                           '--resume_milestone', '1'])
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    got = resumed.training_losses[TRAIN_SAVE_EVERY:]
+    check(resumed.step == TRAIN_SAVE_EVERY + RESUME_STEPS
+          and [e['step'] for e in got] == list(range(
+              TRAIN_SAVE_EVERY, TRAIN_SAVE_EVERY + RESUME_STEPS)),
+          f'resume reached step {resumed.step}')
+    want = [e['loss'] for e in reference.training_losses[
+        TRAIN_SAVE_EVERY:TRAIN_SAVE_EVERY + RESUME_STEPS]]
+    check(len(want) == RESUME_STEPS, f'reference run has {len(want)} losses '
+          f'after step {TRAIN_SAVE_EVERY}')
+    np.testing.assert_allclose([e['loss'] for e in got], want, rtol=1e-5)
+    resume_d = max(abs(e['loss'] - w) / abs(w) for e, w in zip(got, want))
+    s_step_det = per_step(ref_events)
+    print(f'train under deterministic cuDNN (the reference run of the '
+          f'resume): {s_step_det:.4f} s per train step (CUDA events), '
+          f'{batch / s_step_det:.1f} images/s', flush=True)
+    dim = trainer.diffusion.model.dim
+    del trainer, reference, resumed
+
+    # 4. Export the EMA prior and run RED-DiffEq on it.
+    spec = importlib.util.spec_from_file_location('export_ema_torch',
+                                                  EXPORT_TOOL)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    prior_path = tool.main(['--run', str(run), '--out',
+                            str(root / 'ema.ckpt')])
+    diffusion = GaussianDiffusion(Unet(dim=dim, dim_mults=(1, 2, 4, 8)),
+                                  image_size=n + 2, timesteps=1000,
+                                  device=dev)
+    load_diffusion_params(diffusion, prior_path)
+    op = FWIForward(dict(HEADLINE), v_denorm_func=v_denormalize,
+                    s_norm_func=s_normalize_none, chunk=CHUNK, device=dev)
+    v_true = vel[:1]
+    mu0 = torch.nn.functional.pad(torch.from_numpy(prepare_initial_model(
+        v_true, 'smoothed', sigma=10.0)), (1, 1, 1, 1))
+    engine = InversionEngine(diffusion, regularization='diffusion',
+                             sigma_x0=1e-4, device=dev)
+    _, per_model = engine.optimize(
+        mu0, v_true, torch.from_numpy(seis[:1]).to(dev), op, ts=RED_TS,
+        lr=0.03, reg_lambda=0.75,
+        generator=torch.Generator(device=dev).manual_seed(8888),
+        progress=False)
+    obs, tot = per_model[0]['obs_losses'], per_model[0]['total_losses']
+    check(np.isfinite(tot).all() and obs[-1] < obs[1], f'RED-DiffEq on the '
+          f'exported prior: obs loss {obs[1]:.5g} -> {obs[-1]:.5g}')
+    print(f'resume from milestone 1: steps {TRAIN_SAVE_EVERY}-'
+          f'{TRAIN_SAVE_EVERY + RESUME_STEPS - 1} repeat the uninterrupted '
+          f'losses (max rel diff {resume_d:.3e}); exported EMA prior -> '
+          f'{RED_TS} RED-DiffEq steps on sample 0 of the seismogram run: obs '
+          f'loss {obs[1]:.5g} -> {obs[-1]:.5g}, total {tot[0]:.5g} -> '
+          f'{tot[-1]:.5g}, SSIM {per_model[0]["ssim"][0]:.4f} -> '
+          f'{per_model[0]["ssim"][-1]:.4f}', flush=True)
+    return dict(counts=counts, s_per_step=s_step, images_per_s=batch / s_step,
+                peak_mib=peak / 2**20, milestone_s=milestone_s,
+                sim_s=sim_s[0], resume_max_rel=resume_d,
+                s_per_step_deterministic=s_step_det)
 
 
 def main(argv=None):
@@ -1766,6 +2156,11 @@ def main(argv=None):
     with Phase('bench slice'):
         with tempfile.TemporaryDirectory() as root:
             bench_counts, bench = phase_bench(dev, root)
+    with Phase('tape past the cluster limit'):
+        beyond = phase_beyond(dev)
+    with Phase('training slice'):
+        with tempfile.TemporaryDirectory() as root:
+            training = phase_training(dev, root)
 
     n_chunks = len(p['src'])
     steps = n_chunks * CHUNK
@@ -1815,9 +2210,23 @@ def main(argv=None):
                          bound_by=w['bound_by'],
                          library_ms=w.get('library_ms'))
     # Each kernel's launches in the bench slice's DiffusionFWI run of the
-    # OpenFWI ablation preset.
+    # OpenFWI ablation preset, and in the training slice's seismogram run
+    # of red-diffeq-torch-datagen.
     for k in kernels:
         k['bench'] = dict(launches=bench_counts[k['name']])
+        k['training'] = dict(launches=training['counts'][k['name']])
+    # The tape replay past tape_step's cluster limit (420x420, B=1): its
+    # launches in the velocity gradient there, its numbers from that phase.
+    kernels.append(dict(
+        name='tape_step_global', route='cuda', source=SOURCE,
+        replaces='red_diffeq_tpu/ops/stencil.py:233',
+        launches=beyond['counts']['tape_step_global'],
+        max_abs_err=beyond['max_abs_err'], ms=beyond['ms'],
+        plain_ms=beyond['plain_ms'], bound_ms=beyond['bound_ms'],
+        bound_by=beyond['bound_by'], library_ms=None,
+        shape=list(beyond['shape']), nt=BEYOND['nt'],
+        launches_per_pass=beyond['counts']['tape_step_global'],
+        training=dict(launches=training['counts']['tape_step_global'])))
     kernels[3].update(ms_nbc40=tape['tape_step']['ms_nbc40'],
                       plain_ms_nbc40=tape['tape_step']['plain_ms_nbc40'],
                       registers=tape_info['regs'],
@@ -1853,6 +2262,17 @@ def main(argv=None):
           f'plain max |d mu| {bench["kernels_vs_plain"][0]:.3e} '
           f'({bench["kernels_vs_plain"][1]:.2%} of the cells beyond 1e-4)',
           flush=True)
+    print(f'tape past the cluster limit ({beyond["shape"]}, nt='
+          f'{BEYOND["nt"]}): tape_step_global {beyond["ms"]:.3f} ms per pass '
+          f'(bound {beyond["bound_ms"]:.3f} ms, plain {beyond["plain_ms"]:.3f}'
+          f' ms), gradient max-rel {beyond["grad_max_rel"]:.3e}', flush=True)
+    print(f'training slice: {training["s_per_step"]:.4f} s per train step, '
+          f'{training["images_per_s"]:.1f} images/s (deterministic cuDNN '
+          f'{training["s_per_step_deterministic"]:.4f} s), peak '
+          f'{training["peak_mib"]:.1f} MiB; milestones '
+          + ', '.join(f'{t:.2f}' for t in training['milestone_s'])
+          + f' s; datagen {training["sim_s"]:.3f} s per simulated batch; '
+          f'resume max rel diff {training["resume_max_rel"]:.3e}', flush=True)
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -11,12 +11,16 @@ from red_diffeq_tpu_torch.bench_methods import DiffusionFWI, ILVR_FWI
 from red_diffeq_tpu_torch.core.inversion import (
     InversionEngine, make_inversion_step,
 )
-from red_diffeq_tpu_torch.io.checkpoints import load_diffusion_params
+from red_diffeq_tpu_torch.io.checkpoints import (
+    load_diffusion_params, save_params,
+)
 from red_diffeq_tpu_torch.models.diffusion import GaussianDiffusion
+from red_diffeq_tpu_torch.models.trainer import TensorDataset, Trainer
 from red_diffeq_tpu_torch.models.unet import Unet
 from red_diffeq_tpu_torch.regularization.red import RED_DiffEq_POST_PROCESS
 from red_diffeq_tpu_torch.solvers.acoustic import FWIForward, Geometry
 
 __all__ = ['InversionEngine', 'make_inversion_step', 'load_diffusion_params',
            'GaussianDiffusion', 'Unet', 'FWIForward', 'Geometry',
-           'DiffusionFWI', 'ILVR_FWI', 'RED_DiffEq_POST_PROCESS']
+           'DiffusionFWI', 'ILVR_FWI', 'RED_DiffEq_POST_PROCESS', 'Trainer',
+           'TensorDataset', 'save_params']

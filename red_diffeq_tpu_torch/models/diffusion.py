@@ -1,14 +1,15 @@
 """Gaussian diffusion: the schedule, the forward process, the model's
-predictions and the reverse process (ancestral and DDIM sampling).
+predictions, the reverse process (ancestral and DDIM sampling) and the
+training loss.
 
-Counterpart of ``red_diffeq_tpu/models/diffusion.py:82-389``. Schedule
+Counterpart of ``red_diffeq_tpu/models/diffusion.py:82-431``. Schedule
 coefficients are computed in float64 on the host and stored as float32
 tensors on the device. Public functions keep the JAX package's
 (B, 1, H, W) layout. The samplers are host loops over the timesteps (the
 JAX package's are one ``lax.scan``); their draws come from a
 ``torch.Generator`` unless given as one stacked tensor, so that tests can
-feed JAX's draws. The training loss (``p_losses``, ``loss``) is not
-ported yet.
+feed JAX's draws. So do the training loss's (:meth:`GaussianDiffusion.loss`:
+the timesteps, the noise and the offset noise).
 """
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
@@ -139,16 +140,24 @@ class GaussianDiffusion:
     a card it raises unless ``device='cpu'``). ``sampling_timesteps`` below
     ``timesteps`` makes :meth:`sample` take DDIM (with ``ddim_sampling_eta``)
     instead of the ancestral chain; ``auto_normalize`` maps images in
-    [0, 1] to the model's [-1, 1] and back."""
+    [0, 1] to the model's [-1, 1] and back. The training loss adds
+    ``offset_noise_strength`` times a per-(sample, channel) offset to the
+    noise, and ``min_snr_loss_weight`` clips each timestep's SNR weight at
+    ``min_snr_gamma``."""
 
     def __init__(self, model: Unet, *, image_size, timesteps: int = 1000,
                  sampling_timesteps: Optional[int] = None,
                  objective: str = 'pred_noise', beta_schedule: str = 'sigmoid',
                  ddim_sampling_eta: float = 0.0, auto_normalize: bool = True,
-                 device=None):
+                 offset_noise_strength: float = 0.0,
+                 min_snr_loss_weight: bool = False,
+                 min_snr_gamma: float = 5.0, device=None):
         if objective not in ('pred_noise', 'pred_x0', 'pred_v'):
             raise ValueError(f'unknown objective {objective}')
         self.device = resolve_device(device)
+        # Eval mode throughout, training included: the U-Net has neither
+        # dropout nor running statistics, so its output is the same in
+        # both modes, as the JAX model's is.
         self.model = model.to(self.device).eval()
         self.channels = model.channels
         if isinstance(image_size, int):
@@ -162,11 +171,13 @@ class GaussianDiffusion:
                              f'exceeds timesteps ({self.num_timesteps})')
         self.is_ddim_sampling = self.sampling_timesteps < self.num_timesteps
         self.ddim_sampling_eta = ddim_sampling_eta
+        self.offset_noise_strength = offset_noise_strength
         self.auto_normalize = auto_normalize
         self.normalize = _normalize if auto_normalize else _identity
         self.unnormalize = _unnormalize if auto_normalize else _identity
         self.schedule = DiffusionSchedule.create(
-            timesteps, beta_schedule, objective, device=self.device)
+            timesteps, beta_schedule, objective, min_snr_loss_weight,
+            min_snr_gamma, device=self.device)
 
     def apply_fn(self, x, t):
         """One denoiser forward pass."""
@@ -351,3 +362,46 @@ class GaussianDiffusion:
             img, _ = self.p_sample(
                 img, ti, noise=self._draw(noise, i + 2, x1.shape, generator))
         return img
+
+    def p_losses(self, x_start, t, noise=None, offset=None, generator=None):
+        """The weighted denoising loss of ``x_start`` (in the model's range)
+        diffused to timesteps ``t`` (B,): the per-sample mean squared error
+        of the model's output against the objective's target, times the
+        schedule's ``loss_weight[t]``, averaged over the batch. ``noise``
+        (shaped as ``x_start``) and, with offset noise, ``offset`` (B, C)
+        are standard normal draws from ``generator`` unless given."""
+        if noise is None:
+            noise = torch.randn(x_start.shape, generator=generator,
+                                device=x_start.device, dtype=x_start.dtype)
+        ons = self.offset_noise_strength
+        if ons > 0.0:
+            if offset is None:
+                offset = torch.randn(x_start.shape[:2], generator=generator,
+                                     device=x_start.device,
+                                     dtype=x_start.dtype)
+            noise = noise + ons * offset[:, :, None, None]
+        x = self.q_sample(x_start, t, noise)
+        model_out = self.apply_fn(x, t)
+        if self.objective == 'pred_noise':
+            target = noise
+        elif self.objective == 'pred_x0':
+            target = x_start
+        else:
+            target = self.predict_v(x_start, t, noise)
+        loss = ((model_out - target) ** 2).mean(dim=(1, 2, 3))
+        loss = loss * extract(self.schedule.loss_weight, t, 1)
+        return loss.mean()
+
+    def loss(self, img, t=None, noise=None, offset=None, generator=None):
+        """The training loss of a batch of images in [0, 1] at timesteps
+        ``t`` (B,), drawn uniformly from ``generator`` unless given
+        (reference ``models/diffusion.py:549-554``)."""
+        b, _, h, w = img.shape
+        if (h, w) != self.image_size:
+            raise ValueError(f'image size must be {self.image_size}, got '
+                             f'{(h, w)}')
+        if t is None:
+            t = torch.randint(0, self.num_timesteps, (b,),
+                              generator=generator, device=img.device)
+        return self.p_losses(self.normalize(img), t.long(), noise=noise,
+                             offset=offset, generator=generator)

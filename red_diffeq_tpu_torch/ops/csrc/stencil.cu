@@ -6,9 +6,11 @@
 // fwd_step replaces _fwd_kernel (red_diffeq_tpu/ops/stencil.py:150-231,
 // launched by _run_fwd at :510). bwd_reverse_step replaces
 // _bwd_reverse_kernel (:352-443, launched by _run_bwd_reverse at :632).
-// tape_step replaces _tape_kernel (:233-268, launched by _run_tape at :550)
-// and bwd_tape_step replaces _bwd_kernel (:271-349, launched by _run_bwd at
-// :582); the JAX package takes that pair when its t2 guard trips. sum_shots
+// tape_step replaces _tape_kernel (:233-268, launched by _run_tape at :550),
+// and so does tape_step_global for fields too large for tape_step's thread-
+// block cluster; bwd_tape_step replaces _bwd_kernel (:271-349, launched by
+// _run_bwd at :582); the JAX package takes that pair when its t2 guard
+// trips. sum_shots
 // does both adjoints' cross-shot sum of the coefficient cotangents (the
 // shot-shared coefficient blocks the JAX kernels add into, :341-343 and
 // :435-437).
@@ -592,6 +594,67 @@ __global__ void __launch_bounds__(kTapeThreads, 1) tape_step(
     const int t = cur; cur = nxt; nxt = t;
     sk = sk_next;
   }
+}
+
+// ---------------------------------------------------------------------------
+// The tape replay of a field past tape_step's size limit (tape_fits: a
+// strip of ceil(H/16) rows over 227 KB, e.g. 420x420; the TPU kernel keeps
+// whole fields in up to 100 MB of VMEM, so the JAX package has no such
+// limit). Nothing stays in shared memory: one launch per FD step over a
+// grid of 32x8-cell tiles of every (sample, shot) field, one thread a
+// cell, reading s_{k-1} and s_k from the tape's slots k and k+1 in device
+// memory (the L2 holds them for the neighbours' reads) and writing s_{k+1}
+// to slot k+2. The chunk + 1 slots, the arithmetic and its fp32 grouping
+// are tape_step's, so the two instantiations write the same tape bit for
+// bit. What bounds it: the same tape bytes as tape_step (the slots written
+// once), but each step also reads two slots back, and the launches are
+// chunk - 1 a chunk; a simple kernel that is right, its speed later work.
+// ---------------------------------------------------------------------------
+
+constexpr int kTapeGlobalX = 32, kTapeGlobalY = 8;
+
+// Step k of the replay at every cell: slots k, k+1 (s_{k-1}, s_k) in, slot
+// k+2 out; at k = 0 the carry p0, p1 is read in their place and also
+// copied to slots 0 and 1. A chunk of one step writes only the carry (the
+// launch with k = 0 and chunk = 1). Grid (ceil(W/32), ceil(H/8), B*ns);
+// `slot` = B*ns*H*W cells.
+__global__ void __launch_bounds__(kTapeGlobalX * kTapeGlobalY)
+    tape_step_global(float* __restrict__ tape, const float* __restrict__ p0,
+                     const float* __restrict__ p1,
+                     const float* __restrict__ alpha,
+                     const float* __restrict__ t1,
+                     const float* __restrict__ t2,
+                     const float* __restrict__ inj,
+                     const float* __restrict__ src, int k, int chunk, int ns,
+                     int H, int W, int isz, long long slot) {
+  const int x = blockIdx.x * kTapeGlobalX + threadIdx.x;
+  const int y = blockIdx.y * kTapeGlobalY + threadIdx.y;
+  if (x >= W || y >= H) return;
+  const int bs = blockIdx.z;
+  const size_t hw = (size_t)H * W;
+  const size_t f = (size_t)bs * hw;        // this field's first cell
+  const size_t at = f + (size_t)y * W + x;
+  if (k == 0) {
+    tape[at] = p0[at];
+    tape[slot + at] = p1[at];
+  }
+  if (k + 1 >= chunk) return;
+  const size_t c = (size_t)(bs / ns) * hw + (size_t)y * W + x;
+  const float* prev = k == 0 ? p0 : tape + k * slot;
+  const float* s = (k == 0 ? p1 : tape + (k + 1) * slot) + f;
+  const int ym1 = wrap(y - 1, H), ym2 = wrap(y - 2, H);
+  const int yp1 = wrap(y + 1, H), yp2 = wrap(y + 2, H);
+  const int xm1 = wrap(x - 1, W), xm2 = wrap(x - 2, W);
+  const int xp1 = wrap(x + 1, W), xp2 = wrap(x + 2, W);
+  const float* r = s + (size_t)y * W;
+  const float lap =
+      kC2 * (((s[(size_t)ym1 * W + x] + s[(size_t)yp1 * W + x]) + r[xm1]) +
+             r[xp1]) +
+      kC3 * (((s[(size_t)ym2 * W + x] + s[(size_t)yp2 * W + x]) + r[xm2]) +
+             r[xp2]);
+  float p = (t1[c] * r[x] - t2[c] * prev[at]) + alpha[c] * lap;
+  if (y == isz) p = p + inj[(size_t)bs * W + x] * src[k];
+  tape[(k + 2) * slot + at] = p;
 }
 
 // The adjoint's blocking: 4x2 cells a thread, 16x16 threads, a 64-column,
@@ -1404,7 +1467,8 @@ extern "C" int rdt_tape_ranks(int H, int W, int* ranks) {
 
 // Registers per thread, local (spill) bytes per thread and resident blocks
 // per SM of kernel `which` (0 fwd_step, 1 bwd_reverse_step, 2 tape_step,
-// 3 bwd_tape_step, 4 sum_shots) at its launch configuration; the blocked
+// 3 bwd_tape_step, 4 sum_shots, 5 tape_step_global) at its launch
+// configuration; the blocked
 // kernels with their shared memory, bwd_tape_step as launched for U=4 and
 // sum_shots for 5 shots (the headline's). tape_step as launched for an
 // H x W field (H and W are read for it alone), with its shared memory and
@@ -1442,6 +1506,8 @@ extern "C" int rdt_kernel_info(int which, int H, int W, int* regs,
     case 3: fn = (const void*)bwd_tape_step<4>; threads = BwdL::THREADS;
             smem = kTapeSmem; break;
     case 4: fn = (const void*)sum_shots<5>; threads = kSumThreads; break;
+    case 5: fn = (const void*)tape_step_global;
+            threads = kTapeGlobalX * kTapeGlobalY; break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (smem > 0) {
@@ -1479,6 +1545,33 @@ extern "C" int rdt_tape_chunk(float* tape, const float* p0, const float* p1,
                            src, chunk, ns, H, W, isz, ranks, slot);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The tape of one chunk past tape_step's size limit on PyTorch's stream:
+// the slots of rdt_tape_chunk, written by chunk - 1 tape_step_global
+// launches (one for a chunk of one step, which only copies the carry).
+// Returns the first launch error, 0 if none.
+extern "C" int rdt_tape_chunk_global(float* tape, const float* p0,
+                                     const float* p1, const float* alpha,
+                                     const float* t1, const float* t2,
+                                     const float* inj, const float* src,
+                                     int B, int ns, int H, int W, int isz,
+                                     int chunk, void* stream) {
+  if (chunk < 1 || H < 5 || W < 5) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long slot = (long long)B * ns * H * W;
+  const dim3 grid((W + kTapeGlobalX - 1) / kTapeGlobalX,
+                  (H + kTapeGlobalY - 1) / kTapeGlobalY, B * ns);
+  const dim3 block(kTapeGlobalX, kTapeGlobalY);
+  const int launches = chunk > 1 ? chunk - 1 : 1;
+  for (int k = 0; k < launches; ++k) {
+    tape_step_global<<<grid, block, 0, st>>>(
+        tape, p0, p1, alpha, t1, t2, inj, src, k, chunk, ns, H, W, isz,
+        slot);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 // The taped adjoint of one chunk on PyTorch's stream, steps chunk-1 down to

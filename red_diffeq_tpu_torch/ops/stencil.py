@@ -46,8 +46,11 @@ strips' 2 boundary rows written into the neighbours' halo rows through
 distributed shared memory, one cluster barrier a step. It writes only the
 tape, and only the ``chunk + 1`` slots the taped adjoint reads; its bound
 is those bytes. A field whose strip does not fit a block's 227 KB,
-(5*ceil(Hp/16) + 9) * Wp floats, raises: 416x416 and 310x430 fit, 420x420
-does not.
+(5*ceil(Hp/16) + 9) * Wp floats (416x416 and 310x430 fit, 420x420 does
+not), takes ``tape_step_global`` instead (:func:`pick_ranks`): the
+same tape, bit for bit, from one launch per FD step that reads the two
+slots before from device memory; the JAX kernel keeps whole fields in up
+to 100 MB of VMEM and has no size limit, so neither has the port.
 
 No kernel adds with floating-point atomics, so every result repeats bit
 for bit.
@@ -83,10 +86,11 @@ C1, C2, C3 = -2.5, 4.0 / 3.0, -1.0 / 12.0
 # Kernel launches made by the wrappers, by kernel. Each wrapper adds one for
 # every kernel launch it makes, and nowhere else.
 launches = {'fwd_step': 0, 'bwd_reverse_step': 0, 'sum_shots': 0,
-            'tape_step': 0, 'bwd_tape_step': 0}
+            'tape_step': 0, 'bwd_tape_step': 0, 'tape_step_global': 0}
 # FD steps per launch that each blocked kernel's wrapper last handed its
-# launcher (None until it launches; ``sum_shots`` takes no steps and
-# ``tape_step`` a whole chunk).
+# launcher (None until it launches; ``sum_shots`` takes no steps,
+# ``tape_step`` a whole chunk and ``tape_step_global`` one step a launch,
+# so these three stay None).
 last_unroll = dict.fromkeys(launches)
 # Blocks per cluster (one field a cluster) that the ``tape_step`` wrapper
 # last handed its launcher.
@@ -133,20 +137,18 @@ def pick_blocking(kernel: str, hp: int, wp: int):
     return tuple(v.value for v in vals)
 
 
-def pick_ranks(hp: int, wp: int) -> int:
+def pick_ranks(hp: int, wp: int) -> Optional[int]:
     """Blocks per cluster of ``tape_step`` for an Hp x Wp field, as the CUDA
     library picks them (``rdt_tape_ranks``): the most of 16, 8, 4, 2, 1
-    that leave each block's strip of rows 2 rows or more. Raises for a
-    field beyond the kernel's size limit."""
+    that leave each block's strip of rows 2 rows or more. None for a field
+    beyond the cluster's size limit, whose strip of ceil(Hp/16) rows (two
+    states with 2 halo rows a side, alpha, t1, t2, the injection row) does
+    not fit a block's 227 KB: (5*ceil(Hp/16) + 9) * Wp floats over 232448
+    bytes (310x430 and 416x416 fit, 420x420 does not). The tape replay
+    takes ``tape_step_global`` there."""
     ranks = ctypes.c_int()
     if _load().rdt_tape_ranks(hp, wp, ctypes.byref(ranks)) != 0:
-        raise ValueError(
-            f'a {hp}x{wp} field is beyond the size limit of tape_step, which '
-            f'holds one field in a cluster of 16 blocks, each with its strip '
-            f'of ceil(Hp/16) rows in shared memory (two states with 2 halo '
-            f'rows a side, alpha, t1, t2, the injection row): '
-            f'(5*ceil(Hp/16) + 9) * Wp floats must fit in 227 KB (232448 '
-            f'bytes); 310x430 and 416x416 fit, 420x420 does not')
+        return None
     return ranks.value
 
 
@@ -391,6 +393,8 @@ def _load():
         lib.rdt_sum_shots.restype = i
         lib.rdt_tape_chunk.argtypes = [p] * 8 + [i] * 7 + [p]
         lib.rdt_tape_chunk.restype = i
+        lib.rdt_tape_chunk_global.argtypes = [p] * 8 + [i] * 6 + [p]
+        lib.rdt_tape_chunk_global.restype = i
         lib.rdt_bwd_tape_chunk.argtypes = [p] * 19 + [i] * 10 + [p]
         lib.rdt_bwd_tape_chunk.restype = i
         ip = ctypes.POINTER(i)
@@ -633,8 +637,10 @@ def _sum_shots_kernel(pa, p1, p2):
 
 def tape_chunk(p0, p1, alpha, t1, t2, inj, src_chunk, *, isz):
     """The replay of one chunk into its tape: the CUDA kernel ``tape_step``
-    for CUDA tensors, :func:`tape_chunk_plain` for CPU tensors. Returns the
-    tape (chunk + 1, B, ns, Hp, Wp), slot i = s_{i-1}."""
+    (or ``tape_step_global`` for a field past its size limit,
+    :func:`pick_ranks`) for CUDA tensors, :func:`tape_chunk_plain` for
+    CPU tensors. Returns the tape (chunk + 1, B, ns, Hp, Wp), slot i =
+    s_{i-1}."""
     if p0.device.type == 'cpu':
         return tape_chunk_plain(p0, p1, alpha, t1, t2, inj, src_chunk,
                                 isz=isz)
@@ -649,10 +655,20 @@ def _tape_chunk_kernel(p0, p1, alpha, t1, t2, inj, src_chunk, *, isz):
     chunk = src_chunk.shape[0]
     if chunk < 1:
         raise ValueError('a chunk takes at least one step')
-    ranks = pick_ranks(hp, wp)
     lib = _load()
     tape = torch.empty((chunk + 1, b, ns, hp, wp), device=p0.device,
                        dtype=torch.float32)
+    ranks = pick_ranks(hp, wp)
+    if ranks is None:
+        err = lib.rdt_tape_chunk_global(
+            _ptr(tape), _ptr(p0), _ptr(p1), _ptr(alpha), _ptr(t1), _ptr(t2),
+            _ptr(inj), _ptr(src_chunk), b, ns, hp, wp, isz, chunk,
+            _stream(p0.device))
+        if err != 0:
+            raise RuntimeError(f'tape_step_global launch failed: CUDA error '
+                               f'{err}')
+        launches['tape_step_global'] += max(chunk - 1, 1)
+        return tape
     err = lib.rdt_tape_chunk(
         _ptr(tape), _ptr(p0), _ptr(p1), _ptr(alpha), _ptr(t1), _ptr(t2),
         _ptr(inj), _ptr(src_chunk), b, ns, hp, wp, isz, chunk, ranks,
@@ -742,7 +758,7 @@ def _bwd_tape_kernel(tape, gp0o, gp1o, grec, alpha, t1, t2, src_chunk, *,
 
 
 _KERNEL_IDS = {'fwd_step': 0, 'bwd_reverse_step': 1, 'tape_step': 2,
-               'bwd_tape_step': 3, 'sum_shots': 4}
+               'bwd_tape_step': 3, 'sum_shots': 4, 'tape_step_global': 5}
 
 
 def kernel_info(name: str, hp: int = 0, wp: int = 0):

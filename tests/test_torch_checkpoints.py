@@ -1,4 +1,5 @@
-"""The port's msgpack reader and flax-to-state_dict converter."""
+"""The port's msgpack reader and writer, and its converters between flax
+parameter trees and the U-Net's ``state_dict``."""
 from pathlib import Path
 
 import msgpack
@@ -153,3 +154,122 @@ def test_load_diffusion_params_warns_on_a_missing_file(tmp_path, missing):
         assert checkpoints.load_diffusion_params(diff, path) is diff
     after = diff.model.state_dict()
     assert all(torch.equal(after[k], t) for k, t in before.items())
+
+
+OBJECTS = [
+    None, True, False, 0, 127, 128, 255, 256, 65535, 65536, 2 ** 32,
+    2 ** 64 - 1, -1, -32, -33, -128, -129, -32768, -32769, -2 ** 31 - 1,
+    -2 ** 63, 1.5, -2.25e300, '', 'a' * 31, 'b' * 32, 'c' * 300,
+    'd' * 70000, b'', b'x' * 300, b'y' * 70000, [], list(range(15)),
+    list(range(16)), list(range(70000)), {'k': 1},
+    {str(i): i for i in range(16)}, {'nested': {'deep': [1, {'x': 'y'}]}},
+    (1, 'two')]
+
+
+@pytest.mark.parametrize('obj', OBJECTS, ids=lambda o: repr(o)[:20])
+def test_writer_matches_msgpack_on_every_type(obj):
+    """``packb`` writes what ``msgpack.packb(..., use_bin_type=True)`` (as
+    flax calls it) writes, byte for byte."""
+    assert checkpoints.packb(obj) == msgpack.packb(obj, use_bin_type=True)
+
+
+@pytest.mark.parametrize('arr', [
+    np.arange(6, dtype=np.float32).reshape(2, 3),
+    np.arange(6, dtype=np.float32).reshape(2, 3).T, np.zeros((0,), np.int32),
+    np.ones(()), np.ones((1, 1, 1, 4)), np.zeros(3, np.int8),
+    np.zeros(70000, np.float32)], ids=lambda a: f'{a.dtype}{a.shape}')
+def test_writer_ndarray_ext_matches_flax(arr):
+    """An ndarray leaf is flax's ext type 1 around (shape, dtype name, C
+    bytes), 0-d and transposed arrays included."""
+    from flax import serialization
+    want = serialization.msgpack_serialize({'a': arr})
+    got = checkpoints.packb({'a': arr})
+    assert got == want
+    back = checkpoints.unpackb(got)['a']
+    assert back.dtype == arr.dtype and back.shape == arr.shape
+    np.testing.assert_array_equal(back, arr)
+
+
+def test_writer_rewrites_the_shipped_prior_byte_for_byte():
+    data = CKPT.read_bytes()
+    assert checkpoints.packb(checkpoints.unpackb(data)) == data
+
+
+def test_state_dict_to_flax_inverts_the_converter():
+    raw = checkpoints.load_params(CKPT)
+    model = Unet(dim=64, dim_mults=(1, 2, 4, 8), channels=1)
+    back = checkpoints.state_dict_to_flax(
+        checkpoints.flax_to_state_dict(raw, model))
+    want, got = _flat(raw), _flat(back)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == np.float32
+        np.testing.assert_array_equal(got[k], want[k])
+
+
+def _small_unet_io(seed):
+    rng = np.random.RandomState(seed)
+    return (rng.standard_normal((2, 1, 16, 16)).astype(np.float32),
+            np.array([3, 11], np.int32))
+
+
+def test_save_params_round_trip_between_the_packages(tmp_path):
+    """The port writes a dim-8 U-Net's weights with ``save_params``; JAX's
+    ``load_params`` and ``load_diffusion_params`` read them and its U-Net
+    gives the port's output (atol 1e-4, as the U-Net parity tests). Then
+    the reverse: JAX's ``save_params`` writes, the port's
+    ``load_diffusion_params`` reads."""
+    import jax
+    import jax.numpy as jnp
+    from red_diffeq_tpu.io import checkpoints as jck
+    from red_diffeq_tpu.models.diffusion import \
+        GaussianDiffusion as JaxDiffusion
+    from red_diffeq_tpu.models.unet import Unet as JaxUnet
+
+    x, t = _small_unet_io(0)
+    torch.manual_seed(4)
+    port = GaussianDiffusion(Unet(dim=8, dim_mults=(1, 2)), image_size=16,
+                             timesteps=10, device='cpu')
+    path = tmp_path / 'port.ckpt'
+    checkpoints.save_params(
+        checkpoints.state_dict_to_flax(port.model.state_dict()), path)
+    with torch.no_grad():
+        want = port.model(torch.from_numpy(x), torch.from_numpy(t)).numpy()
+    raw = jck.load_params(path)
+    assert _flat(raw).keys() == _flat(checkpoints.load_params(path)).keys()
+    jd = JaxDiffusion(JaxUnet(dim=8, dim_mults=(1, 2), channels=1),
+                      image_size=16, timesteps=10)
+    jck.load_diffusion_params(jd, str(path), verbose=False)
+    got = np.asarray(jd.model.apply({'params': jd.params}, jnp.asarray(x),
+                                    jnp.asarray(t)))
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+    jd.params = jax.tree.map(lambda p: p * 1.5, jd.params)
+    back = tmp_path / 'jax.ckpt'
+    jck.save_params(jd.params, back)
+    fresh = GaussianDiffusion(Unet(dim=8, dim_mults=(1, 2)), image_size=16,
+                              timesteps=10, device='cpu')
+    checkpoints.load_diffusion_params(fresh, back)
+    want = np.asarray(jd.model.apply({'params': jd.params}, jnp.asarray(x),
+                                     jnp.asarray(t)))
+    with torch.no_grad():
+        got = fresh.model(torch.from_numpy(x), torch.from_numpy(t)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    assert not list(tmp_path.glob('*.tmp'))
+
+
+def test_export_ema_reads_a_milestone_and_refuses_bare_trees(tmp_path):
+    raw = checkpoints.load_params(CKPT)
+    run = tmp_path / 'run'
+    run.mkdir()
+    with pytest.raises(FileNotFoundError, match='model-<k>.ckpt'):
+        checkpoints.export_ema(run, 'latest', tmp_path / 'out.ckpt')
+    for k in (2, 10):
+        checkpoints.save_params({'step': k, 'ema_params': raw, 'version': ''},
+                                run / f'model-{k}.ckpt')
+    src = checkpoints.export_ema(run, 'latest', tmp_path / 'out.ckpt')
+    assert src.name == 'model-10.ckpt'
+    assert (tmp_path / 'out.ckpt').read_bytes() == CKPT.read_bytes()
+    checkpoints.save_params(raw, run / 'model-11.ckpt')
+    with pytest.raises(KeyError, match='ema_params'):
+        checkpoints.export_ema(run, 11, tmp_path / 'bare.ckpt')

@@ -9,7 +9,12 @@ REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ('jax', 'flax', 'optax', 'msgpack', 'yaml', 'ml_collections',
              'red_diffeq_tpu')
 SOURCES = sorted((REPO / 'red_diffeq_tpu_torch').rglob('*.py')) + [
-    REPO / 'chip_smoke.py']
+    REPO / 'chip_smoke.py', REPO / 'tools' / 'export_ema_torch.py']
+# The training slice's modules, which the walk above must reach.
+TRAINING_SLICE = ('red_diffeq_tpu_torch/models/trainer.py',
+                  'red_diffeq_tpu_torch/cli/datagen.py',
+                  'red_diffeq_tpu_torch/cli/diffusion_train.py',
+                  'tools/export_ema_torch.py')
 
 
 def _imported(tree):
@@ -30,6 +35,11 @@ def test_port_imports_nothing_of_jax(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for name in _imported(tree):
         assert name.split('.')[0] not in FORBIDDEN, f'{path.name}: {name}'
+
+
+def test_training_slice_is_walked():
+    walked = {str(p.relative_to(REPO)) for p in SOURCES}
+    assert set(TRAINING_SLICE) <= walked
 
 
 def test_import_walk_sees_every_form():
@@ -66,9 +76,14 @@ def test_entry_points_raise_without_cuda_unless_given_cpu(monkeypatch):
             with pytest.raises(RuntimeError, match='CUDA'):
                 make(**kw)
         assert make(device='cpu').device.type == 'cpu', name
+    from red_diffeq_tpu_torch.cli import datagen, diffusion_train
     for argv in ([], ['--device', 'cuda']):
         with pytest.raises(RuntimeError, match='CUDA'):
             run_bench.main(argv)
+        with pytest.raises(RuntimeError, match='CUDA'):
+            diffusion_train.main(argv)
+        with pytest.raises(RuntimeError, match='CUDA'):
+            datagen.main(['--out', 'unused', '--n', '1', *argv])
     op = FWIForward(ctx, device='cpu')
     assert op.backend == 'plain'
     with pytest.raises(ValueError, match='expected cpu'):

@@ -6,8 +6,8 @@ nvcc). g++ builds it against ``tests/cuda_host/cuda_host.h``, which runs
 every thread of a block as a fiber between its barriers, and the kernel
 launchers (``stencil._fwd_chunk_kernel``, ``_bwd_reverse_chunk_kernel``,
 ``_bwd_tape_steps_kernel``, ``_bwd_tape_chunk_kernel``,
-``_sum_shots_kernel``, ``_tape_chunk_kernel``) drive that library on CPU
-tensors. This holds the temporal blocking itself (windows, wrapped halos,
+``_sum_shots_kernel``, ``_tape_chunk_kernel`` with both of its
+instantiations) drive that library on CPU tensors. This holds the temporal blocking itself (windows, wrapped halos,
 shrinking regions, short last groups, own-cell sums, ping-pong buffers) and
 the tape replay's thread-block clusters (strips, halo rows written into
 the neighbours' shared memory, cluster barriers) to the plain versions,
@@ -187,25 +187,62 @@ def test_tape_replay_matches_plain_version(host_kernels, monkeypatch, case):
                                                stencil.pick_ranks(hp, wp))
 
 
+# (B, ns, Hp, Wp, chunk, isz): fields the cluster instantiation would take,
+# sent to tape_step_global by forcing the route: several blocks of 256
+# cells with a ragged last one, rows that wrap at the source's edge, a
+# field wider than a block, chunks of 20, 7, 2 and 1 step (one launch that
+# only copies the carry).
+GLOBAL_TAPE_CASES = [(2, 2, 17, 13, 20, 3), (1, 3, 9, 8, 7, 8),
+                     (1, 1, 6, 300, 2, 0), (1, 2, 12, 11, 1, 4)]
+
+
+@pytest.mark.parametrize('case', GLOBAL_TAPE_CASES,
+                         ids=lambda c: f'{c[2]}x{c[3]}c{c[4]}')
+def test_tape_replay_past_the_cluster_limit_matches_plain_version(
+        host_kernels, monkeypatch, case):
+    """``tape_step_global`` (one launch a step over device memory, the
+    route of fields past ``tape_step``'s cluster limit) against
+    ``tape_chunk_plain``: every slot bit for bit, max(chunk - 1, 1)
+    launches, ``tape_step`` never, with the route forced through
+    ``pick_ranks`` as above: None, the cluster picker's refusal."""
+    b, ns, hp, wp, chunk, isz = case
+    monkeypatch.setattr(stencil, 'pick_ranks', lambda h, w: None)
+    d = _inputs(hp * wp + chunk + 3, b, ns, hp, wp, chunk, isz, 0, 0, 1)
+    args = (d['p0'], d['p1'], d['alpha'], d['t1'], d['t2'], d['inj'],
+            d['src'])
+    want = stencil.tape_chunk_plain(*args, isz=isz)
+    got = stencil._tape_chunk_kernel(*args, isz=isz)
+    assert tuple(got.shape) == (chunk + 1, b, ns, hp, wp)
+    for i in range(chunk + 1):
+        np.testing.assert_array_equal(got[i].numpy(), want[i].numpy(),
+                                      err_msg=f'slot {i}')
+    assert stencil.launches['tape_step_global'] == max(chunk - 1, 1)
+    assert stencil.launches['tape_step'] == 0
+
+
 def test_tape_replay_size_limit(host_kernels):
     """Blocks per cluster as the library picks them, and the size limit:
     a strip of ceil(Hp/16) rows must fit a block's shared memory, so
     310x430 (Marmousi and Overthrust at nbc=120) and 416x416 take 16
-    blocks a field, 420x420 raises with the limit in its message, and the
-    launcher refuses a cluster size it is not built for or one that leaves
-    a strip under 2 rows."""
+    blocks a field, while the cluster picker refuses 420x420 (None); the
+    wrapper then takes ``tape_step_global`` there (one launch a step, the
+    tape bit for bit as the plain version's), and the cluster launcher
+    refuses a cluster size it is not built for or one that
+    leaves a strip under 2 rows."""
     assert stencil.pick_ranks(310, 310) == 16
     assert stencil.pick_ranks(150, 150) == 16
     assert stencil.pick_ranks(310, 430) == 16
     assert stencil.pick_ranks(416, 416) == 16
     assert [stencil.pick_ranks(h, 9) for h in (31, 16, 15, 8, 7, 5)] == \
         [8, 8, 4, 4, 2, 2]
-    with pytest.raises(ValueError, match='size limit of tape_step'):
-        stencil.pick_ranks(420, 420)
-    z = torch.zeros(1, 1, 420, 420)
-    with pytest.raises(ValueError, match=r'\(5\*ceil\(Hp/16\) \+ 9\)'):
-        stencil._tape_chunk_kernel(z, z, z, z, z, torch.zeros(1, 1, 1, 420),
-                                   torch.zeros(3), isz=1)
+    assert stencil.pick_ranks(420, 420) is None
+    d = _inputs(420, 1, 1, 420, 420, 3, 7, 0, 0, 1)
+    args = (d['p0'], d['p1'], d['alpha'], d['t1'], d['t2'], d['inj'],
+            d['src'])
+    got = stencil._tape_chunk_kernel(*args, isz=7)
+    assert torch.equal(got, stencil.tape_chunk_plain(*args, isz=7))
+    assert stencil.launches['tape_step_global'] == 2
+    assert stencil.launches['tape_step'] == 0
     lib = stencil._load()
     for ranks, h in ((3, 64), (32, 64), (16, 31)):
         assert lib.rdt_tape_chunk(*[None] * 8, 1, 1, h, 9, 0, 4, ranks,

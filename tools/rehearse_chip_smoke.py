@@ -11,13 +11,17 @@ BUILD_DIR (default: a temporary directory), and the kernel wrappers are
 pointed at their launchers, so the kernels' own code runs, launch counters
 included. The card's name, timings and CUDA events, occupancy query (7 resident
 clusters) and ``nvidia-smi`` are stubbed; every check of ``chip_smoke.py``
-runs for real, at a 14x14 model with nbc=60 (tape-free route) and nbc=8
+runs for real (times read 1 ms an interval), at a 14x14 model with nbc=60 (tape-free route) and nbc=8
 (taped route), batch 2, 3 inversion steps, and the wide phases at the
 presets' width with nt=60 and nbc=60, 3 steps a CLI run, and the bench
 slice's CLI runs at the ablation presets' width with nt=60 and nbc=60, 2
-outer x 2 inner steps each, and a 3-step DDIM sample. Times printed are
+outer x 2 inner steps each, and a 3-step DDIM sample; the tape past the
+cluster limit on a 34x34 field (16x16 at nbc=9) whose tape route is forced
+to 'global'; the training slice with 8 models a family, a dim-8 U-Net at
+batch 16 and lr 3e-3 for 40 steps, a milestone every 20, a 2-step resume,
+8 FID samples and 2 models a seismogram run. Times printed are
 meaningless; device memory reads 0. Exits with ``chip_smoke.main()``'s
-code. About twenty minutes.
+code. About twenty-five minutes.
 """
 import ctypes
 import shutil
@@ -78,7 +82,7 @@ def main():
             pass
 
         def elapsed_time(self, other):
-            return 0.0
+            return 1.0
 
     torch.cuda.Event = Event
     load_config = C.load_config
@@ -101,6 +105,14 @@ def main():
     ns['WIDE_TS'], ns['BASELINE_TS'] = 3, 3
     ns['BENCH_DEPTH'], ns['BENCH_WIDE_DIFFUSION_TS'] = (2, 2), 2
     ns['SAMPLER_STEPS'] = 3
+    ns['BEYOND'] = dict(ns['HEADLINE'], n_grid=16, ng=16, nbc=9)
+    pick_ranks = S.pick_ranks
+    S.pick_ranks = lambda h, w: (None if (h, w) == (34, 34)
+                                 else pick_ranks(h, w))
+    ns['TRAIN_FAMILY_N'], ns['SIM_N'] = 8, 2
+    ns['TRAIN_STEPS'], ns['TRAIN_SAVE_EVERY'], ns['RESUME_STEPS'] = 40, 20, 2
+    ns['TRAIN_ARGS'] = ['--dim', '8', '--batch_size', '16', '--lr', '3e-3',
+                        '--num_fid_samples', '8']
     ns['cuda_ms'] = lambda fn, reps, warm=True: (fn(), 0.0)[1]
     ns['graph_ms'] = ns['cuda_ms']
     smi = types.SimpleNamespace(stdout='CPU rehearsal, 0 W\n')
