@@ -8,8 +8,9 @@ Run from the repository root, with no arguments:
 Phases, each printing its wall time:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the CUDA kernels from ``red_diffeq_tpu_torch/ops/csrc`` with nvcc,
-   and read each kernel's registers, spills and resident blocks per SM
+2. build the CUDA kernels from ``red_diffeq_tpu_torch/ops/csrc`` with nvcc
+   (``stencil.cu`` and ``layout_probe.cu``, the two builds at once), and
+   read each kernel's registers, spills and resident blocks per SM
    (the blocked kernels must not spill and must fit two blocks on an SM);
    ``tape_step`` at both shapes with its blocks per cluster and the
    clusters resident at once (no spills, at least TAPE_MIN_CLUSTERS);
@@ -137,7 +138,18 @@ Phases, each printing its wall time:
    1e-5);
    the EMA exported by ``tools/export_ema_torch.py``, loaded by
    ``load_diffusion_params``, and 5 RED-DiffEq steps on it whose
-   observation loss falls.
+   observation loss falls;
+15. the stencil-layout probe (``tools/torch_layout_probe.py``, the port of
+   ``tools/kernel_layout_probe.py``) at the JAX tool's default workload
+   (20 fields of 310x310, nt=1000): the tool itself (its check of every
+   variant against ``roll``, its timing lines), then each of its four
+   kernels (``probe_roll``, ``probe_mxu_x``, ``probe_mxu_xy``,
+   ``probe_halo``, built from ``layout_probe.cu``) against its plain
+   version over 20 steps and over all 1000 (``roll`` and ``halo`` bit for
+   bit, the products within max-rel 1e-5 and 1e-4: ``torch.matmul`` sums
+   in another order), against ``roll`` within max-rel 1e-4, exactly one
+   launch a step, and its time a 1000-step call with the host's launches
+   and as a CUDA graph, beside the plain version's.
 
 With ``--write-wide-dataset DIR`` (``--write-bench-dataset DIR``) the
 script only writes the wide (bench) slice's datasets and configs under DIR
@@ -151,8 +163,9 @@ and under ``wide`` the same at the 310x430 field with the launches of the
 wide slice's CLI run and under ``bench`` the launches of the bench slice's
 DiffusionFWI run and under ``training`` those of the training slice's
 seismogram run; then ``tape_step_global`` with the launches of the
-gradient past the cluster limit; the card's line from nvidia-smi, and last
-``{"ok": true, "device": ...}``.
+gradient past the cluster limit, and the four probe kernels with the
+launches of the probe tool's run and their times; the card's line from
+nvidia-smi, and last ``{"ok": true, "device": ...}``.
 Any failed check raises and the script exits non-zero. Without a CUDA
 device, or without the package beside it, it exits non-zero and prints no
 result.
@@ -2065,6 +2078,123 @@ def phase_training(dev, root):
                 s_per_step_deterministic=s_step_det)
 
 
+# The stencil-layout probe at the JAX tool's default workload
+# (tools/kernel_layout_probe.py: batch 4 x 5 shots = 20 fields of 310x310,
+# nt=1000), its kernels' source, the lines of the TPU kernels they replace,
+# and its gates: the steps of the JAX tool's check against roll, which
+# holds every variant within ROLL_GATE of roll; the products against their
+# plain version (torch.matmul, another order of summation) within
+# PRODUCT_GATE over those steps and PRODUCT_GATE_FULL, the JAX tool's
+# gate, over the whole call (the rounding of another summation order
+# compounds over the steps).
+PROBE_TOOL = 'tools/torch_layout_probe.py'
+PROBE = dict(programs=20, size=310, nt=1000, reps=3)
+PROBE_SOURCE = 'red_diffeq_tpu_torch/ops/csrc/layout_probe.cu'
+PROBE_LINES = {'roll': 89, 'mxu_x': 106, 'mxu_xy': 129, 'halo': 158}
+PROBE_GATE_STEPS = 20
+ROLL_GATE, PRODUCT_GATE, PRODUCT_GATE_FULL = 1e-4, 1e-5, 1e-4
+
+
+def probe_bound(nprog, hp, wp, nt):
+    """The least time of one probe call, shared by its four layouts: the
+    recursion's 14 fp32 operations a cell and step (the banded circulants
+    count as their 4 non-zeros a column), and its bytes (the two start
+    states and the three planes read once, the result written once)."""
+    field, plane = nprog * hp * wp, hp * wp
+    nbytes, ops = 4 * (3 * field + 3 * plane), 14 * field * nt
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_FP32_PER_S * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by='bytes' if by_bytes >= by_ops else 'operations',
+                bytes=nbytes, ops=ops)
+
+
+def phase_layout_probe(dev):
+    """The probe tool at PROBE (its launches counted from 0 just before and
+    read just after: every kernel must have run), then each kernel against
+    its plain version and ``roll`` over PROBE_GATE_STEPS and the whole
+    call, with exactly one launch a step, and timed: ms a call with the
+    host's launches (CUDA events) and as a CUDA graph, the plain version's
+    ms. Returns the numbers of each variant."""
+    import importlib.util
+    import torch
+    from red_diffeq_tpu_torch.ops import layout_probe as lp
+
+    spec = importlib.util.spec_from_file_location('torch_layout_probe',
+                                                  PROBE_TOOL)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    nprog, size, nt = PROBE['programs'], PROBE['size'], PROBE['nt']
+    lp.reset_launches()
+    records = tool.main(['--programs', str(nprog), '--size', str(size),
+                         '--nt', str(nt), '--reps', str(PROBE['reps']),
+                         '--device', dev.type])
+    counts = dict(lp.launches)
+    for rec in records[:len(lp.VARIANTS)]:
+        check(rec['ok'], f'probe tool: {rec["variant"]} differs from roll by '
+              f'{rec["rel_err_vs_roll"]:.3e} (gate {ROLL_GATE})')
+    for rec in records[len(lp.VARIANTS):]:
+        if dev.type == 'cuda':
+            check(rec['launches_per_call'] == nt, f'probe tool: '
+                  f'{rec["variant"]} launched {rec["launches_per_call"]} '
+                  f'times a call of {nt} steps')
+    for name, n in counts.items():
+        check(n > 0, f'the probe tool never launched {name}')
+    prob = [torch.from_numpy(a).to(dev)
+            for a in lp.make_problem(nprog, size, size)]
+    short = min(PROBE_GATE_STEPS, nt)
+    roll, out = {}, {}
+    for v in lp.VARIANTS:
+        kernel = lp.KERNELS[v]
+        errs = {}
+        for steps in (short, nt):
+            before = lp.launches[kernel]
+            got = lp.run_variant(v, *prob, nt=steps)
+            check(lp.launches[kernel] - before == steps, f'{kernel}: '
+                  f'{lp.launches[kernel] - before} launches for {steps} '
+                  'steps')
+            want = lp.plain_variant(v, *prob, nt=steps)
+            check(bool(torch.isfinite(got).all())
+                  and float(want.abs().max()) > 0,
+                  f'{kernel}: the state after {steps} steps is degenerate')
+            r = max_rel(got, want)
+            if v in ('roll', 'halo'):
+                check(torch.equal(got, want), f'{kernel} differs from its '
+                      f'plain version after {steps} steps (max-rel '
+                      f'{r:.3e}; expected bit for bit)')
+            else:
+                gate = PRODUCT_GATE if steps == short else PRODUCT_GATE_FULL
+                check(r <= gate, f'{kernel} vs its plain version after '
+                      f'{steps} steps: max-rel {r:.3e} > {gate}')
+            if v == 'roll':
+                roll[steps] = got
+            vs_roll = max_rel(got, roll[steps])
+            check(vs_roll <= ROLL_GATE, f'{kernel} vs probe_roll after '
+                  f'{steps} steps: max-rel {vs_roll:.3e} > {ROLL_GATE}')
+            errs[steps] = (float((got - want).abs().max()), r, vs_roll)
+            del got, want
+
+        def call(v=v):
+            return lp.run_variant(v, *prob, nt=nt)
+
+        ms = cuda_ms(call, PROBE['reps'])
+        gms = graph_ms(call, PROBE['reps'])
+        plain_ms = cuda_ms(lambda: lp.plain_variant(v, *prob, nt=nt), 1,
+                           warm=False)
+        out[v] = dict(max_abs_err=errs[nt][0], max_rel=errs[nt][1],
+                      max_rel_vs_roll=errs[nt][2], ms=ms, graph_ms=gms,
+                      plain_ms=plain_ms)
+        print(f'{kernel} at {nprog} x {size}x{size}, {nt} steps: vs plain '
+              f'max abs err {errs[short][0]:.3e} ({short} steps), '
+              f'{errs[nt][0]:.3e} (max-rel {errs[nt][1]:.3e}); vs probe_roll'
+              f' max-rel {errs[nt][2]:.3e}; {ms:.3f} ms a call with the '
+              f"host's launches, {gms:.3f} ms as a CUDA graph, plain "
+              f'{plain_ms:.3f} ms', flush=True)
+    bnd = probe_bound(nprog, size, size, nt)
+    return dict(variants=out, counts=counts, shape=[nprog, size, size], nt=nt,
+                **bnd)
+
+
 def main(argv=None):
     """Run every phase (no arguments), or with ``--write-wide-dataset DIR``
     or ``--write-bench-dataset DIR`` only write that slice's dataset and
@@ -2108,7 +2238,14 @@ def main(argv=None):
             timeout=60, check=True).stdout.strip().splitlines()[0]
         print(smi, flush=True)
     with Phase('build'):
-        print(f'built {stencil.build(verbose=True)}', flush=True)
+        from concurrent.futures import ThreadPoolExecutor
+        from red_diffeq_tpu_torch.ops import layout_probe
+        with ThreadPoolExecutor(2) as pool:
+            libs = list(pool.map(
+                lambda src: stencil.build(verbose=True, source=src),
+                (stencil._CSRC, layout_probe._CSRC)))
+        for lib in libs:
+            print(f'built {lib}', flush=True)
         hp = HEADLINE['n_grid'] + 2 * HEADLINE['nbc']
         hn = NARROW['n_grid'] + 2 * NARROW['nbc']
         tape_info = phase_kernel_info(((hp, hp), (hn, hn)))
@@ -2161,6 +2298,8 @@ def main(argv=None):
     with Phase('training slice'):
         with tempfile.TemporaryDirectory() as root:
             training = phase_training(dev, root)
+    with Phase('layout probe'):
+        probe = phase_layout_probe(dev)
 
     n_chunks = len(p['src'])
     steps = n_chunks * CHUNK
@@ -2227,6 +2366,19 @@ def main(argv=None):
         shape=list(beyond['shape']), nt=BEYOND['nt'],
         launches_per_pass=beyond['counts']['tape_step_global'],
         training=dict(launches=training['counts']['tape_step_global'])))
+    # The probe's kernels: launches in the probe tool's run, their numbers
+    # from the phase, one bound for all four (the same function).
+    from red_diffeq_tpu_torch.ops import layout_probe
+    for v, r in probe['variants'].items():
+        name = layout_probe.KERNELS[v]
+        kernels.append(dict(
+            name=name, route='cuda', source=PROBE_SOURCE,
+            replaces=f'tools/kernel_layout_probe.py:{PROBE_LINES[v]}',
+            launches=probe['counts'][name], max_abs_err=r['max_abs_err'],
+            ms=r['ms'], graph_ms=r['graph_ms'], plain_ms=r['plain_ms'],
+            bound_ms=probe['bound_ms'], bound_by=probe['bound_by'],
+            library_ms=None, shape=probe['shape'], nt=probe['nt'],
+            launches_per_pass=probe['nt']))
     kernels[3].update(ms_nbc40=tape['tape_step']['ms_nbc40'],
                       plain_ms_nbc40=tape['tape_step']['plain_ms_nbc40'],
                       registers=tape_info['regs'],
@@ -2273,6 +2425,11 @@ def main(argv=None):
           + ', '.join(f'{t:.2f}' for t in training['milestone_s'])
           + f' s; datagen {training["sim_s"]:.3f} s per simulated batch; '
           f'resume max rel diff {training["resume_max_rel"]:.3e}', flush=True)
+    print(f'layout probe ({probe["shape"]}, nt={probe["nt"]}), ms a call '
+          f'[as a CUDA graph] against the shared bound of '
+          f'{probe["bound_ms"]:.3f} ms ({probe["bound_by"]}): '
+          + ', '.join(f'{v} {r["ms"]:.3f} [{r["graph_ms"]:.3f}]'
+                      for v, r in probe['variants'].items()), flush=True)
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

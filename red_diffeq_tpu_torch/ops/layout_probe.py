@@ -1,0 +1,248 @@
+"""The stencil-layout probe: one damped-wave recursion, four x-stencil layouts.
+
+Counterpart of ``tools/kernel_layout_probe.py``, whose four Pallas kernels
+are ported to hand-written CUDA kernels in ``csrc/layout_probe.cu``:
+
+* ``_roll_kernel`` (``:89``, ``pallas_call`` at ``:219``) becomes
+  ``probe_roll``: both stencils as wrapped neighbour reads;
+* ``_mxu_x_kernel`` (``:106``, at ``:226``) becomes ``probe_mxu_x``: the y
+  stencil as neighbour reads, the x stencil as the dense product ``p @ D``
+  with the banded circulant ``D = band_circulant(Wp)``;
+* ``_mxu_xy_kernel`` (``:129``, at ``:234``) becomes ``probe_mxu_xy``:
+  ``E @ p + p @ D`` with ``E = band_circulant(Hp)``, no neighbour reads;
+* ``_halo_kernel`` (``:158``, at ``:240``) becomes ``probe_halo``: the state
+  kept as (Hp, Wp + 4) with the wrap copied into 2 halo columns a side
+  after every step, so x neighbours are plain offsets.
+
+Each runs ``nt`` steps of
+
+    p = t1*p1 - t2*p0 + alpha * L4(p1)
+
+on ``nprog`` independent (Hp, Wp) fields, with L4 the circular 4th-order
+Laplacian without its centre term and ``alpha``, ``t1``, ``t2`` one (Hp,
+Wp) plane shared by every field, and returns the newest state. The TPU
+kernels take ``unroll`` steps a grid step; the CUDA kernels take one step
+a launch, so a call is ``nt`` launches.
+
+Beside the kernels are their plain PyTorch versions (``roll_plain``,
+``mxu_x_plain``, ``mxu_xy_plain``, ``halo_plain``), each in its JAX
+kernel's fp32 grouping; the products are ``torch.matmul`` (full fp32, as
+``Precision.HIGHEST``: leave ``torch.backends.cuda.matmul.allow_tf32``
+False). The wrapper :func:`run_variant` takes the plain version only for
+tensors on the CPU; on a CUDA tensor it launches the kernel or raises.
+"""
+import ctypes
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from . import stencil
+from .stencil import C1, C2, C3, laplacian4
+
+VARIANTS = ('roll', 'mxu_x', 'mxu_xy', 'halo')
+KERNELS = {v: f'probe_{v}' for v in VARIANTS}
+
+# Kernel launches made by run_variant, by kernel: one per FD step.
+launches = dict.fromkeys(KERNELS.values(), 0)
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def band_circulant(n: int) -> np.ndarray:
+    """(n, n) symmetric circulant D with D[i, i±1 mod n] = C2 and
+    D[i, i±2 mod n] = C3: (p @ D)[., j] = x-direction 4th-order
+    second-difference (without the C1 center, which the time recursion
+    folds into t1)."""
+    d = np.zeros((n, n), np.float32)
+    idx = np.arange(n)
+    for off, c in ((1, C2), (-1, C2), (2, C3), (-2, C3)):
+        d[idx, (idx + off) % n] += c
+    return d
+
+
+def make_problem(nprog, hp, wp, seed=0):
+    """The probe's workload as numpy float32 arrays (p0, p1 of (nprog, hp,
+    wp); alpha, t1, t2 of (hp, wp)): velocities in [1500, 4000] m/s at
+    dx=10, dt=1e-3 (CFL-safe) and a sponge-style damping ring, with random
+    start states."""
+    rng = np.random.RandomState(seed)
+    v = 1500.0 + 2500.0 * rng.rand(hp, wp).astype(np.float32)
+    alpha = (v * 1e-3 / 10.0) ** 2
+    edge = 120
+    ramp = (np.maximum(0, edge - np.minimum.outer(
+        np.minimum(np.arange(hp), hp - 1 - np.arange(hp)),
+        np.minimum(np.arange(wp), wp - 1 - np.arange(wp)))) / edge) ** 2
+    kappa = 3.0 * 1500.0 * np.log(1e7) / (2 * (edge - 1) * 10.0) * ramp
+    t1 = 2.0 + 2.0 * C1 * alpha - kappa * 1e-3
+    t2 = 1.0 - kappa * 1e-3
+    p0 = 1e-3 * rng.randn(nprog, hp, wp).astype(np.float32)
+    p1 = 1e-3 * rng.randn(nprog, hp, wp).astype(np.float32)
+    return (p0, p1, alpha, t1.astype(np.float32), t2.astype(np.float32))
+
+
+# ----------------------------------------------------------------------
+# Plain versions, step for step the JAX kernels' arithmetic.
+# ----------------------------------------------------------------------
+
+def _lap_y(p):
+    return (C2 * (torch.roll(p, 1, -2) + torch.roll(p, -1, -2))
+            + C3 * (torch.roll(p, 2, -2) + torch.roll(p, -2, -2)))
+
+
+_CIRCULANTS = {}
+
+
+def circulant(n, device):
+    """:func:`band_circulant` (n, n) as a tensor on ``device``, made once a
+    size and device (no host copy inside a captured CUDA graph)."""
+    key = (n, str(device))
+    if key not in _CIRCULANTS:
+        _CIRCULANTS[key] = torch.from_numpy(band_circulant(n)).to(device)
+    return _CIRCULANTS[key]
+
+
+def _steps(p0, p1, alpha, t1, t2, nt, lap):
+    for _ in range(nt):
+        p0, p1 = p1, t1 * p1 - t2 * p0 + alpha * lap(p1)
+    return p1
+
+
+def roll_plain(p0, p1, alpha, t1, t2, *, nt):
+    return _steps(p0, p1, alpha, t1, t2, nt, laplacian4)
+
+
+def mxu_x_plain(p0, p1, alpha, t1, t2, *, nt):
+    d = circulant(p1.shape[-1], p1.device)
+    return _steps(p0, p1, alpha, t1, t2, nt,
+                  lambda p: _lap_y(p) + torch.matmul(p, d))
+
+
+def mxu_xy_plain(p0, p1, alpha, t1, t2, *, nt):
+    d = circulant(p1.shape[-1], p1.device)
+    e = circulant(p1.shape[-2], p1.device)
+    return _steps(p0, p1, alpha, t1, t2, nt,
+                  lambda p: torch.matmul(e, p) + torch.matmul(p, d))
+
+
+def halo_pad(p):
+    """(..., Wp) -> (..., Wp + 4): the wrap copied into 2 columns a side."""
+    return torch.cat([p[..., -2:], p, p[..., :2]], dim=-1)
+
+
+def halo_plain(p0, p1, alpha, t1, t2, *, nt):
+    """Two (nprog, Hp, Wp + 4) states in turn, as the JAX kernel keeps
+    them: step u reads p1 from state (u + 1) % 2 and p0 from state u % 2,
+    and writes the new state, halo columns included, over p0's."""
+    wp = p1.shape[-1]
+    state = [halo_pad(p0), halo_pad(p1)]
+    for u in range(nt):
+        src, dst = state[(u + 1) % 2], state[u % 2]
+        c = src[..., 2:wp + 2]
+        xsum = (C2 * (src[..., 1:wp + 1] + src[..., 3:wp + 3])
+                + C3 * (src[..., 0:wp] + src[..., 4:wp + 4]))
+        p = t1 * c - t2 * dst[..., 2:wp + 2] + alpha * (_lap_y(c) + xsum)
+        state[u % 2] = halo_pad(p)
+    return state[(nt - 1) % 2][..., 2:wp + 2].contiguous()
+
+
+PLAIN = {'roll': roll_plain, 'mxu_x': mxu_x_plain, 'mxu_xy': mxu_xy_plain,
+         'halo': halo_plain}
+
+
+def plain_variant(variant, p0, p1, alpha, t1, t2, *, nt):
+    """``nt`` steps of ``variant`` by its plain PyTorch version."""
+    if variant not in PLAIN:
+        raise ValueError(f'unknown variant {variant!r}; expected one of '
+                         f'{VARIANTS}')
+    return PLAIN[variant](p0, p1, alpha, t1, t2, nt=nt)
+
+
+# ----------------------------------------------------------------------
+# The CUDA library, built by stencil.build from csrc/layout_probe.cu.
+# ----------------------------------------------------------------------
+
+_CSRC = Path(__file__).resolve().parent / 'csrc' / 'layout_probe.cu'
+_lib = None
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(stencil.build(source=_CSRC)))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.rdt_probe_roll.argtypes = [p] * 7 + [i] * 4 + [p]
+        lib.rdt_probe_roll.restype = i
+        lib.rdt_probe_halo.argtypes = [p] * 5 + [i] * 4 + [p]
+        lib.rdt_probe_halo.restype = i
+        lib.rdt_probe_mxu.argtypes = [i] + [p] * 9 + [i] * 4 + [p]
+        lib.rdt_probe_mxu.restype = i
+        _lib = lib
+    return _lib
+
+
+def run_variant(variant, p0, p1, alpha, t1, t2, *, nt):
+    """``nt`` steps of ``variant`` from the states p0, p1 (nprog, Hp, Wp)
+    with the planes alpha, t1, t2 (Hp, Wp); returns the newest state. The
+    CUDA kernel ``probe_<variant>`` (``nt`` launches) for CUDA tensors,
+    :func:`plain_variant` for CPU tensors."""
+    if p0.device.type == 'cpu':
+        return plain_variant(variant, p0, p1, alpha, t1, t2, nt=nt)
+    if p0.device.type != 'cuda':
+        raise ValueError(f'unsupported device {p0.device}')
+    return _run_variant_kernel(variant, p0, p1, alpha, t1, t2, nt=nt)
+
+
+def _run_variant_kernel(variant, p0, p1, alpha, t1, t2, *, nt):
+    if variant not in KERNELS:
+        raise ValueError(f'unknown variant {variant!r}; expected one of '
+                         f'{VARIANTS}')
+    if p0.dim() != 3:
+        raise ValueError(f'states must be (nprog, Hp, Wp), got shape '
+                         f'{tuple(p0.shape)}')
+    nprog, hp, wp = p0.shape
+    dev = p0.device
+    stencil._check('p0', p0, p0.shape, dev)
+    stencil._check('p1', p1, p0.shape, dev)
+    for name, t in (('alpha', alpha), ('t1', t1), ('t2', t2)):
+        stencil._check(name, t, (hp, wp), dev)
+    if hp < 5 or wp < 5:
+        raise ValueError('the 4th-order stencil needs a field of at least '
+                         '5x5')
+    if nt < 1:
+        raise ValueError('the probe takes at least one step')
+    if nprog > 65535:
+        raise ValueError('more than 65535 fields are not supported')
+    lib = _load()
+    ptr, st = stencil._ptr, stencil._stream(dev)
+    if variant == 'halo':
+        # The two states, (nprog, Hp, Wp + 4) each; step u writes state
+        # u % 2, so the newest is state 0 after an odd count.
+        s = [halo_pad(p0), halo_pad(p1)]
+        err = lib.rdt_probe_halo(ptr(s[0]), ptr(s[1]), ptr(alpha), ptr(t1),
+                                 ptr(t2), nprog, hp, wp, nt, st)
+        out = s[(nt - 1) % 2]
+    else:
+        # Step n writes x when n is even and y when it is odd, from step 2
+        # on over the older of the two states it reads.
+        x, y = torch.empty_like(p0), torch.empty_like(p0)
+        if variant == 'roll':
+            err = lib.rdt_probe_roll(ptr(p0), ptr(p1), ptr(x), ptr(y),
+                                     ptr(alpha), ptr(t1), ptr(t2), nprog, hp,
+                                     wp, nt, st)
+        else:
+            xy = variant == 'mxu_xy'
+            d = circulant(wp, dev)
+            e = circulant(hp, dev) if xy else d
+            err = lib.rdt_probe_mxu(int(xy), ptr(p0), ptr(p1), ptr(x),
+                                    ptr(y), ptr(alpha), ptr(t1), ptr(t2),
+                                    ptr(d), ptr(e), nprog, hp, wp, nt, st)
+        out = x if nt % 2 else y
+    if err != 0:
+        raise RuntimeError(f'{KERNELS[variant]} launch failed: CUDA error '
+                           f'{err}')
+    launches[KERNELS[variant]] += nt
+    return out[..., 2:wp + 2].contiguous() if variant == 'halo' else out

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for the acoustic FD time stepper.
 
-Counterpart of ``red_diffeq_tpu/ops/stencil.py``. All four kernels of the
-JAX package are ported, in ``csrc/stencil.cu``:
+Counterpart of ``red_diffeq_tpu/ops/stencil.py``. All four kernels of that
+module are ported, in ``csrc/stencil.cu``:
 
 * ``_fwd_kernel`` (launcher ``_run_fwd``, ``stencil.py:150-231, 510``)
   becomes ``fwd_step``: U FD steps of one tile of a (sample, shot)
@@ -54,9 +54,10 @@ to 100 MB of VMEM and has no size limit, so neither has the port.
 
 No kernel adds with floating-point atomics, so every result repeats bit
 for bit.
-The TPU-only x-stencil layouts (``'roll'``, ``'mxu'``, ``'mxu_xy'``,
-``'halo'``, env ``RDT_X_STENCIL``) are lowerings of the same Laplacian and
-have no meaning here.
+The TPU-only x-stencil layouts of these kernels (``'roll'``, ``'mxu'``,
+``'mxu_xy'``, ``'halo'``, env ``RDT_X_STENCIL``) are lowerings of the same
+Laplacian and are not ported; the microbenchmark that compares such
+layouts on the card is ``layout_probe.py``.
 
 Beside each kernel is its plain PyTorch version (``fwd_chunk_plain``,
 ``bwd_reverse_steps_plain``, ``sum_shots_plain``, ``tape_chunk_plain``,
@@ -356,20 +357,22 @@ def _nvcc() -> str:
     return path
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile ``csrc/stencil.cu`` into a shared library named by the hash
-    of its source and flags, unless that library exists. Returns its path;
-    raises if the build fails."""
-    src = _CSRC.read_bytes()
+def build(verbose: bool = False, source: Path = _CSRC) -> Path:
+    """Compile the CUDA source ``source`` (by default ``csrc/stencil.cu``)
+    into a shared library in BUILD_DIR named by the source's stem and the
+    hash of its text and flags, unless that library exists. Returns its
+    path; raises if the build fails."""
+    source = Path(source)
+    src = source.read_bytes()
     tag = hashlib.sha1(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f'libstencil-{tag}.so'
+    out = BUILD_DIR / f'lib{source.stem}-{tag}.so'
     if out.exists():
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, '-Xptxas', '-v', '-o', tmp, str(_CSRC)]
+    cmd = [nvcc, *NVCC_FLAGS, '-Xptxas', '-v', '-o', tmp, str(source)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         os.unlink(tmp)

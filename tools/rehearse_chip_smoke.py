@@ -5,7 +5,7 @@ Run from the repository root (the shipped prior's path is relative):
 
     python3 tools/rehearse_chip_smoke.py [BUILD_DIR]
 
-The CUDA source is built with g++ against ``tests/cuda_host/cuda_host.h``
+The CUDA sources are built with g++ against ``tests/cuda_host/cuda_host.h``
 (each CUDA thread a fiber, a thread-block cluster a group of them) into
 BUILD_DIR (default: a temporary directory), and the kernel wrappers are
 pointed at their launchers, so the kernels' own code runs, launch counters
@@ -19,9 +19,11 @@ outer x 2 inner steps each, and a 3-step DDIM sample; the tape past the
 cluster limit on a 34x34 field (16x16 at nbc=9) whose tape route is forced
 to 'global'; the training slice with 8 models a family, a dim-8 U-Net at
 batch 16 and lr 3e-3 for 40 steps, a milestone every 20, a 2-step resume,
-8 FID samples and 2 models a seismogram run. Times printed are
-meaningless; device memory reads 0. Exits with ``chip_smoke.main()``'s
-code. About twenty-five minutes.
+8 FID samples and 2 models a seismogram run; the layout probe on 2 fields
+of 13x13, 8 steps (its gates at 3 and 8), its four kernels built from
+``layout_probe.cu`` for the host. Times printed are meaningless; device
+memory reads 0. Exits with ``chip_smoke.main()``'s code. About thirty
+minutes.
 """
 import ctypes
 import shutil
@@ -39,14 +41,17 @@ def main():
     import torch
     from cuda_host.host_build import build_host_library
     import red_diffeq_tpu_torch.config as C
+    from red_diffeq_tpu_torch.ops import layout_probe as LP
     from red_diffeq_tpu_torch.ops import stencil as S
     from red_diffeq_tpu_torch.solvers import acoustic as A
 
     out = Path(sys.argv[1]) if len(sys.argv) > 1 else Path(tempfile.mkdtemp())
     out.mkdir(parents=True, exist_ok=True)
-    lib = build_host_library(S._CSRC, out, shutil.which('g++') or 'g++')
-    S.build = lambda verbose=False: lib
+    libs = {src: build_host_library(src, out, shutil.which('g++') or 'g++')
+            for src in (S._CSRC, LP._CSRC)}
+    S.build = lambda verbose=False, source=S._CSRC: libs[source]
     S._lib = None
+    LP.run_variant = LP._run_variant_kernel
     S._stream = lambda device: ctypes.c_void_p(0)
     S.kernel_info = lambda name, hp=0, wp=0: dict(
         regs=0, local_bytes=0, blocks_per_sm=2,
@@ -113,6 +118,8 @@ def main():
     ns['TRAIN_STEPS'], ns['TRAIN_SAVE_EVERY'], ns['RESUME_STEPS'] = 40, 20, 2
     ns['TRAIN_ARGS'] = ['--dim', '8', '--batch_size', '16', '--lr', '3e-3',
                         '--num_fid_samples', '8']
+    ns['PROBE'] = dict(programs=2, size=13, nt=8, reps=1)
+    ns['PROBE_GATE_STEPS'] = 3
     ns['cuda_ms'] = lambda fn, reps, warm=True: (fn(), 0.0)[1]
     ns['graph_ms'] = ns['cuda_ms']
     smi = types.SimpleNamespace(stdout='CPU rehearsal, 0 W\n')
