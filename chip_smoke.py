@@ -141,15 +141,19 @@ Phases, each printing its wall time:
    observation loss falls;
 15. the stencil-layout probe (``tools/torch_layout_probe.py``, the port of
    ``tools/kernel_layout_probe.py``) at the JAX tool's default workload
-   (20 fields of 310x310, nt=1000): the tool itself (its check of every
-   variant against ``roll``, its timing lines), then each of its four
-   kernels (``probe_roll``, ``probe_mxu_x``, ``probe_mxu_xy``,
-   ``probe_halo``, built from ``layout_probe.cu``) against its plain
-   version over 20 steps and over all 1000 (``roll`` and ``halo`` bit for
-   bit, the products within max-rel 1e-5 and 1e-4: ``torch.matmul`` sums
-   in another order), against ``roll`` within max-rel 1e-4, exactly one
-   launch a step, and its time a 1000-step call with the host's launches
-   and as a CUDA graph, beside the plain version's.
+   (20 fields of 310x310, nt=1000): the four kernels' registers, spills
+   and blocks per SM (the tensor-core products must not spill, and the
+   built library's SASS must hold TF32 ``HMMA`` in both), the tool itself
+   (its check of every variant against ``roll``, its timing lines), then
+   each of its four kernels (``probe_roll``, ``probe_mxu_x``,
+   ``probe_mxu_xy``, ``probe_halo``, built from ``layout_probe.cu``)
+   against its plain version over 20 steps and over all 1000 (``roll`` and
+   ``halo`` bit for bit, the split-TF32 products within max-rel 1e-5 and
+   1e-4 of ``torch.matmul`` in full fp32), against ``roll`` within
+   max-rel 1e-4, exactly one launch a step, and its time a 1000-step call
+   with the host's launches and as a CUDA graph, beside the plain
+   version's and, for the products, beside the library's: the step's
+   ``torch.matmul`` calls times nt, as a CUDA graph.
 
 With ``--write-wide-dataset DIR`` (``--write-bench-dataset DIR``) the
 script only writes the wide (bench) slice's datasets and configs under DIR
@@ -2093,6 +2097,10 @@ PROBE_SOURCE = 'red_diffeq_tpu_torch/ops/csrc/layout_probe.cu'
 PROBE_LINES = {'roll': 89, 'mxu_x': 106, 'mxu_xy': 129, 'halo': 158}
 PROBE_GATE_STEPS = 20
 ROLL_GATE, PRODUCT_GATE, PRODUCT_GATE_FULL = 1e-4, 1e-5, 1e-4
+# The tensor cores' dense TF32 rate (NVIDIA H100 SXM data sheet, 700 W),
+# from which the split-TF32 products' own floor is computed.
+PEAK_TF32_PER_S = 495e12
+PRODUCTS = ('mxu_x', 'mxu_xy')
 
 
 def probe_bound(nprog, hp, wp, nt):
@@ -2109,17 +2117,95 @@ def probe_bound(nprog, hp, wp, nt):
                 bytes=nbytes, ops=ops)
 
 
+def probe_tf32_floor(variant, nprog, hp, wp, nt):
+    """The split-TF32 products' own floor in ms a call, computed, not
+    measured: a dense pass of 2 * Wp operations a cell (p @ D), and with
+    ``mxu_xy`` 2 * Hp more (E @ p), for each part product the kernels keep,
+    at PEAK_TF32_PER_S."""
+    from red_diffeq_tpu_torch.ops import layout_probe as lp
+    depth = wp + (hp if variant == 'mxu_xy' else 0)
+    return (len(lp.PART_PRODUCTS) * 2 * nprog * hp * wp * depth * nt
+            / PEAK_TF32_PER_S * 1e3)
+
+
+def hmma_tf32_counts(lib):
+    """TF32 tensor-core instructions (``HMMA...TF32``) in each function of
+    the shared library ``lib``'s SASS (``cuobjdump -sass``), by mangled
+    name."""
+    import re
+    import shutil
+    tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+    sass = subprocess.run([tool, '-sass', str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    return {part.split(None, 1)[0]: len(re.findall(r'HMMA[.\w]*TF32', part))
+            for part in sass.split('Function : ')[1:]}
+
+
+def probe_kernel_checks():
+    """Registers, spill bytes and resident blocks per SM of the four probe
+    kernels, and the TF32 HMMA instructions of the two products in the
+    built library's SASS: the products must not spill, and each must hold
+    TF32 HMMA (the tensor cores, not the CUDA cores, carry them). Returns
+    the numbers by variant."""
+    from red_diffeq_tpu_torch.ops import layout_probe as lp
+    from red_diffeq_tpu_torch.ops import stencil
+    hmma = hmma_tf32_counts(stencil.build(source=lp._CSRC))
+    info = {}
+    for v in lp.VARIANTS:
+        k = lp.kernel_info(v)
+        if v in PRODUCTS:
+            tag = f'probe_mxuILb{int(v == "mxu_xy")}E'
+            found = [n for n in hmma if tag in n]
+            check(len(found) == 1, f'{lp.KERNELS[v]}: {len(found)} functions '
+                  f'named *{tag}* in the SASS')
+            k['hmma_tf32'] = hmma[found[0]]
+            check(k['hmma_tf32'] > 0, f'{lp.KERNELS[v]}: no TF32 HMMA in its '
+                  'SASS')
+            check(k['local_bytes'] == 0, f'{lp.KERNELS[v]} spills to local '
+                  'memory')
+        print(f'{lp.KERNELS[v]}: {k["regs"]} registers, {k["local_bytes"]} '
+              f'local bytes, {k["blocks_per_sm"]} blocks per SM'
+              + (f', {k["hmma_tf32"]} TF32 HMMA in its SASS'
+                 if v in PRODUCTS else ''), flush=True)
+        info[v] = k
+    return info
+
+
+def probe_library_ms(variant, prob, nt, reps):
+    """The library's time for the products of one call of ``variant``: the
+    step's ``torch.matmul`` calls (full fp32) on its inputs, nt times, as a
+    CUDA graph."""
+    import torch
+    from red_diffeq_tpu_torch.ops import layout_probe as lp
+    p = prob[1]
+    d = lp.circulant(p.shape[-1], p.device)
+    e = lp.circulant(p.shape[-2], p.device)
+    out = torch.empty_like(p), torch.empty_like(p)
+
+    def call():
+        for _ in range(nt):
+            torch.matmul(p, d, out=out[0])
+            if variant == 'mxu_xy':
+                torch.matmul(e, p, out=out[1])
+
+    return graph_ms(call, reps)
+
+
 def phase_layout_probe(dev):
-    """The probe tool at PROBE (its launches counted from 0 just before and
-    read just after: every kernel must have run), then each kernel against
-    its plain version and ``roll`` over PROBE_GATE_STEPS and the whole
-    call, with exactly one launch a step, and timed: ms a call with the
-    host's launches (CUDA events) and as a CUDA graph, the plain version's
-    ms. Returns the numbers of each variant."""
+    """The probe kernels' registers, spills, blocks per SM and TF32 HMMA
+    (``probe_kernel_checks``); the probe tool at PROBE (its launches counted
+    from 0 just before and read just after: every kernel must have run),
+    then each kernel against its plain version and ``roll`` over
+    PROBE_GATE_STEPS and the whole call, with exactly one launch a step,
+    and timed: ms a call with the host's launches (CUDA events) and as a
+    CUDA graph, the plain version's ms, and for the products the library's
+    ms (printed beside the split-TF32 floor that ``probe_tf32_floor``
+    computes). Returns the numbers of each variant."""
     import importlib.util
     import torch
     from red_diffeq_tpu_torch.ops import layout_probe as lp
 
+    info = probe_kernel_checks() if dev.type == 'cuda' else {}
     spec = importlib.util.spec_from_file_location('torch_layout_probe',
                                                   PROBE_TOOL)
     tool = importlib.util.module_from_spec(spec)
@@ -2183,13 +2269,22 @@ def phase_layout_probe(dev):
                            warm=False)
         out[v] = dict(max_abs_err=errs[nt][0], max_rel=errs[nt][1],
                       max_rel_vs_roll=errs[nt][2], ms=ms, graph_ms=gms,
-                      plain_ms=plain_ms)
+                      plain_ms=plain_ms, library_ms=None, **info.get(v, {}))
+        extra = ''
+        if v in PRODUCTS:
+            out[v]['library_ms'] = probe_library_ms(v, prob, nt,
+                                                    PROBE['reps'])
+            floor = probe_tf32_floor(v, nprog, size, size, nt)
+            extra = (f', library (torch.matmul, fp32) '
+                     f'{out[v]["library_ms"]:.3f} ms as a CUDA graph; '
+                     f'computed TF32 floor {floor:.3f} ms (the split '
+                     f'products at {PEAK_TF32_PER_S / 1e12:g} TFLOP/s)')
         print(f'{kernel} at {nprog} x {size}x{size}, {nt} steps: vs plain '
               f'max abs err {errs[short][0]:.3e} ({short} steps), '
               f'{errs[nt][0]:.3e} (max-rel {errs[nt][1]:.3e}); vs probe_roll'
               f' max-rel {errs[nt][2]:.3e}; {ms:.3f} ms a call with the '
               f"host's launches, {gms:.3f} ms as a CUDA graph, plain "
-              f'{plain_ms:.3f} ms', flush=True)
+              f'{plain_ms:.3f} ms{extra}', flush=True)
     bnd = probe_bound(nprog, size, size, nt)
     return dict(variants=out, counts=counts, shape=[nprog, size, size], nt=nt,
                 **bnd)
@@ -2377,8 +2472,10 @@ def main(argv=None):
             launches=probe['counts'][name], max_abs_err=r['max_abs_err'],
             ms=r['ms'], graph_ms=r['graph_ms'], plain_ms=r['plain_ms'],
             bound_ms=probe['bound_ms'], bound_by=probe['bound_by'],
-            library_ms=None, shape=probe['shape'], nt=probe['nt'],
-            launches_per_pass=probe['nt']))
+            library_ms=r['library_ms'], shape=probe['shape'],
+            nt=probe['nt'], launches_per_pass=probe['nt'],
+            registers=r.get('regs'), blocks_per_sm=r.get('blocks_per_sm'),
+            **({'hmma_tf32': r['hmma_tf32']} if 'hmma_tf32' in r else {})))
     kernels[3].update(ms_nbc40=tape['tape_step']['ms_nbc40'],
                       plain_ms_nbc40=tape['tape_step']['plain_ms_nbc40'],
                       registers=tape_info['regs'],
@@ -2429,7 +2526,10 @@ def main(argv=None):
           f'[as a CUDA graph] against the shared bound of '
           f'{probe["bound_ms"]:.3f} ms ({probe["bound_by"]}): '
           + ', '.join(f'{v} {r["ms"]:.3f} [{r["graph_ms"]:.3f}]'
-                      for v, r in probe['variants'].items()), flush=True)
+                      for v, r in probe['variants'].items())
+          + '; the products\' library ms: '
+          + ', '.join(f'{v} {probe["variants"][v]["library_ms"]:.3f}'
+                      for v in PRODUCTS), flush=True)
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -26,10 +26,10 @@
 // (at the workload both states and the planes, 16.5 MB, stay in the 50 MB
 // L2). What bounds roll and halo is not their arithmetic but each
 // launch's reads of both states through L2 and the launches' own cost;
-// the products of the mxu kernels, 2W (or 2W + 2H) operations a cell
-// where the stencil takes 14, are bound by their fp32 work on the CUDA
-// cores. Simple kernels that are right: steps per launch (temporal
-// blocking) and tensor-core products are later work.
+// the mxu kernels' dense products, 2W (or 2W + 2H) operations a cell
+// where the stencil takes 14, run on the tensor cores in split TF32
+// (below) and are bound by that work. Steps per launch (temporal
+// blocking) are later work.
 //
 // Each step of roll and mxu writes the new state over the older of the
 // two it reads (each cell reads only its own cell of that state), so two
@@ -37,7 +37,7 @@
 // fresh buffers so that the caller's states are only read. Build with
 // -fmad=false: every multiply and add rounds alone, in the JAX kernels'
 // grouping, so roll and halo equal their plain PyTorch versions bit for
-// bit; the products sum over k in order, one rounding a term.
+// bit; the products' sums are the tensor cores' (split TF32, below).
 
 #include <cuda_runtime.h>
 
@@ -107,58 +107,303 @@ __global__ void __launch_bounds__(kRollT * kRollRows)
 // ---------------------------------------------------------------------------
 // probe_mxu<XY> (_mxu_x_kernel, XY false; _mxu_xy_kernel, XY true): the x
 // stencil as the dense product p @ D with D = band_circulant(W), and with
-// XY the y stencil as E @ p with E = band_circulant(H), in fp32 on the CUDA
-// cores (Precision.HIGHEST on the TPU: fp32-accurate). Without XY the y
-// stencil is 4 wrapped neighbour reads, as _lap_y_roll. One step a launch:
-// a block owns a 64x64-cell tile of one field; its 16x16 threads each keep
-// 4x4 cells (rows ty + 16r, columns tx + 16c) of the product in registers
-// and walk the depth in stages of 16, each stage of both operands staged
-// in shared memory (A as [k][row], padded a column against bank
-// conflicts; B as [k][column]). Every thread adds its terms k = 0, 1, ...
-// in order, one rounding a multiply and one an add. The dense product
-// does 2W operations a cell (620 at W=310) where the stencil needs 4, and
-// it reads each operand from shared memory once a multiply-add: the CUDA
-// cores' fp32 work bounds it. Tensor-core products (3xTF32) are the
-// redesign.
+// XY the y stencil as E @ p with E = band_circulant(H), on the tensor cores
+// at fp32 accuracy (Precision.HIGHEST on the TPU's MXU). Without XY the y
+// stencil is 4 wrapped neighbour reads, as _lap_y_roll. One step a launch.
 //   lap = lap_y + (p @ D)          (XY false, as _mxu_x_kernel)
 //   lap = (E @ p) + (p @ D)        (XY true, as _mxu_xy_kernel)
+//
+// Split TF32 products (mma.sync m16n8k8 TF32, fp32 accumulators). Both
+// operands, the state p and D or E, are split here, as their fragments are
+// read from shared memory, into 3 TF32 parts (split_parts): the first
+// rounded to 8 significant bits, the next cut to 8, the last what is left,
+// so they hold an fp32 value exactly. Each 8-deep step of the depth adds
+// the part products (i, j) with i + j <= 2, 6 of them, smallest first:
+// (2, 0), (1, 1), (0, 2), (1, 0), (0, 1) into one accumulator, the main
+// (0, 0) into another; the result is their sum.
+//
+// Why not 3xTF32 (2 parts of 11 bits; lo*hi, hi*lo, hi*hi): an mma.sync
+// does not round its sum to nearest, it truncates, a bias toward zero of
+// up to an ulp at every mma that adds terms to a sum they do not fit, the
+// same sign every step. On an H100 (tools/torch_probe_breakdown.py), after
+// 1000 steps, 3xTF32 ended 1.3e-4 (mxu_x) and 2.6e-4 (mxu_xy) max-rel from
+// torch.matmul, 3 parts of 11 bits 1.1e-4 and 2.2e-4, against the JAX
+// tool's gate of 1e-4; these parts 9e-6 and 1e-5. With 8-bit parts a main
+// product has 16 significant bits, so the mma's sum of a column's four
+// in-band products is exact unless they lie more than 2^8 apart; the
+// smaller products go to their own accumulator, where a truncation costs
+// 2^-8 of what it would cost the main one; and the two meet in an fp32
+// add, which rounds to nearest.
+//
+// A block owns a 64x64-cell tile of one field, each of its 4 warps 32x32
+// cells (2 x 4 fragments of 16x8). The depth goes through shared memory in
+// slabs of kMxuK, every tile of a slab copied by 16-byte cp.async.cg in a
+// ring of kStages stages, so that the next slab loads while the current
+// one multiplies; what lies past the ragged edge (310 is no multiple of 8
+// or 32) is zero-filled by the copy's source size. A [64 rows][kMxuK deep]
+// tile has rows of kMxuK + 4 floats, a [kMxuK deep][64 columns] tile rows
+// of 72, so that a warp's fragment reads (rows g, columns t; or rows t,
+// columns g) fall in 32 different banks. Every matrix the kernel reads,
+// the states and D, has rows of round4(W) floats (E round4(H)) and a
+// 16-byte aligned start, so every copy is aligned; the columns past W are
+// never read. The products go through shared memory (E @ p there while
+// p @ D runs), so that the epilogue reads the planes and states and writes
+// the new state a row of 64 cells at a time.
+//
+// The product stays dense, as on the TPU: every slab of D and E is
+// multiplied, zeros and all (skipping D's zero blocks would make it a
+// stencil again, which is probe_roll's question). The design's floor is
+// its TF32 work, kPasses passes of 2W operations a cell (2(W + H) with
+// XY): at the probe's workload (20 fields of 310x310, nt=1000) 1.19 GFLOP
+// a pass and step, 14.4 ms a call at 495 TFLOP/s with 6 passes, 28.9 ms
+// with XY, beside the function's bound of 0.40 ms. On an H100 the
+// mma.sync alone take about 22 ms a product (the 'mma only' variant of
+// tools/torch_probe_breakdown.py), 2/3 of that rate; the splits, the
+// staging and the epilogue add what they do not hide.
 // ---------------------------------------------------------------------------
 
-constexpr int kMxuT = 64, kMxuK = 16, kMxuThreads = 16 * 16;
-constexpr int kMxuSA = kMxuT + 1;    // A stage row stride, padded
-constexpr size_t kMxuSmem = sizeof(float) * kMxuK * (kMxuSA + kMxuT);
+constexpr int kMxuT = 64, kMxuK = 32, kStages = 2, kMxuThreads = 128;
+constexpr int kSA = kMxuK + 4;   // row stride of a [64][kMxuK] tile
+constexpr int kSB = kMxuT + 8;   // row stride of a [kMxuK][64] tile
+constexpr int kTile =
+    kMxuT * kSA > kMxuK * kSB ? kMxuT * kSA : kMxuK * kSB;
+// A stage: the constant's tile, then the state's.
+constexpr int kStage = 2 * kTile;
+// The stages, then the tile's products for the epilogue (64 rows of kSB).
+constexpr size_t kMxuSmem = sizeof(float) * (kStages * kStage + kMxuT * kSB);
 
-// acc[r][c] += sum over k = 0 .. K-1, in order, of
-// A[row0 + ty + 16r][k] * B[k][col0 + tx + 16c] (A is M x K with row
-// stride lda, B is K x N with row stride ldb; cells outside read as 0).
-__device__ void product_tile(const float* A, int lda, int M, const float* B,
-                             int ldb, int N, int K, int row0, int col0,
-                             float* sa, float* sb, float (&acc)[4][4]) {
-  const int tx = threadIdx.x, ty = threadIdx.y, t = ty * 16 + tx;
-  for (int k0 = 0; k0 < K; k0 += kMxuK) {
-    for (int i = t; i < kMxuT * kMxuK; i += kMxuThreads) {
-      const int r = i / kMxuK, k = i % kMxuK;
-      const int gr = row0 + r, gk = k0 + k;
-      sa[k * kMxuSA + r] = gr < M && gk < K ? A[(size_t)gr * lda + gk] : 0.f;
-    }
-    for (int i = t; i < kMxuK * kMxuT; i += kMxuThreads) {
-      const int k = i / kMxuT, c = i % kMxuT;
-      const int gk = k0 + k, gc = col0 + c;
-      sb[k * kMxuT + c] = gk < K && gc < N ? B[(size_t)gk * ldb + gc] : 0.f;
-    }
-    __syncthreads();
-    for (int k = 0; k < kMxuK; ++k) {
-      float a[4], b[4];
-      for (int r = 0; r < 4; ++r) a[r] = sa[k * kMxuSA + ty + 16 * r];
-      for (int c = 0; c < 4; ++c) b[c] = sb[k * kMxuT + tx + 16 * c];
-      for (int r = 0; r < 4; ++r)
-        for (int c = 0; c < 4; ++c) acc[r][c] = acc[r][c] + a[r] * b[c];
-    }
-    __syncthreads();
+__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
+
+// Parts of each operand, and part products a step of the depth.
+constexpr int kParts = 3, kPasses = 6;
+
+// Part of the state (state) or of the constant in pass n: the part
+// products (i of the state, j of the constant) with i + j <= 2, the
+// smallest first; the last, the main one (0, 0), has its own accumulator.
+__host__ __device__ constexpr int pass_part(int n, bool state) {
+  constexpr int kPass[kPasses][2] = {{2, 0}, {1, 1}, {0, 2},
+                                     {1, 0}, {0, 1}, {0, 0}};
+  return kPass[n][state ? 0 : 1];
+}
+
+// The warp-level pieces, the only code that differs in the host
+// emulation (tests/cuda_host/cuda_host.h).
+#ifdef CUDA_HOST_EMULATION
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  host::mma_m16n8k8_tf32(c, a, b);
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int src_bytes) {
+  host::cp_async(dst, src, 16, src_bytes);
+}
+__device__ __forceinline__ void cp_async_commit() { host::cp_async_commit(); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { host::cp_async_wait(N); }
+#else
+// c += a @ b on one warp's m16n8k8 TF32 fragments (PTX ISA layout).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// 16 bytes from global src to shared dst, src_bytes of them read and the
+// rest zero-filled.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(s), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+#endif
+
+// x as 3 TF32 parts, largest first, summing to x exactly: the first x
+// rounded to 8 significant bits (to nearest, ties away from zero, so that
+// the remainder's sign varies with x), the second the remainder cut to 8
+// bits, the third what is left (8 bits at most). Every remainder is exact
+// in fp32. Finite x.
+__device__ __forceinline__ void split_parts(float x,
+                                            unsigned (&part)[kParts]) {
+  // Half of the 16 dropped bits, and the 8 kept.
+  constexpr unsigned kHalf = 1u << 15, kCut = ~0xffffu;
+  part[0] = (__float_as_uint(x) + kHalf) & kCut;
+  x = x - __uint_as_float(part[0]);
+  part[1] = __float_as_uint(x) & kCut;
+  part[2] = __float_as_uint(x - __uint_as_float(part[1]));
+}
+
+// Copy rows r0 .. r0 + R - 1, columns c0 .. c0 + C - 1 of the rows x cols
+// matrix m (row stride ld, a multiple of 4) into the tile t (row stride
+// S), 4 floats a copy, zero-filling what lies outside the matrix.
+template <int R, int C, int S>
+__device__ __forceinline__ void stage_tile(float* t, const float* m, int ld,
+                                           int rows, int cols, int r0,
+                                           int c0) {
+  constexpr int kChunks = R * C / 4;
+  static_assert(kChunks % kMxuThreads == 0, "whole copies a thread");
+#pragma unroll
+  for (int q = 0; q < kChunks / kMxuThreads; ++q) {
+    const int j = threadIdx.x + q * kMxuThreads;
+    const int r = j / (C / 4), c = 4 * (j % (C / 4));
+    const int gr = r0 + r, gc = c0 + c;
+    const int n = gr < rows && gc < cols ? (cols - gc < 4 ? cols - gc : 4)
+                                         : 0;
+    cp_async16(t + r * S + c, n ? m + (size_t)gr * ld + gc : m, 4 * n);
   }
 }
 
-// Grid (ceil(W/64), ceil(H/64), nprog), block (16, 16).
+// Slab `slab` of A (M x K) and B (K x N) for the block's tile at (row0,
+// col0) into stage st: the constant c (row stride ldc) into tile 0, the
+// state s (row stride lds) into tile 1. kConstA: A is the constant and B
+// the state; else A is the state and B the constant.
+template <bool kConstA>
+__device__ __forceinline__ void load_slab(float* st, const float* s, int lds,
+                                          const float* c, int ldc, int M,
+                                          int N, int K, int row0, int col0,
+                                          int slab) {
+  const int k0 = slab * kMxuK;
+  if (kConstA) {
+    stage_tile<kMxuT, kMxuK, kSA>(st, c, ldc, M, K, row0, k0);
+    stage_tile<kMxuK, kMxuT, kSB>(st + kTile, s, lds, K, N, k0, col0);
+  } else {
+    stage_tile<kMxuK, kMxuT, kSB>(st, c, ldc, K, N, k0, col0);
+    stage_tile<kMxuT, kMxuK, kSA>(st + kTile, s, lds, M, K, row0, k0);
+  }
+}
+
+// The staged slab's part of the warp's 32x32 product (rows 32 wm, columns
+// 32 wn of the tile), 8 deep at a time: the main pass (0, 0) into main,
+// the others into corr. Tile 0 of the stage holds the constant.
+template <bool kConstA>
+__device__ __forceinline__ void mma_slab(const float* st, int wm, int wn,
+                                         int lane, float (&main)[2][4][4],
+                                         float (&corr)[2][4][4]) {
+  const float* sa = st + (kConstA ? 0 : kTile);
+  const float* sb = st + (kConstA ? kTile : 0);
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int k8 = 0; k8 < kMxuK; k8 += 8) {
+    unsigned a[kParts][2][4], b[kParts][4][2], part[kParts];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      // a0..a3 at (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4).
+      const int r0 = 32 * wm + 16 * i + g, r1 = r0 + 8;
+      const int at[4] = {r0 * kSA + k8 + t, r1 * kSA + k8 + t,
+                         r0 * kSA + k8 + t + 4, r1 * kSA + k8 + t + 4};
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        split_parts(sa[at[r]], part);
+#pragma unroll
+        for (int q = 0; q < kParts; ++q) a[q][i][r] = part[q];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      // b0, b1 at (t, g), (t + 4, g).
+      const int c = 32 * wn + 8 * j + g;
+      const int at[2] = {(k8 + t) * kSB + c, (k8 + t + 4) * kSB + c};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        split_parts(sb[at[r]], part);
+#pragma unroll
+        for (int q = 0; q < kParts; ++q) b[q][j][r] = part[q];
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kPasses; ++n) {
+      const int ap = pass_part(n, !kConstA), bp = pass_part(n, kConstA);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_tf32(n < kPasses - 1 ? corr[i][j] : main[i][j], a[ap][i],
+                   b[bp][j]);
+    }
+  }
+}
+
+// acc = A @ B (A is M x K, B is K x N) for the block's 64x64 tile at
+// (row0, col0), as main + corr: the state s (row stride lds) is B when
+// kConstA and A otherwise, the constant c (row stride ldc) the other.
+// The ring: slab n lands in stage n % kStages; at slab n every thread
+// waits for its own copies of it, and the barrier after that both
+// publishes the slab and shows that every warp is done with slab n - 1,
+// whose stage the copies of slab n + kStages - 1 then take.
+template <bool kConstA>
+__device__ void product_tile(const float* s, int lds, const float* c,
+                             int ldc, int M, int N, int K, int row0, int col0,
+                             float* smem, float (&acc)[2][4][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nslab = (K + kMxuK - 1) / kMxuK;
+  float main[2][4][4] = {}, corr[2][4][4] = {};
+  for (int n = 0; n < kStages - 1; ++n) {
+    if (n < nslab)
+      load_slab<kConstA>(smem + n * kStage, s, lds, c, ldc, M, N, K, row0,
+                         col0, n);
+    cp_async_commit();
+  }
+  for (int n = 0; n < nslab; ++n) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int next = n + kStages - 1;
+    if (next < nslab)
+      load_slab<kConstA>(smem + (next % kStages) * kStage, s, lds, c, ldc,
+                         M, N, K, row0, col0, next);
+    cp_async_commit();
+    mma_slab<kConstA>(smem + (n % kStages) * kStage, warp >> 1, warp & 1,
+                      lane, main, corr);
+  }
+  __syncthreads();   // every warp is done with the stages
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = main[i][j][r] + corr[i][j][r];
+}
+
+// The warp's 32x32 fragments of the tile into `tile` (rows of kSB
+// floats), added to what it holds with kAdd: fragment (i, j) holds c0, c1
+// at (g, 2t), (g, 2t + 1) and c2, c3 at (g + 8, 2t), (g + 8, 2t + 1).
+template <bool kAdd>
+__device__ __forceinline__ void put_fragments(float* tile,
+                                              const float (&acc)[2][4][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 32 * (warp >> 1) + 16 * i + g + 8 * h;
+        const int c = 32 * (warp & 1) + 8 * j + 2 * t;
+        float2* at = reinterpret_cast<float2*>(tile + r * kSB + c);
+        float2 v = make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        if (kAdd) {
+          const float2 w = *at;
+          v = make_float2(w.x + v.x, w.y + v.y);
+        }
+        *at = v;
+      }
+}
+
+// i + d wrapped into [0, n), for |d| <= n.
+__device__ __forceinline__ int wrap_near(int i, int n) {
+  return i < 0 ? i + n : i >= n ? i - n : i;
+}
+
+// Grid (ceil(W/64), ceil(H/64), nprog), block 128. The states (p0, p1,
+// out) and D have rows of round4(W) floats, E of round4(H).
 template <bool XY>
 __global__ void __launch_bounds__(kMxuThreads)
     probe_mxu(const float* p0, const float* p1, float* out,
@@ -166,33 +411,70 @@ __global__ void __launch_bounds__(kMxuThreads)
               const float* __restrict__ t2, const float* __restrict__ d,
               const float* __restrict__ e, int H, int W) {
   extern __shared__ float smem[];
-  float* sa = smem;
-  float* sb = smem + kMxuK * kMxuSA;
+  const int ld = round4(W);
   const int row0 = blockIdx.y * kMxuT, col0 = blockIdx.x * kMxuT;
-  const size_t f = (size_t)blockIdx.z * H * W;
+  const size_t f = (size_t)blockIdx.z * H * ld;
   const float* s = p1 + f;
-  float ey[4][4] = {};   // E @ p (XY), then the y stencil
-  float dx[4][4] = {};   // p @ D
-  if (XY) product_tile(e, H, H, s, W, W, H, row0, col0, sa, sb, ey);
-  product_tile(s, W, H, d, W, W, W, row0, col0, sa, sb, dx);
-  for (int r = 0; r < 4; ++r) {
-    const int y = row0 + threadIdx.y + 16 * r;
-    if (y >= H) break;
-    for (int c = 0; c < 4; ++c) {
-      const int x = col0 + threadIdx.x + 16 * c;
-      if (x >= W) break;
+  // The tile's products in shared memory past the stages, rows of kSB
+  // floats: with XY E @ p first, then (E @ p) + (p @ D) over it; each
+  // thread reads back only what it wrote.
+  float* lap_tile = smem + kStages * kStage;
+  float acc[2][4][4];
+  if (XY) {
+    product_tile<true>(s, ld, e, round4(H), H, W, H, row0, col0, smem, acc);
+    put_fragments<false>(lap_tile, acc);
+  }
+  product_tile<false>(s, ld, d, ld, H, W, W, row0, col0, smem, acc);
+  put_fragments<XY>(lap_tile, acc);
+  __syncthreads();
+  // The update, 2 rows of 64 cells at a time, 4 rows a thread in flight:
+  // every read of a row first, then the writes (out may be p0).
+  const int x = col0 + (threadIdx.x & 63);
+  if (x >= W) return;
+  constexpr int kRows = 4;
+#pragma unroll 1
+  for (int r0 = threadIdx.x >> 6; r0 < kMxuT; r0 += 2 * kRows) {
+    float lap[kRows], c1[kRows], c0[kRows], a[kRows], u[kRows], v[kRows];
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      const int r = r0 + 2 * k, y = row0 + r;
+      if (y >= H) break;
+      lap[k] = lap_tile[r * kSB + (threadIdx.x & 63)];
       if (!XY) {
         const float* col = s + x;
-        ey[r][c] = kC2 * (col[(size_t)wrap(y - 1, H) * W] +
-                          col[(size_t)wrap(y + 1, H) * W]) +
-                   kC3 * (col[(size_t)wrap(y - 2, H) * W] +
-                          col[(size_t)wrap(y + 2, H) * W]);
+        lap[k] = (kC2 * (col[(size_t)wrap_near(y - 1, H) * ld] +
+                         col[(size_t)wrap_near(y + 1, H) * ld]) +
+                  kC3 * (col[(size_t)wrap_near(y - 2, H) * ld] +
+                         col[(size_t)wrap_near(y + 2, H) * ld])) +
+                 lap[k];
       }
       const int cell = y * W + x;
-      out[f + cell] = update(t1[cell], s[cell], t2[cell], p0[f + cell],
-                             alpha[cell], ey[r][c] + dx[r][c]);
+      const size_t at = (size_t)y * ld + x;
+      c1[k] = s[at];
+      c0[k] = p0[f + at];
+      a[k] = alpha[cell];
+      u[k] = t1[cell];
+      v[k] = t2[cell];
+    }
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      const int y = row0 + r0 + 2 * k;
+      if (y >= H) break;
+      out[f + (size_t)y * ld + x] = update(u[k], c1[k], v[k], c0[k], a[k],
+                                           lap[k]);
     }
   }
+}
+
+// Dynamic shared memory above 48 KB for both product kernels.
+cudaError_t mxu_attributes() {
+  cudaError_t err = cudaFuncSetAttribute(
+      probe_mxu<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kMxuSmem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(probe_mxu<true>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)kMxuSmem);
 }
 
 // ---------------------------------------------------------------------------
@@ -272,29 +554,35 @@ extern "C" int rdt_probe_roll(const float* p0, const float* p1, float* x,
 }
 
 // nt steps of probe_mxu<xy != 0> on PyTorch's stream, one launch a step,
-// with d = band_circulant(W) and e = band_circulant(H) (read only with xy);
-// the states and x, y as for rdt_probe_roll. Returns the first launch
-// error, 0 if none.
+// with d = band_circulant(W) (rows of round4(W) floats) and e =
+// band_circulant(H) (rows of round4(H); read only with xy). The states p0,
+// p1 and x, y as for rdt_probe_roll, but with rows of round4(W) floats.
+// Every pointer but those to the planes must be 16-byte aligned. Returns
+// the first launch error, 0 if none.
 extern "C" int rdt_probe_mxu(int xy, const float* p0, const float* p1,
                              float* x, float* y, const float* alpha,
                              const float* t1, const float* t2, const float* d,
                              const float* e, int nprog, int H, int W, int nt,
                              void* stream) {
   if (!probe_fits(nprog, H, W, nt)) return (int)cudaErrorInvalidValue;
+  for (const void* q : {(const void*)p0, (const void*)p1, (const void*)x,
+                        (const void*)y, (const void*)d, (const void*)e})
+    if (reinterpret_cast<size_t>(q) % 16) return (int)cudaErrorInvalidValue;
+  cudaError_t err = mxu_attributes();
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((W + kMxuT - 1) / kMxuT, (H + kMxuT - 1) / kMxuT, nprog);
-  const dim3 block(16, 16);
   const float* a0 = p0;
   const float* a1 = p1;
   for (int n = 0; n < nt; ++n) {
     float* o = n % 2 ? y : x;
     if (xy)
-      probe_mxu<true><<<grid, block, kMxuSmem, st>>>(a0, a1, o, alpha, t1,
-                                                     t2, d, e, H, W);
+      probe_mxu<true><<<grid, kMxuThreads, kMxuSmem, st>>>(
+          a0, a1, o, alpha, t1, t2, d, e, H, W);
     else
-      probe_mxu<false><<<grid, block, kMxuSmem, st>>>(a0, a1, o, alpha, t1,
-                                                      t2, d, e, H, W);
-    const cudaError_t err = cudaGetLastError();
+      probe_mxu<false><<<grid, kMxuThreads, kMxuSmem, st>>>(
+          a0, a1, o, alpha, t1, t2, d, e, H, W);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     a0 = a1;
     a1 = o;
@@ -322,4 +610,34 @@ extern "C" int rdt_probe_halo(float* s0, float* s1, const float* alpha,
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+// Registers per thread, local (spill) bytes per thread and resident blocks
+// per SM of probe kernel `which` (0 probe_roll, 1 probe_mxu<false>, 2
+// probe_mxu<true>, 3 probe_halo) at its launch configuration. Returns the
+// first CUDA error, 0 if none.
+extern "C" int rdt_probe_info(int which, int* regs, int* local_bytes,
+                              int* blocks_per_sm) {
+  const void* fn;
+  int threads;
+  size_t smem = 0;
+  switch (which) {
+    case 0: fn = (const void*)probe_roll; threads = kRollT * kRollRows;
+            smem = kRollSmem; break;
+    case 1: fn = (const void*)probe_mxu<false>; threads = kMxuThreads;
+            smem = kMxuSmem; break;
+    case 2: fn = (const void*)probe_mxu<true>; threads = kMxuThreads;
+            smem = kMxuSmem; break;
+    case 3: fn = (const void*)probe_halo; threads = kHaloX * kHaloY; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = mxu_attributes();
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, fn, threads, smem);
 }

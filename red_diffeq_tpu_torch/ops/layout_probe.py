@@ -9,7 +9,10 @@ are ported to hand-written CUDA kernels in ``csrc/layout_probe.cu``:
   stencil as neighbour reads, the x stencil as the dense product ``p @ D``
   with the banded circulant ``D = band_circulant(Wp)``;
 * ``_mxu_xy_kernel`` (``:129``, at ``:234``) becomes ``probe_mxu_xy``:
-  ``E @ p + p @ D`` with ``E = band_circulant(Hp)``, no neighbour reads;
+  ``E @ p + p @ D`` with ``E = band_circulant(Hp)``, no neighbour reads.
+  Both products run on the tensor cores (``mma.sync`` TF32), each
+  operand split in the kernel into three TF32 parts, exactly
+  (:func:`split_parts`);
 * ``_halo_kernel`` (``:158``, at ``:240``) becomes ``probe_halo``: the state
   kept as (Hp, Wp + 4) with the wrap copied into 2 halo columns a side
   after every step, so x neighbours are plain offsets.
@@ -28,7 +31,8 @@ Beside the kernels are their plain PyTorch versions (``roll_plain``,
 ``mxu_x_plain``, ``mxu_xy_plain``, ``halo_plain``), each in its JAX
 kernel's fp32 grouping; the products are ``torch.matmul`` (full fp32, as
 ``Precision.HIGHEST``: leave ``torch.backends.cuda.matmul.allow_tf32``
-False). The wrapper :func:`run_variant` takes the plain version only for
+False), which the kernels' split-TF32 sums match to about 2^-24 a
+term. The wrapper :func:`run_variant` takes the plain version only for
 tensors on the CPU; on a CUDA tensor it launches the kernel or raises.
 """
 import ctypes
@@ -96,13 +100,46 @@ def _lap_y(p):
 _CIRCULANTS = {}
 
 
-def circulant(n, device):
+def circulant(n, device, rows=False):
     """:func:`band_circulant` (n, n) as a tensor on ``device``, made once a
-    size and device (no host copy inside a captured CUDA graph)."""
-    key = (n, str(device))
+    size and device (no host copy inside a captured CUDA graph); with
+    ``rows`` as the product kernels read it, (n, round4(n)) with zero
+    columns past n."""
+    key = (n, str(device), rows)
     if key not in _CIRCULANTS:
-        _CIRCULANTS[key] = torch.from_numpy(band_circulant(n)).to(device)
+        d = np.zeros((n, round4(n) if rows else n), np.float32)
+        d[:, :n] = band_circulant(n)
+        _CIRCULANTS[key] = torch.from_numpy(d).to(device)
     return _CIRCULANTS[key]
+
+
+def split_parts(x: torch.Tensor):
+    """The finite float32 tensor ``x`` as a sum of three TF32 values,
+    largest first, as the product kernels split their operands: the first
+    ``x`` rounded to 8 significant bits (to nearest, ties away from zero,
+    on the magnitude's 16 dropped bits), the second what it leaves out
+    (exact in fp32) cut to 8 bits, the third the rest. They sum to ``x``
+    exactly."""
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    hi = ((bits(x) + 0x8000) & ~0xffff).view(torch.float32)
+    rest = x - hi
+    mid = (bits(rest) & ~0xffff).view(torch.float32)
+    return hi, mid, rest - mid
+
+
+def round4(n: int) -> int:
+    """Row length, in floats, of a matrix the product kernels read: ``n``
+    rounded up to 16 bytes."""
+    return (n + 3) // 4 * 4
+
+
+# The part products the product kernels add each 8-deep step of the depth
+# (``csrc/layout_probe.cu``), i of the state's :func:`split_parts` and j of
+# the constant's: every pair with i + j <= 2, smallest first, the main one
+# (0, 0) last and into a sum of its own.
+PART_PRODUCTS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
 
 
 def _steps(p0, p1, alpha, t1, t2, nt, lap):
@@ -180,8 +217,34 @@ def _load():
         lib.rdt_probe_halo.restype = i
         lib.rdt_probe_mxu.argtypes = [i] + [p] * 9 + [i] * 4 + [p]
         lib.rdt_probe_mxu.restype = i
+        ip = ctypes.POINTER(i)
+        lib.rdt_probe_info.argtypes = [i] + [ip] * 3
+        lib.rdt_probe_info.restype = i
         _lib = lib
     return _lib
+
+
+def kernel_info(variant):
+    """Registers per thread, local (spill) bytes per thread and resident
+    blocks per SM of ``probe_<variant>`` on the current card, at its launch
+    configuration (CUDA's function attributes and occupancy
+    calculator)."""
+    vals = [ctypes.c_int() for _ in range(3)]
+    err = _load().rdt_probe_info(VARIANTS.index(variant),
+                                 *map(ctypes.byref, vals))
+    if err != 0:
+        raise RuntimeError(f'kernel_info({variant!r}) failed: CUDA error '
+                           f'{err}')
+    return dict(zip(('regs', 'local_bytes', 'blocks_per_sm'),
+                    (v.value for v in vals)))
+
+
+def _rows_of(p, ld):
+    """(..., Wp) -> (..., ld): ``p`` with its rows padded to ``ld`` floats
+    (zeros past Wp)."""
+    out = p.new_zeros(*p.shape[:-1], ld)
+    out[..., :p.shape[-1]] = p
+    return out
 
 
 def run_variant(variant, p0, p1, alpha, t1, t2, *, nt):
@@ -228,16 +291,20 @@ def _run_variant_kernel(variant, p0, p1, alpha, t1, t2, *, nt):
     else:
         # Step n writes x when n is even and y when it is odd, from step 2
         # on over the older of the two states it reads.
-        x, y = torch.empty_like(p0), torch.empty_like(p0)
         if variant == 'roll':
+            x, y = torch.empty_like(p0), torch.empty_like(p0)
             err = lib.rdt_probe_roll(ptr(p0), ptr(p1), ptr(x), ptr(y),
                                      ptr(alpha), ptr(t1), ptr(t2), nprog, hp,
                                      wp, nt, st)
         else:
+            # The products read whole 16-byte rows: states with rows of
+            # round4(Wp) floats.
             xy = variant == 'mxu_xy'
-            d = circulant(wp, dev)
-            e = circulant(hp, dev) if xy else d
-            err = lib.rdt_probe_mxu(int(xy), ptr(p0), ptr(p1), ptr(x),
+            d = circulant(wp, dev, rows=True)
+            e = circulant(hp, dev, rows=True) if xy else d
+            s0, s1 = _rows_of(p0, round4(wp)), _rows_of(p1, round4(wp))
+            x, y = torch.empty_like(s0), torch.empty_like(s0)
+            err = lib.rdt_probe_mxu(int(xy), ptr(s0), ptr(s1), ptr(x),
                                     ptr(y), ptr(alpha), ptr(t1), ptr(t2),
                                     ptr(d), ptr(e), nprog, hp, wp, nt, st)
         out = x if nt % 2 else y
@@ -245,4 +312,6 @@ def _run_variant_kernel(variant, p0, p1, alpha, t1, t2, *, nt):
         raise RuntimeError(f'{KERNELS[variant]} launch failed: CUDA error '
                            f'{err}')
     launches[KERNELS[variant]] += nt
-    return out[..., 2:wp + 2].contiguous() if variant == 'halo' else out
+    if variant == 'halo':
+        return out[..., 2:wp + 2].contiguous()
+    return out if variant == 'roll' else out[..., :wp].contiguous()

@@ -1,6 +1,7 @@
 // Host stand-in for the subset of CUDA that red_diffeq_tpu_torch/ops/csrc/
-// stencil.cu uses, so that g++ can build the source for the CPU tests
-// (tests/test_torch_kernel_emulation.py). Every thread runs as a fiber
+// stencil.cu and layout_probe.cu use, so that g++ can build them for the
+// CPU tests (tests/test_torch_kernel_emulation.py,
+// tests/test_torch_layout_probe.py). Every thread runs as a fiber
 // (ucontext) on one host thread. The blocks of one thread-block cluster
 // run together as one group of fibers, each block with its own shared
 // memory, filled with NaN at the launch so that a read of a cell nothing
@@ -14,16 +15,30 @@
 // block as a cluster of one. Clusters run one after another. The test
 // rewrites `extern __shared__`, the cooperative_groups include and the
 // `<<<...>>>` launches to the functions below before compiling.
+//
+// The warp-level pieces of layout_probe.cu's tensor-core products, which
+// that source reaches behind `#ifdef CUDA_HOST_EMULATION` (defined here):
+// __syncwarp() releases the live threads of its warp (32 consecutive
+// threads of the block); mma_m16n8k8_tf32 is mma.sync.aligned.m16n8k8
+// .row.col.f32.tf32.tf32.f32 on the PTX ISA's register fragments, each
+// lane handing in its own and the warp exchanging them at warp barriers;
+// cp_async queues a copy that the thread's cp_async_wait carries out, so a
+// read of a stage before its wait (and the __syncthreads after it) sees
+// NaN or old data.
 #pragma once
+#include <algorithm>
 #include <cmath>
 #include <cstddef>
 #include <cstdio>
 #include <cstdlib>
 #include <cstdint>
+#include <cstring>
 #include <functional>
 #include <sys/mman.h>
 #include <ucontext.h>
 #include <vector>
+
+#define CUDA_HOST_EMULATION 1
 
 #define __global__
 #define __host__
@@ -38,6 +53,7 @@ struct dim3 {
 };
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(8) float2 { float x, y; };
+inline float2 make_float2(float x, float y) { return float2{x, y}; }
 
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -82,21 +98,49 @@ cudaError_t cudaOccupancyMaxActiveClusters(int* n, F, const cudaLaunchConfig_t*)
   return cudaSuccess;
 }
 
+inline unsigned __float_as_uint(float x) {
+  unsigned u;
+  std::memcpy(&u, &x, sizeof u);
+  return u;
+}
+inline float __uint_as_float(unsigned u) {
+  float x;
+  std::memcpy(&x, &u, sizeof x);
+  return x;
+}
+
 namespace host {
+constexpr int kWarp = 32;
+struct Warp {
+  int arrived = 0, live = 0;   // at its barrier; threads not yet returned
+  unsigned gen = 0;            // barrier releases so far
+  unsigned a[kWarp][4], b[kWarp][2];   // the lanes' mma fragments
+};
 struct Block {
   dim3 idx;
   std::vector<float> shared;   // the block's dynamic shared memory
   int arrived = 0, live = 0;   // at its barrier; threads not yet returned
   unsigned gen = 0;            // barrier releases so far
+  std::vector<Warp> warps;
+};
+struct Copy {                  // one cp.async, carried out at its wait
+  void* dst;
+  const void* src;
+  int bytes, src_bytes;
 };
 struct Fiber {
   ucontext_t ctx;
   dim3 tid;
   int block = 0;               // its block's rank in the cluster
-  int wait = 0;                // 0 running, 1 block barrier, 2 cluster's
+  int warp = 0, lane = 0;      // in its block
+  int wait = 0;                // 0 running, 1 block barrier, 2 cluster's,
+                               // 3 warp's
   unsigned bgen = 0, cgen = 0;  // releases of the block's and cluster's
                                 // barriers when it last arrived at each
+  unsigned wgen = 0;            // and of its warp's
   bool done = false;
+  std::vector<Copy> open;                // cp.async since the last commit
+  std::vector<std::vector<Copy>> groups;  // committed, not yet waited for
 };
 constexpr size_t kStack = 1 << 16;
 inline dim3 block_idx, thread_idx;
@@ -121,19 +165,30 @@ inline void enter() {
   Fiber& f = fibers[current];
   f.done = true;
   Block& b = blocks[f.block];
-  // A returned thread no longer holds back its block's or cluster's barrier.
+  // A returned thread no longer holds back its block's, warp's or
+  // cluster's barrier.
   if (--b.live > 0 && b.arrived == b.live) { b.arrived = 0; ++b.gen; }
+  Warp& w = b.warps[f.warp];
+  if (--w.live > 0 && w.arrived == w.live) { w.arrived = 0; ++w.gen; }
   if (--cl_live > 0 && cl_arrived == cl_live) { cl_arrived = 0; ++cl_gen; }
   swapcontext(&f.ctx, &scheduler);
 }
 
 inline float* shared_mem() { return blocks[fibers[current].block].shared.data(); }
 
-// Yield to the scheduler until the barrier this fiber waits at (wait 1:
-// its block's, 2: the cluster's) has been released since it arrived.
+// Whether the barrier fiber f waits at (f.wait 1: its block's, 2: the
+// cluster's, 3: its warp's) has been released since it arrived.
+inline bool released(const Fiber& f, int wait) {
+  if (wait == 1) return blocks[f.block].gen != f.bgen;
+  if (wait == 2) return cl_gen != f.cgen;
+  return blocks[f.block].warps[f.warp].gen != f.wgen;
+}
+
+// Yield to the scheduler until the barrier this fiber waits at has been
+// released since it arrived.
 inline void block_until_released(int wait) {
   Fiber& f = fibers[current];
-  if (wait == 1 ? blocks[f.block].gen != f.bgen : cl_gen != f.cgen) return;
+  if (released(f, wait)) return;
   f.wait = wait;
   swapcontext(&f.ctx, &scheduler);
   resume_state();
@@ -162,6 +217,76 @@ inline void cluster_arrive() {
 
 inline void cluster_wait() { block_until_released(2); }
 
+// __syncwarp(): arrive at the warp's barrier, return once released.
+inline void warp_barrier() {
+  Fiber& f = fibers[current];
+  Warp& w = blocks[f.block].warps[f.warp];
+  f.wgen = w.gen;
+  if (++w.arrived == w.live) { w.arrived = 0; ++w.gen; }
+  block_until_released(3);
+}
+
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 d, a, b, c with d
+// written over c, for the calling lane. The PTX ISA's fragments, with
+// g = lane >> 2 and t = lane % 4: a0..a3 hold A at (g, t), (g + 8, t),
+// (g, t + 4), (g + 8, t + 4); b0, b1 hold B at (t, g), (t + 4, g); c0..c3
+// hold C and D at (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1). The
+// tensor cores read a TF32 operand's top 19 bits. Each element of D is its
+// C plus the 8 products A[m][k] * B[k][n] added k = 0 .. 7 in order, one
+// fp32 rounding an add (a product of two TF32 values is exact in fp32);
+// the card's own order and rounding of that sum differ.
+inline void mma_m16n8k8_tf32(float (&c)[4], const unsigned (&a)[4],
+                             const unsigned (&b)[2]) {
+  const int lane = fibers[current].lane;
+  Warp& w = blocks[fibers[current].block].warps[fibers[current].warp];
+  for (int i = 0; i < 4; ++i) w.a[lane][i] = a[i];
+  for (int i = 0; i < 2; ++i) w.b[lane][i] = b[i];
+  warp_barrier();
+  const int g = lane >> 2, t = lane & 3;
+  float d[4];
+  for (int i = 0; i < 4; ++i) {
+    const int m = g + 8 * (i >> 1), n = 2 * t + (i & 1);
+    float acc = c[i];
+    for (int k = 0; k < 8; ++k) {
+      const float x = __uint_as_float(
+          w.a[(m % 8) * 4 + k % 4][m / 8 + 2 * (k / 4)] & ~0x1fffu);
+      const float y = __uint_as_float(w.b[n * 4 + k % 4][k / 4] & ~0x1fffu);
+      acc = acc + x * y;
+    }
+    d[i] = acc;
+  }
+  warp_barrier();   // every lane has read the fragments before any rewrites
+  for (int i = 0; i < 4; ++i) c[i] = d[i];
+}
+
+// cp.async of `bytes` bytes from src to dst (shared memory): `src_bytes`
+// of them read, the rest zero-filled, when the thread's cp_async_wait
+// retires its group.
+inline void cp_async(void* dst, const void* src, int bytes, int src_bytes) {
+  fibers[current].open.push_back(Copy{dst, src, bytes, src_bytes});
+}
+
+// cp.async.commit_group: the copies since the last commit become a group.
+inline void cp_async_commit() {
+  Fiber& f = fibers[current];
+  f.groups.push_back(std::move(f.open));
+  f.open.clear();
+}
+
+// cp.async.wait_group n: every group but the newest n is done.
+inline void cp_async_wait(int n) {
+  Fiber& f = fibers[current];
+  const int done = (int)f.groups.size() - n;
+  if (done <= 0) return;
+  for (int i = 0; i < done; ++i)
+    for (const Copy& c : f.groups[i]) {
+      std::memcpy(c.dst, c.src, c.src_bytes);
+      std::memset(static_cast<char*>(c.dst) + c.src_bytes, 0,
+                  c.bytes - c.src_bytes);
+    }
+  f.groups.erase(f.groups.begin(), f.groups.begin() + done);
+}
+
 // Run every thread of the cluster's blocks (block_ids, in rank order)
 // until all have returned: round after round, the lowest-ranked block with
 // a thread free to run runs each such thread up to its next barrier (or
@@ -178,6 +303,9 @@ inline void run_cluster(const std::vector<dim3>& block_ids, dim3 block,
     blocks[i].idx = block_ids[i];
     blocks[i].shared.assign(smem / sizeof(float) + 4, NAN);
     blocks[i].live = per;
+    blocks[i].warps.assign((per + kWarp - 1) / kWarp, Warp());
+    for (int w = 0; w < (int)blocks[i].warps.size(); ++w)
+      blocks[i].warps[w].live = std::min(kWarp, per - w * kWarp);
   }
   cl_arrived = 0;
   cl_live = n;
@@ -192,6 +320,8 @@ inline void run_cluster(const std::vector<dim3>& block_ids, dim3 block,
   for (int t = 0; t < n; ++t) {
     const int i = t % per;
     fibers[t].block = t / per;
+    fibers[t].warp = i / kWarp;
+    fibers[t].lane = i % kWarp;
     fibers[t].tid = dim3(i % block.x, (i / block.x) % block.y,
                          i / (block.x * block.y));
     getcontext(&fibers[t].ctx);
@@ -206,8 +336,7 @@ inline void run_cluster(const std::vector<dim3>& block_ids, dim3 block,
       if (moved && t % per == 0) break;    // one block a round
       Fiber& f = fibers[t];
       if (f.done) continue;
-      if (f.wait == 1 && blocks[f.block].gen == f.bgen) continue;
-      if (f.wait == 2 && cl_gen == f.cgen) continue;
+      if (f.wait && !released(f, f.wait)) continue;
       f.wait = 0;
       current = t;
       swapcontext(&scheduler, &f.ctx);
@@ -269,6 +398,7 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* c, void (*k)(P...),
 #define blockIdx host::block_idx
 #define threadIdx host::thread_idx
 inline void __syncthreads() { host::block_barrier(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { host::warp_barrier(); }
 
 // The cluster calls of cooperative_groups that stencil.cu makes.
 namespace cooperative_groups {

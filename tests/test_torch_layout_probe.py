@@ -11,9 +11,17 @@ g++ against ``tests/cuda_host/cuda_host.h`` (each CUDA thread a fiber,
 each block's shared memory its own, NaN-filled) and its launchers are held
 to the plain versions: ``roll`` and ``halo`` bit for bit (both sides round
 every fp32 operation alone, in the JAX kernels' grouping), the two
-products bit for bit against the plain step with its product summed over k
-in order, as the kernel sums it, and within max-rel 1e-5 of the plain
-version's ``torch.matmul``.
+products bit for bit against a plain split-TF32 product in the kernels'
+order (the state and the constant each in three TF32 parts; each 8-deep
+step adds six products of parts, each pass's 8 terms in order, as
+``cuda_host.h`` emulates ``mma.sync``, the main one into a sum of its
+own), and within max-rel 1e-5 of the plain version's ``torch.matmul``.
+The emulation's own pieces are held to plain arithmetic: the port's
+split against bit arithmetic in numpy, the emulated m16n8k8 fragment
+product
+(``cuda_host/mma_fragment.cu``) against an exact product of small
+integers; a fragment row swapped, in that source or in the probe's, must
+fail.
 """
 import ctypes
 import importlib.util
@@ -48,6 +56,11 @@ def jax_tool():
 @pytest.fixture(scope='module')
 def torch_tool():
     return _load_tool('torch_layout_probe')
+
+
+@pytest.fixture(scope='module')
+def breakdown_tool():
+    return _load_tool('torch_probe_breakdown')
 
 
 def _max_rel(got, want):
@@ -110,6 +123,29 @@ def test_tool_timing_lines_on_cpu(torch_tool):
         assert 'graph_ms_per_call' not in r and 'launches_per_call' not in r
 
 
+def test_breakdown_variants_apply_to_the_source(breakdown_tool):
+    """Every cut and design of tools/torch_probe_breakdown.py finds what it
+    replaces in csrc/layout_probe.cu, and changes it; a failure names each
+    variant whose pattern no longer matches."""
+    src = lp._CSRC.read_text()
+    failed = []
+    for name, subs in breakdown_tool.VARIANTS.items():
+        try:
+            out = breakdown_tool.variant_source(src, subs)
+        except RuntimeError as err:
+            failed.append(f'{name}: {err}')
+            continue
+        if (out == src) != (not subs):
+            failed.append(f'{name}: the source is unchanged')
+    assert not failed, '\n'.join(failed)
+
+
+def test_breakdown_needs_a_card(breakdown_tool, monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    assert breakdown_tool.main([]) == 1
+    assert 'no CUDA device' in capsys.readouterr().err
+
+
 def test_probe_raises_without_a_card(torch_tool, monkeypatch, tmp_path):
     """Nothing falls back to the CPU: the tool raises for its default
     device without a card, the wrapper for a tensor that is neither on the
@@ -150,34 +186,50 @@ def host_probe(host_library, monkeypatch):
     return use_host_probe_library(monkeypatch, stencil, lp, host_library)
 
 
-def _ordered(a, b):
-    """a @ b with the terms added k = 0, 1, ... in order, one rounding a
-    multiply and one an add, as the kernels' products sum them."""
-    acc = None
-    for k in range(a.shape[-1]):
-        term = a[..., :, k:k + 1] * b[..., k:k + 1, :]
-        acc = torch.zeros_like(term) + term if acc is None else acc + term
-    return acc
+def _split_product(a, b, const_a):
+    """a @ b in the product kernels' order: the constant (a if const_a,
+    else b) and the state each split into three TF32 parts
+    (lp.split_parts); each 8-deep step of the depth adds the passes but the
+    last into one sum and the last into another, the terms of each k in
+    order, one fp32 rounding an add (a product of the parts is exact); the
+    result is the second sum plus the first."""
+    c = lp.split_parts(a if const_a else b)
+    st = lp.split_parts(b if const_a else a)
+    depth = a.shape[-1]
+    passes = lp.PART_PRODUCTS
+    main, corr = 0.0, 0.0
+    for k8 in range(0, depth, 8):
+        for n, (sp, cp) in enumerate(passes):
+            x, y = (c[cp], st[sp]) if const_a else (st[sp], c[cp])
+            acc = corr if n < len(passes) - 1 else main
+            for k in range(k8, min(k8 + 8, depth)):
+                acc = acc + x[..., :, k:k + 1] * y[..., k:k + 1, :]
+            if n < len(passes) - 1:
+                corr = acc
+            else:
+                main = acc
+    return main + corr
 
 
-def _ordered_reference(variant, p0, p1, alpha, t1, t2, *, nt):
+def _split_reference(variant, p0, p1, alpha, t1, t2, *, nt):
     d = torch.from_numpy(lp.band_circulant(p1.shape[-1]))
     e = torch.from_numpy(lp.band_circulant(p1.shape[-2]))
     if variant == 'mxu_x':
         def lap(p):
-            return lp._lap_y(p) + _ordered(p, d)
+            return lp._lap_y(p) + _split_product(p, d, False)
     else:
         def lap(p):
-            return _ordered(e, p) + _ordered(p, d)
+            return _split_product(e, p, True) + _split_product(p, d, False)
     return lp._steps(p0, p1, alpha, t1, t2, nt, lap)
 
 
-# (nprog, Hp, Wp, nt): the JAX tool's validation shape; an odd width (46)
-# and rows that fill no tile (37); several tiles of each kernel in both
-# axes with ragged edges (the products' 64x64 tiles and 16-deep stages, the
-# roll kernel's 32x32 tiles); a field smaller than a tile, whose halo wraps
-# over it; one step and two (the halo columns read back the step after
-# they are written).
+# (nprog, Hp, Wp, nt): the JAX tool's validation shape; a width that is no
+# multiple of 4 (46: the products' padded rows) and rows that fill no
+# tile (37); several tiles of each kernel in both axes with ragged edges
+# (the products' 64x64 tiles, 32-deep slabs and 16x8 fragments, the roll
+# kernel's 32x32 tiles); a field smaller than a tile, whose halo wraps
+# over it; odd widths; one step and two (the halo columns read back the
+# step after they are written).
 CASES = [(2, 40, 48, 20), (1, 37, 46, 7), (2, 70, 90, 5), (1, 6, 9, 6),
          (1, 12, 11, 1), (2, 9, 5, 2)]
 
@@ -197,7 +249,7 @@ def test_probe_kernel_matches_plain_version(host_probe, case, variant):
     if variant in ('roll', 'halo'):
         assert torch.equal(got, want)
     else:
-        assert torch.equal(got, _ordered_reference(variant, *prob, nt=nt))
+        assert torch.equal(got, _split_reference(variant, *prob, nt=nt))
         assert _max_rel(got, want) <= GATE
     for t, k in zip(prob, kept):
         assert torch.equal(t, k), 'the caller\'s states were written'
@@ -214,4 +266,173 @@ def test_probe_launchers_refuse_what_they_cannot_run(host_probe):
         assert lib.rdt_probe_halo(*null[:5], nprog, h, w, nt, None) != 0
         assert lib.rdt_probe_mxu(1, *null, None, None, nprog, h, w, nt,
                                  None) != 0
+    # The products copy 16 bytes at a time: a state that does not start on
+    # 16 bytes is refused.
+    buf = torch.zeros(4 * 9 * 12 + 1)
+    odd = ctypes.c_void_p(buf.data_ptr() + 4)
+    even = [ctypes.c_void_p(buf.data_ptr())] * 9
+    assert lib.rdt_probe_mxu(0, odd, *even[1:], 1, 9, 9, 1, None) != 0
     assert host_probe.launches == dict.fromkeys(lp.launches, 0)
+
+
+def test_probe_kernel_info_on_the_host_build(host_probe):
+    """``kernel_info`` reads every probe kernel through ``rdt_probe_info``
+    (the host stand-in reports zeros) and refuses an unknown one."""
+    for v in lp.VARIANTS:
+        assert lp.kernel_info(v) == dict(regs=0, local_bytes=0,
+                                         blocks_per_sm=0)
+    z = ctypes.c_int()
+    assert lp._load().rdt_probe_info(len(lp.VARIANTS),
+                                     *[ctypes.byref(z)] * 3) != 0
+
+
+# ----------------------------------------------------------------------
+# The split and the emulated tensor-core pieces.
+# ----------------------------------------------------------------------
+
+def _bits_np(x):
+    return np.asarray(x, np.float32).view(np.uint32)
+
+
+def _round8_np(x):
+    """x rounded to 8 significant bits in numpy bit arithmetic: the
+    magnitude rounded at bit 16, half away from zero."""
+    u = _bits_np(x)
+    sign, mag = u & np.uint32(0x80000000), u & np.uint32(0x7fffffff)
+    return (sign | ((mag + np.uint32(0x8000)) & np.uint32(0xffff0000))
+            ).view(np.float32)
+
+
+def _split_cases(kind):
+    rng = np.random.RandomState(7)
+    one = np.float32(1.0).view(np.uint32)
+    if kind == 'ties':
+        # Dropped bits exactly half (rounds away), just below and above it.
+        bits = [one | 0x8000, one | 0x18000, one | 0x7fff, one | 0x8001,
+                0x3faaaaab, 0x7f7e8000]
+    elif kind == 'negatives':
+        bits = [0x80000000 | b for b in (one | 0x8000, one | 0x7fff,
+                                          0x3faaaaab, 0x3d2aaaab)]
+        bits += list(rng.randint(0x80800000, 0xfe800000, 64,
+                                 dtype=np.int64))
+    elif kind == 'subnormals':
+        bits = [0x00000001, 0x00007fff, 0x00008000, 0x0000ffff, 0x00010000,
+                0x007f8000, 0x007fffff, 0x80008000, 0x80007fff, 0]
+    else:
+        bits = list(rng.randint(0x00800000, 0x7e800000, 256, dtype=np.int64))
+    return np.asarray(bits, np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize('kind', ['ties', 'negatives', 'subnormals',
+                                  'random'])
+def test_split_parts_match_bit_arithmetic(kind):
+    """The port's split, part by part, against numpy bit arithmetic: the
+    first part x rounded to 8 bits, the second the remainder cut to 8 bits
+    (its low 16 bits cleared), the third what is left."""
+    x = _split_cases(kind)
+    hi, mid, lo = (t.numpy() for t in lp.split_parts(torch.from_numpy(x)))
+    want_hi = _round8_np(x)
+    rest = x - want_hi
+    want_mid = (_bits_np(rest) & np.uint32(0xffff0000)).view(np.float32)
+    np.testing.assert_array_equal(_bits_np(hi), _bits_np(want_hi))
+    np.testing.assert_array_equal(_bits_np(mid), _bits_np(want_mid))
+    np.testing.assert_array_equal(_bits_np(lo), _bits_np(rest - want_mid))
+
+
+@pytest.mark.parametrize('kind', ['ties', 'negatives', 'random'])
+def test_three_parts_are_exact(kind):
+    """For normal x (the last part above the subnormals) the three parts
+    are TF32 values, the first two of 8 significant bits, and sum to x."""
+    x = _split_cases(kind)
+    x = x[np.abs(x) > 2.0 ** -100]
+    parts = [t.numpy() for t in lp.split_parts(torch.from_numpy(x))]
+    assert all(not np.any(_bits_np(q) & 0x1fff) for q in parts)
+    for q in parts[:-1]:
+        assert not np.any(_bits_np(q) & 0xffff)
+    np.testing.assert_array_equal(
+        sum(q.astype(np.float64) for q in parts), x.astype(np.float64))
+
+
+@pytest.mark.parametrize('n', [5, 9, 46, 310])
+def test_kernel_circulant_is_the_padded_circulant(n):
+    d = lp.circulant(n, 'cpu', rows=True)
+    assert d.shape == (n, lp.round4(n))
+    assert lp.circulant(n, 'cpu', rows=True) is d
+    assert not torch.any(d[:, n:])
+    np.testing.assert_array_equal(d[:, :n].numpy(), lp.band_circulant(n))
+
+
+@pytest.fixture(scope='module')
+def fragment_library(tmp_path_factory):
+    gxx = shutil.which('g++')
+    if gxx is None:
+        pytest.skip('g++ is not available to build the kernels for the host')
+    lib = ctypes.CDLL(str(build_host_library(
+        REPO / 'tests' / 'cuda_host' / 'mma_fragment.cu',
+        tmp_path_factory.mktemp('mma_fragment'), gxx)))
+    lib.rdt_fragment_product.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    return lib
+
+
+def _fragment_operands(seed):
+    rng = np.random.RandomState(seed)
+    a = rng.randint(-4, 5, (16, 8)).astype(np.float32)
+    b = rng.randint(-4, 5, (8, 8)).astype(np.float32)
+    c = rng.randint(-50, 51, (16, 8)).astype(np.float32)
+    return a, b, c
+
+
+@pytest.mark.parametrize('seed', [0, 1, 2])
+def test_emulated_fragment_product_is_exact_on_small_integers(
+        fragment_library, seed):
+    """Small integers make every product and sum exact, so the emulated
+    m16n8k8 must give C + A @ B to the bit, whatever its order."""
+    a, b, c = _fragment_operands(seed)
+    want = c.astype(np.int64) + a.astype(np.int64) @ b.astype(np.int64)
+    d = c.copy()
+    assert fragment_library.rdt_fragment_product(
+        a.ctypes.data, b.ctypes.data, d.ctypes.data, 0) == 0
+    np.testing.assert_array_equal(d, want.astype(np.float32))
+
+
+@pytest.mark.parametrize('mutate', [1, 2, 3],
+                         ids=['A rows g, g+8', 'B rows t, t+4',
+                              'C rows g, g+8'])
+def test_swapped_fragment_rows_fail(fragment_library, mutate):
+    a, b, c = _fragment_operands(0)
+    want = c + a @ b
+    d = c.copy()
+    assert fragment_library.rdt_fragment_product(
+        a.ctypes.data, b.ctypes.data, d.ctypes.data, mutate) == 0
+    assert not np.array_equal(d, want)
+
+
+# The probe source's A fragment rows (g and g + 8), and the same swapped.
+FRAGMENT_ROWS = 'const int r0 = 32 * wm + 16 * i + g, r1 = r0 + 8;'
+SWAPPED_ROWS = 'const int r1 = 32 * wm + 16 * i + g, r0 = r1 + 8;'
+
+
+@pytest.fixture(scope='module')
+def swapped_library(tmp_path_factory):
+    gxx = shutil.which('g++')
+    if gxx is None:
+        pytest.skip('g++ is not available to build the kernels for the host')
+    src = lp._CSRC.read_text()
+    assert src.count(FRAGMENT_ROWS) == 1
+    out = tmp_path_factory.mktemp('probe_swapped')
+    cu = out / 'layout_probe.cu'
+    cu.write_text(src.replace(FRAGMENT_ROWS, SWAPPED_ROWS))
+    return build_host_library(cu, out, gxx)
+
+
+@pytest.mark.parametrize('variant', ['mxu_x', 'mxu_xy'])
+def test_probe_with_swapped_fragment_rows_fails(swapped_library, monkeypatch,
+                                                variant):
+    """The probe's products with rows g and g + 8 of their A fragments
+    swapped: the test above that holds them to the 3xTF32 reference, and
+    the gate against ``torch.matmul``, must both fail."""
+    use_host_probe_library(monkeypatch, stencil, lp, swapped_library)
+    prob = [torch.from_numpy(a) for a in lp.make_problem(1, 37, 46, seed=1)]
+    got = lp._run_variant_kernel(variant, *prob, nt=2)
+    assert not torch.equal(got, _split_reference(variant, *prob, nt=2))
+    assert _max_rel(got, lp.plain_variant(variant, *prob, nt=2)) > GATE
