@@ -141,19 +141,29 @@ Phases, each printing its wall time:
    observation loss falls;
 15. the stencil-layout probe (``tools/torch_layout_probe.py``, the port of
    ``tools/kernel_layout_probe.py``) at the JAX tool's default workload
-   (20 fields of 310x310, nt=1000): the four kernels' registers, spills
-   and blocks per SM (the tensor-core products must not spill, and the
-   built library's SASS must hold TF32 ``HMMA`` in both), the tool itself
-   (its check of every variant against ``roll``, its timing lines), then
-   each of its four kernels (``probe_roll``, ``probe_mxu_x``,
-   ``probe_mxu_xy``, ``probe_halo``, built from ``layout_probe.cu``)
-   against its plain version over 20 steps and over all 1000 (``roll`` and
-   ``halo`` bit for bit, the split-TF32 products within max-rel 1e-5 and
-   1e-4 of ``torch.matmul`` in full fp32), against ``roll`` within
-   max-rel 1e-4, exactly one launch a step, and its time a 1000-step call
-   with the host's launches and as a CUDA graph, beside the plain
-   version's and, for the products, beside the library's: the step's
-   ``torch.matmul`` calls times nt, as a CUDA graph.
+   (20 fields of 310x310, nt=1000): the six kernels' registers, spills
+   and blocks per SM (the tensor-core products and the resident kernels
+   must not spill, and the built library's SASS must hold TF32 ``HMMA``
+   in both products; ``probe_roll`` and ``probe_halo`` with their blocks
+   and fields a cluster and the clusters resident at once), the tool
+   itself (its check of every variant against ``roll``, its timing lines,
+   one launch a call for ``probe_roll`` and ``probe_halo``, one a step for
+   the products), then each of its four kernels (``probe_roll``,
+   ``probe_mxu_x``, ``probe_mxu_xy``, ``probe_halo``, built from
+   ``layout_probe.cu``) against its plain version over 20 steps and over
+   all 1000 (``roll`` and ``halo`` bit for bit, the split-TF32 products
+   within max-rel 1e-5 and 1e-4 of ``torch.matmul`` in full fp32), against
+   ``roll`` within max-rel 1e-4, exactly its launches, and its time a
+   1000-step call with the host's launches and as a CUDA graph, beside the
+   plain version's and, for the products, beside the library's: the
+   step's ``torch.matmul`` calls times nt, as a CUDA graph. ``probe_roll``
+   and ``probe_halo`` (one cluster launch a call, each field in shared
+   memory for all its steps) are also timed as 50 calls of 20 steps, and
+   their one-launch-a-step ``probe_roll_global`` and ``probe_halo_global``
+   forced at the same call, bit for bit. Then the tool at 20 fields of
+   420x420, nt=200, past the resident kernels' size limit, where roll and
+   halo take the ``*_global`` kernels: each bit for bit, one launch a
+   step, timed.
 
 With ``--write-wide-dataset DIR`` (``--write-bench-dataset DIR``) the
 script only writes the wide (bench) slice's datasets and configs under DIR
@@ -167,8 +177,10 @@ and under ``wide`` the same at the 310x430 field with the launches of the
 wide slice's CLI run and under ``bench`` the launches of the bench slice's
 DiffusionFWI run and under ``training`` those of the training slice's
 seismogram run; then ``tape_step_global`` with the launches of the
-gradient past the cluster limit, and the four probe kernels with the
-launches of the probe tool's run and their times; the card's line from
+gradient past the cluster limit, the four probe kernels with the
+launches of the probe tool's run and their times, and the probe's two
+``*_global`` kernels with the launches of the tool's run past the
+resident limit; the card's line from
 nvidia-smi, and last ``{"ok": true, "device": ...}``.
 Any failed check raises and the script exits non-zero. Without a CUDA
 device, or without the package beside it, it exits non-zero and prints no
@@ -2090,9 +2102,15 @@ def phase_training(dev, root):
 # plain version (torch.matmul, another order of summation) within
 # PRODUCT_GATE over those steps and PRODUCT_GATE_FULL, the JAX tool's
 # gate, over the whole call (the rounding of another summation order
-# compounds over the steps).
+# compounds over the steps). PROBE_BEYOND is a field past the resident
+# kernels' size limit (rows of 420 floats leave 2 bands of 14 rows a
+# block), which roll and halo take through their *_global kernels;
+# PROBE_CHUNK the main path's chunk of steps, at which the resident
+# kernels are also timed (PROBE['nt'] / PROBE_CHUNK calls a timing).
 PROBE_TOOL = 'tools/torch_layout_probe.py'
 PROBE = dict(programs=20, size=310, nt=1000, reps=3)
+PROBE_BEYOND = dict(programs=20, size=420, nt=200, reps=3)
+PROBE_CHUNK = 20
 PROBE_SOURCE = 'red_diffeq_tpu_torch/ops/csrc/layout_probe.cu'
 PROBE_LINES = {'roll': 89, 'mxu_x': 106, 'mxu_xy': 129, 'halo': 158}
 PROBE_GATE_STEPS = 20
@@ -2101,6 +2119,7 @@ ROLL_GATE, PRODUCT_GATE, PRODUCT_GATE_FULL = 1e-4, 1e-5, 1e-4
 # from which the split-TF32 products' own floor is computed.
 PEAK_TF32_PER_S = 495e12
 PRODUCTS = ('mxu_x', 'mxu_xy')
+RESIDENT = ('roll', 'halo')
 
 
 def probe_bound(nprog, hp, wp, nt):
@@ -2142,32 +2161,42 @@ def hmma_tf32_counts(lib):
 
 
 def probe_kernel_checks():
-    """Registers, spill bytes and resident blocks per SM of the four probe
-    kernels, and the TF32 HMMA instructions of the two products in the
-    built library's SASS: the products must not spill, and each must hold
-    TF32 HMMA (the tensor cores, not the CUDA cores, carry them). Returns
-    the numbers by variant."""
+    """Registers, spill bytes and resident blocks per SM of the six probe
+    kernels, ``probe_roll`` and ``probe_halo`` with their cluster at PROBE
+    (blocks and fields a cluster, clusters resident at once), and the TF32
+    HMMA instructions of the two products in the built library's SASS: the
+    products and the resident kernels must not spill, and each product
+    must hold TF32 HMMA (the tensor cores, not the CUDA cores, carry them).
+    Returns the numbers by kernel name."""
     from red_diffeq_tpu_torch.ops import layout_probe as lp
     from red_diffeq_tpu_torch.ops import stencil
     hmma = hmma_tf32_counts(stencil.build(source=lp._CSRC))
     info = {}
-    for v in lp.VARIANTS:
-        k = lp.kernel_info(v)
-        if v in PRODUCTS:
-            tag = f'probe_mxuILb{int(v == "mxu_xy")}E'
+    shape = (PROBE['programs'], PROBE['size'], PROBE['size'])
+    for name in lp.launches:
+        k = (lp.kernel_info(name, *shape) if name in
+             (lp.KERNELS['roll'], lp.KERNELS['halo']) else
+             lp.kernel_info(name))
+        line = (f'{name}: {k["regs"]} registers, {k["local_bytes"]} local '
+                f'bytes, {k["blocks_per_sm"]} blocks per SM')
+        if name in (lp.KERNELS[v] for v in PRODUCTS):
+            tag = f'probe_mxuILb{int(name == lp.KERNELS["mxu_xy"])}E'
             found = [n for n in hmma if tag in n]
-            check(len(found) == 1, f'{lp.KERNELS[v]}: {len(found)} functions '
-                  f'named *{tag}* in the SASS')
+            check(len(found) == 1, f'{name}: {len(found)} functions named '
+                  f'*{tag}* in the SASS')
             k['hmma_tf32'] = hmma[found[0]]
-            check(k['hmma_tf32'] > 0, f'{lp.KERNELS[v]}: no TF32 HMMA in its '
-                  'SASS')
-            check(k['local_bytes'] == 0, f'{lp.KERNELS[v]} spills to local '
-                  'memory')
-        print(f'{lp.KERNELS[v]}: {k["regs"]} registers, {k["local_bytes"]} '
-              f'local bytes, {k["blocks_per_sm"]} blocks per SM'
-              + (f', {k["hmma_tf32"]} TF32 HMMA in its SASS'
-                 if v in PRODUCTS else ''), flush=True)
-        info[v] = k
+            check(k['hmma_tf32'] > 0, f'{name}: no TF32 HMMA in its SASS')
+            line += f', {k["hmma_tf32"]} TF32 HMMA in its SASS'
+        if 'clusters' in k:
+            line += (f'; at {shape[0]} fields of {shape[1]}x{shape[2]}: '
+                     f'{k["ranks"]} blocks a cluster, '
+                     f'{k["fields_per_cluster"]} fields a cluster, '
+                     f'{k["clusters"]} clusters resident at once')
+            check(k['clusters'] > 0, f'{name}: no cluster fits the card')
+        if 'hmma_tf32' in k or 'clusters' in k:
+            check(k['local_bytes'] == 0, f'{name} spills to local memory')
+        print(line, flush=True)
+        info[name] = k
     return info
 
 
@@ -2191,77 +2220,125 @@ def probe_library_ms(variant, prob, nt, reps):
     return graph_ms(call, reps)
 
 
-def phase_layout_probe(dev):
-    """The probe kernels' registers, spills, blocks per SM and TF32 HMMA
-    (``probe_kernel_checks``); the probe tool at PROBE (its launches counted
-    from 0 just before and read just after: every kernel must have run),
-    then each kernel against its plain version and ``roll`` over
-    PROBE_GATE_STEPS and the whole call, with exactly one launch a step,
-    and timed: ms a call with the host's launches (CUDA events) and as a
-    CUDA graph, the plain version's ms, and for the products the library's
-    ms (printed beside the split-TF32 floor that ``probe_tf32_floor``
-    computes). Returns the numbers of each variant."""
+def _probe_tool():
     import importlib.util
-    import torch
-    from red_diffeq_tpu_torch.ops import layout_probe as lp
-
-    info = probe_kernel_checks() if dev.type == 'cuda' else {}
     spec = importlib.util.spec_from_file_location('torch_layout_probe',
                                                   PROBE_TOOL)
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
-    nprog, size, nt = PROBE['programs'], PROBE['size'], PROBE['nt']
+    return tool
+
+
+def _probe_tool_run(tool, dev, cfg, variants):
+    """The probe tool at ``cfg`` for ``variants``, its launches counted from
+    0 just before and read just after; its check against roll must pass,
+    and on the card each timing line must show one launch a call on the
+    resident route and one a step on the other. Returns the counts and the
+    timing records by variant."""
+    from red_diffeq_tpu_torch.ops import layout_probe as lp
+    nt = cfg['nt']
     lp.reset_launches()
-    records = tool.main(['--programs', str(nprog), '--size', str(size),
-                         '--nt', str(nt), '--reps', str(PROBE['reps']),
-                         '--device', dev.type])
+    records = tool.main(['--programs', str(cfg['programs']), '--size',
+                         str(cfg['size']), '--nt', str(nt), '--reps',
+                         str(cfg['reps']), '--device', dev.type,
+                         '--variants', *variants])
     counts = dict(lp.launches)
-    for rec in records[:len(lp.VARIANTS)]:
+    for rec in records[:len(variants)]:
         check(rec['ok'], f'probe tool: {rec["variant"]} differs from roll by '
               f'{rec["rel_err_vs_roll"]:.3e} (gate {ROLL_GATE})')
-    for rec in records[len(lp.VARIANTS):]:
-        if dev.type == 'cuda':
-            check(rec['launches_per_call'] == nt, f'probe tool: '
-                  f'{rec["variant"]} launched {rec["launches_per_call"]} '
-                  f'times a call of {nt} steps')
-    for name, n in counts.items():
-        check(n > 0, f'the probe tool never launched {name}')
+    timing = {rec['variant']: rec for rec in records[len(variants):]}
+    if dev.type == 'cuda':
+        for v, rec in timing.items():
+            want = 1 if rec['route'] == 'resident' else nt
+            check(rec['launches_per_call'] == want, f'probe tool: '
+                  f'{rec["kernel"]} ({rec["route"]}) launched '
+                  f'{rec["launches_per_call"]} times a call of {nt} steps')
+    return counts, timing
+
+
+def _probe_held(v, prob, steps, route_to=None):
+    """``steps`` steps of ``v`` on its kernel (its route by size, or
+    ``route_to``) against its plain version: roll and halo bit for bit, the
+    products within their gate; exactly the launches of its route. Returns
+    (the kernel's state, max abs err, max-rel, the kernel's name)."""
+    import torch
+    from red_diffeq_tpu_torch.ops import layout_probe as lp
+    plan = lp.route(v, *prob[0].shape)
+    if route_to == 'global':
+        plan = dict(plan, kernel=lp.GLOBAL_KERNELS[v], route='global')
+    kernel = plan['kernel']
+    before = lp.launches[kernel]
+    got = lp.run_variant(v, *prob, nt=steps, route_to=route_to)
+    n = lp.launches[kernel] - before
+    want_n = 1 if plan['route'] == 'resident' else steps
+    check(n == want_n, f'{kernel}: {n} launches for {steps} steps (expected '
+          f'{want_n})')
+    want = lp.plain_variant(v, *prob, nt=steps)
+    check(bool(torch.isfinite(got).all()) and float(want.abs().max()) > 0,
+          f'{kernel}: the state after {steps} steps is degenerate')
+    r = max_rel(got, want)
+    if v in RESIDENT:
+        check(torch.equal(got, want), f'{kernel} differs from its plain '
+              f'version after {steps} steps (max-rel {r:.3e}; expected bit '
+              'for bit)')
+    else:
+        gate = PRODUCT_GATE if steps <= PROBE_GATE_STEPS else \
+            PRODUCT_GATE_FULL
+        check(r <= gate, f'{kernel} vs its plain version after {steps} '
+              f'steps: max-rel {r:.3e} > {gate}')
+    return got, float((got - want).abs().max()), r, kernel
+
+
+def phase_layout_probe(dev):
+    """The probe kernels' registers, spills, blocks per SM, clusters and
+    TF32 HMMA (``probe_kernel_checks``); the probe tool at PROBE (its
+    launches counted from 0 just before and read just after: every kernel
+    of a route taken there must have run), then each kernel against its
+    plain version and ``roll`` over PROBE_GATE_STEPS and the whole call,
+    with exactly one launch a call (``probe_roll``, ``probe_halo``) or a
+    step (the products), and timed: ms a call with the host's launches
+    (CUDA events) and as a CUDA graph, at nt and as nt / PROBE_CHUNK calls
+    of PROBE_CHUNK steps, the plain version's ms, for the products the
+    library's ms (printed beside the split-TF32 floor that
+    ``probe_tf32_floor`` computes), for roll and halo their *_global
+    kernels forced at the same call (bit for bit too). Then the tool at
+    PROBE_BEYOND, past the resident kernels' size limit, for roll and halo
+    (counts from 0 again: the *_global kernels must have run), each held
+    bit for bit and timed there. Returns the numbers of each kernel."""
+    import torch
+    from red_diffeq_tpu_torch.ops import layout_probe as lp
+
+    info = probe_kernel_checks() if dev.type == 'cuda' else {}
+    tool = _probe_tool()
+    nprog, size, nt = PROBE['programs'], PROBE['size'], PROBE['nt']
+    counts, timing = _probe_tool_run(tool, dev, PROBE, lp.VARIANTS)
+    for v in lp.VARIANTS:
+        kernel = lp.route(v, nprog, size, size)['kernel']
+        check(kernel == lp.KERNELS[v], f'{size}x{size} fields take {kernel}')
+        check(counts[kernel] > 0, f'the probe tool never launched {kernel}')
     prob = [torch.from_numpy(a).to(dev)
             for a in lp.make_problem(nprog, size, size)]
     short = min(PROBE_GATE_STEPS, nt)
+    chunks = max(nt // PROBE_CHUNK, 1)
     roll, out = {}, {}
     for v in lp.VARIANTS:
-        kernel = lp.KERNELS[v]
         errs = {}
         for steps in (short, nt):
-            before = lp.launches[kernel]
-            got = lp.run_variant(v, *prob, nt=steps)
-            check(lp.launches[kernel] - before == steps, f'{kernel}: '
-                  f'{lp.launches[kernel] - before} launches for {steps} '
-                  'steps')
-            want = lp.plain_variant(v, *prob, nt=steps)
-            check(bool(torch.isfinite(got).all())
-                  and float(want.abs().max()) > 0,
-                  f'{kernel}: the state after {steps} steps is degenerate')
-            r = max_rel(got, want)
-            if v in ('roll', 'halo'):
-                check(torch.equal(got, want), f'{kernel} differs from its '
-                      f'plain version after {steps} steps (max-rel '
-                      f'{r:.3e}; expected bit for bit)')
-            else:
-                gate = PRODUCT_GATE if steps == short else PRODUCT_GATE_FULL
-                check(r <= gate, f'{kernel} vs its plain version after '
-                      f'{steps} steps: max-rel {r:.3e} > {gate}')
+            got, err, r, kernel = _probe_held(v, prob, steps)
             if v == 'roll':
                 roll[steps] = got
             vs_roll = max_rel(got, roll[steps])
             check(vs_roll <= ROLL_GATE, f'{kernel} vs probe_roll after '
                   f'{steps} steps: max-rel {vs_roll:.3e} > {ROLL_GATE}')
-            errs[steps] = (float((got - want).abs().max()), r, vs_roll)
-            del got, want
+            errs[steps] = (err, r, vs_roll)
+            del got
 
-        def call(v=v):
-            return lp.run_variant(v, *prob, nt=nt)
+        def call(v=v, steps=nt, route_to=None):
+            return lp.run_variant(v, *prob, nt=steps, route_to=route_to)
+
+        def chunked(v=v):
+            for _ in range(chunks):
+                lp.run_variant(v, *prob, nt=PROBE_CHUNK)
 
         ms = cuda_ms(call, PROBE['reps'])
         gms = graph_ms(call, PROBE['reps'])
@@ -2269,7 +2346,8 @@ def phase_layout_probe(dev):
                            warm=False)
         out[v] = dict(max_abs_err=errs[nt][0], max_rel=errs[nt][1],
                       max_rel_vs_roll=errs[nt][2], ms=ms, graph_ms=gms,
-                      plain_ms=plain_ms, library_ms=None, **info.get(v, {}))
+                      plain_ms=plain_ms, library_ms=None,
+                      **info.get(lp.KERNELS[v], {}))
         extra = ''
         if v in PRODUCTS:
             out[v]['library_ms'] = probe_library_ms(v, prob, nt,
@@ -2279,14 +2357,63 @@ def phase_layout_probe(dev):
                      f'{out[v]["library_ms"]:.3f} ms as a CUDA graph; '
                      f'computed TF32 floor {floor:.3f} ms (the split '
                      f'products at {PEAK_TF32_PER_S / 1e12:g} TFLOP/s)')
-        print(f'{kernel} at {nprog} x {size}x{size}, {nt} steps: vs plain '
-              f'max abs err {errs[short][0]:.3e} ({short} steps), '
+        else:
+            out[v].update(chunk_ms=cuda_ms(chunked, PROBE['reps']),
+                          chunk_graph_ms=graph_ms(chunked, PROBE['reps']))
+            _probe_held(v, prob, nt, route_to='global')
+            out[v]['global_ms'] = cuda_ms(
+                lambda: call(route_to='global'), PROBE['reps'])
+            out[v]['global_graph_ms'] = graph_ms(
+                lambda: call(route_to='global'), PROBE['reps'])
+            extra = (f'; as {chunks} calls of {PROBE_CHUNK} steps '
+                     f'{out[v]["chunk_ms"]:.3f} ms, '
+                     f'{out[v]["chunk_graph_ms"]:.3f} ms as a CUDA graph; '
+                     f'{lp.GLOBAL_KERNELS[v]} forced (one launch a step, bit '
+                     f'for bit) {out[v]["global_ms"]:.3f} ms, '
+                     f'{out[v]["global_graph_ms"]:.3f} ms as a CUDA graph')
+        print(f'{lp.KERNELS[v]} at {nprog} x {size}x{size}, {nt} steps: vs '
+              f'plain max abs err {errs[short][0]:.3e} ({short} steps), '
               f'{errs[nt][0]:.3e} (max-rel {errs[nt][1]:.3e}); vs probe_roll'
               f' max-rel {errs[nt][2]:.3e}; {ms:.3f} ms a call with the '
               f"host's launches, {gms:.3f} ms as a CUDA graph, plain "
               f'{plain_ms:.3f} ms{extra}', flush=True)
+    del prob
+    # Past the resident kernels' limit: the *_global kernels' own route.
+    bnprog, bsize, bnt = (PROBE_BEYOND['programs'], PROBE_BEYOND['size'],
+                          PROBE_BEYOND['nt'])
+    bcounts, btiming = _probe_tool_run(tool, dev, PROBE_BEYOND, RESIDENT)
+    prob = [torch.from_numpy(a).to(dev)
+            for a in lp.make_problem(bnprog, bsize, bsize)]
+    beyond = {}
+    for v in RESIDENT:
+        kernel = lp.GLOBAL_KERNELS[v]
+        check(lp.route(v, bnprog, bsize, bsize)['kernel'] == kernel,
+              f'{bsize}x{bsize} fields do not take {kernel}')
+        check(bcounts[kernel] > 0, f'the probe tool never launched {kernel} '
+              f'at {bsize}x{bsize}')
+        errs = [_probe_held(v, prob, steps)[1:3]
+                for steps in (min(PROBE_GATE_STEPS, bnt), bnt)]
+
+        def call(v=v):
+            return lp.run_variant(v, *prob, nt=bnt)
+
+        beyond[v] = dict(max_abs_err=errs[-1][0], max_rel=errs[-1][1],
+                         ms=cuda_ms(call, PROBE_BEYOND['reps']),
+                         graph_ms=graph_ms(call, PROBE_BEYOND['reps']),
+                         plain_ms=cuda_ms(lambda: lp.plain_variant(
+                             v, *prob, nt=bnt), 1, warm=False),
+                         **info.get(kernel, {}))
+        print(f'{kernel} at {bnprog} x {bsize}x{bsize} (past the resident '
+              f'limit), {bnt} steps: bit for bit; {beyond[v]["ms"]:.3f} ms '
+              f"a call with the host's launches, "
+              f'{beyond[v]["graph_ms"]:.3f} ms as a CUDA graph, plain '
+              f'{beyond[v]["plain_ms"]:.3f} ms', flush=True)
     bnd = probe_bound(nprog, size, size, nt)
     return dict(variants=out, counts=counts, shape=[nprog, size, size], nt=nt,
+                routes={v: timing[v].get('route') for v in lp.VARIANTS},
+                beyond=dict(variants=beyond, counts=bcounts,
+                            shape=[bnprog, bsize, bsize], nt=bnt,
+                            **probe_bound(bnprog, bsize, bsize, bnt)),
                 **bnd)
 
 
@@ -2462,20 +2589,43 @@ def main(argv=None):
         launches_per_pass=beyond['counts']['tape_step_global'],
         training=dict(launches=training['counts']['tape_step_global'])))
     # The probe's kernels: launches in the probe tool's run, their numbers
-    # from the phase, one bound for all four (the same function).
+    # from the phase, one bound for all (the same function); roll and halo
+    # one launch a call, with their *_global kernels' times at the same
+    # call; the *_global kernels with the launches and numbers of the
+    # tool's run past the resident limit.
     from red_diffeq_tpu_torch.ops import layout_probe
     for v, r in probe['variants'].items():
         name = layout_probe.KERNELS[v]
-        kernels.append(dict(
+        k = dict(
             name=name, route='cuda', source=PROBE_SOURCE,
             replaces=f'tools/kernel_layout_probe.py:{PROBE_LINES[v]}',
             launches=probe['counts'][name], max_abs_err=r['max_abs_err'],
             ms=r['ms'], graph_ms=r['graph_ms'], plain_ms=r['plain_ms'],
             bound_ms=probe['bound_ms'], bound_by=probe['bound_by'],
             library_ms=r['library_ms'], shape=probe['shape'],
-            nt=probe['nt'], launches_per_pass=probe['nt'],
-            registers=r.get('regs'), blocks_per_sm=r.get('blocks_per_sm'),
-            **({'hmma_tf32': r['hmma_tf32']} if 'hmma_tf32' in r else {})))
+            nt=probe['nt'], probe_route=probe['routes'][v],
+            launches_per_call=1 if v in RESIDENT else probe['nt'],
+            registers=r.get('regs'), local_bytes=r.get('local_bytes'),
+            blocks_per_sm=r.get('blocks_per_sm'))
+        for key in ('hmma_tf32', 'ranks', 'fields_per_cluster', 'clusters',
+                    'chunk_ms', 'chunk_graph_ms', 'global_ms',
+                    'global_graph_ms'):
+            if key in r:
+                k[key] = r[key]
+        kernels.append(k)
+    by = probe['beyond']
+    for v, r in by['variants'].items():
+        kernels.append(dict(
+            name=layout_probe.GLOBAL_KERNELS[v], route='cuda',
+            source=PROBE_SOURCE,
+            replaces=f'tools/kernel_layout_probe.py:{PROBE_LINES[v]}',
+            launches=by['counts'][layout_probe.GLOBAL_KERNELS[v]],
+            max_abs_err=r['max_abs_err'], ms=r['ms'], graph_ms=r['graph_ms'],
+            plain_ms=r['plain_ms'], bound_ms=by['bound_ms'],
+            bound_by=by['bound_by'], library_ms=None, shape=by['shape'],
+            nt=by['nt'], launches_per_call=by['nt'],
+            registers=r.get('regs'), local_bytes=r.get('local_bytes'),
+            blocks_per_sm=r.get('blocks_per_sm')))
     kernels[3].update(ms_nbc40=tape['tape_step']['ms_nbc40'],
                       plain_ms_nbc40=tape['tape_step']['plain_ms_nbc40'],
                       registers=tape_info['regs'],
@@ -2527,6 +2677,15 @@ def main(argv=None):
           f'{probe["bound_ms"]:.3f} ms ({probe["bound_by"]}): '
           + ', '.join(f'{v} {r["ms"]:.3f} [{r["graph_ms"]:.3f}]'
                       for v, r in probe['variants'].items())
+          + f'; roll and halo as {probe["nt"] // PROBE_CHUNK} calls of '
+          f'{PROBE_CHUNK} steps: '
+          + ', '.join(f'{v} {probe["variants"][v]["chunk_ms"]:.3f} '
+                      f'[{probe["variants"][v]["chunk_graph_ms"]:.3f}]'
+                      for v in RESIDENT)
+          + '; their *_global kernels at the same call: '
+          + ', '.join(f'{v} {probe["variants"][v]["global_ms"]:.3f} '
+                      f'[{probe["variants"][v]["global_graph_ms"]:.3f}]'
+                      for v in RESIDENT)
           + '; the products\' library ms: '
           + ', '.join(f'{v} {probe["variants"][v]["library_ms"]:.3f}'
                       for v in PRODUCTS), flush=True)

@@ -6,6 +6,8 @@
 // launched at :219), probe_mxu<false> (probe_mxu_x) replaces _mxu_x_kernel
 // (:106, at :226), probe_mxu<true> (probe_mxu_xy) replaces _mxu_xy_kernel
 // (:129, at :234), probe_halo replaces _halo_kernel (:158, at :240).
+// probe_roll and probe_halo are one instantiation each of probe_resident;
+// fields past its size limit take probe_roll_global and probe_halo_global.
 //
 // Recursion, per field of H x W cells (nprog independent fields):
 //   p = t1*p1 - t2*p0 + alpha*L(p1)
@@ -20,25 +22,26 @@
 // workload (20 fields of 310x310, nt=1000) 26.9 GFLOP, 0.40 ms; its bytes
 // (the two start states, the three planes and the result, 24 MB) take
 // 7 us, so operations bound it. The TPU kernels keep one field in VMEM
-// for all nt steps; a 310x310 field (384 KB) is above a block's 227 KB of
-// shared memory, so these kernels take one step a launch over all fields,
-// nt launches a call, the states in device memory between the launches
-// (at the workload both states and the planes, 16.5 MB, stay in the 50 MB
-// L2). What bounds roll and halo is not their arithmetic but each
-// launch's reads of both states through L2 and the launches' own cost;
-// the mxu kernels' dense products, 2W (or 2W + 2H) operations a cell
+// for all nt steps. A 310x310 field (384 KB) is above a block's 227 KB of
+// shared memory, so roll and halo keep each field in the shared memory of
+// a thread-block cluster (probe_resident, below): one launch a call, the
+// states on chip for all nt steps, what bounds them the per-step work of
+// a block and the cluster barrier. The mxu kernels take one step a
+// launch, nt launches a call, the states in device memory between the
+// launches (at the workload both states and the planes, 16.5 MB, stay in
+// the 50 MB L2); their dense products, 2W (or 2W + 2H) operations a cell
 // where the stencil takes 14, run on the tensor cores in split TF32
-// (below) and are bound by that work. Steps per launch (temporal
-// blocking) are later work.
+// (below) and are bound by that work.
 //
 // Each step of roll and mxu writes the new state over the older of the
 // two it reads (each cell reads only its own cell of that state), so two
-// buffers serve a whole call; the launcher's first two steps write into
-// fresh buffers so that the caller's states are only read. Build with
-// -fmad=false: every multiply and add rounds alone, in the JAX kernels'
-// grouping, so roll and halo equal their plain PyTorch versions bit for
-// bit; the products' sums are the tensor cores' (split TF32, below).
+// buffers serve a whole call; the caller's states are only read. Build
+// with -fmad=false: every multiply and add rounds alone, in the JAX
+// kernels' grouping, so roll and halo (both routes) equal their plain
+// PyTorch versions bit for bit; the products' sums are the tensor cores'
+// (split TF32, below).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -58,14 +61,15 @@ __device__ __forceinline__ float update(float t1, float p1, float t2,
 }
 
 // ---------------------------------------------------------------------------
-// probe_roll (_roll_kernel): both stencils as 8 wrapped neighbour reads,
-// one step a launch. A block owns a 32x32-cell tile of one field and loads
-// it with a wrapped halo of 2 cells a side (36x36) into shared memory; each
-// of its 32x8 threads then updates 4 cells of a column. The tile's reads
-// from L2 are 1.27x the field's, its shared-memory reads 8 a cell. Bound:
-// each launch's traffic (both states and the planes, about 27 MB a step at
-// the workload, all in L2) and the launch itself, not its 14 operations a
-// cell; steps per launch would cut both.
+// probe_roll_global (_roll_kernel, for fields past probe_resident's size
+// limit): both stencils as 8 wrapped neighbour reads, one step a launch. A
+// block owns a 32x32-cell tile of one field and loads it with a wrapped
+// halo of 2 cells a side (36x36) into shared memory; each of its 32x8
+// threads then updates 4 cells of a column. The tile's reads from L2 are
+// 1.27x the field's, its shared-memory reads 8 a cell. Bound: each
+// launch's traffic (both states and the planes, about 27 MB a step at
+// 20 fields of 310x310, all in L2) and the launch itself, not its 14
+// operations a cell.
 // L = kC2*(((p[y-1] + p[y+1]) + p[x-1]) + p[x+1])
 //   + kC3*(((p[y-2] + p[y+2]) + p[x-2]) + p[x+2]), as _lap_roll.
 // ---------------------------------------------------------------------------
@@ -76,7 +80,7 @@ constexpr size_t kRollSmem = sizeof(float) * kRollS * kRollS;
 
 // Grid (ceil(W/32), ceil(H/32), nprog), block (32, 8).
 __global__ void __launch_bounds__(kRollT * kRollRows)
-    probe_roll(const float* p0, const float* p1, float* out,
+    probe_roll_global(const float* p0, const float* p1, float* out,
                const float* __restrict__ alpha, const float* __restrict__ t1,
                const float* __restrict__ t2, int H, int W) {
   extern __shared__ float smem[];
@@ -478,16 +482,17 @@ cudaError_t mxu_attributes() {
 }
 
 // ---------------------------------------------------------------------------
-// probe_halo (_halo_kernel): each field's state kept as H x (W + 4) in
-// device memory, columns 2 .. W+1 the cells, columns 0, 1 copies of cells
-// W-2, W-1 and columns W+2, W+3 copies of cells 0, 1, so the x neighbours
-// are plain offsets with no modular index; y neighbours wrap, as
-// _lap_y_roll. Two states in turn: a step reads p1 from one and writes the
-// new state, halo copies included, over p0 in the other (each cell reads
-// only its own cell of p0 and no step reads p0's halo columns, so the
-// rewrite races with nothing). One cell a thread, one step a launch; every
-// read goes to L1/L2, as the TPU kernel's unaligned slices go to VMEM.
-// Bound: as probe_roll, each launch's L2 traffic and the launch itself.
+// probe_halo_global (_halo_kernel, for fields past probe_resident's size
+// limit): each field's state kept as H x (W + 4) in device memory, columns
+// 2 .. W+1 the cells, columns 0, 1 copies of cells W-2, W-1 and columns
+// W+2, W+3 copies of cells 0, 1, so the x neighbours are plain offsets
+// with no modular index; y neighbours wrap, as _lap_y_roll. Two states in
+// turn: a step reads p1 from one and writes the new state, halo copies
+// included, over p0 in the other (each cell reads only its own cell of p0
+// and no step reads p0's halo columns, so the rewrite races with nothing).
+// One cell a thread, one step a launch; every read goes to L1/L2, as the
+// TPU kernel's unaligned slices go to VMEM. Bound: as probe_roll_global,
+// each launch's L2 traffic and the launch itself.
 //   lap = (kC2*(p[y-1] + p[y+1]) + kC3*(p[y-2] + p[y+2]))
 //       + (kC2*(p[x-1] + p[x+1]) + kC3*(p[x-2] + p[x+2]))
 // ---------------------------------------------------------------------------
@@ -496,7 +501,7 @@ constexpr int kHaloX = 32, kHaloY = 8;
 
 // Grid (ceil(W/32), ceil(H/8), nprog), block (32, 8).
 __global__ void __launch_bounds__(kHaloX * kHaloY)
-    probe_halo(const float* src, float* dst, const float* __restrict__ alpha,
+    probe_halo_global(const float* src, float* dst, const float* __restrict__ alpha,
                const float* __restrict__ t1, const float* __restrict__ t2,
                int H, int W) {
   const int x = blockIdx.x * kHaloX + threadIdx.x;
@@ -520,20 +525,456 @@ __global__ void __launch_bounds__(kHaloX * kHaloY)
   if (x >= W - 2) o[-W] = p;  // the left halo, columns 0, 1
 }
 
+// ---------------------------------------------------------------------------
+// probe_resident<false> (probe_roll, _roll_kernel) and probe_resident<true>
+// (probe_halo, _halo_kernel): all nt steps in one launch, every field in
+// shared memory for the whole call, as the TPU kernels keep it in VMEM
+// scratch across their grid's step axis. A thread-block cluster of `ranks`
+// blocks (16 for a field of 32 rows or more, a non-portable size) holds
+// `per` fields; block `rank` owns rows [rank*H/ranks, (rank+1)*H/ranks) of
+// each (a strip of at least 2 rows, the halo depth) at every column. For
+// each field it keeps two buffers of its strip with 2 halo rows above and
+// below, s_k and s_{k-1}, used in turn: a step computes s_{k+1} over
+// s_{k-1} in place (each cell read and written by one thread) and writes
+// the strip's first and last 2 rows straight into the halo rows of the
+// ranks above and below (rank 0 wraps to rank ranks-1) through distributed
+// shared memory. One cluster barrier a step (arrive releases those writes,
+// wait acquires the neighbours') orders the block's own rows and its halo
+// rows before the next step. A block writes into a neighbour's buffer only
+// the halo rows that the neighbour reads after the next barrier, and the
+// neighbour last read them before the barrier of the step before. The last
+// step writes no halo rows, so a block may leave after it; the newest
+// state goes to device memory once, in the last step. This is tape_step's
+// scheme (stencil.cu) without its tape.
+//
+// The two layouts differ only in x, the probe's question. roll keeps rows
+// of W floats and reads its x neighbours at wrapped columns, which a thread
+// works out once a call (it owns fixed columns). halo keeps rows of W + 4
+// floats, cell x at column x + 2: each step the owners of cells 0, 1, W-2
+// and W-1 also write them into the 2 halo columns a side of their row, as
+// _halo_kernel does, so the x neighbours are plain offsets.
+//
+// A thread takes one column of one band of the strip's rows (as many bands
+// as keep the block's threads busy, each band whole warps, neighbouring
+// threads on neighbouring columns) and walks down it field by field with
+// the column's s_k at rows y-2 .. y+1 in registers, so a cell reads 6
+// shared values (yp2, the 4 x neighbours, its own s_{k-1}). The band's
+// rows are a constant of the code that walks it (step_band<NB>, chosen
+// once a field), so its cells run straight, with no guard. Its cells'
+// alpha, t1 and t2, at most kResBand rows of one column, are loaded once
+// into registers and serve every field of the cluster: the three planes
+// are never copied per field, and shared memory holds the states alone.
+// halo's halo columns are stored from the new values' registers by the
+// threads that own them; the rows pushed to the neighbours are read back
+// after the band. No global load is left inside a step: a cell that
+// waited for one would hold the whole cluster at the barrier.
+//
+// Sizing (the probe's workload, 20 fields of 310x310): a strip of 19-20
+// rows, 3 bands of 6-7 rows on 930 of 1024 threads, per = 3 fields in
+// 3 x 2 x 24 rows x 310 floats = 179 KB a block; 7 clusters of 16 blocks
+// hold the 20 fields in one wave. A step of a block is then 18600 cell
+// updates and one cluster barrier. What bounds it (H100, PERF.md):
+// the cell updates' instructions (about 30 a cell; a guard and a branch a
+// cell cost 40% more, hence the constant NB), at 64 registers a thread,
+// where the allocation decides 10% either way; then the cluster barrier
+// (its release compiles to a GPU-wide memory barrier) and the halo-row
+// pushes, about 0.6 us a step each. Limits (resident_fits): W <= 1024
+// (one column a thread), bands of at most kResBand rows, a block's shared
+// memory within 227 KB; larger fields take the *_global kernels.
+// lap (roll) = kC2*(((p[y-1] + p[y+1]) + p[x-1]) + p[x+1])
+//            + kC3*(((p[y-2] + p[y+2]) + p[x-2]) + p[x+2]), as _lap_roll;
+// lap (halo) = (kC2*(p[y-1] + p[y+1]) + kC3*(p[y-2] + p[y+2]))
+//            + (kC2*(p[x-1] + p[x+1]) + kC3*(p[x-2] + p[x+2])).
+// ---------------------------------------------------------------------------
+
+namespace cg = cooperative_groups;
+
+// The cluster calls: this block's rank in its cluster, the address in
+// another rank's shared memory at the offset of p in this block's, an
+// offset from it, a store there, and the cluster barrier in its two
+// halves: arrive (releasing this thread's
+// writes, local and remote, to the cluster) and wait (until every thread
+// of the cluster has arrived; acquiring their writes).
+__device__ __forceinline__ int cluster_rank() {
+  return (int)cg::this_cluster().block_rank();
+}
+
+// A float in another rank's shared memory: on the card a 32-bit
+// shared::cluster address (mapa), stored to with st.shared::cluster, so
+// that it costs one register and no generic-address translation; in the
+// host build a pointer.
+#ifdef CUDA_HOST_EMULATION
+using cluster_addr = float*;
+__device__ __forceinline__ cluster_addr cluster_map(float* p, int rank) {
+  return cg::this_cluster().map_shared_rank(p, rank);
+}
+__device__ __forceinline__ cluster_addr cluster_at(cluster_addr a, int i) {
+  return a + i;
+}
+__device__ __forceinline__ void cluster_store(cluster_addr a, int i,
+                                              float v) {
+  a[i] = v;
+}
+#else
+using cluster_addr = unsigned;
+__device__ __forceinline__ cluster_addr cluster_map(float* p, int rank) {
+  unsigned a;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;"
+      : "=r"(a)
+      : "r"((unsigned)__cvta_generic_to_shared(p)), "r"(rank));
+  return a;
+}
+// The float i floats past a.
+__device__ __forceinline__ cluster_addr cluster_at(cluster_addr a, int i) {
+  return a + 4 * i;
+}
+// Ordered before the cluster barrier's arrive, whose asm clobbers memory.
+__device__ __forceinline__ void cluster_store(cluster_addr a, int i,
+                                              float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(a + 4 * i), "f"(v));
+}
+#endif
+
+__device__ __forceinline__ void cluster_arrive() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+#elif !defined(__CUDACC__)
+  cg::this_cluster().barrier_arrive();    // the host build's stand-in
+#endif
+}
+
+__device__ __forceinline__ void cluster_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+#elif !defined(__CUDACC__)
+  cg::this_cluster().barrier_wait();
+#endif
+}
+
+constexpr int kResThreads = 1024;
+constexpr int kResBand = 8;         // most rows of a band
+constexpr int kResMaxRanks = 16;    // a non-portable cluster size
+constexpr size_t kMaxSmem = 232448;   // 227 KB a block
+
+// First row of rank r's strip.
+__host__ __device__ __forceinline__ int strip_start(int r, int ranks,
+                                                    int H) {
+  return (int)((long long)r * H / ranks);
+}
+
+// Rows of the largest strip.
+__host__ __device__ __forceinline__ int strip_rows(int ranks, int H) {
+  return (H + ranks - 1) / ranks;
+}
+
+// A band's threads: W rounded up to whole warps, so that the threads of a
+// warp share one band (and one count of rows).
+__host__ __device__ __forceinline__ int band_threads(int W) {
+  return (W + 31) & ~31;
+}
+
+// Bands of a strip of `rows` rows at width W (W <= kResThreads).
+__host__ __device__ __forceinline__ int strip_bands(int rows, int W) {
+  const int b = kResThreads / band_threads(W);
+  return b < rows ? b : rows;
+}
+
+// One step at the NB cells of a thread's band of one field: s_{k+1} over
+// s_{k-1} at each, with the column's s_k at rows y-2 .. y+1 rolled down in
+// registers. c and o point at the band's first cell in s_k and s_{k-1};
+// dm1, dm2, dp1, dp2 are roll's wrapped x neighbours as offsets from the
+// cell (halo reads plain offsets). NB is a constant, so the cells run
+// straight, with no guard, and the coefficients stay in registers. With
+// `columns` (halo's owners of cells 0, 1, W-2, W-1) each new value also
+// goes, from its register, to its halo column, d floats away.
+template <bool kHalo, int NB>
+__device__ __forceinline__ void step_band(
+    const float* __restrict__ c, float* __restrict__ o, int S, int dm1,
+    int dm2, int dp1, int dp2, const float (&ca)[kResBand],
+    const float (&cu)[kResBand], const float (&cv)[kResBand], bool columns,
+    int d) {
+  float ym2 = c[-2 * S], ym1 = c[-S], cc = c[0], yp1 = c[S];
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    const float* r = c + j * S;
+    const float yp2 = r[2 * S];
+    float lap;
+    if (kHalo)
+      lap = (kC2 * (ym1 + yp1) + kC3 * (ym2 + yp2)) +
+            (kC2 * (r[-1] + r[1]) + kC3 * (r[-2] + r[2]));
+    else
+      lap = kC2 * (((ym1 + yp1) + r[dm1]) + r[dp1]) +
+            kC3 * (((ym2 + yp2) + r[dm2]) + r[dp2]);
+    const float p = update(cu[j], cc, cv[j], o[j * S], ca[j], lap);
+    o[j * S] = p;
+    if (kHalo && columns) o[j * S + d] = p;
+    ym2 = ym1;
+    ym1 = cc;
+    cc = yp1;
+    yp1 = yp2;
+  }
+}
+
+// Grid (ranks, ceil(nprog/per)), clusters of (ranks, 1, 1), kResThreads a
+// block. Shared memory: per fields x two buffers of (largest strip + 4
+// halo rows) rows of S floats. out (nprog x H x W) gets the newest state.
+template <bool kHalo>
+__global__ void __launch_bounds__(kResThreads, 1)
+    probe_resident(const float* __restrict__ p0, const float* __restrict__ p1,
+                   float* __restrict__ out, const float* __restrict__ alpha,
+                   const float* __restrict__ t1, const float* __restrict__ t2,
+                   int nprog, int H, int W, int nt, int ranks, int per) {
+  extern __shared__ float smem[];
+  const int rank = cluster_rank();
+  const int tid = threadIdx.x;
+  const int S = kHalo ? W + 4 : W;           // a row of a buffer
+  const int r0 = strip_start(rank, ranks, H);
+  const int rows = strip_start(rank + 1, ranks, H) - r0;
+  const int bsz = (strip_rows(ranks, H) + 4) * S;   // one buffer
+  const int own = 2 * S + (kHalo ? 2 : 0);   // cell (0, 0), after 2 halo rows
+  const int f0 = blockIdx.y * per;
+  const int nf = nprog - f0 < per ? nprog - f0 : per;
+  // Where this strip's first 2 rows go in the rank above (its bottom halo
+  // rows) and its last 2 rows in the rank below (its top halo rows), at
+  // field 0's buffer 0, as offsets from the strip's cell (0, 0) there.
+  const int up = (rank + ranks - 1) % ranks, dn = (rank + 1) % ranks;
+  const int up_rows = strip_start(up + 1, ranks, H) - strip_start(up, ranks, H);
+  const cluster_addr to_up = cluster_at(cluster_map(smem, up),
+                                        own + up_rows * S);
+  const cluster_addr to_dn = cluster_at(cluster_map(smem, dn),
+                                        own - rows * S);
+  // This thread's share of a step, worked out once: column x of one of
+  // `bands` bands of the strip's rows, rows ya .. ya + nb - 1; its rows
+  // among the strip's first 2 (ya .. top - 1) and last 2 (bot .. ya + nb
+  // - 1), which go to the neighbours; whether it owns one of halo's halo
+  // columns, d floats from its cells.
+  const int bands = strip_bands(rows, W);
+  const int band = tid / band_threads(W), x = tid % band_threads(W);
+  const bool busy = band < bands && x < W;
+  const int ya = busy ? band * rows / bands : 0;
+  const int nb = busy ? (band + 1) * rows / bands - ya : 0;
+  const int top = ya + nb < 2 ? ya + nb : 2;
+  const int bot = ya > rows - 2 ? ya : rows - 2;
+  const bool columns = kHalo && (x < 2 || x >= W - 2);
+  const int d = x < 2 ? W : -W;
+  // roll's wrapped x neighbours, as offsets from the cell.
+  const int dm1 = x == 0 ? W - 1 : -1, dp1 = x == W - 1 ? 1 - W : 1;
+  const int dm2 = x < 2 ? W - 2 : -2, dp2 = x >= W - 2 ? 2 - W : 2;
+  // The cells' coefficients, in registers for the whole call.
+  float ca[kResBand], cu[kResBand], cv[kResBand];
+#pragma unroll
+  for (int j = 0; j < kResBand; ++j) {
+    if (j < nb) {
+      const size_t g = (size_t)(r0 + ya + j) * W + x;
+      ca[j] = alpha[g];
+      cu[j] = t1[g];
+      cv[j] = t2[g];
+    }
+  }
+  // s_0 at the strip and its halo rows of buffer 0 and s_{-1} at the strip
+  // of buffer 1, every column of a row (halo's halo columns included).
+  for (int f = 0; f < nf; ++f) {
+    const size_t g = (size_t)(f0 + f) * H * W;
+    float* const b0 = smem + 2 * f * bsz;
+    for (int i = tid; i < (rows + 4) * S; i += kResThreads) {
+      const int y = i / S - 2, c = i % S;
+      const int xc = kHalo ? (c < 2 ? c + W - 2 : c >= W + 2 ? c - W - 2
+                                                            : c - 2)
+                           : c;
+      b0[i] = p1[g + (size_t)wrap(r0 + y, H) * W + xc];
+      if (y >= 0 && y < rows) b0[bsz + i] = p0[g + (size_t)(r0 + y) * W + xc];
+    }
+  }
+  // Every block of the cluster is running (before any write to another's
+  // shared memory) and has loaded its strips.
+  cluster_arrive();
+  cluster_wait();
+  const int at = ya * S + x;    // the band's first cell, from cell (0, 0)
+  int cur = 0, nxt = bsz;       // offsets of the buffers of s_k and s_{k-1}
+  for (int k = 0; k < nt; ++k) {
+    for (int f = 0; nb > 0 && f < nf; ++f) {
+      // s_k is only read, and s_{k-1} only at a thread's own cells.
+      const int fb = 2 * f * bsz;
+      const float* c = smem + fb + cur + own + at;
+      float* const o = smem + fb + nxt + own + at;
+      switch (nb) {
+#define RDT_STEP_BAND(NB)                                                   \
+  case NB:                                                                  \
+    step_band<kHalo, NB>(c, o, S, dm1, dm2, dp1, dp2, ca, cu, cv, columns, \
+                         d);                                                \
+    break
+        RDT_STEP_BAND(1); RDT_STEP_BAND(2); RDT_STEP_BAND(3);
+        RDT_STEP_BAND(4); RDT_STEP_BAND(5); RDT_STEP_BAND(6);
+        RDT_STEP_BAND(7); RDT_STEP_BAND(8);
+#undef RDT_STEP_BAND
+      }
+      // The band's rows among the strip's first and last 2 into the
+      // neighbours' halo rows, which the next step reads; after the last
+      // step, the newest state to device memory. Each cell is read back by
+      // the thread that wrote it.
+      if (k + 1 < nt) {
+        const cluster_addr up = cluster_at(to_up, fb + nxt + at);
+        const cluster_addr dn = cluster_at(to_dn, fb + nxt + at);
+        for (int j = 0; ya + j < top; ++j) cluster_store(up, j * S, o[j * S]);
+        for (int j = bot - ya; j < nb; ++j)
+          cluster_store(dn, j * S, o[j * S]);
+      } else {
+        float* const g = out + (size_t)(f0 + f) * H * W +
+                         (size_t)(r0 + ya) * W + x;
+        for (int j = 0; j < nb; ++j) g[j * W] = o[j * S];
+      }
+    }
+    if (k + 1 < nt) {
+      cluster_arrive();
+      cluster_wait();
+    }
+    const int t = cur; cur = nxt; nxt = t;
+  }
+}
+
+// Shared memory of one probe_resident block: `per` fields, two buffers
+// each of the largest strip and its 4 halo rows.
+inline size_t resident_smem(bool halo, int per, int ranks, int H, int W) {
+  return (size_t)per * 2 * (strip_rows(ranks, H) + 4) * (halo ? W + 4 : W) *
+         sizeof(float);
+}
+
+// Blocks per cluster for an H-row field: the most (16, 8, 4, 2, 1) that
+// leave every strip 2 rows or more.
+inline int resident_ranks(int H) {
+  int r = kResMaxRanks;
+  while (r > 1 && H / r < 2) r /= 2;
+  return r;
+}
+
+// Whether probe_resident takes H x W fields at `ranks` blocks and `per`
+// fields a cluster: a cluster size it is built for, strips of at least 2
+// rows, one column a thread, bands of at most kResBand rows, a block's
+// shared memory within 227 KB.
+inline bool resident_fits(bool halo, int per, int ranks, int H, int W) {
+  if (ranks < 1 || ranks > kResMaxRanks || (ranks & (ranks - 1)) != 0)
+    return false;
+  if (per < 1 || H < 5 || W < 5 || W > kResThreads || H / ranks < 2)
+    return false;
+  const int rmax = strip_rows(ranks, H), bands = strip_bands(rmax, W);
+  return (rmax + bands - 1) / bands <= kResBand &&
+         resident_smem(halo, per, ranks, H, W) <= kMaxSmem;
+}
+
+// The launch configuration of probe_resident: grid (ranks, clusters),
+// clusters of (ranks, 1, 1); attr must outlive the launch.
+inline cudaLaunchConfig_t resident_config(bool halo, int nprog, int H, int W,
+                                          int ranks, int per,
+                                          cudaLaunchAttribute* attr,
+                                          cudaStream_t st) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ranks, (nprog + per - 1) / per, 1);
+  cfg.blockDim = dim3(kResThreads, 1, 1);
+  cfg.dynamicSmemBytes = resident_smem(halo, per, ranks, H, W);
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = ranks;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Allow probe_resident<halo> its shared memory and a cluster size above 8.
+inline cudaError_t resident_attributes(bool halo, size_t smem) {
+  void (*fn)(const float*, const float*, float*, const float*, const float*,
+             const float*, int, int, int, int, int, int) =
+      halo ? probe_resident<true> : probe_resident<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(
+      fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
 bool probe_fits(int nprog, int H, int W, int nt) {
   return nt >= 1 && H >= 5 && W >= 5 && nprog >= 1 && nprog <= 65535;
 }
 
 }  // namespace
 
-// nt steps of probe_roll on PyTorch's stream, one launch a step, from the
-// states p0, p1 (nprog x H x W, only read). Step n writes x when n is even
-// and y when it is odd, so the newest state ends in x when nt is odd and
-// in y when it is even. Returns the first launch error, 0 if none.
-extern "C" int rdt_probe_roll(const float* p0, const float* p1, float* x,
-                              float* y, const float* alpha, const float* t1,
-                              const float* t2, int nprog, int H, int W,
-                              int nt, void* stream) {
+// nt steps of probe_resident<halo != 0> (probe_halo, else probe_roll) on
+// PyTorch's stream, in one launch, from the states p0, p1 (nprog x H x W,
+// only read) into out (the newest state, nprog x H x W), at `ranks` blocks
+// a cluster and `per` fields a cluster (rdt_probe_plan). Returns the
+// launch error, 0 if none.
+extern "C" int rdt_probe_resident(int halo, const float* p0, const float* p1,
+                                  float* out, const float* alpha,
+                                  const float* t1, const float* t2, int nprog,
+                                  int H, int W, int nt, int ranks, int per,
+                                  void* stream) {
+  if (!probe_fits(nprog, H, W, nt) || !resident_fits(halo, per, ranks, H, W))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t smem = resident_smem(halo, per, ranks, H, W);
+  cudaError_t err = resident_attributes(halo, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      resident_config(halo, nprog, H, W, ranks, per, &attr, st);
+  err = halo ? cudaLaunchKernelEx(&cfg, probe_resident<true>, p0, p1, out,
+                                  alpha, t1, t2, nprog, H, W, nt, ranks, per)
+             : cudaLaunchKernelEx(&cfg, probe_resident<false>, p0, p1, out,
+                                  alpha, t1, t2, nprog, H, W, nt, ranks, per);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The cluster of probe_resident<halo != 0> for nprog fields of H x W: in
+// *ranks the blocks a field (resident_ranks) and in *per the fields a
+// cluster, the fewest that put every field in one wave of the clusters
+// the card holds at once (cudaOccupancyMaxActiveClusters at the most
+// fields that fit), at most that many; the most that fit when the card
+// reports no count. *ranks = *per = 0 for a field past the size limit
+// (resident_fits), which the *_global kernels take. Returns a CUDA error,
+// 0 if none.
+extern "C" int rdt_probe_plan(int halo, int nprog, int H, int W, int* ranks,
+                              int* per) {
+  *ranks = 0;
+  *per = 0;
+  if (nprog < 1 || H < 5 || W < 5) return (int)cudaErrorInvalidValue;
+  const int r = resident_ranks(H);
+  if (!resident_fits(halo, 1, r, H, W)) return 0;
+  long long most = (long long)(kMaxSmem / resident_smem(halo, 1, r, H, W));
+  if (most > nprog) most = nprog;
+  const int fit = (int)most;
+  cudaError_t err = resident_attributes(halo, resident_smem(halo, fit, r, H,
+                                                            W));
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      resident_config(halo, fit, H, W, r, fit, &attr, nullptr);
+  int clusters = 0;
+  err = halo ? cudaOccupancyMaxActiveClusters(&clusters, probe_resident<true>,
+                                              &cfg)
+             : cudaOccupancyMaxActiveClusters(&clusters,
+                                              probe_resident<false>, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  int p = fit;
+  if (clusters > 0) {
+    p = (nprog + clusters - 1) / clusters;
+    if (p > fit) p = fit;
+  }
+  *ranks = r;
+  *per = p;
+  return 0;
+}
+
+// nt steps of probe_roll_global on PyTorch's stream, one launch a step,
+// from the states p0, p1 (nprog x H x W, only read). Step n writes x when n
+// is even and y when it is odd, so the newest state ends in x when nt is
+// odd and in y when it is even. Returns the first launch error, 0 if none.
+extern "C" int rdt_probe_roll_global(const float* p0, const float* p1,
+                                     float* x, float* y, const float* alpha,
+                                     const float* t1, const float* t2,
+                                     int nprog, int H, int W, int nt,
+                                     void* stream) {
   if (!probe_fits(nprog, H, W, nt)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((W + kRollT - 1) / kRollT, (H + kRollT - 1) / kRollT,
@@ -543,8 +984,8 @@ extern "C" int rdt_probe_roll(const float* p0, const float* p1, float* x,
   const float* a1 = p1;
   for (int n = 0; n < nt; ++n) {
     float* o = n % 2 ? y : x;
-    probe_roll<<<grid, block, kRollSmem, st>>>(a0, a1, o, alpha, t1, t2, H,
-                                               W);
+    probe_roll_global<<<grid, block, kRollSmem, st>>>(a0, a1, o, alpha, t1,
+                                                      t2, H, W);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     a0 = a1;
@@ -556,7 +997,7 @@ extern "C" int rdt_probe_roll(const float* p0, const float* p1, float* x,
 // nt steps of probe_mxu<xy != 0> on PyTorch's stream, one launch a step,
 // with d = band_circulant(W) (rows of round4(W) floats) and e =
 // band_circulant(H) (rows of round4(H); read only with xy). The states p0,
-// p1 and x, y as for rdt_probe_roll, but with rows of round4(W) floats.
+// p1 and x, y as for rdt_probe_roll_global, but with rows of round4(W) floats.
 // Every pointer but those to the planes must be 16-byte aligned. Returns
 // the first launch error, 0 if none.
 extern "C" int rdt_probe_mxu(int xy, const float* p0, const float* p1,
@@ -590,22 +1031,23 @@ extern "C" int rdt_probe_mxu(int xy, const float* p0, const float* p1,
   return 0;
 }
 
-// nt steps of probe_halo on PyTorch's stream, one launch a step, on the
-// two haloed states s0 (p0) and s1 (p1), nprog x H x (W + 4) each, halo
-// columns filled: step u reads state (u + 1) % 2 and writes state u % 2,
-// so the newest ends in s0 when nt is odd and in s1 when it is even.
-// Returns the first launch error, 0 if none.
-extern "C" int rdt_probe_halo(float* s0, float* s1, const float* alpha,
-                              const float* t1, const float* t2, int nprog,
-                              int H, int W, int nt, void* stream) {
+// nt steps of probe_halo_global on PyTorch's stream, one launch a step,
+// on the two haloed states s0 (p0) and s1 (p1), nprog x H x (W + 4) each,
+// halo columns filled: step u reads state (u + 1) % 2 and writes state
+// u % 2, so the newest ends in s0 when nt is odd and in s1 when it is
+// even. Returns the first launch error, 0 if none.
+extern "C" int rdt_probe_halo_global(float* s0, float* s1, const float* alpha,
+                                     const float* t1, const float* t2,
+                                     int nprog, int H, int W, int nt,
+                                     void* stream) {
   if (!probe_fits(nprog, H, W, nt)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((W + kHaloX - 1) / kHaloX, (H + kHaloY - 1) / kHaloY,
                   nprog);
   const dim3 block(kHaloX, kHaloY);
   for (int u = 0; u < nt; ++u) {
-    probe_halo<<<grid, block, 0, st>>>(u % 2 ? s0 : s1, u % 2 ? s1 : s0,
-                                       alpha, t1, t2, H, W);
+    probe_halo_global<<<grid, block, 0, st>>>(
+        u % 2 ? s0 : s1, u % 2 ? s1 : s0, alpha, t1, t2, H, W);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -613,22 +1055,24 @@ extern "C" int rdt_probe_halo(float* s0, float* s1, const float* alpha,
 }
 
 // Registers per thread, local (spill) bytes per thread and resident blocks
-// per SM of probe kernel `which` (0 probe_roll, 1 probe_mxu<false>, 2
-// probe_mxu<true>, 3 probe_halo) at its launch configuration. Returns the
-// first CUDA error, 0 if none.
+// per SM of the one-launch-a-step probe kernel `which` (0
+// probe_roll_global, 1 probe_mxu<false>, 2 probe_mxu<true>, 3
+// probe_halo_global) at its launch configuration. Returns the first CUDA
+// error, 0 if none.
 extern "C" int rdt_probe_info(int which, int* regs, int* local_bytes,
                               int* blocks_per_sm) {
   const void* fn;
   int threads;
   size_t smem = 0;
   switch (which) {
-    case 0: fn = (const void*)probe_roll; threads = kRollT * kRollRows;
-            smem = kRollSmem; break;
+    case 0: fn = (const void*)probe_roll_global;
+            threads = kRollT * kRollRows; smem = kRollSmem; break;
     case 1: fn = (const void*)probe_mxu<false>; threads = kMxuThreads;
             smem = kMxuSmem; break;
     case 2: fn = (const void*)probe_mxu<true>; threads = kMxuThreads;
             smem = kMxuSmem; break;
-    case 3: fn = (const void*)probe_halo; threads = kHaloX * kHaloY; break;
+    case 3: fn = (const void*)probe_halo_global;
+            threads = kHaloX * kHaloY; break;
     default: return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = mxu_attributes();
@@ -640,4 +1084,39 @@ extern "C" int rdt_probe_info(int which, int* regs, int* local_bytes,
   *local_bytes = (int)attr.localSizeBytes;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks_per_sm, fn, threads, smem);
+}
+
+// The same for probe_resident<halo != 0> as launched for nprog fields of
+// H x W (rdt_probe_plan), with in *ranks and *per its cluster and in
+// *clusters the clusters that can be resident on the card at once.
+// Returns cudaErrorInvalidValue for a field past its size limit, else a
+// CUDA error, 0 if none.
+extern "C" int rdt_probe_resident_info(int halo, int nprog, int H, int W,
+                                       int* regs, int* local_bytes,
+                                       int* blocks_per_sm, int* ranks,
+                                       int* per, int* clusters) {
+  cudaError_t err = (cudaError_t)rdt_probe_plan(halo, nprog, H, W, ranks,
+                                                per);
+  if (err != cudaSuccess) return (int)err;
+  if (*ranks == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = resident_smem(halo, *per, *ranks, H, W);
+  err = resident_attributes(halo, smem);
+  if (err != cudaSuccess) return (int)err;
+  const void* fn = halo ? (const void*)probe_resident<true>
+                        : (const void*)probe_resident<false>;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      resident_config(halo, nprog, H, W, *ranks, *per, &attr, nullptr);
+  err = halo ? cudaOccupancyMaxActiveClusters(clusters, probe_resident<true>,
+                                              &cfg)
+             : cudaOccupancyMaxActiveClusters(clusters,
+                                              probe_resident<false>, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, fn);
+  if (err != cudaSuccess) return (int)err;
+  *regs = fa.numRegs;
+  *local_bytes = (int)fa.localSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, fn, kResThreads, smem);
 }

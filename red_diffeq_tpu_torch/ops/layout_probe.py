@@ -24,8 +24,12 @@ Each runs ``nt`` steps of
 on ``nprog`` independent (Hp, Wp) fields, with L4 the circular 4th-order
 Laplacian without its centre term and ``alpha``, ``t1``, ``t2`` one (Hp,
 Wp) plane shared by every field, and returns the newest state. The TPU
-kernels take ``unroll`` steps a grid step; the CUDA kernels take one step
-a launch, so a call is ``nt`` launches.
+kernels keep each field in VMEM for all ``nt`` steps. So do ``probe_roll``
+and ``probe_halo``: one launch a call, each field in the shared memory of
+a thread-block cluster, a strip of rows a block (:func:`route` picks the
+cluster). Fields past that design's size limit take ``probe_roll_global``
+and ``probe_halo_global``, one launch a step with the states in device
+memory, chosen by size alone. The products take one launch a step.
 
 Beside the kernels are their plain PyTorch versions (``roll_plain``,
 ``mxu_x_plain``, ``mxu_xy_plain``, ``halo_plain``), each in its JAX
@@ -46,9 +50,14 @@ from .stencil import C1, C2, C3, laplacian4
 
 VARIANTS = ('roll', 'mxu_x', 'mxu_xy', 'halo')
 KERNELS = {v: f'probe_{v}' for v in VARIANTS}
+# The one-launch-a-step kernels of roll and halo, for fields past the
+# resident kernels' size limit.
+GLOBAL_KERNELS = {v: f'probe_{v}_global' for v in ('roll', 'halo')}
+ROUTES = ('resident', 'global')
 
-# Kernel launches made by run_variant, by kernel: one per FD step.
-launches = dict.fromkeys(KERNELS.values(), 0)
+# Kernel launches made by run_variant, by kernel: one a call for probe_roll
+# and probe_halo, one a step for the others.
+launches = dict.fromkeys([*KERNELS.values(), *GLOBAL_KERNELS.values()], 0)
 
 
 def reset_launches() -> None:
@@ -204,6 +213,9 @@ def plain_variant(variant, p0, p1, alpha, t1, t2, *, nt):
 
 _CSRC = Path(__file__).resolve().parent / 'csrc' / 'layout_probe.cu'
 _lib = None
+# route()'s answers for the loaded library, made once a shape (no
+# occupancy query while a CUDA graph captures a call).
+_ROUTES = {}
 
 
 def _load():
@@ -211,32 +223,82 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(str(stencil.build(source=_CSRC)))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rdt_probe_roll.argtypes = [p] * 7 + [i] * 4 + [p]
-        lib.rdt_probe_roll.restype = i
-        lib.rdt_probe_halo.argtypes = [p] * 5 + [i] * 4 + [p]
-        lib.rdt_probe_halo.restype = i
-        lib.rdt_probe_mxu.argtypes = [i] + [p] * 9 + [i] * 4 + [p]
-        lib.rdt_probe_mxu.restype = i
         ip = ctypes.POINTER(i)
+        lib.rdt_probe_resident.argtypes = [i] + [p] * 6 + [i] * 6 + [p]
+        lib.rdt_probe_plan.argtypes = [i] * 4 + [ip] * 2
+        lib.rdt_probe_roll_global.argtypes = [p] * 7 + [i] * 4 + [p]
+        lib.rdt_probe_halo_global.argtypes = [p] * 5 + [i] * 4 + [p]
+        lib.rdt_probe_mxu.argtypes = [i] + [p] * 9 + [i] * 4 + [p]
         lib.rdt_probe_info.argtypes = [i] + [ip] * 3
-        lib.rdt_probe_info.restype = i
+        lib.rdt_probe_resident_info.argtypes = [i] * 4 + [ip] * 6
+        for name in ('rdt_probe_resident', 'rdt_probe_plan',
+                     'rdt_probe_roll_global', 'rdt_probe_halo_global',
+                     'rdt_probe_mxu', 'rdt_probe_info',
+                     'rdt_probe_resident_info'):
+            getattr(lib, name).restype = i
+        _ROUTES.clear()
         _lib = lib
     return _lib
 
 
-def kernel_info(variant):
+def route(variant, nprog, hp, wp):
+    """How :func:`run_variant` runs ``variant`` on ``nprog`` fields of
+    (hp, wp) on the card: a dict with the ``kernel``, its ``route``
+    ('resident': one launch a call, the fields in the shared memory of
+    thread-block clusters; 'global': one launch a step), and for the
+    resident route the blocks a cluster (``ranks``), ``fields_per_cluster``
+    and ``clusters`` (None otherwise). The resident kernels' picker
+    (``rdt_probe_plan``) decides by the field's size alone: a cluster of up
+    to 16 blocks, one strip of rows a block, the fewest fields a cluster
+    that fill one wave of the clusters the card holds at once."""
+    rec = dict(kernel=KERNELS[variant], route='global', ranks=None,
+               fields_per_cluster=None, clusters=None)
+    if variant not in GLOBAL_KERNELS:
+        return rec
+    lib, key = _load(), (variant, nprog, hp, wp)
+    if key not in _ROUTES:
+        ranks, per = ctypes.c_int(), ctypes.c_int()
+        err = lib.rdt_probe_plan(int(variant == 'halo'), nprog, hp, wp,
+                                 ctypes.byref(ranks), ctypes.byref(per))
+        if err != 0:
+            raise RuntimeError(f'rdt_probe_plan failed: CUDA error {err}')
+        if ranks.value == 0:
+            rec['kernel'] = GLOBAL_KERNELS[variant]
+        else:
+            rec.update(route='resident', ranks=ranks.value,
+                       fields_per_cluster=per.value,
+                       clusters=-(-nprog // per.value))
+        _ROUTES[key] = rec
+    return dict(_ROUTES[key])
+
+
+def kernel_info(kernel, nprog=0, hp=0, wp=0):
     """Registers per thread, local (spill) bytes per thread and resident
-    blocks per SM of ``probe_<variant>`` on the current card, at its launch
-    configuration (CUDA's function attributes and occupancy
-    calculator)."""
-    vals = [ctypes.c_int() for _ in range(3)]
-    err = _load().rdt_probe_info(VARIANTS.index(variant),
-                                 *map(ctypes.byref, vals))
+    blocks per SM of the probe kernel named ``kernel`` on the current card,
+    at its launch configuration (CUDA's function attributes and occupancy
+    calculator). ``probe_roll`` and ``probe_halo`` as launched for
+    ``nprog`` fields of (hp, wp), with their ``ranks``,
+    ``fields_per_cluster`` and the ``clusters`` resident at once."""
+    lib = _load()
+    if kernel in (KERNELS['roll'], KERNELS['halo']):
+        vals = [ctypes.c_int() for _ in range(6)]
+        err = lib.rdt_probe_resident_info(int(kernel == KERNELS['halo']),
+                                          nprog, hp, wp,
+                                          *map(ctypes.byref, vals))
+        keys = ('regs', 'local_bytes', 'blocks_per_sm', 'ranks',
+                'fields_per_cluster', 'clusters')
+    else:
+        ids = (GLOBAL_KERNELS['roll'], KERNELS['mxu_x'], KERNELS['mxu_xy'],
+               GLOBAL_KERNELS['halo'])
+        if kernel not in ids:
+            raise ValueError(f'unknown probe kernel {kernel!r}')
+        vals = [ctypes.c_int() for _ in range(3)]
+        err = lib.rdt_probe_info(ids.index(kernel), *map(ctypes.byref, vals))
+        keys = ('regs', 'local_bytes', 'blocks_per_sm')
     if err != 0:
-        raise RuntimeError(f'kernel_info({variant!r}) failed: CUDA error '
+        raise RuntimeError(f'kernel_info({kernel!r}) failed: CUDA error '
                            f'{err}')
-    return dict(zip(('regs', 'local_bytes', 'blocks_per_sm'),
-                    (v.value for v in vals)))
+    return dict(zip(keys, (v.value for v in vals)))
 
 
 def _rows_of(p, ld):
@@ -247,22 +309,29 @@ def _rows_of(p, ld):
     return out
 
 
-def run_variant(variant, p0, p1, alpha, t1, t2, *, nt):
+def run_variant(variant, p0, p1, alpha, t1, t2, *, nt, route_to=None):
     """``nt`` steps of ``variant`` from the states p0, p1 (nprog, Hp, Wp)
     with the planes alpha, t1, t2 (Hp, Wp); returns the newest state. The
-    CUDA kernel ``probe_<variant>`` (``nt`` launches) for CUDA tensors,
-    :func:`plain_variant` for CPU tensors."""
+    CUDA kernel of :func:`route` for CUDA tensors, :func:`plain_variant`
+    for CPU tensors. ``route_to`` ('resident' or 'global') overrides the
+    route of roll and halo, to time one against the other; a field the
+    resident kernels cannot take raises there."""
     if p0.device.type == 'cpu':
         return plain_variant(variant, p0, p1, alpha, t1, t2, nt=nt)
     if p0.device.type != 'cuda':
         raise ValueError(f'unsupported device {p0.device}')
-    return _run_variant_kernel(variant, p0, p1, alpha, t1, t2, nt=nt)
+    return _run_variant_kernel(variant, p0, p1, alpha, t1, t2, nt=nt,
+                               route_to=route_to)
 
 
-def _run_variant_kernel(variant, p0, p1, alpha, t1, t2, *, nt):
+def _run_variant_kernel(variant, p0, p1, alpha, t1, t2, *, nt,
+                        route_to=None):
     if variant not in KERNELS:
         raise ValueError(f'unknown variant {variant!r}; expected one of '
                          f'{VARIANTS}')
+    if route_to is not None and (route_to not in ROUTES
+                                 or variant not in GLOBAL_KERNELS):
+        raise ValueError(f'{variant!r} has no route {route_to!r}')
     if p0.dim() != 3:
         raise ValueError(f'states must be (nprog, Hp, Wp), got shape '
                          f'{tuple(p0.shape)}')
@@ -281,21 +350,37 @@ def _run_variant_kernel(variant, p0, p1, alpha, t1, t2, *, nt):
         raise ValueError('more than 65535 fields are not supported')
     lib = _load()
     ptr, st = stencil._ptr, stencil._stream(dev)
-    if variant == 'halo':
+    plan = route(variant, nprog, hp, wp)
+    if route_to == 'resident' and plan['route'] != 'resident':
+        raise ValueError(f'{hp}x{wp} fields are past the size limit of '
+                         f'{KERNELS[variant]}')
+    if route_to == 'global':
+        plan = dict(plan, kernel=GLOBAL_KERNELS[variant], route='global')
+    kernel, n = plan['kernel'], nt
+    if plan['route'] == 'resident':
+        out = torch.empty_like(p0)
+        err = lib.rdt_probe_resident(int(variant == 'halo'), ptr(p0),
+                                     ptr(p1), ptr(out), ptr(alpha), ptr(t1),
+                                     ptr(t2), nprog, hp, wp, nt,
+                                     plan['ranks'],
+                                     plan['fields_per_cluster'], st)
+        n = 1
+    elif variant == 'halo':
         # The two states, (nprog, Hp, Wp + 4) each; step u writes state
         # u % 2, so the newest is state 0 after an odd count.
         s = [halo_pad(p0), halo_pad(p1)]
-        err = lib.rdt_probe_halo(ptr(s[0]), ptr(s[1]), ptr(alpha), ptr(t1),
-                                 ptr(t2), nprog, hp, wp, nt, st)
-        out = s[(nt - 1) % 2]
+        err = lib.rdt_probe_halo_global(ptr(s[0]), ptr(s[1]), ptr(alpha),
+                                        ptr(t1), ptr(t2), nprog, hp, wp, nt,
+                                        st)
+        out = s[(nt - 1) % 2][..., 2:wp + 2].contiguous()
     else:
         # Step n writes x when n is even and y when it is odd, from step 2
         # on over the older of the two states it reads.
         if variant == 'roll':
             x, y = torch.empty_like(p0), torch.empty_like(p0)
-            err = lib.rdt_probe_roll(ptr(p0), ptr(p1), ptr(x), ptr(y),
-                                     ptr(alpha), ptr(t1), ptr(t2), nprog, hp,
-                                     wp, nt, st)
+            err = lib.rdt_probe_roll_global(ptr(p0), ptr(p1), ptr(x), ptr(y),
+                                            ptr(alpha), ptr(t1), ptr(t2),
+                                            nprog, hp, wp, nt, st)
         else:
             # The products read whole 16-byte rows: states with rows of
             # round4(Wp) floats.
@@ -308,10 +393,9 @@ def _run_variant_kernel(variant, p0, p1, alpha, t1, t2, *, nt):
                                     ptr(y), ptr(alpha), ptr(t1), ptr(t2),
                                     ptr(d), ptr(e), nprog, hp, wp, nt, st)
         out = x if nt % 2 else y
+        if variant != 'roll':
+            out = out[..., :wp].contiguous()
     if err != 0:
-        raise RuntimeError(f'{KERNELS[variant]} launch failed: CUDA error '
-                           f'{err}')
-    launches[KERNELS[variant]] += nt
-    if variant == 'halo':
-        return out[..., 2:wp + 2].contiguous()
-    return out if variant == 'roll' else out[..., :wp].contiguous()
+        raise RuntimeError(f'{kernel} launch failed: CUDA error {err}')
+    launches[kernel] += n
+    return out

@@ -8,9 +8,13 @@ its own ``--validate-only`` does; the port's plain versions
 within max-rel 1e-5 of max|ref| (the JAX variants agree with each other to
 8.1e-7 there: fp32 reassociation). ``csrc/layout_probe.cu`` is built with
 g++ against ``tests/cuda_host/cuda_host.h`` (each CUDA thread a fiber,
-each block's shared memory its own, NaN-filled) and its launchers are held
-to the plain versions: ``roll`` and ``halo`` bit for bit (both sides round
-every fp32 operation alone, in the JAX kernels' grouping), the two
+each block's shared memory its own, NaN-filled, a thread-block cluster a
+group of fibers with its barrier) and its launchers are held to the plain
+versions: ``roll`` and ``halo`` bit for bit on both routes, the resident
+kernels (one launch a call, each field in a cluster's shared memory) at
+every cluster size their picker returns, and the one-launch-a-step
+``*_global`` kernels (both sides round every fp32 operation alone, in the
+JAX kernels' grouping), the two
 products bit for bit against a plain split-TF32 product in the kernels'
 order (the state and the constant each in three TF32 parts; each 8-deep
 step adds six products of parts, each pass's 8 terms in order, as
@@ -124,12 +128,14 @@ def test_tool_timing_lines_on_cpu(torch_tool):
 
 
 def test_breakdown_variants_apply_to_the_source(breakdown_tool):
-    """Every cut and design of tools/torch_probe_breakdown.py finds what it
-    replaces in csrc/layout_probe.cu, and changes it; a failure names each
-    variant whose pattern no longer matches."""
+    """Every cut and design of tools/torch_probe_breakdown.py, of the
+    products and of the resident kernels, finds what it replaces in
+    csrc/layout_probe.cu, and changes it; a failure names each variant
+    whose pattern no longer matches."""
     src = lp._CSRC.read_text()
     failed = []
-    for name, subs in breakdown_tool.VARIANTS.items():
+    for name, subs in [*breakdown_tool.VARIANTS.items(),
+                       *breakdown_tool.RESIDENT_VARIANTS.items()]:
         try:
             out = breakdown_tool.variant_source(src, subs)
         except RuntimeError as err:
@@ -253,8 +259,107 @@ def test_probe_kernel_matches_plain_version(host_probe, case, variant):
         assert _max_rel(got, want) <= GATE
     for t, k in zip(prob, kept):
         assert torch.equal(t, k), 'the caller\'s states were written'
+    # roll and halo take every CASES field on the resident route: one
+    # launch a call; the products one a step.
+    if variant in lp.GLOBAL_KERNELS:
+        assert lp.route(variant, nprog, hp, wp)['route'] == 'resident'
+    want_launches = 1 if variant in lp.GLOBAL_KERNELS else nt
     assert host_probe.launches == {
-        k: nt if k == lp.KERNELS[variant] else 0 for k in lp.launches}
+        k: want_launches if k == lp.KERNELS[variant] else 0
+        for k in lp.launches}
+
+
+def _held_to_plain(variant, case, route_to=None):
+    """``case`` through the kernel of ``variant`` (its route by size, or
+    ``route_to``), bit for bit against the plain version, the caller's
+    states unwritten; returns the route :func:`lp.route` picks."""
+    nprog, hp, wp, nt = case
+    prob = [torch.from_numpy(a) for a in lp.make_problem(nprog, hp, wp,
+                                                         seed=hp + wp + nt)]
+    kept = [t.clone() for t in prob]
+    got = lp._run_variant_kernel(variant, *prob, nt=nt, route_to=route_to)
+    assert got.shape == (nprog, hp, wp) and got.is_contiguous()
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, lp.plain_variant(variant, *prob, nt=nt))
+    for t, k in zip(prob, kept):
+        assert torch.equal(t, k), 'the caller\'s states were written'
+    return lp.route(variant, nprog, hp, wp)
+
+
+# (nprog, Hp, Wp, nt, ranks, fields a cluster) of the resident kernels
+# beyond CASES: each cluster size the picker returns (2 for 5-7 rows, 4 for
+# 8-15, 8 for 16-31, 16 from 32), each with strips of exactly 2 rows (5
+# rows: 2 and 3; 8, 16 and 32 rows: 2 each), where a block's halo rows come
+# from the same neighbour on both sides at 2 ranks; 3 fields in one
+# cluster; a ragged last cluster (5 fields at the 3 a cluster that rows of
+# 1000 floats leave room for, one band a block) for both layouts; strips
+# of 5 rows in 3 bands of 1, 2 and 2 rows (a band that starts at row 1).
+RESIDENT_CASES = [(1, 5, 6, 3, 2, 1), (2, 8, 9, 3, 4, 2),
+                  (1, 16, 7, 3, 8, 1), (3, 32, 9, 4, 16, 3),
+                  (5, 7, 1000, 2, 2, 3), (1, 80, 300, 2, 16, 1)]
+
+
+@pytest.mark.parametrize('variant', ['roll', 'halo'])
+@pytest.mark.parametrize('case', RESIDENT_CASES,
+                         ids=lambda c: f'{c[0]}x{c[1]}x{c[2]}n{c[3]}')
+def test_resident_kernel_at_every_cluster_size(host_probe, case, variant):
+    nprog, hp, wp, nt, ranks, per = case
+    plan = _held_to_plain(variant, case[:4])
+    assert plan == dict(kernel=lp.KERNELS[variant], route='resident',
+                        ranks=ranks, fields_per_cluster=per,
+                        clusters=-(-nprog // per))
+    assert host_probe.launches == {
+        k: int(k == lp.KERNELS[variant]) for k in lp.launches}
+
+
+def test_resident_picker_returns_every_cluster_size(host_probe):
+    """The picker's cluster sizes over 5 to 64 rows are 2, 4, 8 and 16,
+    the most that leave every strip 2 rows (one never: 5 rows split in
+    two): RESIDENT_CASES reaches each."""
+    sizes = {lp.route('roll', 1, h, 9)['ranks'] for h in range(5, 65)}
+    assert sizes == {2, 4, 8, 16} == {c[4] for c in RESIDENT_CASES}
+
+
+# (nprog, Hp, Wp, nt) past the resident kernels' size limit: rows of more
+# than 1024 floats (one column a thread), and 9-row bands (129 rows at 16
+# blocks, one band of 520 columns a block).
+GLOBAL_CASES = [(1, 5, 1030, 3), (1, 129, 520, 2)]
+
+
+@pytest.mark.parametrize('variant', ['roll', 'halo'])
+@pytest.mark.parametrize('case', GLOBAL_CASES,
+                         ids=lambda c: f'{c[0]}x{c[1]}x{c[2]}n{c[3]}')
+def test_field_past_the_limit_takes_the_global_kernel(host_probe, case,
+                                                      variant):
+    plan = _held_to_plain(variant, case)
+    assert plan == dict(kernel=lp.GLOBAL_KERNELS[variant], route='global',
+                        ranks=None, fields_per_cluster=None, clusters=None)
+    assert host_probe.launches == {
+        k: case[3] if k == lp.GLOBAL_KERNELS[variant] else 0
+        for k in lp.launches}
+    prob = [torch.from_numpy(a) for a in lp.make_problem(*case[:3])]
+    with pytest.raises(ValueError, match='past the size limit'):
+        lp._run_variant_kernel(variant, *prob, nt=1, route_to='resident')
+
+
+@pytest.mark.parametrize('variant', ['roll', 'halo'])
+@pytest.mark.parametrize('case', CASES,
+                         ids=lambda c: f'{c[0]}x{c[1]}x{c[2]}n{c[3]}')
+def test_global_kernel_matches_plain_version(host_probe, case, variant):
+    """The one-launch-a-step kernels on every CASES field, their route
+    forced: bit for bit, one launch a step."""
+    _held_to_plain(variant, case, route_to='global')
+    assert host_probe.launches == {
+        k: case[3] if k == lp.GLOBAL_KERNELS[variant] else 0
+        for k in lp.launches}
+
+
+def test_probe_routes_refuse_what_they_do_not_have(host_probe):
+    prob = [torch.from_numpy(a) for a in lp.make_problem(1, 9, 9)]
+    for variant, to in (('mxu_x', 'global'), ('roll', 'tape')):
+        with pytest.raises(ValueError, match='has no route'):
+            lp._run_variant_kernel(variant, *prob, nt=1, route_to=to)
+    assert host_probe.launches == dict.fromkeys(lp.launches, 0)
 
 
 def test_probe_launchers_refuse_what_they_cannot_run(host_probe):
@@ -262,10 +367,34 @@ def test_probe_launchers_refuse_what_they_cannot_run(host_probe):
     null = [None] * 7
     for nprog, h, w, nt in ((1, 4, 9, 1), (1, 9, 4, 1), (0, 9, 9, 1),
                             (1, 9, 9, 0), (65536, 9, 9, 1)):
-        assert lib.rdt_probe_roll(*null, nprog, h, w, nt, None) != 0
-        assert lib.rdt_probe_halo(*null[:5], nprog, h, w, nt, None) != 0
+        assert lib.rdt_probe_roll_global(*null, nprog, h, w, nt, None) != 0
+        assert lib.rdt_probe_halo_global(*null[:5], nprog, h, w, nt,
+                                         None) != 0
         assert lib.rdt_probe_mxu(1, *null, None, None, nprog, h, w, nt,
                                  None) != 0
+        for halo in (0, 1):
+            assert lib.rdt_probe_resident(halo, *null[:6], nprog, h, w, nt,
+                                          2, 1, None) != 0
+    # The resident launcher refuses a cluster that does not hold the field:
+    # a size it is not built for, strips under 2 rows, no field a cluster,
+    # shared memory past 227 KB, rows of more than 1024 floats, bands of
+    # more than 8 rows.
+    for nprog, h, w, ranks, per in ((1, 9, 9, 3, 1), (1, 9, 9, 32, 1),
+                                    (1, 9, 9, 8, 1), (1, 9, 9, 4, 0),
+                                    (4, 7, 1000, 2, 4), (1, 5, 1030, 2, 1),
+                                    (1, 129, 520, 16, 1)):
+        for halo in (0, 1):
+            assert lib.rdt_probe_resident(halo, *null[:6], nprog, h, w, 1,
+                                          ranks, per, None) != 0
+    # The picker refuses what no route takes, and gives no cluster for a
+    # field past the limit.
+    r, q = ctypes.c_int(-1), ctypes.c_int(-1)
+    for nprog, h, w in ((0, 9, 9), (1, 4, 9), (1, 9, 4)):
+        assert lib.rdt_probe_plan(0, nprog, h, w, ctypes.byref(r),
+                                  ctypes.byref(q)) != 0
+    assert lib.rdt_probe_plan(1, 1, 5, 1030, ctypes.byref(r),
+                              ctypes.byref(q)) == 0
+    assert (r.value, q.value) == (0, 0)
     # The products copy 16 bytes at a time: a state that does not start on
     # 16 bytes is refused.
     buf = torch.zeros(4 * 9 * 12 + 1)
@@ -277,13 +406,23 @@ def test_probe_launchers_refuse_what_they_cannot_run(host_probe):
 
 def test_probe_kernel_info_on_the_host_build(host_probe):
     """``kernel_info`` reads every probe kernel through ``rdt_probe_info``
-    (the host stand-in reports zeros) and refuses an unknown one."""
-    for v in lp.VARIANTS:
-        assert lp.kernel_info(v) == dict(regs=0, local_bytes=0,
-                                         blocks_per_sm=0)
+    and, for the resident kernels with their cluster, through
+    ``rdt_probe_resident_info`` (the host stand-in reports zero registers,
+    blocks and clusters), and refuses an unknown kernel or a field past the
+    resident kernels' limit."""
+    zeros = dict(regs=0, local_bytes=0, blocks_per_sm=0)
+    for k in (lp.KERNELS['mxu_x'], lp.KERNELS['mxu_xy'],
+              *lp.GLOBAL_KERNELS.values()):
+        assert lp.kernel_info(k) == zeros
+    for k in (lp.KERNELS['roll'], lp.KERNELS['halo']):
+        assert lp.kernel_info(k, 20, 310, 310) == dict(
+            zeros, ranks=16, fields_per_cluster=3, clusters=0)
+        with pytest.raises(RuntimeError, match='CUDA error'):
+            lp.kernel_info(k, 1, 5, 1030)
+    with pytest.raises(ValueError, match='unknown probe kernel'):
+        lp.kernel_info('probe_tape')
     z = ctypes.c_int()
-    assert lp._load().rdt_probe_info(len(lp.VARIANTS),
-                                     *[ctypes.byref(z)] * 3) != 0
+    assert lp._load().rdt_probe_info(4, *[ctypes.byref(z)] * 3) != 0
 
 
 # ----------------------------------------------------------------------

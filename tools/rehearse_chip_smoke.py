@@ -20,9 +20,10 @@ cluster limit on a 34x34 field (16x16 at nbc=9) whose tape route is forced
 to 'global'; the training slice with 8 models a family, a dim-8 U-Net at
 batch 16 and lr 3e-3 for 40 steps, a milestone every 20, a 2-step resume,
 8 FID samples and 2 models a seismogram run; the layout probe on 2 fields
-of 13x13, 8 steps (its gates at 3 and 8), its four kernels built from
-``layout_probe.cu`` for the host. Times printed are meaningless; device
-memory reads 0. Exits with ``chip_smoke.main()``'s code. About thirty
+of 13x13, 8 steps (its gates at 3 and 8, chunks of 4 steps) and past the
+resident kernels' limit on one field of 342x342, 3 steps, its six kernels
+built from ``layout_probe.cu`` for the host. Times printed are
+meaningless; device memory reads 0. Exits with ``chip_smoke.main()``'s code. About thirty
 minutes.
 """
 import ctypes
@@ -119,7 +120,8 @@ def main():
     ns['TRAIN_ARGS'] = ['--dim', '8', '--batch_size', '16', '--lr', '3e-3',
                         '--num_fid_samples', '8']
     ns['PROBE'] = dict(programs=2, size=13, nt=8, reps=1)
-    ns['PROBE_GATE_STEPS'] = 3
+    ns['PROBE_BEYOND'] = dict(programs=1, size=342, nt=3, reps=1)
+    ns['PROBE_GATE_STEPS'], ns['PROBE_CHUNK'] = 3, 4
     ns['cuda_ms'] = lambda fn, reps, warm=True: (fn(), 0.0)[1]
     ns['graph_ms'] = ns['cuda_ms']
     smi = types.SimpleNamespace(stdout='CPU rehearsal, 0 W\n')

@@ -20,14 +20,19 @@ kernel (``red_diffeq_tpu_torch/ops/csrc/layout_probe.cu``):
 
 All compute the same operator. First every variant runs min(nt, 20) steps
 and is held to ``roll`` (the JAX tool's check, gate 1e-4 relative); then
-each is timed over ``--reps`` calls of ``nt`` steps. The kernels take one
-step a launch, so the JAX tool's ``--unroll`` (steps per grid step) has no
-counterpart here. On the card each line also gets the kernel's largest
-difference from its plain PyTorch version over the ``nt`` steps, its
-launches a call, the call's device time replayed as a CUDA graph (the
-host's launches left out) and the plain version's time; the card's name and
-power limit come first. With ``--device cpu`` the plain versions run and
-are timed by the host clock.
+each is timed over ``--reps`` calls of ``nt`` steps. ``roll`` and ``halo``
+keep each field in the shared memory of a thread-block cluster for all
+``nt`` steps, one launch a call (the ``resident`` route), as the TPU
+kernels keep it in VMEM; fields past that design's size limit take their
+one-launch-a-step ``*_global`` kernels (the ``global`` route), as do the
+products at every size. So the JAX tool's ``--unroll`` (steps per grid
+step) has no counterpart here. On the card each line also gets the
+variant's kernel, route, blocks per cluster and fields per cluster, the
+kernel's largest difference from its plain PyTorch version over the
+``nt`` steps, its launches a call, the call's device time replayed as a
+CUDA graph (the host's launches left out) and the plain version's time;
+the card's name and power limit come first. With ``--device cpu`` the
+plain versions run and are timed by the host clock.
 
 Usage, from the repository root:
     python3 tools/torch_layout_probe.py --validate-only --device cpu
@@ -121,7 +126,11 @@ def main(argv=None):
         rec = {'variant': v, 'device': str(dev), 'programs': nprog,
                'size': [hp, wp], 'nt': nt}
         if on_card:
-            kernel = lp.KERNELS[v]
+            plan = lp.route(v, nprog, hp, wp)
+            kernel = plan['kernel']
+            rec.update(kernel=kernel, route=plan['route'],
+                       ranks=plan['ranks'],
+                       fields_per_cluster=plan['fields_per_cluster'])
             before = lp.launches[kernel]
             got = call()
             rec['launches_per_call'] = lp.launches[kernel] - before

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Where a launch of the layout probe's tensor-core products spends its time.
+"""Where a launch of the layout probe's tensor-core products, or of its
+resident stencils, spends its time.
 
 Run from the repository root on a machine with a CUDA card:
 
     python3 tools/torch_probe_breakdown.py [--nt 1000] [--reps 3]
-        [--programs 20]
+        [--programs 20] [--resident]
 
 At the probe's workload (20 fields of 310x310, ``chip_smoke.py``'s PROBE)
 it times ``probe_mxu_x`` and ``probe_mxu_xy`` straight through their
@@ -35,6 +36,28 @@ after the call, the gate's measure, and each kernel's registers, spill
 bytes and resident blocks an SM. Prints one line a variant and the
 card's name and power limit last. ``--programs`` sets the fields of a
 call (25 blocks each at 310x310: how the blocks fill the card's waves).
+
+With ``--against SOURCE`` another version of the source (for instance
+the parent commit's, from ``git show``) is built and timed as it is, on
+the line ``against``, beside this one's.
+
+With ``--resident`` it times ``probe_roll`` and ``probe_halo`` (one
+cluster launch a call, ``rdt_probe_resident``) the same way, under the
+source variants of RESIDENT_VARIANTS. Some cut one part out (wrong
+values, timed only): ``block barrier a step`` (each step's cluster
+barrier a block barrier, one cluster barrier before the blocks leave so
+that none leaves while a neighbour writes into it), ``no halo rows``
+(the writes into the neighbours' halo rows), ``no steps`` (every step's
+cell updates: what is left is the load, the barriers and the store),
+``no coefficients`` (alpha, t1 and t2 read as constants: 24 fewer
+registers). ``band 7`` (bands of at most 7 rows: 3 fewer registers),
+``generic remote stores`` (the neighbours' halo rows written through
+64-bit generic pointers from ``map_shared_rank``, not 32-bit
+``st.shared::cluster`` addresses) and ``store after the steps`` (the
+newest state stored after the step loop, not in its last step) are
+designs of their own. The shipped
+source (and ``against``) is also timed at 1 and 2 fields a cluster (20
+and 10 clusters for 20 fields) beside its own pick.
 """
 import argparse
 import ctypes
@@ -94,6 +117,57 @@ VARIANTS = {
 }
 
 
+_STEP_BARRIER = '''    if (k + 1 < nt) {
+      cluster_arrive();
+      cluster_wait();
+    }
+'''
+_HALO_ROWS = '''        for (int j = 0; ya + j < top; ++j) cluster_store(up, j * S, o[j * S]);
+        for (int j = bot - ya; j < nb; ++j)
+          cluster_store(dn, j * S, o[j * S]);
+'''
+_LAST_BARRIER = '  }\n}\n\n// Shared memory of one probe_resident block'
+_OUT_IN_STEP = '''      } else {
+        float* const g = out + (size_t)(f0 + f) * H * W +
+                         (size_t)(r0 + ya) * W + x;
+        for (int j = 0; j < nb; ++j) g[j * W] = o[j * S];
+      }
+'''
+_OUT_AFTER = '''  }
+  int f = 0;
+  do {
+    const float* c = smem + 2 * f * bsz + cur + own + at;
+    float* const g = out + (size_t)(f0 + f) * H * W + (size_t)(r0 + ya) * W +
+                     x;
+    for (int j = 0; j < nb; ++j) g[j * W] = c[j * S];
+  } while (++f < nf);
+}
+
+// Shared memory of one probe_resident block'''
+_COEFFICIENTS = '''      ca[j] = alpha[g];
+      cu[j] = t1[g];
+      cv[j] = t2[g];
+'''
+# The resident kernels' variants: substitutions on the source.
+RESIDENT_VARIANTS = {
+    'as built': [],
+    'block barrier a step': [(_STEP_BARRIER, '    __syncthreads();\n'),
+                             (_LAST_BARRIER, '  }\n  cluster_arrive();\n'
+                              '  cluster_wait();\n' + _LAST_BARRIER[4:])],
+    'no halo rows': [(_HALO_ROWS, '')],
+    'no steps': [('for (int f = 0; nb > 0 && f < nf; ++f) {',
+                  'for (int f = 0; false && f < nf; ++f) {')],
+    'no coefficients': [(_COEFFICIENTS, '      ca[j] = 1.0f; cu[j] = 0.0f; '
+                         'cv[j] = 1.0f; (void)g;\n')],
+    'band 7': [('kResBand = 8;', 'kResBand = 7;'),
+               (' RDT_STEP_BAND(8);', '')],
+    'generic remote stores': [('#ifdef CUDA_HOST_EMULATION\nusing cluster_addr',
+                               '#if 1\nusing cluster_addr')],
+    'store after the steps': [(_OUT_IN_STEP, '      }\n'),
+                              (_LAST_BARRIER, _OUT_AFTER)],
+}
+
+
 def variant_source(src, subs):
     for old, new in subs:
         if isinstance(old, str):
@@ -104,6 +178,56 @@ def variant_source(src, subs):
         if n == 0:
             raise RuntimeError(f'{old!r} is not in the source')
     return src
+
+
+def _time_resident(args, libs, prob, dev):
+    """Each library's probe_roll and probe_halo at ``prob``, nt steps a call
+    through rdt_probe_resident as a CUDA graph, at the cluster its picker
+    gives and, for the shipped source, at 1 and 2 fields a cluster; one
+    line a variant with each kernel's ms, max-rel from the plain version,
+    registers, local bytes and resident clusters."""
+    import chip_smoke as C
+    from red_diffeq_tpu_torch.ops import layout_probe as lp
+    from red_diffeq_tpu_torch.ops import stencil as S
+    import torch
+    p0 = prob[0]
+    nprog, hp, wp = p0.shape
+    out = torch.empty_like(p0)
+    plain = {halo: lp.plain_variant(('roll', 'halo')[halo], *prob,
+                                    nt=args.nt) for halo in (0, 1)}
+    for name, lib_path in libs.items():
+        lib = ctypes.CDLL(str(lib_path))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.rdt_probe_resident.argtypes = [i] + [p] * 6 + [i] * 6 + [p]
+        lib.rdt_probe_resident_info.argtypes = [i] * 4 + [
+            ctypes.POINTER(i)] * 6
+        for halo in (0, 1):
+            info = [ctypes.c_int() for _ in range(6)]
+            err = lib.rdt_probe_resident_info(halo, nprog, hp, wp,
+                                              *map(ctypes.byref, info))
+            if err:
+                raise RuntimeError(f'{name}: CUDA error {err}')
+            regs, local, _, ranks, pick, clusters = (v.value for v in info)
+            cells = []
+            for per in ((pick, 1, 2) if name in ('as built', 'against')
+                        else (pick,)):
+                def call():
+                    err = lib.rdt_probe_resident(
+                        halo, *map(S._ptr, (p0, prob[1], out, *prob[2:])),
+                        nprog, hp, wp, args.nt, ranks, per, S._stream(dev))
+                    if err:
+                        raise RuntimeError(f'{name}: CUDA error {err}')
+
+                ms = C.graph_ms(call, args.reps)
+                cells.append(f'{per} fields a cluster '
+                             f'({-(-nprog // per)} clusters) {ms:.3f} ms '
+                             f'(max-rel vs plain '
+                             f'{C.max_rel(out, plain[halo]):.2e})')
+            print(f'{name}: {lp.KERNELS[("roll", "halo")[halo]]}, ms a '
+                  f'{args.nt}-step call as a CUDA graph: ' + ', '.join(cells)
+                  + f'; {regs} registers, {local} local bytes, {ranks} '
+                  f'blocks a cluster, {clusters} clusters resident',
+                  flush=True)
 
 
 def main(argv=None):
@@ -117,6 +241,13 @@ def main(argv=None):
     ap.add_argument('--reps', type=int, default=C.PROBE['reps'])
     ap.add_argument('--programs', type=int, default=C.PROBE['programs'],
                     help='fields of the call (blocks: 25 a 310x310 field)')
+    ap.add_argument('--resident', action='store_true',
+                    help='the resident kernels probe_roll and probe_halo '
+                         'under RESIDENT_VARIANTS, not the products')
+    ap.add_argument('--against', metavar='SOURCE', type=Path, default=None,
+                    help='another version of layout_probe.cu (e.g. the '
+                         'parent commit\'s), built and timed as it is '
+                         'beside this one')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print('no CUDA device is available', file=sys.stderr)
@@ -126,11 +257,17 @@ def main(argv=None):
     src = lp._CSRC.read_text()
     S.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {}
-    for name, subs in VARIANTS.items():
+    variants = RESIDENT_VARIANTS if args.resident else VARIANTS
+    if args.against is not None:
+        path = S.BUILD_DIR / 'layout_probe_against.cu'
+        path.write_text(args.against.read_text())
+        paths['against'] = path
+    for name, subs in variants.items():
         if not subs:
             paths[name] = lp._CSRC
             continue
-        stem = 'layout_probe_' + re.sub(r'\W', '_', name)
+        stem = ('layout_probe_' + ('resident_' if args.resident else '')
+                + re.sub(r'\W', '_', name))
         path = S.BUILD_DIR / f'{stem}.cu'
         path.write_text(variant_source(src, subs))
         paths[name] = path
@@ -142,6 +279,9 @@ def main(argv=None):
     wp = hp
     p0, p1, alpha, t1, t2 = [torch.from_numpy(a).to(dev) for a in
                              lp.make_problem(nprog, hp, wp)]
+    if args.resident:
+        _time_resident(args, libs, (p0, p1, alpha, t1, t2), dev)
+        libs = {}
     s0, s1 = lp._rows_of(p0, lp.round4(wp)), lp._rows_of(p1, lp.round4(wp))
     d, e = lp.circulant(wp, dev, rows=True), lp.circulant(hp, dev, rows=True)
     x, y = torch.empty_like(s0), torch.empty_like(s0)
