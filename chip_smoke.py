@@ -14,6 +14,9 @@ Phases, each printing its wall time:
    (the blocked kernels must not spill and must fit two blocks on an SM);
    ``tape_step`` at both shapes with its blocks per cluster and the
    clusters resident at once (no spills, at least TAPE_MIN_CLUSTERS);
+   ``tape_step_stream`` at 420x420 (two coefficient planes in shared
+   memory), 500x500 (one) and 600x600 (none), likewise (no spills, at
+   least STREAM_MIN_CLUSTERS at 420x420);
 3. the forward kernel ``fwd_step`` (temporally blocked, U steps a launch)
    against its plain PyTorch version at the headline shape (B=4, ns=5,
    310x310, chunk 20, nt=1000), full seismogram and every chunk carry:
@@ -116,11 +119,18 @@ Phases, each printing its wall time:
    denoise), and the loops lower it in about half of them.
 13. the tape past the cluster limit: a 320x320 model at nbc=50 (a 420x420
    field, B=1, ns=5, nt=200), where the t2 guard takes the taped route and
-   the field is too large for ``tape_step``'s cluster: ``tape_step_global``
-   (one launch a step over device memory) against its plain version bit for
-   bit on every slot of one pass, its time per pass, and the velocity
-   gradient through the kernels against plain eager autograd (max-rel
-   1e-4) with its exact launches;
+   the field is too large for ``tape_step``'s cluster: ``tape_step_stream``
+   (one cluster launch a chunk, two coefficient planes in shared memory,
+   the third read ahead from device memory) against its plain version bit
+   for bit on every slot of one pass, its time per pass with the host's
+   launches and as a CUDA graph, ``tape_step_global`` (one launch a step
+   over device memory) forced at the same pass, bit for bit and timed the
+   same way, and the velocity gradient through the kernels against plain
+   eager autograd (max-rel 1e-4) with its exact launches (one
+   ``tape_step_stream`` a chunk); then a 580x580 model at nbc=50 (680x680,
+   one chunk), past ``tape_step_stream``'s limit, where
+   ``tape_step_global`` takes the field by size: bit for bit, timed, and
+   the gradient with its exact launches;
 14. the training slice at the shipped prior's width, through the entry
    points: ``red-diffeq-torch-datagen --velocity_only`` (4 families x 64
    models at 70x70), then seismograms of 8 models in one batch on the
@@ -176,8 +186,10 @@ both read in the slice that takes its route), launches per 1000-step pass
 and under ``wide`` the same at the 310x430 field with the launches of the
 wide slice's CLI run and under ``bench`` the launches of the bench slice's
 DiffusionFWI run and under ``training`` those of the training slice's
-seismogram run; then ``tape_step_global`` with the launches of the
-gradient past the cluster limit, the four probe kernels with the
+seismogram run; then ``tape_step_stream`` with the launches of the
+gradient past the cluster limit (420x420) and ``tape_step_global`` with
+those of the gradient past ``tape_step_stream``'s (680x680) and its times
+forced at 420x420, the four probe kernels with the
 launches of the probe tool's run and their times, and the probe's two
 ``*_global`` kernels with the launches of the tool's run past the
 resident limit; the card's line from
@@ -216,6 +228,13 @@ EARLIER_S_PER_STEP = 0.1240
 # design counts on: the headline's 20 fields in 3 waves (7 on an H100 SXM
 # at 700 W, PERF.md).
 TAPE_MIN_CLUSTERS = 7
+# Clusters of tape_step_stream resident at once that the field past
+# tape_step's limit (B=1, 5 shots) needs for one wave.
+STREAM_MIN_CLUSTERS = 5
+# Fields whose tape replay takes tape_step_stream with one and with no
+# coefficient plane in shared memory (420x420, BEYOND's, takes two): their
+# registers, spills and resident clusters are read in the build phase.
+STREAM_INFO_SHAPES = ((500, 500), (600, 600))
 
 
 class Phase:
@@ -395,16 +414,35 @@ def bounds(p, steps, n_calls):
     return out
 
 
-def phase_kernel_info(shapes):
+def phase_kernel_info(shapes, stream_shapes):
     """Registers, spill bytes and resident blocks per SM of every kernel,
     and the blocked kernels' U and tile at each field shape of
     ``shapes``. The blocked kernels must not spill and must fit two blocks
     on an SM. ``tape_step`` at each shape: its blocks per cluster and the
     clusters resident at once; it must not spill and must keep at least
-    TAPE_MIN_CLUSTERS resident. Returns tape_step's info at the first
-    shape."""
+    TAPE_MIN_CLUSTERS resident. ``tape_step_stream`` at each shape of
+    ``stream_shapes`` (each the instantiation its resident planes pick):
+    its blocks per cluster, planes and resident clusters; no instantiation
+    may spill, and the first shape's must keep STREAM_MIN_CLUSTERS
+    resident. Returns the infos of tape_step at the first shape and of
+    tape_step_stream at the first stream shape."""
     from red_diffeq_tpu_torch.ops import stencil
-    tape = None
+    tape = stream = None
+    for hp, wp in stream_shapes:
+        k = stencil.kernel_info('tape_step_stream', hp, wp)
+        print(f'tape_step_stream at {hp}x{wp}: {k["regs"]} registers, '
+              f'{k["local_bytes"]} local bytes, {k["blocks_per_sm"]} block(s) '
+              f'per SM, clusters of {k["ranks"]} blocks, {k["planes"]} '
+              f'coefficient plane(s) in shared memory, {k["clusters"]} '
+              f'clusters resident at once', flush=True)
+        check(k['local_bytes'] == 0, f'tape_step_stream spills to local '
+              f'memory at {hp}x{wp}')
+        check(k['blocks_per_sm'] >= 1, 'a tape_step_stream block does not '
+              'fit an SM')
+        stream = stream or k
+    check(stream['clusters'] >= STREAM_MIN_CLUSTERS, f'tape_step_stream: '
+          f'only {stream["clusters"]} clusters resident, one wave needs '
+          f'{STREAM_MIN_CLUSTERS}')
     for hp, wp in shapes:
         k = stencil.kernel_info('tape_step', hp, wp)
         print(f'tape_step at {hp}x{wp}: {k["regs"]} registers, '
@@ -418,7 +456,7 @@ def phase_kernel_info(shapes):
               f'{TAPE_MIN_CLUSTERS}')
         tape = tape or k
     for name in stencil.launches:
-        if name == 'tape_step':
+        if name in ('tape_step', 'tape_step_stream'):
             continue
         k = stencil.kernel_info(name)
         blocked = name in stencil.BLOCKED
@@ -436,7 +474,7 @@ def phase_kernel_info(shapes):
             check(k['local_bytes'] == 0, f'{name} spills to local memory')
             check(k['blocks_per_sm'] >= 2, f'{name}: only '
                   f'{k["blocks_per_sm"]} block(s) fit on an SM')
-    return tape
+    return tape, stream
 
 
 def phase_forward(p, label='headline', full=True, plain_reps=2):
@@ -757,15 +795,20 @@ def compare_grads(ctx, mu, y, mask, label, ref, **kw):
     return r
 
 
+TAPE_KERNELS = ('tape_step', 'tape_step_stream', 'tape_step_global')
+
+
 def tape_replays(p, carries, label, plain_reps=2, kernel='tape_step'):
-    """The tape replay ``kernel`` (``tape_step``, one launch a chunk, or
-    past its cluster limit ``tape_step_global``, one launch a step, as
-    ``stencil.tape_chunk`` picks it by the field's size) against
-    ``tape_chunk_plain`` on every chunk of a pass from the forward kernel's
-    carries, every slot bit for bit, and slot chunk (s_{K-1}) against the
-    forward kernel's next carry; then both timed over a pass (the plain
-    version over ``plain_reps`` passes), device time between CUDA events.
-    Returns the tapes, the times and the blocks per cluster."""
+    """The tape replay ``kernel`` (``tape_step``, one launch a chunk; past
+    its cluster limit ``tape_step_stream``, one launch a chunk; past that
+    one's ``tape_step_global``, one launch a step; as ``stencil.tape_chunk``
+    picks it by the field's size) against ``tape_chunk_plain`` on every
+    chunk of a pass from the forward kernel's carries, every slot bit for
+    bit, and slot chunk (s_{K-1}) against the forward kernel's next carry;
+    then both timed over a pass (the plain version over ``plain_reps``
+    passes), device time between CUDA events, the kernel with the host's
+    launches and as a CUDA graph. Returns the tapes, the times and the
+    blocks per cluster."""
     import torch
     from red_diffeq_tpu_torch.ops import stencil
 
@@ -792,34 +835,36 @@ def tape_replays(p, carries, label, plain_reps=2, kernel='tape_step'):
         check(torch.equal(tape[-1], carries[i + 1][0]), f'tape_step at '
               f'{label} chunk {i}: slot {CHUNK} is not fwd_step\'s s_{{K-1}}')
         tapes.append(tape)
-    ranks, launched = stencil.last_ranks['tape_step'], stencil.launches[
+    ranks, launched = stencil.last_ranks.get(kernel), stencil.launches[
         kernel]
-    per_chunk = 1 if kernel == 'tape_step' else CHUNK - 1
+    per_chunk = CHUNK - 1 if kernel == 'tape_step_global' else 1
     check(launched == per_chunk * len(tapes), f'{kernel} launched '
           f'{launched} times for {len(tapes)} chunks')
-    other = ({'tape_step', 'tape_step_global'} - {kernel}).pop()
-    check(stencil.launches[other] == 0, f'{other} launched at {label}')
+    for other in set(TAPE_KERNELS) - {kernel}:
+        check(stencil.launches[other] == 0, f'{other} launched at {label}')
     print(f'{kernel} vs plain at {label} {p["shape"]}: {len(tapes)} tapes '
           f'of {len(tapes[0])} slots, every slot bit for bit, slot {CHUNK} = '
           f'fwd_step\'s s_{{K-1}}; '
-          + (f'clusters of {ranks} blocks, one launch a chunk'
-             if kernel == 'tape_step' else
-             f'{per_chunk} launches a chunk, one a step'), flush=True)
+          + (f'{per_chunk} launches a chunk, one a step'
+             if kernel == 'tape_step_global' else
+             f'clusters of {ranks} blocks, one launch a chunk'), flush=True)
 
     def tape_pass(fn):
         for i in range(len(tapes)):
             replay(fn, i)
 
     ms = cuda_ms(lambda: tape_pass(stencil.tape_chunk), 5)
+    graph = graph_ms(lambda: tape_pass(stencil.tape_chunk), 5)
     plain_ms = cuda_ms(lambda: tape_pass(stencil.tape_chunk_plain),
                        plain_reps, warm=plain_reps > 1)
     print(f'tape pass at {label} ({len(tapes) * CHUNK} steps): {kernel} '
-          f'{ms:.3f} ms'
+          f'{ms:.3f} ms with the host\'s launches, {graph:.3f} ms as a CUDA '
+          'graph'
           + (f' (one launch per step, headline: '
              f'{EARLIER_MS["tape_step"]:.3f} ms)' if kernel == 'tape_step'
              else '') + f', plain {plain_ms:.3f} ms', flush=True)
-    return tapes, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       ranks=ranks)
+    return tapes, dict(max_abs_err=err, ms=ms, graph_ms=graph,
+                       plain_ms=plain_ms, ranks=ranks)
 
 
 def phase_tape(p, carries, grad_problem, pn, carries_n):
@@ -1753,67 +1798,112 @@ def phase_bench(dev, root):
 
 # Past tape_step's cluster limit: a 320x320 model at nbc=50 pads to
 # 420x420, whose strip of ceil(420/16) rows does not fit a block's shared
-# memory; at nbc=50 the t2 guard takes the taped route by itself. B=1, a
-# short nt.
+# memory beside its three coefficient planes (tape_step_stream keeps two);
+# at nbc=50 the t2 guard takes the taped route by itself. B=1, a short nt.
 BEYOND = dict(HEADLINE, n_grid=320, ng=320, nbc=50, nt=200)
+# 680x680, whose strip's two states alone do not fit (tape_step_global);
+# one chunk.
+BEYOND_STREAM = dict(HEADLINE, n_grid=580, ng=580, nbc=50, nt=CHUNK)
 
 
-def phase_beyond(dev):
-    """The taped route on a field past ``tape_step``'s cluster limit: the
-    route and the instantiation picked by size, ``tape_step_global`` against
-    ``tape_chunk_plain`` bit for bit on every slot of one pass and its time
-    per pass; then the velocity gradient through the kernels (launches
+def beyond_gradient(p, ctx, seis, label, expect_tape):
+    """The velocity gradient on ``p``'s field through the kernels (launches
     counted from 0 just before and read just after: the forward's and the
-    taped adjoint's blocked launches, one ``sum_shots`` and chunk - 1
-    ``tape_step_global`` a chunk, ``tape_step``, the tape-free adjoint and
-    the plain path never) against plain eager autograd, max-rel 1e-4.
-    Returns the kernel's numbers and the gradient run's launches."""
+    taped adjoint's blocked launches, one ``sum_shots`` a chunk and
+    ``expect_tape`` of the tape replays, no other tape replay, the
+    tape-free adjoint and the plain path never) against plain eager
+    autograd, max-rel 1e-4. Returns the launches and the max-rel."""
     import torch
     from red_diffeq_tpu_torch.ops import stencil
     from red_diffeq_tpu_torch.solvers import acoustic
 
-    hp = BEYOND['n_grid'] + 2 * BEYOND['nbc']
-    geom = acoustic.Geometry.from_ctx(BEYOND)
-    mode = stencil.resolve_run_config(geom, CHUNK)[0]
-    ranks = stencil.pick_ranks(hp, hp)
-    check(mode == 'tape' and ranks is None, f'{hp}x{hp} at nbc='
-          f'{BEYOND["nbc"]}: adjoint {mode!r}, tape_step clusters of {ranks} '
-          "blocks; expected 'tape' and no cluster (tape_step_global)")
-    p = headline_problem(dev, BEYOND, batch=1)
-    seis, carries = forward_pass(stencil.fwd_chunk, p, keep=True)
-    _, res = tape_replays(p, carries, f'{hp}x{hp}', plain_reps=1,
-                          kernel='tape_step_global')
-    del carries
-    mu, y, mask = gradient_problem(p['v_true'], seis[:, :, :BEYOND['nt']])
+    hp = p['shape'][-1]
+    mu, y, mask = gradient_problem(p['v_true'], seis[:, :, :ctx['nt']])
     stencil.reset_launches()
     acoustic.plain_chunk_calls['chunk'] = 0
-    got = velocity_grad(BEYOND, 'kernel', mu, y, mask)
+    got = velocity_grad(ctx, 'kernel', mu, y, mask)
     counts = dict(stencil.launches)
     plain_calls = acoustic.plain_chunk_calls['chunk']
-    want = velocity_grad(BEYOND, 'plain', mu, y, mask)
+    want = velocity_grad(ctx, 'plain', mu, y, mask)
     r = max_rel(got, want)
     check(bool(torch.isfinite(got).all()) and float(want.abs().max()) > 0,
-          'gradient past the cluster limit is degenerate')
-    check(r <= 1e-4, f'velocity gradient at {hp}x{hp} (tape_step_global) '
-          f'max-rel {r:.3e} > 1e-4')
+          f'gradient at {label} is degenerate')
+    check(r <= 1e-4, f'velocity gradient at {label} max-rel {r:.3e} > 1e-4')
     n_chunks = len(p['src'])
     expect = dict.fromkeys(counts, 0)
     for name in ('fwd_step', 'bwd_tape_step'):
         expect[name] = n_chunks * -(-CHUNK // stencil.pick_blocking(
             name, hp, hp)[0])
-    expect.update(sum_shots=n_chunks, tape_step_global=n_chunks * (CHUNK - 1))
+    expect.update(sum_shots=n_chunks, **expect_tape)
     for name in counts:
-        check(counts[name] == expect[name], f'{hp}x{hp} gradient: {name} '
+        check(counts[name] == expect[name], f'{label} gradient: {name} '
               f'launched {counts[name]} times, expected {expect[name]}')
     check(plain_calls == 0, f'the plain path ran {plain_calls} chunks')
-    bnd = bounds(p, n_chunks * CHUNK, n_chunks)['tape_step']
-    print(f'velocity gradient at {hp}x{hp} (B=1, nbc={BEYOND["nbc"]}, nt='
-          f'{BEYOND["nt"]}), kernels vs plain autograd: max-rel {r:.3e}; '
-          f'launches {counts}; tape_step_global {res["ms"]:.3f} ms per pass '
-          f'against a bound of {bnd["bound_ms"]:.3f} ms ({bnd["bound_by"]})',
-          flush=True)
-    return dict(res, counts=counts, grad_max_rel=r, shape=p['shape'],
-                bound_ms=bnd['bound_ms'], bound_by=bnd['bound_by'])
+    print(f'velocity gradient at {label} (B=1, nbc={ctx["nbc"]}, nt='
+          f'{ctx["nt"]}), kernels vs plain autograd: max-rel {r:.3e}; '
+          f'launches {counts}', flush=True)
+    return counts, r
+
+
+def phase_beyond(dev):
+    """The taped route on fields past ``tape_step``'s cluster limit. At
+    420x420 (BEYOND): the route and the instantiation picked by size,
+    ``tape_step_stream`` (two coefficient planes in shared memory) against
+    ``tape_chunk_plain`` bit for bit on every slot of one pass and its
+    time per pass; ``tape_step_global`` forced at the same pass (the stream
+    picker's refusal), bit for bit, timed; then the velocity gradient
+    through the kernels (``beyond_gradient``: one ``tape_step_stream`` a
+    chunk, ``tape_step_global`` never) against plain eager autograd. At
+    680x680 (BEYOND_STREAM), past ``tape_step_stream``'s limit, one chunk:
+    ``tape_step_global`` by size, bit for bit, timed, and the gradient with
+    its chunk - 1 launches. Returns both kernels' numbers and the gradient
+    runs' launches."""
+    from red_diffeq_tpu_torch.ops import stencil
+    from red_diffeq_tpu_torch.solvers import acoustic
+
+    out = {}
+    for ctx, kernel in ((BEYOND, 'tape_step_stream'),
+                        (BEYOND_STREAM, 'tape_step_global')):
+        hp = ctx['n_grid'] + 2 * ctx['nbc']
+        label = f'{hp}x{hp}'
+        geom = acoustic.Geometry.from_ctx(ctx)
+        mode = stencil.resolve_run_config(geom, CHUNK)[0]
+        ranks, plan = stencil.pick_ranks(hp, hp), stencil.pick_stream(hp, hp)
+        check(mode == 'tape' and ranks is None
+              and (plan is None) == (kernel == 'tape_step_global'),
+              f'{label} at nbc={ctx["nbc"]}: adjoint {mode!r}, tape_step '
+              f'clusters of {ranks} blocks, tape_step_stream plan {plan}; '
+              f"expected 'tape' and {kernel}")
+        p = headline_problem(dev, ctx, batch=1)
+        seis, carries = forward_pass(stencil.fwd_chunk, p, keep=True)
+        _, res = tape_replays(p, carries, label, plain_reps=1, kernel=kernel)
+        n_chunks = len(p['src'])
+        bnd = bounds(p, n_chunks * CHUNK, n_chunks)['tape_step']
+        res.update(shape=p['shape'], bound_ms=bnd['bound_ms'],
+                   bound_by=bnd['bound_by'])
+        if kernel == 'tape_step_stream':
+            # The twin, forced at the same pass: the stream picker refuses.
+            pick_stream = stencil.pick_stream
+            stencil.pick_stream = lambda h, w: None
+            try:
+                _, forced = tape_replays(p, carries, f'{label}, forced',
+                                         plain_reps=1,
+                                         kernel='tape_step_global')
+            finally:
+                stencil.pick_stream = pick_stream
+            out['global_at_stream'] = forced
+            expect = dict(tape_step_stream=n_chunks)
+        else:
+            expect = dict(tape_step_global=n_chunks * (CHUNK - 1))
+        del carries
+        res['counts'], res['grad_max_rel'] = beyond_gradient(
+            p, ctx, seis, label, expect)
+        print(f'{kernel} at {label}: {res["ms"]:.3f} ms per pass with the '
+              f'host\'s launches, {res["graph_ms"]:.3f} ms as a CUDA graph, '
+              f'against a bound of {res["bound_ms"]:.3f} ms '
+              f'({res["bound_by"]})', flush=True)
+        out[kernel] = res
+    return out
 
 
 # The training slice: red-diffeq-torch-datagen, red-diffeq-torch-train at
@@ -2470,7 +2560,9 @@ def main(argv=None):
             print(f'built {lib}', flush=True)
         hp = HEADLINE['n_grid'] + 2 * HEADLINE['nbc']
         hn = NARROW['n_grid'] + 2 * NARROW['nbc']
-        tape_info = phase_kernel_info(((hp, hp), (hn, hn)))
+        hb = BEYOND['n_grid'] + 2 * BEYOND['nbc']
+        tape_info, stream_info = phase_kernel_info(
+            ((hp, hp), (hn, hn)), ((hb, hb), *STREAM_INFO_SHAPES))
     with Phase('forward kernel'):
         p = headline_problem(dev)
         fwd, carries, seis = phase_forward(p)
@@ -2576,17 +2668,42 @@ def main(argv=None):
     for k in kernels:
         k['bench'] = dict(launches=bench_counts[k['name']])
         k['training'] = dict(launches=training['counts'][k['name']])
-    # The tape replay past tape_step's cluster limit (420x420, B=1): its
-    # launches in the velocity gradient there, its numbers from that phase.
+    # The tape replay past tape_step's cluster limit (420x420, B=1):
+    # tape_step_stream's launches in the velocity gradient there, its
+    # numbers from that phase, its registers, planes and resident clusters
+    # from the build phase. tape_step_global's launches in the gradient past
+    # tape_step_stream's limit (680x680, one chunk), its numbers at 420x420
+    # (forced, the same pass), and at 680x680 under 'beyond'.
+    st, gl, forced = (beyond['tape_step_stream'], beyond['tape_step_global'],
+                      beyond['global_at_stream'])
+    kernels.append(dict(
+        name='tape_step_stream', route='cuda', source=SOURCE,
+        replaces='red_diffeq_tpu/ops/stencil.py:233',
+        launches=st['counts']['tape_step_stream'],
+        max_abs_err=st['max_abs_err'], ms=st['ms'], graph_ms=st['graph_ms'],
+        plain_ms=st['plain_ms'], bound_ms=st['bound_ms'],
+        bound_by=st['bound_by'], library_ms=None, shape=list(st['shape']),
+        nt=BEYOND['nt'], launches_per_pass=st['counts']['tape_step_stream'],
+        ranks=st['ranks'], planes=stream_info['planes'],
+        registers=stream_info['regs'],
+        local_bytes=stream_info['local_bytes'],
+        clusters=stream_info['clusters'],
+        training=dict(launches=training['counts']['tape_step_stream'])))
     kernels.append(dict(
         name='tape_step_global', route='cuda', source=SOURCE,
         replaces='red_diffeq_tpu/ops/stencil.py:233',
-        launches=beyond['counts']['tape_step_global'],
-        max_abs_err=beyond['max_abs_err'], ms=beyond['ms'],
-        plain_ms=beyond['plain_ms'], bound_ms=beyond['bound_ms'],
-        bound_by=beyond['bound_by'], library_ms=None,
-        shape=list(beyond['shape']), nt=BEYOND['nt'],
-        launches_per_pass=beyond['counts']['tape_step_global'],
+        launches=gl['counts']['tape_step_global'],
+        max_abs_err=max(gl['max_abs_err'], forced['max_abs_err']),
+        ms=forced['ms'], graph_ms=forced['graph_ms'],
+        plain_ms=forced['plain_ms'], bound_ms=st['bound_ms'],
+        bound_by=st['bound_by'], library_ms=None, shape=list(st['shape']),
+        nt=BEYOND['nt'], route_at_shape='forced',
+        launches_per_pass=gl['counts']['tape_step_global'],
+        launches_at_stream_shape=st['counts']['tape_step_global'],
+        beyond=dict(shape=list(gl['shape']), nt=BEYOND_STREAM['nt'],
+                    max_abs_err=gl['max_abs_err'], ms=gl['ms'],
+                    graph_ms=gl['graph_ms'], plain_ms=gl['plain_ms'],
+                    bound_ms=gl['bound_ms'], bound_by=gl['bound_by']),
         training=dict(launches=training['counts']['tape_step_global'])))
     # The probe's kernels: launches in the probe tool's run, their numbers
     # from the phase, one bound for all (the same function); roll and halo
@@ -2661,10 +2778,15 @@ def main(argv=None):
           f'plain max |d mu| {bench["kernels_vs_plain"][0]:.3e} '
           f'({bench["kernels_vs_plain"][1]:.2%} of the cells beyond 1e-4)',
           flush=True)
-    print(f'tape past the cluster limit ({beyond["shape"]}, nt='
-          f'{BEYOND["nt"]}): tape_step_global {beyond["ms"]:.3f} ms per pass '
-          f'(bound {beyond["bound_ms"]:.3f} ms, plain {beyond["plain_ms"]:.3f}'
-          f' ms), gradient max-rel {beyond["grad_max_rel"]:.3e}', flush=True)
+    print(f'tape past the cluster limit ({st["shape"]}, nt={BEYOND["nt"]}): '
+          f'tape_step_stream {st["ms"]:.3f} ms per pass [{st["graph_ms"]:.3f} '
+          f'as a CUDA graph], tape_step_global forced {forced["ms"]:.3f} '
+          f'[{forced["graph_ms"]:.3f}] (bound {st["bound_ms"]:.3f} ms, plain '
+          f'{st["plain_ms"]:.3f} ms), gradient max-rel '
+          f'{st["grad_max_rel"]:.3e}; past tape_step_stream\'s limit '
+          f'({gl["shape"]}, nt={BEYOND_STREAM["nt"]}): tape_step_global '
+          f'{gl["ms"]:.3f} [{gl["graph_ms"]:.3f}] (bound {gl["bound_ms"]:.3f}'
+          f' ms), gradient max-rel {gl["grad_max_rel"]:.3e}', flush=True)
     print(f'training slice: {training["s_per_step"]:.4f} s per train step, '
           f'{training["images_per_s"]:.1f} images/s (deterministic cuDNN '
           f'{training["s_per_step_deterministic"]:.4f} s), peak '

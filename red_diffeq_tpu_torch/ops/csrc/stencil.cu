@@ -7,10 +7,11 @@
 // launched by _run_fwd at :510). bwd_reverse_step replaces
 // _bwd_reverse_kernel (:352-443, launched by _run_bwd_reverse at :632).
 // tape_step replaces _tape_kernel (:233-268, launched by _run_tape at :550),
-// and so does tape_step_global for fields too large for tape_step's thread-
-// block cluster; bwd_tape_step replaces _bwd_kernel (:271-349, launched by
-// _run_bwd at :582); the JAX package takes that pair when its t2 guard
-// trips. sum_shots
+// and so do tape_step_stream for fields too large for tape_step's thread-
+// block cluster and tape_step_global for fields too large for
+// tape_step_stream's; bwd_tape_step replaces _bwd_kernel (:271-349,
+// launched by _run_bwd at :582); the JAX package takes that pair when its
+// t2 guard trips. sum_shots
 // does both adjoints' cross-shot sum of the coefficient cotangents (the
 // shot-shared coefficient blocks the JAX kernels add into, :341-343 and
 // :435-437).
@@ -57,7 +58,9 @@
 // whole-field residency kept by a thread-block cluster: one (sample, shot)
 // field a cluster of up to 16 blocks on neighbouring SMs, each a strip of
 // rows in shared memory, halo rows exchanged through distributed shared
-// memory (see "The tape replay" below). bwd_tape_step reads s_{m-1} and
+// memory (see "The tape replay" below); tape_step_stream does the same
+// with some of the coefficient planes read from device memory, where all
+// three do not fit beside the states. bwd_tape_step reads s_{m-1} and
 // s_{m-2} from slots m and m-1 where bwd_reverse_step rebuilds s_{m-2},
 // and never divides by t2; it reads the tape only at its tile and 2 cells
 // around it, each slot once a launch. The tape lives only during one
@@ -597,18 +600,19 @@ __global__ void __launch_bounds__(kTapeThreads, 1) tape_step(
 }
 
 // ---------------------------------------------------------------------------
-// The tape replay of a field past tape_step's size limit (tape_fits: a
-// strip of ceil(H/16) rows over 227 KB, e.g. 420x420; the TPU kernel keeps
-// whole fields in up to 100 MB of VMEM, so the JAX package has no such
-// limit). Nothing stays in shared memory: one launch per FD step over a
-// grid of 32x8-cell tiles of every (sample, shot) field, one thread a
-// cell, reading s_{k-1} and s_k from the tape's slots k and k+1 in device
-// memory (the L2 holds them for the neighbours' reads) and writing s_{k+1}
-// to slot k+2. The chunk + 1 slots, the arithmetic and its fp32 grouping
-// are tape_step's, so the two instantiations write the same tape bit for
-// bit. What bounds it: the same tape bytes as tape_step (the slots written
-// once), but each step also reads two slots back, and the launches are
-// chunk - 1 a chunk; a simple kernel that is right, its speed later work.
+// The tape replay of a field past tape_step_stream's size limit
+// (stream_fits: the strip's two states over 227 KB, e.g. 680x680; the TPU
+// kernel keeps whole fields in up to 100 MB of VMEM, so the JAX package
+// has no such limit). Nothing stays in shared memory: one launch per FD
+// step over a grid of 32x8-cell tiles of every (sample, shot) field, one
+// thread a cell, reading s_{k-1} and s_k from the tape's slots k and k+1
+// in device memory (the L2 holds them for the neighbours' reads) and
+// writing s_{k+1} to slot k+2. The chunk + 1 slots, the arithmetic and its
+// fp32 grouping are tape_step's, so the three instantiations write the
+// same tape bit for bit. What bounds it: the same tape bytes as tape_step
+// (the slots written once), but each step also reads two slots back, and
+// the launches are chunk - 1 a chunk. It stays as the twin of the cluster kernels for any
+// size (at 420x420, forced, it is the yardstick of tape_step_stream).
 // ---------------------------------------------------------------------------
 
 constexpr int kTapeGlobalX = 32, kTapeGlobalY = 8;
@@ -655,6 +659,322 @@ __global__ void __launch_bounds__(kTapeGlobalX * kTapeGlobalY)
   float p = (t1[c] * r[x] - t2[c] * prev[at]) + alpha[c] * lap;
   if (y == isz) p = p + inj[(size_t)bs * W + x] * src[k];
   tape[(k + 2) * slot + at] = p;
+}
+
+// ---------------------------------------------------------------------------
+// tape_step_stream<NP>: the tape replay of a field past tape_step's limit,
+// one launch per chunk as tape_step, for fields whose states fit a
+// cluster's shared memory but whose three coefficient planes do not all
+// fit beside them (420x420: a strip of 27 rows and its planes need 241,920
+// bytes a block). The scheme is tape_step's: one (sample, shot) field a
+// cluster of up to 16 blocks, a strip of rows a block, two state buffers
+// with 2 halo rows a side used in turn, s_{k+1} computed over s_{k-1} in
+// place, each new value stored to its tape slot from its register, the
+// strip's first and last 2 rows written into the neighbours' halo rows
+// through distributed shared memory, one cluster barrier a step.
+//
+// What differs. NP of the planes (alpha, t1, t2 in that order: alpha and t1
+// at NP = 2) stay in shared memory with the states; the other 3 - NP are
+// read from device memory, where the L2 holds them (2.1 MB a sample at
+// 420x420, shared by its shots). A cell that waited for such a load would
+// hold the whole cluster at the barrier, so the loads run ahead of their
+// use: a thread walks one column of a band of rows (and with W above
+// kTapeThreads the columns x, x + kTapeThreads, ... of the whole strip),
+// the same cells every step, and keeps the streamed values of its next
+// AHEAD cells in registers (4 with one streamed plane, fewer with more, so
+// that the registers of 1024 threads hold them), loading the one after
+// them as it takes each cell; past its last cell it wraps to its first, so
+// a step begins with its first rows' values already loaded (the planes do
+// not change between steps). A column is walked in groups of kStreamGroup
+// rows and a shorter first group, each a compile-time count of rows
+// (stream_rows<NP, R>), so its cells run straight with no per-cell guard;
+// the source row's injection is added after the column by the thread that
+// owns the cell (its tape cell stored again), and the rows pushed to the
+// neighbours are read back after it, as in probe_resident
+// (layout_probe.cu), whose 32-bit st.shared::cluster addresses it also
+// takes. Limits (stream_fits): a block's shared memory, (2*(rows + 4) +
+// NP*rows + 1)*W floats for a strip of `rows` (the states, the planes, the
+// injection row), within 227 KB: at 16 blocks two planes fit to 420x420
+// (196,560 bytes), none to 640x640; larger fields take tape_step_global.
+//
+// What bounds it: the same bytes as tape_step (the chunk + 1 slots), the
+// streamed planes' L2 reads (3.5 MB a step at 420x420, B=1, ns=5, one
+// plane), and per step a block's cells (11,340 at 420x420) and the cluster
+// barrier, in one wave of clusters (5 at B=1). On an H100 (PERF.md) a step
+// at 420x420 takes 4.7 us: the walk 4.0 (about 31 instructions a cell;
+// the streamed loads, the tape stores and the pushes each 0.5-0.8 of it)
+// and the barrier 0.7; a launch 11 us more; 25% of the bytes' bound.
+// ---------------------------------------------------------------------------
+
+constexpr int kStreamGroup = 4;   // rows of a group of a thread's walk
+
+// A float in another rank's shared memory: on the card a 32-bit
+// shared::cluster address (mapa), stored to with st.shared::cluster, so
+// that it costs one register and no generic-address translation; in the
+// host build a pointer.
+#ifdef CUDA_HOST_EMULATION
+using dsmem_addr = float*;
+__device__ __forceinline__ dsmem_addr dsmem_map(float* p, int rank) {
+  return cg::this_cluster().map_shared_rank(p, rank);
+}
+__device__ __forceinline__ dsmem_addr dsmem_at(dsmem_addr a, int i) {
+  return a + i;
+}
+__device__ __forceinline__ void dsmem_store(dsmem_addr a, int i, float v) {
+  a[i] = v;
+}
+#else
+using dsmem_addr = unsigned;
+__device__ __forceinline__ dsmem_addr dsmem_map(float* p, int rank) {
+  unsigned a;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;"
+      : "=r"(a)
+      : "r"((unsigned)__cvta_generic_to_shared(p)), "r"(rank));
+  return a;
+}
+// The float i floats past a.
+__device__ __forceinline__ dsmem_addr dsmem_at(dsmem_addr a, int i) {
+  return a + 4 * i;
+}
+// Ordered before the cluster barrier's arrive, whose asm clobbers memory.
+__device__ __forceinline__ void dsmem_store(dsmem_addr a, int i, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(a + 4 * i), "f"(v));
+}
+#endif
+
+// A band's threads: W rounded up to whole warps, so that the threads of a
+// warp share one band (and one count of rows).
+__host__ __device__ __forceinline__ int stream_band_threads(int W) {
+  return (W + 31) & ~31;
+}
+
+// Bands of a strip of `rows` rows at width W: one past kTapeThreads
+// columns.
+__host__ __device__ __forceinline__ int stream_bands(int rows, int W) {
+  const int b = kTapeThreads / stream_band_threads(W);
+  return b < 1 ? 1 : b < rows ? b : rows;
+}
+
+// A thread's walk: its current cell's offset `at` from the strip's cell
+// (0, 0) (the same in the state buffers and the resident planes), the
+// column's s_k at rows y-2 .. y+1, and its streamed planes' values of its
+// next AHEAD cells (q[i][0] the current cell's), with the offset of
+// the cell to load next (`ahead`, from the strip's cell (0, 0) of a plane),
+// the rows left in that column, and that column's index among the
+// thread's `cols` columns, the first at `base`.
+template <int NP>
+struct StreamWalk {
+  static constexpr int NS = 3 - NP;
+  static constexpr int AHEAD = NS == 1 ? 4 : NS == 2 ? 2 : 1;
+  static constexpr int GROUP = kStreamGroup;
+  int at, ahead, left, col, cols, base;
+  float ym2, ym1, cc, yp1;
+  float q[NS][AHEAD];
+};
+
+// The walk's next load: the streamed values of the cell at `ahead`, then
+// `ahead` one row on, or past a column's nb rows to the next column's
+// first (after the last column, the first's).
+template <int NP>
+__device__ __forceinline__ void stream_load(
+    StreamWalk<NP>& w, const float* const (&sp)[3 - NP], int a, int W,
+    int nb) {
+#pragma unroll
+  for (int i = 0; i < 3 - NP; ++i) w.q[i][a] = sp[i][w.ahead];
+  w.ahead += W;
+  if (--w.left == 0) {
+    w.left = nb;
+    w.col = w.col + 1 == w.cols ? 0 : w.col + 1;
+    w.ahead = w.base + w.col * kTapeThreads;
+  }
+}
+
+// R rows of a thread's walk (R a constant, no guard): s_{k+1} over s_{k-1}
+// at each, in tape_step's grouping, into o and the tape slot out. c, o:
+// s_k and s_{k-1} at the strip's cell (0, 0); res: the resident planes
+// there, `plane` floats apart; sp: the streamed planes there; dm1 .. dp2:
+// the wrapped x neighbours as offsets from the cell.
+template <int NP, int R>
+__device__ __forceinline__ void stream_rows(
+    StreamWalk<NP>& w, const float* __restrict__ c, float* __restrict__ o,
+    float* __restrict__ out, const float* __restrict__ res, int plane,
+    const float* const (&sp)[3 - NP], int W, int dm1, int dm2, int dp1,
+    int dp2, int nb) {
+  constexpr int NS = 3 - NP, AHEAD = StreamWalk<NP>::AHEAD;
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const int at = w.at;
+    const float* r = c + at;
+    const float yp2 = r[2 * W];
+    const float lap = kC2 * (((w.ym1 + w.yp1) + r[dm1]) + r[dp1]) +
+                      kC3 * (((w.ym2 + yp2) + r[dm2]) + r[dp2]);
+    float cf[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      cf[i] = i < NP ? res[i * plane + at] : w.q[i < NP ? 0 : i - NP][0];
+    const float p = (cf[1] * w.cc - cf[2] * o[at]) + cf[0] * lap;
+    o[at] = p;
+    out[at] = p;
+    w.ym2 = w.ym1;
+    w.ym1 = w.cc;
+    w.cc = w.yp1;
+    w.yp1 = yp2;
+    w.at = at + W;
+#pragma unroll
+    for (int i = 0; i < NS; ++i)
+#pragma unroll
+      for (int a = 0; a + 1 < AHEAD; ++a) w.q[i][a] = w.q[i][a + 1];
+    stream_load<NP>(w, sp, AHEAD - 1, W, nb);
+  }
+}
+
+// Grid (ranks, B*ns), clusters of (ranks, 1, 1), kTapeThreads a block. The
+// chunk's replay, as tape_step: chunk + 1 slots of `slot` cells, slot i =
+// s_{i-1}; p0, p1 (s_{-1}, s_0) go to slots 0 and 1, steps k = 0 ..
+// chunk-2 write s_{k+1} to slot k+2. Shared memory: two buffers of
+// (largest strip + 4 halo rows) x W, then NP planes at the strip, then the
+// field's injection row.
+template <int NP>
+__global__ void __launch_bounds__(kTapeThreads, 1) tape_step_stream(
+    float* __restrict__ tape, const float* __restrict__ p0,
+    const float* __restrict__ p1, const float* __restrict__ alpha,
+    const float* __restrict__ t1, const float* __restrict__ t2,
+    const float* __restrict__ inj, const float* __restrict__ src, int chunk,
+    int ns, int H, int W, int isz, int ranks, long long slot) {
+  extern __shared__ float smem[];
+  constexpr int NS = 3 - NP;
+  const int rank = cluster_rank();
+  const int bs = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int r0 = strip_start(rank, ranks, H);
+  const int rows = strip_start(rank + 1, ranks, H) - r0;
+  const int rmax = strip_rows(ranks, H);
+  const int bsz = (rmax + 4) * W;        // one state buffer
+  const int own = 2 * W;                 // its row 0, after 2 halo rows
+  const int plane = rmax * W;            // a resident plane
+  float* const res = smem + 2 * bsz;
+  float* const si = res + NP * plane;    // the field's injection row
+  const size_t f = (size_t)bs * H * W;
+  const size_t fs = f + (size_t)r0 * W;    // the strip's first cell
+  const size_t cb = (size_t)(bs / ns) * H * W + (size_t)r0 * W;
+  const float* const planes[3] = {alpha + cb, t1 + cb, t2 + cb};
+  const float* sp[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i) sp[i] = planes[NP + i];
+  // Where this strip's first 2 rows go in the rank above (its bottom halo
+  // rows) and its last 2 rows in the rank below (its top halo rows), at
+  // buffer 0, as offsets from the strip's row 0 there.
+  const int up = (rank + ranks - 1) % ranks, dn = (rank + 1) % ranks;
+  const int up_rows = strip_start(up + 1, ranks, H) - strip_start(up, ranks, H);
+  const dsmem_addr to_up = dsmem_at(dsmem_map(smem, up), own + up_rows * W);
+  const dsmem_addr to_dn = dsmem_at(dsmem_map(smem, dn), own - rows * W);
+  // This thread's share of a step, worked out once: column x (and x +
+  // kTapeThreads, ... below W: `cols` columns) of one of `bands` bands of
+  // the strip's rows, rows ya .. ya + nb - 1; its rows among the strip's
+  // first 2 (ya .. top - 1) and last 2 (bot .. ya + nb - 1), which go to
+  // the neighbours; its row sy of the band, if that is the source row.
+  const int bands = stream_bands(rows, W);
+  const int bt = stream_band_threads(W);
+  const int band = tid / bt, x = tid % bt;
+  const bool busy = band < bands && x < W;
+  const int ya = busy ? band * rows / bands : 0;
+  const int nb = busy ? (band + 1) * rows / bands - ya : 0;
+  const int cols = busy ? (W - x + kTapeThreads - 1) / kTapeThreads : 0;
+  const int top = ya + nb < 2 ? ya + nb : 2;
+  const int bot = ya > rows - 2 ? ya : rows - 2;
+  const int sy = isz - r0 - ya;
+  const bool has_src = sy >= 0 && sy < nb;
+  // s_{-1} at the strip of buffer 1 and the resident planes; s_0 at the
+  // strip and its halo rows of buffer 0; both states to their tape slots.
+  const int n = rows * W;
+  for (int i = tid; i < n; i += kTapeThreads) {
+    const float v = p0[fs + i];
+    smem[bsz + own + i] = v;
+    tape[fs + i] = v;
+#pragma unroll
+    for (int j = 0; j < NP; ++j) res[j * plane + i] = planes[j][i];
+  }
+  for (int i = tid; i < (rows + 4) * W; i += kTapeThreads) {
+    const int y = i / W - 2, xx = i % W;
+    const float v = p1[f + (size_t)wrap(r0 + y, H) * W + xx];
+    smem[own + y * W + xx] = v;
+    if (y >= 0 && y < rows) tape[slot + fs + y * W + xx] = v;
+  }
+  for (int i = tid; i < W; i += kTapeThreads) si[i] = inj[(size_t)bs * W + i];
+  // The streamed values of the walk's first AHEAD cells (wrapping
+  // in a walk of fewer), and the cell to load next.
+  StreamWalk<NP> w;
+  w.base = ya * W + x;
+  w.cols = cols;
+  w.col = 0;
+  w.left = nb;
+  w.ahead = w.base;
+  if (busy && nb > 0) {
+#pragma unroll
+    for (int a = 0; a < StreamWalk<NP>::AHEAD; ++a)
+      stream_load<NP>(w, sp, a, W, nb);
+  }
+  constexpr int GROUP = StreamWalk<NP>::GROUP;
+  const int rem = nb % GROUP, groups = nb / GROUP;
+  float sk = src[0];    // src[k], read a step ahead
+  // Every block of the cluster is running (before any write to another's
+  // shared memory) and has loaded its strip.
+  cluster_arrive();
+  cluster_wait();
+  int cur = 0, nxt = bsz;    // offsets of the buffers of s_k and s_{k-1}
+  for (int k = 0; k + 1 < chunk; ++k) {
+    const float sk_next = src[k + 1];
+    const bool halo = k + 2 < chunk;    // the next step reads halo rows
+    const float* c = smem + cur + own;
+    float* const o = smem + nxt + own;
+    float* const out = tape + (size_t)(k + 2) * slot + fs;
+    for (int col = 0; col < cols; ++col) {
+      const int first = w.base + col * kTapeThreads;
+      const int xc = x + col * kTapeThreads;    // the column
+      const int dm1 = xc == 0 ? W - 1 : -1, dp1 = xc == W - 1 ? 1 - W : 1;
+      const int dm2 = xc < 2 ? W - 2 : -2, dp2 = xc >= W - 2 ? 2 - W : 2;
+      w.at = first;
+      w.ym2 = c[first - 2 * W];
+      w.ym1 = c[first - W];
+      w.cc = c[first];
+      w.yp1 = c[first + W];
+      switch (rem) {
+#define RDT_STREAM_ROWS(R)                                                    \
+  stream_rows<NP, R>(w, c, o, out, res, plane, sp, W, dm1, dm2, dp1, dp2, nb)
+        case 1: RDT_STREAM_ROWS(1); break;
+        case 2: RDT_STREAM_ROWS(2); break;
+        case 3: RDT_STREAM_ROWS(3); break;
+        default: break;
+      }
+#pragma unroll 1
+      for (int g = 0; g < groups; ++g) RDT_STREAM_ROWS(GROUP);
+#undef RDT_STREAM_ROWS
+      // The source row's injection, at the cell of the thread that owns it,
+      // in the plain version's order (the step's value, then + inj*src).
+      if (has_src) {
+        const int cell = first + sy * W;
+        const float p = o[cell] + si[xc] * sk;
+        o[cell] = p;
+        out[cell] = p;
+      }
+      // The column's rows among the strip's first and last 2 into the
+      // neighbours' halo rows, which the next step reads; each cell read
+      // back by the thread that wrote it.
+      if (halo) {
+        const dsmem_addr hu = dsmem_at(to_up, nxt + first);
+        const dsmem_addr hd = dsmem_at(to_dn, nxt + first);
+        for (int j = 0; ya + j < top; ++j)
+          dsmem_store(hu, j * W, o[first + j * W]);
+        for (int j = bot - ya; j < nb; ++j)
+          dsmem_store(hd, j * W, o[first + j * W]);
+      }
+    }
+    if (!halo) break;    // the last step: no rows are read after it
+    cluster_arrive();
+    cluster_wait();
+    sk = sk_next;
+    const int t = cur; cur = nxt; nxt = t;
+  }
 }
 
 // The adjoint's blocking: 4x2 cells a thread, 16x16 threads, a 64-column,
@@ -1330,6 +1650,67 @@ inline cudaError_t tape_attributes(size_t smem) {
       tape_step, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
 }
 
+// Blocks per cluster of the tape replay for an H-row field: the most (16,
+// 8, 4, 2, 1) that leave every strip 2 rows or more.
+inline int tape_cluster_ranks(int H) {
+  int r = kTapeMaxRanks;
+  while (r > 1 && H / r < 2) r /= 2;
+  return r;
+}
+
+// Shared memory of one tape_step_stream block with `planes` resident
+// planes at `ranks` blocks a field: two state buffers of the largest strip
+// and its 4 halo rows, the planes at the strip, the injection row.
+inline size_t stream_smem(int planes, int ranks, int H, int W) {
+  const size_t rmax = strip_rows(ranks, H);
+  return (2 * (rmax + 4) + planes * rmax + 1) * W * sizeof(float);
+}
+
+// Whether tape_step_stream<planes> takes an H x W field in clusters of
+// `ranks` blocks: a cluster size and plane count it is built for, strips
+// of at least 2 rows, a block's shared memory within 227 KB.
+inline bool stream_fits(int planes, int ranks, int H, int W) {
+  if (ranks < 1 || ranks > kTapeMaxRanks || (ranks & (ranks - 1)) != 0)
+    return false;
+  if (planes < 0 || planes > 2 || H < 5 || W < 5) return false;
+  return H / ranks >= 2 && stream_smem(planes, ranks, H, W) <= kMaxSmem;
+}
+
+using StreamKernel = void (*)(float*, const float*, const float*,
+                              const float*, const float*, const float*,
+                              const float*, const float*, int, int, int, int,
+                              int, int, long long);
+
+inline StreamKernel stream_kernel(int planes) {
+  switch (planes) {
+    case 0: return tape_step_stream<0>;
+    case 1: return tape_step_stream<1>;
+    default: return tape_step_stream<2>;
+  }
+}
+
+// The launch configuration of tape_step_stream: grid (ranks, fields),
+// clusters of (ranks, 1, 1); attr must outlive the launch.
+inline cudaLaunchConfig_t stream_config(int planes, int ranks, int fields,
+                                        int H, int W,
+                                        cudaLaunchAttribute* attr,
+                                        cudaStream_t st) {
+  cudaLaunchConfig_t cfg = tape_config(ranks, fields, H, W, attr, st);
+  cfg.dynamicSmemBytes = stream_smem(planes, ranks, H, W);
+  return cfg;
+}
+
+// Allow tape_step_stream<planes> its shared memory and a cluster size
+// above 8.
+inline cudaError_t stream_attributes(int planes, size_t smem) {
+  const StreamKernel fn = stream_kernel(planes);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(
+      fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
 }  // namespace
 
 // `chunk` forward steps on PyTorch's stream, in groups of `unroll` steps
@@ -1458,20 +1839,36 @@ extern "C" int rdt_blocking(int which, int H, int W, int* unroll,
 // cudaErrorInvalidValue when the field is beyond tape_step's size limit
 // (tape_fits at that cluster size), 0 otherwise.
 extern "C" int rdt_tape_ranks(int H, int W, int* ranks) {
-  int r = kTapeMaxRanks;
-  while (r > 1 && H / r < 2) r /= 2;
+  const int r = tape_cluster_ranks(H);
   if (!tape_fits(r, H, W)) return (int)cudaErrorInvalidValue;
   *ranks = r;
   return 0;
 }
 
+// The cluster of tape_step_stream for an H x W field: in *ranks its blocks
+// (as tape_step's, rdt_tape_ranks) and in *planes the coefficient planes
+// kept in shared memory, the most of 2, 1, 0 that fit (stream_fits).
+// Returns cudaErrorInvalidValue when none fits (the field is past the
+// kernel's size limit, or wider than a block's threads), 0 otherwise.
+extern "C" int rdt_tape_stream_plan(int H, int W, int* ranks, int* planes) {
+  const int r = tape_cluster_ranks(H);
+  for (int np = 2; np >= 0; --np)
+    if (stream_fits(np, r, H, W)) {
+      *ranks = r;
+      *planes = np;
+      return 0;
+    }
+  return (int)cudaErrorInvalidValue;
+}
+
 // Registers per thread, local (spill) bytes per thread and resident blocks
 // per SM of kernel `which` (0 fwd_step, 1 bwd_reverse_step, 2 tape_step,
-// 3 bwd_tape_step, 4 sum_shots, 5 tape_step_global) at its launch
-// configuration; the blocked
+// 3 bwd_tape_step, 4 sum_shots, 5 tape_step_global, 6 tape_step_stream)
+// at its launch configuration; the blocked
 // kernels with their shared memory, bwd_tape_step as launched for U=4 and
-// sum_shots for 5 shots (the headline's). tape_step as launched for an
-// H x W field (H and W are read for it alone), with its shared memory and
+// sum_shots for 5 shots (the headline's). tape_step and tape_step_stream
+// (the instantiation rdt_tape_stream_plan picks) as launched for an H x W
+// field (H and W are read for these alone), with its shared memory and
 // cluster size (*ranks), and in *clusters the clusters that can be
 // resident on the card at once (0 for the other kernels). Returns a CUDA
 // error, 0 if none.
@@ -1508,6 +1905,23 @@ extern "C" int rdt_kernel_info(int which, int H, int W, int* regs,
     case 4: fn = (const void*)sum_shots<5>; threads = kSumThreads; break;
     case 5: fn = (const void*)tape_step_global;
             threads = kTapeGlobalX * kTapeGlobalY; break;
+    case 6: {
+      threads = kTapeThreads;
+      int planes;
+      if (rdt_tape_stream_plan(H, W, ranks, &planes) != 0)
+        return (int)cudaErrorInvalidValue;
+      const StreamKernel kernel = stream_kernel(planes);
+      fn = (const void*)kernel;
+      smem = stream_smem(planes, *ranks, H, W);
+      err = stream_attributes(planes, smem);
+      if (err != cudaSuccess) return (int)err;
+      cudaLaunchAttribute attr;
+      const cudaLaunchConfig_t cfg =
+          stream_config(planes, *ranks, 1, H, W, &attr, nullptr);
+      err = cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+      if (err != cudaSuccess) return (int)err;
+      break;
+    }
     default: return (int)cudaErrorInvalidValue;
   }
   if (smem > 0) {
@@ -1547,8 +1961,36 @@ extern "C" int rdt_tape_chunk(float* tape, const float* p0, const float* p1,
   return (int)cudaGetLastError();
 }
 
-// The tape of one chunk past tape_step's size limit on PyTorch's stream:
-// the slots of rdt_tape_chunk, written by chunk - 1 tape_step_global
+// The tape of one chunk past tape_step's size limit on PyTorch's stream,
+// in one tape_step_stream<planes> launch: the slots of rdt_tape_chunk, at
+// `ranks` blocks a field and `planes` resident coefficient planes
+// (rdt_tape_stream_plan). Returns the launch error, 0 if none.
+extern "C" int rdt_tape_chunk_stream(float* tape, const float* p0,
+                                     const float* p1, const float* alpha,
+                                     const float* t1, const float* t2,
+                                     const float* inj, const float* src,
+                                     int B, int ns, int H, int W, int isz,
+                                     int chunk, int ranks, int planes,
+                                     void* stream) {
+  if (chunk < 1 || !stream_fits(planes, ranks, H, W))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      stream_attributes(planes, stream_smem(planes, ranks, H, W));
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      stream_config(planes, ranks, B * ns, H, W, &attr, st);
+  const long long slot = (long long)B * ns * H * W;
+  err = cudaLaunchKernelEx(&cfg, stream_kernel(planes), tape, p0, p1, alpha,
+                           t1, t2, inj, src, chunk, ns, H, W, isz, ranks,
+                           slot);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The tape of one chunk past tape_step_stream's size limit on PyTorch's
+// stream: the slots of rdt_tape_chunk, written by chunk - 1 tape_step_global
 // launches (one for a chunk of one step, which only copies the carry).
 // Returns the first launch error, 0 if none.
 extern "C" int rdt_tape_chunk_global(float* tape, const float* p0,

@@ -47,7 +47,12 @@ distributed shared memory, one cluster barrier a step. It writes only the
 tape, and only the ``chunk + 1`` slots the taped adjoint reads; its bound
 is those bytes. A field whose strip does not fit a block's 227 KB,
 (5*ceil(Hp/16) + 9) * Wp floats (416x416 and 310x430 fit, 420x420 does
-not), takes ``tape_step_global`` instead (:func:`pick_ranks`): the
+not, :func:`pick_ranks`), takes ``tape_step_stream`` instead: the same
+scheme, one launch per chunk, with as many of the three coefficient
+planes in shared memory as fit beside the states (:func:`pick_stream`:
+two at 420x420) and the others read a few rows ahead from device memory.
+Past that one's limit, where the strip's two states alone do not fit
+(about 640x640 and larger), ``tape_step_global`` takes the field: the
 same tape, bit for bit, from one launch per FD step that reads the two
 slots before from device memory; the JAX kernel keeps whole fields in up
 to 100 MB of VMEM and has no size limit, so neither has the port.
@@ -87,22 +92,24 @@ C1, C2, C3 = -2.5, 4.0 / 3.0, -1.0 / 12.0
 # Kernel launches made by the wrappers, by kernel. Each wrapper adds one for
 # every kernel launch it makes, and nowhere else.
 launches = {'fwd_step': 0, 'bwd_reverse_step': 0, 'sum_shots': 0,
-            'tape_step': 0, 'bwd_tape_step': 0, 'tape_step_global': 0}
+            'tape_step': 0, 'bwd_tape_step': 0, 'tape_step_global': 0,
+            'tape_step_stream': 0}
 # FD steps per launch that each blocked kernel's wrapper last handed its
 # launcher (None until it launches; ``sum_shots`` takes no steps,
-# ``tape_step`` a whole chunk and ``tape_step_global`` one step a launch,
-# so these three stay None).
+# ``tape_step`` and ``tape_step_stream`` a whole chunk and
+# ``tape_step_global`` one step a launch, so these four stay None).
 last_unroll = dict.fromkeys(launches)
-# Blocks per cluster (one field a cluster) that the ``tape_step`` wrapper
-# last handed its launcher.
-last_ranks = {'tape_step': None}
+# Blocks per cluster (one field a cluster) that the ``tape_step`` and
+# ``tape_step_stream`` wrappers last handed their launchers.
+last_ranks = {'tape_step': None, 'tape_step_stream': None}
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
         last_unroll[k] = None
-    last_ranks['tape_step'] = None
+    for k in last_ranks:
+        last_ranks[k] = None
 
 
 def pick_unroll(chunk: int) -> int:
@@ -146,11 +153,30 @@ def pick_ranks(hp: int, wp: int) -> Optional[int]:
     states with 2 halo rows a side, alpha, t1, t2, the injection row) does
     not fit a block's 227 KB: (5*ceil(Hp/16) + 9) * Wp floats over 232448
     bytes (310x430 and 416x416 fit, 420x420 does not). The tape replay
-    takes ``tape_step_global`` there."""
+    takes ``tape_step_stream`` there (:func:`pick_stream`)."""
     ranks = ctypes.c_int()
     if _load().rdt_tape_ranks(hp, wp, ctypes.byref(ranks)) != 0:
         return None
     return ranks.value
+
+
+def pick_stream(hp: int, wp: int):
+    """(blocks per cluster, resident coefficient planes) of
+    ``tape_step_stream`` for an Hp x Wp field, as the CUDA library picks
+    them (``rdt_tape_stream_plan``): the blocks as :func:`pick_ranks`'s, and
+    the most of 2, 1, 0 of the planes alpha, t1, t2 that fit a block's
+    227 KB beside the two states with their halo rows and the injection
+    row, (2*(rows + 4) + planes*rows + 1) * Wp floats for a strip of rows
+    = ceil(Hp/16); the others are read from device memory. None for a
+    field whose states alone do not fit (641x641 and larger for a square
+    field), which ``tape_step_global`` takes. The tape replay asks this
+    only for a field past ``tape_step``'s limit (420x420: 16 blocks, 2
+    planes)."""
+    ranks, planes = ctypes.c_int(), ctypes.c_int()
+    if _load().rdt_tape_stream_plan(hp, wp, ctypes.byref(ranks),
+                                    ctypes.byref(planes)) != 0:
+        return None
+    return ranks.value, planes.value
 
 
 # Default adjoint: 'reverse' rebuilds past states by inverting the damped
@@ -357,12 +383,13 @@ def _nvcc() -> str:
     return path
 
 
-def build(verbose: bool = False, source: Path = _CSRC) -> Path:
-    """Compile the CUDA source ``source`` (by default ``csrc/stencil.cu``)
-    into a shared library in BUILD_DIR named by the source's stem and the
-    hash of its text and flags, unless that library exists. Returns its
-    path; raises if the build fails."""
-    source = Path(source)
+def build(verbose: bool = False, source: Optional[Path] = None) -> Path:
+    """Compile the CUDA source ``source`` (by default the module's
+    ``_CSRC`` as it is at the call, ``csrc/stencil.cu`` unless a tool has
+    pointed it at a variant) into a shared library in BUILD_DIR named by
+    the source's stem and the hash of its text and flags, unless that
+    library exists. Returns its path; raises if the build fails."""
+    source = Path(_CSRC if source is None else source)
     src = source.read_bytes()
     tag = hashlib.sha1(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:12]
     out = BUILD_DIR / f'lib{source.stem}-{tag}.so'
@@ -398,6 +425,8 @@ def _load():
         lib.rdt_tape_chunk.restype = i
         lib.rdt_tape_chunk_global.argtypes = [p] * 8 + [i] * 6 + [p]
         lib.rdt_tape_chunk_global.restype = i
+        lib.rdt_tape_chunk_stream.argtypes = [p] * 8 + [i] * 8 + [p]
+        lib.rdt_tape_chunk_stream.restype = i
         lib.rdt_bwd_tape_chunk.argtypes = [p] * 19 + [i] * 10 + [p]
         lib.rdt_bwd_tape_chunk.restype = i
         ip = ctypes.POINTER(i)
@@ -407,6 +436,8 @@ def _load():
         lib.rdt_blocking.restype = i
         lib.rdt_tape_ranks.argtypes = [i, i, ip]
         lib.rdt_tape_ranks.restype = i
+        lib.rdt_tape_stream_plan.argtypes = [i, i, ip, ip]
+        lib.rdt_tape_stream_plan.restype = i
         _lib = lib
     return _lib
 
@@ -639,11 +670,12 @@ def _sum_shots_kernel(pa, p1, p2):
 
 
 def tape_chunk(p0, p1, alpha, t1, t2, inj, src_chunk, *, isz):
-    """The replay of one chunk into its tape: the CUDA kernel ``tape_step``
-    (or ``tape_step_global`` for a field past its size limit,
-    :func:`pick_ranks`) for CUDA tensors, :func:`tape_chunk_plain` for
-    CPU tensors. Returns the tape (chunk + 1, B, ns, Hp, Wp), slot i =
-    s_{i-1}."""
+    """The replay of one chunk into its tape: for CUDA tensors the CUDA
+    kernel ``tape_step``, or for a field past its size limit
+    (:func:`pick_ranks`) ``tape_step_stream``, or for a field past that
+    one's (:func:`pick_stream`) ``tape_step_global``; for CPU tensors
+    :func:`tape_chunk_plain`. Returns the tape (chunk + 1, B, ns, Hp, Wp),
+    slot i = s_{i-1}."""
     if p0.device.type == 'cpu':
         return tape_chunk_plain(p0, p1, alpha, t1, t2, inj, src_chunk,
                                 isz=isz)
@@ -662,6 +694,18 @@ def _tape_chunk_kernel(p0, p1, alpha, t1, t2, inj, src_chunk, *, isz):
     tape = torch.empty((chunk + 1, b, ns, hp, wp), device=p0.device,
                        dtype=torch.float32)
     ranks = pick_ranks(hp, wp)
+    plan = pick_stream(hp, wp) if ranks is None else None
+    if plan is not None:
+        err = lib.rdt_tape_chunk_stream(
+            _ptr(tape), _ptr(p0), _ptr(p1), _ptr(alpha), _ptr(t1), _ptr(t2),
+            _ptr(inj), _ptr(src_chunk), b, ns, hp, wp, isz, chunk, *plan,
+            _stream(p0.device))
+        if err != 0:
+            raise RuntimeError(f'tape_step_stream launch failed: CUDA error '
+                               f'{err}')
+        launches['tape_step_stream'] += 1
+        last_ranks['tape_step_stream'] = plan[0]
+        return tape
     if ranks is None:
         err = lib.rdt_tape_chunk_global(
             _ptr(tape), _ptr(p0), _ptr(p1), _ptr(alpha), _ptr(t1), _ptr(t2),
@@ -761,23 +805,30 @@ def _bwd_tape_kernel(tape, gp0o, gp1o, grec, alpha, t1, t2, src_chunk, *,
 
 
 _KERNEL_IDS = {'fwd_step': 0, 'bwd_reverse_step': 1, 'tape_step': 2,
-               'bwd_tape_step': 3, 'sum_shots': 4, 'tape_step_global': 5}
+               'bwd_tape_step': 3, 'sum_shots': 4, 'tape_step_global': 5,
+               'tape_step_stream': 6}
 
 
 def kernel_info(name: str, hp: int = 0, wp: int = 0):
     """Registers per thread, local (spill) bytes per thread and resident
     blocks per SM of kernel ``name`` on the current card, at its launch
     configuration (CUDA's function attributes and occupancy calculator);
-    for ``tape_step`` as launched for an ``hp`` x ``wp`` field, with its
-    blocks per cluster (``ranks``) and the clusters that can be resident at
-    once (``clusters``; 0 for the other kernels)."""
+    for ``tape_step`` and ``tape_step_stream`` (the instantiation
+    :func:`pick_stream` picks) as launched for an ``hp`` x ``wp`` field,
+    with its blocks per cluster (``ranks``) and the clusters that can be
+    resident at once (``clusters``; 0 for the other kernels), and for
+    ``tape_step_stream`` the coefficient planes it keeps in shared memory
+    (``planes``)."""
     vals = [ctypes.c_int() for _ in range(5)]
     err = _load().rdt_kernel_info(_KERNEL_IDS[name], hp, wp,
                                   *map(ctypes.byref, vals))
     if err != 0:
         raise RuntimeError(f'kernel_info({name!r}) failed: CUDA error {err}')
-    return dict(zip(('regs', 'local_bytes', 'blocks_per_sm', 'ranks',
+    info = dict(zip(('regs', 'local_bytes', 'blocks_per_sm', 'ranks',
                      'clusters'), (v.value for v in vals)))
+    if name == 'tape_step_stream':
+        info['planes'] = pick_stream(hp, wp)[1]
+    return info
 
 
 class StencilChunk(torch.autograd.Function):

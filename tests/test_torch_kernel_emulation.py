@@ -6,9 +6,10 @@ nvcc). g++ builds it against ``tests/cuda_host/cuda_host.h``, which runs
 every thread of a block as a fiber between its barriers, and the kernel
 launchers (``stencil._fwd_chunk_kernel``, ``_bwd_reverse_chunk_kernel``,
 ``_bwd_tape_steps_kernel``, ``_bwd_tape_chunk_kernel``,
-``_sum_shots_kernel``, ``_tape_chunk_kernel`` with both of its
-instantiations) drive that library on CPU tensors. This holds the temporal blocking itself (windows, wrapped halos,
-shrinking regions, short last groups, own-cell sums, ping-pong buffers) and
+``_sum_shots_kernel``, ``_tape_chunk_kernel`` with each of its three
+routes) drive that library on CPU tensors. This holds the temporal
+blocking itself (windows, wrapped halos, shrinking regions, short last
+groups, own-cell sums, ping-pong buffers) and
 the tape replay's thread-block clusters (strips, halo rows written into
 the neighbours' shared memory, cluster barriers) to the plain versions,
 which the parity tests hold to the JAX package. The harness runs a
@@ -19,7 +20,10 @@ operation alone (g++ -ffp-contract=off, nvcc -fmad=false), so the
 comparison is exact. The card's compiler, occupancy and speed are
 ``chip_smoke.py``'s to check.
 """
+import hashlib
+import importlib.util
 import shutil
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -187,9 +191,56 @@ def test_tape_replay_matches_plain_version(host_kernels, monkeypatch, case):
                                                stencil.pick_ranks(hp, wp))
 
 
-# (B, ns, Hp, Wp, chunk, isz): fields the cluster instantiation would take,
-# sent to tape_step_global by forcing the route: several blocks of 256
-# cells with a ragged last one, rows that wrap at the source's edge, a
+# (B, ns, Hp, Wp, chunk, isz, planes): fields that tape_step would take,
+# sent to tape_step_stream by forcing the route, each at a count of
+# resident coefficient planes (the others streamed from device memory):
+# strips whose rows do not divide evenly (37 rows in 16) with the source
+# on a strip's first row, on the wrap (the field's last row, and row 0),
+# two samples (each its own planes), bands of rows with a group of 4 and a
+# shorter first one (100x600: one band of 6-7 rows), bands of one row
+# (W=20: 32 bands), a field wider than a block's 1024 threads (two columns
+# for some threads, three at 2100), chunks of 20, 7, 2 and 1 step (one
+# launch that only copies the carry).
+STREAM_CASES = [(1, 2, 37, 10, 20, 20, 2), (1, 1, 37, 10, 7, 36, 1),
+                (2, 1, 17, 13, 20, 0, 0), (1, 1, 100, 600, 2, 50, 2),
+                (1, 1, 128, 20, 7, 70, 1), (1, 1, 6, 1030, 3, 3, 2),
+                (1, 1, 40, 2100, 2, 33, 0), (1, 2, 9, 6, 1, 5, 2),
+                (1, 3, 9, 8, 7, 8, 0)]
+
+
+@pytest.mark.parametrize('case', STREAM_CASES,
+                         ids=lambda c: f'{c[2]}x{c[3]}c{c[4]}p{c[6]}')
+def test_tape_replay_streamed_matches_plain_version(host_kernels,
+                                                    monkeypatch, case):
+    """``tape_step_stream`` (one launch per chunk, one field per cluster,
+    ``planes`` of the coefficient planes in shared memory and the others
+    read ahead from device memory) against ``tape_chunk_plain``: every slot
+    bit for bit, one launch, ``tape_step`` and ``tape_step_global`` never,
+    with the route forced through ``pick_ranks`` (None, ``tape_step``'s
+    refusal) and ``pick_stream`` (the library's blocks, the case's
+    planes)."""
+    b, ns, hp, wp, chunk, isz, planes = case
+    ranks = stencil.pick_stream(hp, wp)[0]
+    monkeypatch.setattr(stencil, 'pick_ranks', lambda h, w: None)
+    monkeypatch.setattr(stencil, 'pick_stream', lambda h, w: (ranks, planes))
+    d = _inputs(hp * wp + chunk + 4, b, ns, hp, wp, chunk, isz, 0, 0, 1)
+    args = (d['p0'], d['p1'], d['alpha'], d['t1'], d['t2'], d['inj'],
+            d['src'])
+    want = stencil.tape_chunk_plain(*args, isz=isz)
+    got = stencil._tape_chunk_kernel(*args, isz=isz)
+    assert tuple(got.shape) == (chunk + 1, b, ns, hp, wp)
+    for i in range(chunk + 1):
+        np.testing.assert_array_equal(got[i].numpy(), want[i].numpy(),
+                                      err_msg=f'slot {i}')
+    assert stencil.launches['tape_step_stream'] == 1
+    assert stencil.launches['tape_step'] == 0
+    assert stencil.launches['tape_step_global'] == 0
+    assert stencil.last_ranks['tape_step_stream'] == ranks
+
+
+# (B, ns, Hp, Wp, chunk, isz): fields the cluster instantiations would
+# take, sent to tape_step_global by forcing the route: several blocks of
+# 256 cells with a ragged last one, rows that wrap at the source's edge, a
 # field wider than a block, chunks of 20, 7, 2 and 1 step (one launch that
 # only copies the carry).
 GLOBAL_TAPE_CASES = [(2, 2, 17, 13, 20, 3), (1, 3, 9, 8, 7, 8),
@@ -201,12 +252,14 @@ GLOBAL_TAPE_CASES = [(2, 2, 17, 13, 20, 3), (1, 3, 9, 8, 7, 8),
 def test_tape_replay_past_the_cluster_limit_matches_plain_version(
         host_kernels, monkeypatch, case):
     """``tape_step_global`` (one launch a step over device memory, the
-    route of fields past ``tape_step``'s cluster limit) against
+    route of fields past ``tape_step_stream``'s limit) against
     ``tape_chunk_plain``: every slot bit for bit, max(chunk - 1, 1)
-    launches, ``tape_step`` never, with the route forced through
-    ``pick_ranks`` as above: None, the cluster picker's refusal."""
+    launches, ``tape_step`` and ``tape_step_stream`` never, with the route
+    forced through both cluster pickers, ``pick_ranks`` and
+    ``pick_stream``: None, their refusals."""
     b, ns, hp, wp, chunk, isz = case
     monkeypatch.setattr(stencil, 'pick_ranks', lambda h, w: None)
+    monkeypatch.setattr(stencil, 'pick_stream', lambda h, w: None)
     d = _inputs(hp * wp + chunk + 3, b, ns, hp, wp, chunk, isz, 0, 0, 1)
     args = (d['p0'], d['p1'], d['alpha'], d['t1'], d['t2'], d['inj'],
             d['src'])
@@ -218,17 +271,34 @@ def test_tape_replay_past_the_cluster_limit_matches_plain_version(
                                       err_msg=f'slot {i}')
     assert stencil.launches['tape_step_global'] == max(chunk - 1, 1)
     assert stencil.launches['tape_step'] == 0
+    assert stencil.launches['tape_step_stream'] == 0
+
+
+def _route_of(hp, wp, chunk, isz):
+    """The launches of one chunk's replay of an Hp x Wp field (B=1, ns=1)
+    through the wrapper's own route, its tape held to the plain version bit
+    for bit."""
+    d = _inputs(hp + wp, 1, 1, hp, wp, chunk, isz, 0, 0, 1)
+    args = (d['p0'], d['p1'], d['alpha'], d['t1'], d['t2'], d['inj'],
+            d['src'])
+    stencil.reset_launches()
+    got = stencil._tape_chunk_kernel(*args, isz=isz)
+    assert torch.equal(got, stencil.tape_chunk_plain(*args, isz=isz))
+    return {k: v for k, v in stencil.launches.items() if v}
 
 
 def test_tape_replay_size_limit(host_kernels):
-    """Blocks per cluster as the library picks them, and the size limit:
-    a strip of ceil(Hp/16) rows must fit a block's shared memory, so
-    310x430 (Marmousi and Overthrust at nbc=120) and 416x416 take 16
-    blocks a field, while the cluster picker refuses 420x420 (None); the
-    wrapper then takes ``tape_step_global`` there (one launch a step, the
-    tape bit for bit as the plain version's), and the cluster launcher
-    refuses a cluster size it is not built for or one that
-    leaves a strip under 2 rows."""
+    """Blocks per cluster as the library picks them, and the size limits:
+    tape_step's strip of ceil(Hp/16) rows with its three planes must fit a
+    block's shared memory, so 310x430 (Marmousi and Overthrust at nbc=120)
+    and 416x416 take 16 blocks a field, while the cluster picker refuses
+    420x420 (None); ``tape_step_stream`` takes it (16 blocks, alpha and t1
+    in shared memory), with one plane to about 500x500 and none to
+    640x640; past that (650x650) the wrapper takes ``tape_step_global``
+    (one launch a step). Each route's tape is bit for bit the plain
+    version's. The cluster launchers refuse a cluster size they are not
+    built for, one that leaves a strip under 2 rows, a plane count past 2
+    or one whose strip does not fit."""
     assert stencil.pick_ranks(310, 310) == 16
     assert stencil.pick_ranks(150, 150) == 16
     assert stencil.pick_ranks(310, 430) == 16
@@ -236,14 +306,78 @@ def test_tape_replay_size_limit(host_kernels):
     assert [stencil.pick_ranks(h, 9) for h in (31, 16, 15, 8, 7, 5)] == \
         [8, 8, 4, 4, 2, 2]
     assert stencil.pick_ranks(420, 420) is None
-    d = _inputs(420, 1, 1, 420, 420, 3, 7, 0, 0, 1)
-    args = (d['p0'], d['p1'], d['alpha'], d['t1'], d['t2'], d['inj'],
-            d['src'])
-    got = stencil._tape_chunk_kernel(*args, isz=7)
-    assert torch.equal(got, stencil.tape_chunk_plain(*args, isz=7))
-    assert stencil.launches['tape_step_global'] == 2
-    assert stencil.launches['tape_step'] == 0
+    assert stencil.pick_stream(420, 420) == (16, 2)
+    assert [stencil.pick_stream(n, n) for n in (500, 600, 640, 641, 650)] == \
+        [(16, 1), (16, 0), (16, 0), None, None]
+    assert stencil.pick_stream(20, 4000) is None
+    assert _route_of(416, 416, 2, 7) == {'tape_step': 1}
+    assert _route_of(420, 420, 3, 7) == {'tape_step_stream': 1}
+    assert stencil.last_ranks['tape_step_stream'] == 16
+    assert _route_of(650, 650, 2, 649) == {'tape_step_global': 1}
     lib = stencil._load()
     for ranks, h in ((3, 64), (32, 64), (16, 31)):
         assert lib.rdt_tape_chunk(*[None] * 8, 1, 1, h, 9, 0, 4, ranks,
                                   None) != 0, (ranks, h)
+    for ranks, planes, h, w in ((3, 2, 64, 9), (32, 2, 64, 9),
+                                (16, 2, 31, 9), (16, 3, 64, 9),
+                                (16, 2, 500, 500), (16, 0, 650, 650)):
+        assert lib.rdt_tape_chunk_stream(*[None] * 8, 1, 1, h, w, 0, 4,
+                                         ranks, planes, None) != 0, \
+            (ranks, planes, h, w)
+
+
+def test_tape_kernel_info_on_the_host_build(host_kernels):
+    """``kernel_info`` reads ``tape_step`` and ``tape_step_stream`` as
+    launched for an Hp x Wp field (the host stand-in reports no registers
+    and no resident clusters): their blocks per cluster, and the planes
+    that ``tape_step_stream``'s instantiation keeps in shared memory; a
+    field past a kernel's size limit raises."""
+    zeros = dict(regs=0, local_bytes=0, blocks_per_sm=0, clusters=0)
+    assert stencil.kernel_info('tape_step', 310, 310) == dict(zeros,
+                                                              ranks=16)
+    assert stencil.kernel_info('tape_step_stream', 420, 420) == dict(
+        zeros, ranks=16, planes=2)
+    assert [stencil.kernel_info('tape_step_stream', n, n)['planes']
+            for n in (500, 600)] == [1, 0]
+    for name, n in (('tape_step', 420), ('tape_step_stream', 680)):
+        with pytest.raises(RuntimeError, match='kernel_info'):
+            stencil.kernel_info(name, n, n)
+
+
+def test_stencil_breakdown_variants_apply_to_the_source():
+    """Every cut of tools/torch_stencil_breakdown.py (the blocked kernels',
+    ``tape_step``'s, its timeline and ``tape_step_stream``'s) finds what it
+    replaces in csrc/stencil.cu exactly once and changes the source; each
+    stream cut changes ``tape_step_stream`` alone, not ``tape_step``."""
+    path = Path(__file__).resolve().parents[1] / 'tools' / \
+        'torch_stencil_breakdown.py'
+    spec = importlib.util.spec_from_file_location('stencil_breakdown', path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = stencil._CSRC.read_text()
+    for cut in tool.CUTS:
+        assert tool.variant_source(src, cut) != src, cut
+    tape = src[src.index('tape_step(\n'):src.index('// tape_step_stream<NP>')]
+    for name, edits in {**tool.TAPE_CUTS, 'timeline': tool._TIMELINE}.items():
+        assert tool._edit(src, edits, name) != src, name
+    for name, edits in tool.STREAM_CUTS.items():
+        out = tool._edit(src, edits, name)
+        assert out != src and tape in out, name
+
+
+def test_build_follows_the_source_the_module_points_at(tmp_path,
+                                                       monkeypatch):
+    """``stencil.build()`` builds the source that ``stencil._CSRC`` names
+    at the call, so that a tool that points it at a variant of the source
+    (tools/torch_stencil_breakdown.py) times that variant: a library
+    already built for the variant's text is returned as it is."""
+    variant = tmp_path / 'variant.cu'
+    variant.write_text('// a variant of the source\n')
+    monkeypatch.setattr(stencil, 'BUILD_DIR', tmp_path / 'build')
+    monkeypatch.setattr(stencil, '_CSRC', variant)
+    tag = hashlib.sha1(variant.read_bytes()
+                       + ' '.join(stencil.NVCC_FLAGS).encode()).hexdigest()
+    built = tmp_path / 'build' / f'libvariant-{tag[:12]}.so'
+    built.parent.mkdir()
+    built.touch()
+    assert stencil.build() == built

@@ -302,16 +302,15 @@ def test_pick_unroll_matches():
         assert tstencil.pick_unroll(chunk) == jstencil.pick_unroll(chunk)
 
 
-def _jax_tape_and_ours(d):
+def _jax_tape_and_ours(d, tape_chunk=tstencil.tape_chunk):
     g = d['geom']
     J, T = jnp.asarray, torch.from_numpy
     coef = ('alpha', 't1', 't2', 'inj')
     jtape = jstencil._run_tape(J(d['p0']), J(d['p1']),
                                *(J(d[k]) for k in coef), J(d['src']),
                                geom=g, chunk=20, unroll=10, interpret=True)
-    tape = tstencil.tape_chunk(T(d['p0']), T(d['p1']),
-                               *(T(d[k]) for k in coef), T(d['src']),
-                               isz=g.isz)
+    tape = tape_chunk(T(d['p0']), T(d['p1']), *(T(d[k]) for k in coef),
+                      T(d['src']), isz=g.isz)
     return np.asarray(jtape), tape
 
 
@@ -324,7 +323,12 @@ def test_tape_chunk_plain_matches_pallas_tape_kernel():
     slot, relative to the slot's largest value (elementwise rtol fails near
     the fields' zeros, where XLA's CPU fusion rounds differently)."""
     d = _chunk_inputs(seed=5)
-    jtape, tape = _jax_tape_and_ours(d)
+    _hold_tape_to_jax(d, *_jax_tape_and_ours(d))
+
+
+def _hold_tape_to_jax(d, jtape, tape):
+    """Every slot of the port's flat tape against JAX's haloed blocks, as
+    described above."""
     b, n_iter, slots, ns, hp, wp = jtape.shape
     assert (n_iter, slots) == (2, 12)
     assert tuple(tape.shape) == (21, b, ns, hp, wp)
@@ -535,6 +539,22 @@ def host_library(tmp_path_factory):
         pytest.skip('g++ is not available to build the kernels for the host')
     return build_host_library(tstencil._CSRC,
                               tmp_path_factory.mktemp('cuda_host'), gxx)
+
+
+def test_tape_step_stream_matches_pallas_tape_kernel(host_library,
+                                                    monkeypatch):
+    """``tape_step_stream``, the tape replay of fields past ``tape_step``'s
+    cluster limit, built for the host and forced onto a small field (no
+    coefficient plane in shared memory: all three read ahead from device
+    memory), against ``_run_tape`` in interpret mode through the slot
+    mapping above, max-rel 1e-5 on every slot; one launch."""
+    st = use_host_library(monkeypatch, tstencil, host_library)
+    d = _chunk_inputs(seed=7)
+    monkeypatch.setattr(st, 'pick_ranks', lambda h, w: None)
+    monkeypatch.setattr(st, 'pick_stream', lambda h, w: (8, 0))
+    _hold_tape_to_jax(d, *_jax_tape_and_ours(d, st._tape_chunk_kernel))
+    assert st.launches['tape_step_stream'] == 1
+    assert st.last_ranks['tape_step_stream'] == 8
 
 
 @pytest.mark.parametrize('kernel', ['fwd_step', 'bwd_reverse_step',

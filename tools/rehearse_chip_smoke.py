@@ -17,11 +17,12 @@ presets' width with nt=60 and nbc=60, 3 steps a CLI run, and the bench
 slice's CLI runs at the ablation presets' width with nt=60 and nbc=60, 2
 outer x 2 inner steps each, and a 3-step DDIM sample; the tape past the
 cluster limit on a 34x34 field (16x16 at nbc=9) whose tape route is forced
-to 'global'; the training slice with 8 models a family, a dim-8 U-Net at
-batch 16 and lr 3e-3 for 40 steps, a milestone every 20, a 2-step resume,
-8 FID samples and 2 models a seismogram run; the layout probe on 2 fields
-of 13x13, 8 steps (its gates at 3 and 8, chunks of 4 steps) and past the
-resident kernels' limit on one field of 342x342, 3 steps, its six kernels
+to 'stream' (its 'global' twin forced at the same pass), and on a 36x36
+field forced to 'global'; the training slice with 8 models a family, a
+dim-8 U-Net at batch 16 and lr 3e-3 for 40 steps, a milestone every 20, a
+2-step resume, 8 FID samples and 2 models a seismogram run; the layout
+probe on 2 fields of 13x13, 8 steps (its gates at 3 and 8, chunks of 4
+steps) and past the resident kernels' limit on one field of 342x342, 3 steps, its six kernels
 built from ``layout_probe.cu`` for the host. Times printed are
 meaningless; device memory reads 0. Exits with ``chip_smoke.main()``'s code. About thirty
 minutes.
@@ -54,9 +55,16 @@ def main():
     S._lib = None
     LP.run_variant = LP._run_variant_kernel
     S._stream = lambda device: ctypes.c_void_p(0)
-    S.kernel_info = lambda name, hp=0, wp=0: dict(
-        regs=0, local_bytes=0, blocks_per_sm=2,
-        ranks=S.pick_ranks(hp, wp) if hp else 0, clusters=7)
+    def kernel_info(name, hp=0, wp=0):
+        info = dict(regs=0, local_bytes=0, blocks_per_sm=2, ranks=0,
+                    clusters=7)
+        if name == 'tape_step_stream':
+            info['ranks'], info['planes'] = S.pick_stream(hp, wp)
+        elif hp:
+            info['ranks'] = S.pick_ranks(hp, wp)
+        return info
+
+    S.kernel_info = kernel_info
     for name in ('fwd_chunk', 'bwd_reverse_steps', 'bwd_reverse_chunk',
                  'sum_shots', 'tape_chunk', 'bwd_tape_steps',
                  'bwd_tape_chunk'):
@@ -112,9 +120,13 @@ def main():
     ns['BENCH_DEPTH'], ns['BENCH_WIDE_DIFFUSION_TS'] = (2, 2), 2
     ns['SAMPLER_STEPS'] = 3
     ns['BEYOND'] = dict(ns['HEADLINE'], n_grid=16, ng=16, nbc=9)
-    pick_ranks = S.pick_ranks
-    S.pick_ranks = lambda h, w: (None if (h, w) == (34, 34)
+    ns['BEYOND_STREAM'] = dict(ns['HEADLINE'], n_grid=18, ng=18, nbc=9,
+                               nt=ns['CHUNK'])
+    pick_ranks, pick_stream = S.pick_ranks, S.pick_stream
+    S.pick_ranks = lambda h, w: (None if (h, w) in ((34, 34), (36, 36))
                                  else pick_ranks(h, w))
+    S.pick_stream = lambda h, w: (None if (h, w) == (36, 36)
+                                  else pick_stream(h, w))
     ns['TRAIN_FAMILY_N'], ns['SIM_N'] = 8, 2
     ns['TRAIN_STEPS'], ns['TRAIN_SAVE_EVERY'], ns['RESUME_STEPS'] = 40, 20, 2
     ns['TRAIN_ARGS'] = ['--dim', '8', '--batch_size', '16', '--lr', '3e-3',

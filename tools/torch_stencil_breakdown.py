@@ -50,6 +50,34 @@ each cell's stencil replaced by one add (what the loop, the loads and the
 barriers cost alone). The variants compute wrong values and exist only to
 be timed. Then one launch's timeline at each shape: every block's start
 and end (``%globaltimer``) and SM, so the waves of resident clusters show.
+
+    python3 tools/torch_stencil_breakdown.py --beyond-pass ROOT [global]
+
+instead times the ``tape_chunk`` wrapper of the checkout at ROOT over a
+200-step pass at ``chip_smoke.py``'s field past ``tape_step``'s cluster
+limit (BEYOND: 420x420, B=1, ns=5), from random carries, with the host's
+launches and as a CUDA graph, and prints its launches by kernel; with
+``global`` the stream picker is forced to refuse, so the pass takes
+``tape_step_global``.
+
+    python3 tools/torch_stencil_breakdown.py --stream
+
+instead times ``tape_step_stream`` (one launch per 20-step chunk) at that
+field, in ms per pass as a CUDA graph: as built, at chunks of 1, 2, 5, 10
+and 20 steps, and variants (STREAM_CUTS): without the streamed
+coefficient loads (the index arithmetic kept), without the tape stores,
+with a block barrier in place of each step's cluster barrier (one
+cluster barrier before the blocks leave, so that none leaves while a
+neighbour writes into it; the halo rows then race), with each cell's
+stencil and coefficients replaced by one add (what the walk, the stores,
+the pushes and the barriers cost alone), without the halo rows written
+into the neighbours, and without the steps' walks (what is left: the
+launch, the strip's loads, the carry's slots and the barriers). The
+variants compute wrong values and exist only to be timed. Then
+``tape_step_global`` forced at
+the same pass, and both at 500x500 and 600x600 (B=1, ns=5, nt=200),
+where ``tape_step_stream`` keeps one and no coefficient plane in shared
+memory.
 """
 import re
 import subprocess
@@ -141,6 +169,49 @@ def tape_pass_time(root):
                      f'({launched} launches)')
     print(f'tape_step of {S.__file__}, ms per pass: ' + ', '.join(cells),
           flush=True)
+    print(card_line())
+    return 0
+
+
+def beyond_pass_time(root, route=None):
+    """ms per pass of the ``tape_chunk`` wrapper of the checkout at
+    ``root`` on ``chip_smoke.py``'s field past ``tape_step``'s cluster
+    limit (BEYOND: 420x420, B=1, ns=5, nt=200), from random carries, with
+    the host's launches and as a CUDA graph, and its launches by kernel.
+    With ``route='global'`` the stream picker is forced to refuse, so the
+    pass takes ``tape_step_global``."""
+    import torch
+    import chip_smoke as C           # this checkout's: shapes, timers
+    sys.path.insert(0, str(Path(root).resolve()))
+    from red_diffeq_tpu_torch.ops import stencil as S
+
+    if not torch.cuda.is_available():
+        print('no CUDA device is available', file=sys.stderr)
+        return 1
+    if route == 'global':
+        S.pick_stream = lambda hp, wp: None
+    dev = torch.device('cuda')
+    p = C.headline_problem(dev, C.BEYOND, batch=1)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    carry = [torch.randn(p['shape'], generator=gen, device=dev)
+             for _ in range(2)]
+    coef = (p['alpha'], p['t1'], p['t2'], p['inj'])
+
+    def tpass():
+        for s_ in p['src']:
+            S.tape_chunk(*carry, *coef, s_, isz=p['geo']['isz'])
+
+    tpass()
+    S.reset_launches()
+    tpass()
+    launched = {k: v for k, v in S.launches.items() if v}
+    ms = C.cuda_ms(tpass, 5)
+    graph = C.graph_ms(tpass, 5)
+    print(f'tape_chunk of {S.__file__} at {p["shape"]} ({len(p["src"])} '
+          f'chunks of {C.CHUNK}'
+          + (', route forced to tape_step_global' if route else '')
+          + f'): {ms:.3f} ms per pass with the host\'s launches, '
+          f'{graph:.3f} as a CUDA graph; launches {launched}', flush=True)
     print(card_line())
     return 0
 
@@ -297,13 +368,130 @@ def tape_breakdown():
     return 0
 
 
+# tape_step_stream's variants: each a list of (text, replacement) in the
+# source. The per-step cluster barrier's text, with what follows the
+# kernel, is that kernel's alone.
+_S_STEP_BARRIER = """    if (!halo) break;    // the last step: no rows are read after it
+    cluster_arrive();
+    cluster_wait();
+"""
+_S_END = """    const int t = cur; cur = nxt; nxt = t;
+  }
+}
+
+// The adjoint's blocking"""
+_S_CELL = """    const float lap = kC2 * (((w.ym1 + w.yp1) + r[dm1]) + r[dp1]) +
+                      kC3 * (((w.ym2 + yp2) + r[dm2]) + r[dp2]);
+    float cf[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      cf[i] = i < NP ? res[i * plane + at] : w.q[i < NP ? 0 : i - NP][0];
+    const float p = (cf[1] * w.cc - cf[2] * o[at]) + cf[0] * lap;
+"""
+_S_PUSH = """        for (int j = 0; ya + j < top; ++j)
+          dsmem_store(hu, j * W, o[first + j * W]);
+        for (int j = bot - ya; j < nb; ++j)
+          dsmem_store(hd, j * W, o[first + j * W]);
+"""
+STREAM_CUTS = {
+    'no streamed loads': [('w.q[i][a] = sp[i][w.ahead];',
+                           'w.q[i][a] = __int_as_float(w.ahead);')],
+    'no tape stores': [('    o[at] = p;\n    out[at] = p;\n',
+                        '    o[at] = p;\n')],
+    'block barrier a step': [
+        (_S_STEP_BARRIER, '    if (!halo) break;\n    __syncthreads();\n'),
+        (_S_END, _S_END.replace('  }\n}', '  }\n  cluster_arrive();\n'
+                                '  cluster_wait();\n}'))],
+    'one add a cell': [(_S_CELL, '    const float p = w.cc + yp2;\n')],
+    'no halo rows': [(_S_PUSH, '')],
+    'no steps': [('    for (int col = 0; col < cols; ++col) {',
+                  '    for (int col = 0; col < 0 * cols; ++col) {')],
+}
+
+
+def stream_breakdown():
+    """tape_step_stream as built and cut (STREAM_CUTS), ms per 200-step
+    pass at chip_smoke.py's BEYOND field (420x420, B=1, ns=5) as a CUDA
+    graph, with chunks of 1, 2, 5, 10 and 20 steps as built; then
+    tape_step_global forced at the same pass."""
+    import torch
+    import chip_smoke as C
+    from red_diffeq_tpu_torch.ops import stencil as S
+
+    if not torch.cuda.is_available():
+        print('no CUDA device is available', file=sys.stderr)
+        return 1
+    dev = torch.device('cuda')
+    p = C.headline_problem(dev, C.BEYOND, batch=1)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    carry = [torch.randn(p['shape'], generator=gen, device=dev)
+             for _ in range(2)]
+    coef = (p['alpha'], p['t1'], p['t2'], p['inj'])
+    hp, wp = p['shape'][-2:]
+    print(f'tape_step_stream at {p["shape"]}: plan (blocks a cluster, '
+          f'resident planes) {S.pick_stream(hp, wp)}', flush=True)
+    real = S._CSRC
+    S.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+
+    def timed(steps=C.CHUNK):
+        srcs = [s_[:steps].contiguous() for s_ in p['src']]
+        return C.graph_ms(lambda: [S.tape_chunk(*carry, *coef, s_,
+                                                isz=p['geo']['isz'])
+                                   for s_ in srcs], 5)
+
+    for name in ('as built', *STREAM_CUTS):
+        if name == 'as built':
+            S._CSRC = real
+        else:
+            path = S.BUILD_DIR / ('stream-' + re.sub(r'\W+', '-', name)
+                                  + '.cu')
+            path.write_text(_edit(real.read_text(), STREAM_CUTS[name], name))
+            S._CSRC = path
+        S._lib = None
+        S.reset_launches()
+        cells = [f'{timed():.3f}']
+        check = S.launches['tape_step_stream']
+        if name == 'as built':
+            cells.append('chunks of ' + ', '.join(
+                f'{n}: {timed(n):.3f}' for n in (1, 2, 5, 10)))
+        print(f'tape_step_stream {name}, ms per pass as a CUDA graph: '
+              + '; '.join(cells) + f' ({check} launches)', flush=True)
+    S._CSRC, S._lib = real, None
+    pick_stream = S.pick_stream
+    S.pick_stream = lambda h, w: None
+    print(f'tape_step_global forced, ms per pass as a CUDA graph: '
+          f'{timed():.3f}', flush=True)
+    S.pick_stream = pick_stream
+    # The instantiations with one and with no resident plane, and
+    # tape_step_global forced at the same pass.
+    for ctx in (dict(C.BEYOND, n_grid=400, ng=400),
+                dict(C.BEYOND, n_grid=500, ng=500)):
+        p = C.headline_problem(dev, ctx, batch=1)
+        carry = [torch.randn(p['shape'], generator=gen, device=dev)
+                 for _ in range(2)]
+        coef = (p['alpha'], p['t1'], p['t2'], p['inj'])
+        plan = S.pick_stream(*p['shape'][-2:])
+        cells = [f'tape_step_stream (plan {plan}) {timed():.3f}']
+        S.pick_stream = lambda h, w: None
+        cells.append(f'tape_step_global forced {timed():.3f}')
+        S.pick_stream = pick_stream
+        print(f'at {p["shape"]}, ms per pass as a CUDA graph: '
+              + ', '.join(cells), flush=True)
+    print(card_line())
+    return 0
+
+
 def main():
+    if sys.argv[1:2] == ['--stream']:
+        return stream_breakdown()
     if sys.argv[1:2] == ['--sum-shots']:
         return sum_shots_device_time(sys.argv[2])
     if sys.argv[1:2] == ['--tape']:
         return tape_breakdown()
     if sys.argv[1:2] == ['--tape-pass']:
         return tape_pass_time(sys.argv[2])
+    if sys.argv[1:2] == ['--beyond-pass']:
+        return beyond_pass_time(sys.argv[2], *sys.argv[3:4])
     import torch
     import chip_smoke as C
     from red_diffeq_tpu_torch.ops import stencil as S
