@@ -174,6 +174,29 @@ Phases, each printing its wall time:
    420x420, nt=200, past the resident kernels' size limit, where roll and
    halo take the ``*_global`` kernels: each bit for bit, one launch a
    step, timed.
+16. the api slice: the headline (B=4, 70x70, nt=1000, 5 shots, the
+   shipped prior, the tape-free adjoint) built through the JAX package's
+   public calls (``FWIForward(ctx, normalize=True, v_denorm_func=...,
+   s_norm_func=...)``, ``InversionEngine(diffusion, None, 'diffusion')``,
+   no device: the card). 20 steps with a snapshot every 10
+   (``checkpoint_path``), a run cut in step 11, and a fresh engine that
+   resumes it at step 10: its final model and all 20 steps' metrics equal
+   the uninterrupted run's bit for bit, under deterministic cuDNN. 5 steps
+   traced with ``profile_dir``: the Chrome trace names ``fwd_step``,
+   ``bwd_reverse_step`` and ``sum_shots`` exactly as often as the launch
+   counters count them (250, 250, 50 a step), no tape kernel; each
+   kernel's, the U-Net's and the rest's device ms a step and the device
+   window's idle share are printed, and the idle share of an untraced
+   step. The bf16 U-Net (``half_precision=True``): its output within
+   BF16_GAP of fp32's largest value, its ms a call beside fp32's, 20
+   RED-DiffEq steps on it and on fp32 (s a step, finite losses, one U-Net
+   call a step, the plain path unused); the inversion CLI with
+   ``tpu.bf16_unet: true`` for 5 steps on the wide slice's dataset (a bf16
+   U-Net input at every call, the run directory and npz as the wide
+   slice's); ``red-diffeq-torch-train --amp`` for 50 steps at its defaults
+   (s a train step, images/s and peak memory beside the training slice's;
+   fp32 master weights; its first loss within AMP_LOSS_RTOL of a fp32
+   run's on the same draws).
 
 With ``--write-wide-dataset DIR`` (``--write-bench-dataset DIR``) the
 script only writes the wide (bench) slice's datasets and configs under DIR
@@ -2507,6 +2530,312 @@ def phase_layout_probe(dev):
                 **bnd)
 
 
+# The api slice: the headline through the JAX package's public calls
+# (``FWIForward(ctx, normalize=True, ...)``, ``InversionEngine(diffusion,
+# None, 'diffusion')``) and optimize's options: API_TS steps resumed from a
+# snapshot at API_RESUME_AT, API_TRACE_TS steps traced with profile_dir,
+# the bf16 U-Net in the engine (API_TS steps), in the inversion CLI
+# (API_CLI_TS steps at the wide slice's width) and in the trainer's amp
+# (API_TRAIN_STEPS steps at the train CLI's defaults). BF16_GAP bounds the
+# bf16 denoiser's output against fp32's, relative to fp32's largest value,
+# and AMP_LOSS_RTOL the first amp loss against fp32's on the same draws:
+# the JAX package's bounds (tests/test_misc_coverage.py:46-55, :168).
+API_TS, API_RESUME_AT, API_TRACE_TS, API_CLI_TS = 20, 10, 5, 5
+API_TRAIN_STEPS = 50
+BF16_GAP, AMP_LOSS_RTOL = 0.1, 0.15
+# The categories of a Chrome trace's device activity, and of the host's
+# launch calls a kernel's correlation id points to.
+DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
+LAUNCH_CATS = ('cuda_runtime', 'cuda_driver')
+API_KERNELS = ('fwd_step', 'bwd_reverse_step', 'sum_shots')
+
+
+class Interrupted(Exception):
+    """Raised by the api slice's forward to cut a run short."""
+
+
+def trace_split(path, steps):
+    """Device time a step in the Chrome trace at ``path`` of ``steps``
+    inversion steps: each solver kernel (API_KERNELS, and the tape
+    kernels, which must not appear) by name, the U-Net's kernels (those
+    launched inside a ``unet`` range), the rest, and the share of the
+    device window (first device activity to last) in which nothing runs.
+    Returns (launches by kernel name, ms a step by part, idle share, window
+    ms a step, host ms a step by the ``inversion_step`` ranges)."""
+    import re
+    events = json.loads(path.read_text())['traceEvents']
+    device = [e for e in events if e.get('ph') == 'X'
+              and e.get('cat') in DEVICE_CATS]
+    launch_ts = {e['args']['correlation']: e['ts'] for e in events
+                 if e.get('cat') in LAUNCH_CATS
+                 and 'correlation' in e.get('args', {})}
+    unet = sorted((e['ts'], e['ts'] + e['dur']) for e in events
+                  if e.get('name') == 'unet' and e.get('ph') == 'X'
+                  and e.get('cat') == 'user_annotation')
+    host = [e['dur'] for e in events if e.get('name') == 'inversion_step'
+            and e.get('ph') == 'X' and e.get('cat') == 'user_annotation']
+    check(len(unet) == steps and len(host) == steps,
+          f'trace: {len(unet)} unet and {len(host)} inversion_step ranges, '
+          f'expected {steps}')
+    names = (*API_KERNELS, *TAPE_KERNELS, 'bwd_tape_step')
+    launches = dict.fromkeys(names, 0)
+    us = dict.fromkeys((*API_KERNELS, 'unet', 'rest'), 0.0)
+    for e in device:
+        if e['cat'] == 'kernel':
+            hit = [k for k in names if re.search(rf'\b{k}\b', e['name'])]
+            if hit:
+                launches[hit[0]] += 1
+                us[hit[0]] += e['dur']
+                continue
+            t = launch_ts.get(e.get('args', {}).get('correlation'))
+            if t is not None and any(a <= t <= b for a, b in unet):
+                us['unet'] += e['dur']
+                continue
+        us['rest'] += e['dur']
+    spans = sorted((e['ts'], e['ts'] + e['dur']) for e in device)
+    busy, end = 0.0, spans[0][0]
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    window = end - spans[0][0]
+    ms = {k: v / steps / 1e3 for k, v in us.items()}
+    return (launches, ms, 1.0 - busy / window, window / steps / 1e3,
+            sum(host) / steps / 1e3)
+
+
+def phase_api(dev, root, training):
+    """The JAX-style public calls at the headline's full width (B=4, 70x70,
+    nt=1000, 5 shots, the shipped prior, the tape-free adjoint): a resume
+    that repeats the uninterrupted run bit for bit, the trace and its split
+    of a step, then the bf16 U-Net (engine, inversion CLI, train CLI's
+    ``--amp``) against fp32. ``training``: the training slice's numbers,
+    printed beside amp's."""
+    from pathlib import Path
+    import torch
+    import red_diffeq_tpu_torch as rdt
+    from red_diffeq_tpu_torch.cli import run_inversion
+    from red_diffeq_tpu_torch.config import load_config, save_config
+    from red_diffeq_tpu_torch.ops import stencil
+    from red_diffeq_tpu_torch.solvers import acoustic
+
+    root = Path(root)
+    diffusion = load_prior(dev)
+    problem = slice_problem(dev, HEADLINE)
+    op = rdt.FWIForward(dict(HEADLINE), normalize=True,
+                        v_denorm_func=rdt.v_denormalize,
+                        s_norm_func=rdt.s_normalize_none)
+    check(op.backend == 'kernel' and op.device.type == dev.type
+          and stencil.resolve_run_config(op.geom, CHUNK, None)[0]
+          == 'reverse', f'the JAX-style operator runs {op.backend!r} on '
+          f'{op.device}')
+
+    def run(engine, ts, fwd=op, **kw):
+        gen = torch.Generator(device=dev).manual_seed(8888)
+        out = engine.optimize(problem['mu0'], problem['v_true'],
+                              problem['y'], fwd, ts=ts, lr=0.03,
+                              reg_lambda=0.75, generator=gen,
+                              progress=False, **kw)
+        torch.cuda.synchronize()
+        return out
+
+    def same(a, b):
+        return all(np.array_equal(np.array(x[k]), np.array(y[k]))
+                   for x, y in zip(a, b) for k in x)
+
+    # 1. Resume, under deterministic cuDNN.
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    calls = []
+
+    def cut(v):
+        calls.append(1)
+        if len(calls) > API_RESUME_AT:
+            raise Interrupted
+        return op(v)
+
+    try:
+        engine = rdt.InversionEngine(diffusion, None, 'diffusion')
+        t0 = time.perf_counter()
+        want_mu, want = run(engine, API_TS, checkpoint_path=root / 'a.pt',
+                            checkpoint_every=API_RESUME_AT)
+        full_s = time.perf_counter() - t0
+        try:
+            run(engine, API_TS, fwd=cut, checkpoint_path=root / 'b.pt',
+                checkpoint_every=API_RESUME_AT)
+            check(False, 'the cut run was not cut')
+        except Interrupted:
+            pass
+        fresh = rdt.InversionEngine(diffusion, None, 'diffusion')
+        got_mu, got = run(fresh, API_TS, checkpoint_path=root / 'b.pt',
+                          checkpoint_every=API_RESUME_AT, resume=True)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    check(torch.equal(got_mu, want_mu) and same(got, want),
+          f'the run resumed at step {API_RESUME_AT} differs from the '
+          f'uninterrupted one: max |d mu| '
+          f'{float((got_mu - want_mu).abs().max()):.3e}')
+    check(all(np.isfinite(c[k]).all() and len(c[k]) == API_TS
+              for c in want for k in c), 'the curves are not finite')
+    print(f'api slice: {API_TS} steps with snapshots every '
+          f'{API_RESUME_AT} in {full_s:.2f} s (deterministic cuDNN); a '
+          f'fresh engine resumed at step {API_RESUME_AT} repeats the final '
+          f'model and all {API_TS} steps\' metrics bit for bit; SSIM '
+          + ', '.join(f'{c["ssim"][0]:.4f} -> {c["ssim"][-1]:.4f}'
+                      for c in got), flush=True)
+
+    # 2. The trace of API_TRACE_TS steps.
+    stencil.reset_launches()
+    t0 = time.perf_counter()
+    run(engine, API_TRACE_TS, profile_dir=str(root / 'trace'))
+    traced_s = (time.perf_counter() - t0) / API_TRACE_TS
+    counts = dict(stencil.launches)
+    files = sorted((root / 'trace').glob('*.pt.trace.json'))
+    check(len(files) == 1, f'profile_dir holds {files}')
+    launches, ms, idle, window_ms, host_ms = trace_split(files[0],
+                                                         API_TRACE_TS)
+    hp = HEADLINE['n_grid'] + 2 * HEADLINE['nbc']
+    chunks = API_TRACE_TS * -(-HEADLINE['nt'] // CHUNK)
+    expect = dict.fromkeys(launches, 0)
+    for name in ('fwd_step', 'bwd_reverse_step'):
+        expect[name] = chunks * -(-CHUNK // stencil.pick_blocking(
+            name, hp, hp)[0])
+    expect['sum_shots'] = chunks
+    for name in launches:
+        check(launches[name] == counts[name] == expect[name],
+              f'trace: {name} {launches[name]} kernels, counter '
+              f'{counts[name]}, expected {expect[name]}')
+    print(f'api slice trace ({files[0].stat().st_size / 2**20:.1f} MiB, '
+          f'{API_TRACE_TS} steps, {traced_s:.4f} s a step by the host '
+          f'clock under the profiler): launches '
+          + ', '.join(f'{k} {launches[k]}' for k in API_KERNELS)
+          + ' (= the counters); device ms a step: '
+          + ', '.join(f'{k} {v:.3f}' for k, v in ms.items())
+          + f'; device window {window_ms:.3f} ms a step, idle '
+          f'{idle:.2%} of it; host {host_ms:.3f} ms a step in '
+          'inversion_step', flush=True)
+
+    # 3. bf16: the denoiser, the engine, the inversion CLI, the trainer.
+    d16 = rdt.GaussianDiffusion(
+        rdt.Unet(dim=diffusion.model.dim, dim_mults=(1, 2, 4, 8),
+                 channels=1), image_size=diffusion.image_size,
+        timesteps=diffusion.num_timesteps, objective='pred_noise',
+        half_precision=True)
+    d16.model.load_state_dict(diffusion.model.state_dict())
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(BATCH, 1, *diffusion.image_size, generator=g, device=dev)
+    t = torch.randint(0, diffusion.num_timesteps, (BATCH,), generator=g,
+                      device=dev)
+    with torch.no_grad():
+        o32, o16 = diffusion.apply_fn(x, t), d16.apply_fn(x, t)
+        gap = float((o16 - o32).abs().max() / o32.abs().max())
+        check(o16.dtype == torch.float32 and gap < BF16_GAP,
+              f'bf16 denoiser: {o16.dtype}, {gap:.3e} of fp32\'s largest '
+              f'value (bound {BF16_GAP})')
+        unet_ms = {k: cuda_ms(lambda d=d: d.apply_fn(x, t), 20)
+                   for k, d in (('fp32', diffusion), ('bf16', d16))}
+    s_step = {}
+    for label, d in (('fp32', diffusion), ('bf16', d16)):
+        eng = rdt.InversionEngine(d, None, 'diffusion')
+        run(eng, 1)
+        seen, handle = step_events(d.model)
+        acoustic.plain_chunk_calls['chunk'] = 0
+        t0 = time.perf_counter()
+        try:
+            mu, curves = run(eng, API_TS)
+        finally:
+            handle.remove()
+        host = (time.perf_counter() - t0) / API_TS
+        check(seen['batches'] == [BATCH] * API_TS
+              and acoustic.plain_chunk_calls['chunk'] == 0
+              and all(np.isfinite(c[k]).all() for c in curves for k in c),
+              f'{label} inversion: U-Net calls {seen["batches"]}, plain '
+              f'chunks {acoustic.plain_chunk_calls["chunk"]}, or losses not '
+              'finite')
+        s_step[label] = (host, step_period(seen['events']))
+    print(f'api slice bf16: the dim-{diffusion.model.dim} denoiser at '
+          f'batch {BATCH}, {diffusion.image_size}: {unet_ms["bf16"]:.3f} '
+          f'ms a call against fp32\'s '
+          f'{unet_ms["fp32"]:.3f} (CUDA events), its output within '
+          f'{gap:.3e} of fp32\'s largest value; {API_TS} RED-DiffEq steps '
+          f'{s_step["bf16"][0]:.4f} s a step by the host clock '
+          f'[{s_step["bf16"][1]:.4f} by the U-Net calls\' events] against '
+          f'fp32\'s {s_step["fp32"][0]:.4f} [{s_step["fp32"][1]:.4f}]',
+          flush=True)
+    busy = sum(ms.values())
+    print(f'api slice: the traced step keeps the card busy {busy:.3f} ms; '
+          f'untraced, a fp32 step takes {s_step["fp32"][1] * 1e3:.3f} ms by '
+          f'the U-Net calls\' events, so the card idles about '
+          f'{1 - busy / (s_step["fp32"][1] * 1e3):.2%} of it (under the '
+          f'profiler, whose host work stretches a step to {window_ms:.3f} '
+          f'ms, {idle:.2%})', flush=True)
+    del d16
+
+    paths = write_wide_dataset(dev, root / 'wide')
+    cfg = load_config(paths[WIDE_PRESET])
+    cfg.tpu.bf16_unet = True
+    bf16_cfg = root / 'marmousi-red-diffeq-bf16.yaml'
+    save_config(cfg, bf16_cfg)
+    built = []
+    build = run_inversion.build_diffusion_model
+
+    def build_and_note(*a, **kw):
+        d = build(*a, **kw)
+        built.append(d.half_precision)
+        d.model.register_forward_hook(
+            lambda m, args, out: built.append(args[0].dtype))
+        return d
+
+    run_inversion.build_diffusion_model = build_and_note
+    try:
+        seen = run_cli(dev, ['--config', str(bf16_cfg), '--ts',
+                             str(API_CLI_TS), '--sample_index', '0'])
+    finally:
+        run_inversion.build_diffusion_model = build
+    check(built[0] is True and set(built[1:]) == {torch.bfloat16}
+          and len(built) == API_CLI_TS + 1, f'bf16 CLI: half_precision '
+          f'{built[:1]}, U-Net input dtypes {set(built[1:])}')
+    check(seen['plain'] == 0 and seen['launches']['fwd_step'] > 0,
+          'bf16 CLI: the kernels did not run the solver')
+    check_run(seen, API_CLI_TS, 'bf16 CLI (tpu.bf16_unet)', WIDE_ROWS,
+              cfg.pde.n_grid)
+
+    run_datagen(dev, ['--out', str(root / 'train'), '--n',
+                      str(TRAIN_FAMILY_N), '--velocity_only'])
+    data = ['--data_dir', str(root / 'train' / 'Velocity_Data'),
+            *TRAIN_ARGS]
+    fp32, _, _, _ = train_cli(dev, [*data, '--results_folder',
+                                    str(root / 'fp32'),
+                                    '--train_num_steps', '1'])
+    torch.cuda.reset_peak_memory_stats()
+    amp, events, memory, _ = train_cli(dev, [
+        *data, '--results_folder', str(root / 'amp'), '--amp',
+        '--train_num_steps', str(API_TRAIN_STEPS)])
+    peak = torch.cuda.max_memory_allocated()
+    losses = [e['loss'] for e in amp.training_losses]
+    first32 = fp32.training_losses[0]['loss']
+    check(amp.amp and amp.step == API_TRAIN_STEPS
+          and len(losses) == API_TRAIN_STEPS and np.isfinite(losses).all()
+          and all(p.dtype == torch.float32 for p in amp.params),
+          f'amp trainer at step {amp.step}, {len(losses)} losses')
+    rel = abs(losses[0] - first32) / abs(first32)
+    check(rel < AMP_LOSS_RTOL, f'amp first loss {losses[0]:.5g} against '
+          f'fp32\'s {first32:.5g}: {rel:.3e} (bound {AMP_LOSS_RTOL})')
+    amp_s = events[1].elapsed_time(events[-1]) / (len(events) - 2) / 1e3
+    batch = amp.batch_size
+    print(f'api slice amp: {API_TRAIN_STEPS} train steps, {amp_s:.4f} s a '
+          f'step (CUDA events), {batch / amp_s:.1f} images/s at batch '
+          f'{batch}, peak device memory {peak / 2**20:.1f} MiB; the fp32 '
+          f'training slice: {training["s_per_step"]:.4f} s, '
+          f'{training["images_per_s"]:.1f} images/s, peak '
+          f'{training["peak_mib"]:.1f} MiB; first loss {losses[0]:.5f} '
+          f'against fp32\'s {first32:.5f} on the same draws ({rel:.3e})',
+          flush=True)
+    return dict(idle=idle, ms=ms, unet_ms=unet_ms, s_step=s_step,
+                amp_s=amp_s)
+
+
 def main(argv=None):
     """Run every phase (no arguments), or with ``--write-wide-dataset DIR``
     or ``--write-bench-dataset DIR`` only write that slice's dataset and
@@ -2614,6 +2943,9 @@ def main(argv=None):
             training = phase_training(dev, root)
     with Phase('layout probe'):
         probe = phase_layout_probe(dev)
+    with Phase('api slice'):
+        with tempfile.TemporaryDirectory() as root:
+            phase_api(dev, root, training)
 
     n_chunks = len(p['src'])
     steps = n_chunks * CHUNK

@@ -83,9 +83,12 @@ def merge_patches_to_data(patches: torch.Tensor, output_size, kernel_size,
 class DiffusionFWI:
     """The method over a GaussianDiffusion bundle and an FWI forward
     operator, on ``device`` (default ``'cuda'``; without a card it raises
-    unless ``device='cpu'``)."""
+    unless ``device='cpu'``). ``ssim_loss`` is accepted for the JAX
+    signature and unused, as there."""
 
-    def __init__(self, diffusion_model, fwi_forward, device=None):
+    def __init__(self, diffusion_model, fwi_forward, ssim_loss=None,
+                 device=None):
+        del ssim_loss
         self.device = resolve_device(device)
         self.diffusion_model = diffusion_model
         self.fwi_forward = fwi_forward

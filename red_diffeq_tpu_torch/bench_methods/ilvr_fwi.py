@@ -44,8 +44,10 @@ ilvr_down_schedule_fn = ilvr_down_schedule
 class ILVR_FWI(DiffusionFWI):
     """DiffusionFWI with the ILVR low-frequency blend after each denoise."""
 
-    def __init__(self, diffusion_model, fwi_forward, device=None):
-        super().__init__(diffusion_model, fwi_forward, device=device)
+    def __init__(self, diffusion_model, fwi_forward, ssim_loss=None,
+                 device=None):
+        super().__init__(diffusion_model, fwi_forward, ssim_loss,
+                         device=device)
         self.use_ilvr = True
         self.ilvr_weight = 0.05
         self.down_n = None

@@ -84,7 +84,7 @@ def build_parser():
     p.add_argument('--timesteps', type=int, default=1000)
     p.add_argument('--dim', type=int, default=64)
     p.add_argument('--amp', action='store_true',
-                   help='bf16 model forward (not ported yet: raises)')
+                   help='bf16 model forward')
     p.add_argument('--resume_milestone', type=int, default=None)
     p.add_argument('--keep_last', type=int, default=0,
                    help='if >0, keep only the newest K milestone ckpts')

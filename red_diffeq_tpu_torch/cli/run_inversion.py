@@ -14,9 +14,10 @@ Run it on the card (the default) or, with ``--device cpu``, on the CPU:
 
 ``--solver_backend`` is 'auto' (the kernels on the card, the plain path on
 the CPU), 'plain' or 'kernel'; a config file's 'xla' and 'pallas' are read
-as 'plain' and 'kernel'. ``tpu.remat`` and ``tpu.use_scan`` have no
-counterpart (the step loop is a host loop). A device mesh and the bf16
-U-Net are not ported and raise.
+as 'plain' and 'kernel'. ``tpu.bf16_unet`` runs the U-Net in bf16
+(``GaussianDiffusion(half_precision=True)``). ``tpu.remat`` and
+``tpu.use_scan`` are passed on as in the JAX CLI and change nothing (the
+step loop is a host loop). A device mesh is not ported and raises.
 """
 import argparse
 from datetime import datetime
@@ -55,6 +56,7 @@ def build_diffusion_model(config: ConfigDict, load_weights: bool = True,
         timesteps=config.diffusion.timesteps,
         sampling_timesteps=config.diffusion.get('sampling_timesteps', None),
         objective=config.diffusion.objective,
+        half_precision=bool(config.get('tpu', {}).get('bf16_unet', False)),
         device=device,
     )
     if load_weights:
@@ -66,10 +68,12 @@ def build_forward_operator(config: ConfigDict, device=None) -> FWIForward:
     tpu_cfg = config.get('tpu', {})
     return FWIForward(
         config.pde.to_dict(),
+        normalize=True,
         v_denorm_func=v_denormalize,
         s_norm_func=s_normalize_none,
         backend=tpu_cfg.get('solver_backend', 'auto'),
         chunk=int(tpu_cfg.get('solver_chunk', 20)),
+        remat=bool(tpu_cfg.get('remat', True)),
         device=device,
     )
 
@@ -120,8 +124,8 @@ def prepare_batch_initial_models(vel_batch: np.ndarray,
 
 
 def check_ported(config: ConfigDict) -> None:
-    """Refuse the ``tpu`` options that are not ported: a ('data', 'shot')
-    mesh of more than one device and the bf16 U-Net."""
+    """Refuse the ``tpu`` option that is not ported: a ('data', 'shot')
+    mesh of more than one device."""
     tpu_cfg = config.get('tpu', {})
     data = int(tpu_cfg.get('mesh_data', 1))
     shot = int(tpu_cfg.get('mesh_shot', 1))
@@ -129,10 +133,6 @@ def check_ported(config: ConfigDict) -> None:
         raise NotImplementedError(
             f'a device mesh (mesh_data={data}, mesh_shot={shot}) is not '
             "ported yet: ROADMAP, Queue 1, 'multi-GPU batch/shot sharding'")
-    if tpu_cfg.get('bf16_unet', False):
-        raise NotImplementedError(
-            'bf16_unet (the bf16 U-Net) is not ported yet: ROADMAP, '
-            "Queue 1, 'the bf16 U-Net option'")
 
 
 def process_batch(seis_batch, vel_batch, config, engine, fwi_forward,
@@ -154,6 +154,7 @@ def process_batch(seis_batch, vel_batch, config, engine, fwi_forward,
         missing_number=config.optimization.missing_number,
         regularization=reg,
         generator=generator,
+        use_scan=bool(config.get('tpu', {}).get('use_scan', True)),
     )
     return mu, per_model, mu0
 

@@ -19,13 +19,14 @@ writer quotes every string that would read back as another value.
 import math
 import numbers
 import re
+import warnings
 from pathlib import Path
 from typing import Union
 
 PathLike = Union[str, Path]
 
 # The JAX package's solver backends, as this package's.
-_BACKENDS = {'xla': 'plain', 'pallas': 'kernel'}
+JAX_BACKENDS = {'xla': 'plain', 'pallas': 'kernel'}
 
 
 class ConfigDict(dict):
@@ -266,8 +267,8 @@ def load_config(config_path: PathLike) -> ConfigDict:
         raise FileNotFoundError(f'no such config file: {path}')
     config = ConfigDict(parse_yaml(path.read_text(), str(path)) or {})
     tpu = config.get('tpu')
-    if isinstance(tpu, dict) and tpu.get('solver_backend') in _BACKENDS:
-        tpu.solver_backend = _BACKENDS[tpu.solver_backend]
+    if isinstance(tpu, dict) and tpu.get('solver_backend') in JAX_BACKENDS:
+        tpu.solver_backend = JAX_BACKENDS[tpu.solver_backend]
     return config
 
 
@@ -276,3 +277,31 @@ def save_config(config: ConfigDict, output_path: PathLike) -> None:
     path = Path(output_path)
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(dump_yaml(config.to_dict()))
+
+
+def update_config(config: ConfigDict, **kwargs) -> ConfigDict:
+    """Apply flat key=value overrides in place; unknown keys are added
+    with a warning rather than rejected."""
+    for key, value in kwargs.items():
+        if not hasattr(config, key):
+            warnings.warn(f'config has no field {key!r}; adding it',
+                          stacklevel=2)
+        setattr(config, key, value)
+    return config
+
+
+def print_config(config: ConfigDict, prefix: str = '') -> None:
+    """Render the config tree to stdout, one indented key per line."""
+    top_level = not prefix
+    if top_level:
+        bar = '-' * 60
+        print(f'{bar}\nconfig\n{bar}')
+    for key in sorted(config.keys()):
+        value = config[key]
+        if isinstance(value, ConfigDict):
+            print(f'{prefix}{key}:')
+            print_config(value, prefix=prefix + '  ')
+        else:
+            print(f'{prefix}{key}: {value}')
+    if top_level:
+        print('-' * 60)

@@ -12,26 +12,27 @@ noise) come from a ``torch.Generator`` unless given explicitly; without
 one, ``optimize`` takes the next generator of the global sequence
 (``utils/seed_utils.py``), as the JAX engine takes ``next_key()``.
 """
+import io
 import math
+from pathlib import Path
 from typing import Callable, Dict, Optional
 
 import torch
+from torch.profiler import record_function
 
 from red_diffeq_tpu_torch.core.losses import observation_loss, total_loss
 from red_diffeq_tpu_torch.core.metrics import calculate_metrics
+from red_diffeq_tpu_torch.io.checkpoints import atomic_write_bytes
 from red_diffeq_tpu_torch.regularization.base import make_reg_fn
 from red_diffeq_tpu_torch.utils.data_trans import (
     add_noise_to_seismic, missing_trace, v_normalize,
 )
 from red_diffeq_tpu_torch.utils.device import resolve_device
-from red_diffeq_tpu_torch.utils.profiling import StepTimer
+from red_diffeq_tpu_torch.utils.profiling import StepTimer, trace
 from red_diffeq_tpu_torch.utils.seed_utils import next_key
 
 _VALID_REG = ('diffusion', 'l2', 'tv', 'hybrid', None)
 _F32 = torch.float32
-# With ``progress``, metrics are printed every this many steps, as in the
-# JAX engine's default.
-_LOG_INTERVAL = 50
 
 
 def constant_schedule(value: float):
@@ -128,12 +129,15 @@ class InversionEngine:
     """Drives the velocity-model optimisation on ``device`` (default
     ``'cuda'``; without a card it raises unless ``device='cpu'``).
     ``diffusion_model`` is a GaussianDiffusion bundle, or None when no
-    diffusion regularisation is used."""
+    diffusion regularisation is used. ``ssim_loss`` is accepted for the JAX
+    signature and unused, as there: the metrics take the batched
+    functional SSIM."""
 
-    def __init__(self, diffusion_model=None,
+    def __init__(self, diffusion_model=None, ssim_loss=None,
                  regularization: Optional[str] = None,
                  use_time_weight: bool = False, sigma_x0: float = 0.0001,
                  fixed_timestep: Optional[int] = None, device=None):
+        del ssim_loss
         if regularization not in _VALID_REG + ('none',):
             raise ValueError(f'Unknown regularization: {regularization}')
         self.device = resolve_device(device)
@@ -151,7 +155,14 @@ class InversionEngine:
                  generator: Optional[torch.Generator] = None,
                  noise_draw: Optional[torch.Tensor] = None,
                  trace_mask: Optional[torch.Tensor] = None,
-                 progress: bool = True):
+                 use_scan: bool = True, progress: bool = True,
+                 log_interval: int = 50,
+                 profile_dir: Optional[str] = None,
+                 mesh=None,
+                 checkpoint_path: Optional[str] = None,
+                 checkpoint_every: int = 50,
+                 resume: bool = False,
+                 segment_steps: Optional[int] = None):
         """Run ``ts`` steps; returns (mu_cropped, per-sample metric curves).
 
         ``mu``: initial model, padded (B, 1, H+2, W+2), in [-1, 1].
@@ -162,11 +173,32 @@ class InversionEngine:
         :func:`missing_trace` (``missing_number``; the (B, ng) receiver
         mask ``trace_mask`` if given).
         ``generator``: source of the corruption's draws, then of every
-        step's; when None, the next generator of the global sequence
-        (:func:`next_key`) on the engine's device, so two calls draw
-        differently and ``set_seed`` repeats them.
-        ``progress``: print MAE, RMSE and SSIM every ``_LOG_INTERVAL`` steps
-        and at the last, then the host's time per step."""
+        step's (the JAX engine's ``key``); when None, the next generator of
+        the global sequence (:func:`next_key`) on the engine's device, so
+        two calls draw differently and ``set_seed`` repeats them.
+        ``progress``: print MAE, RMSE and SSIM every ``log_interval`` steps
+        and at the last, then the host's time per step.
+        ``profile_dir``: trace the step loop with ``torch.profiler`` into a
+        Chrome trace in that directory (:func:`trace`); each step is the
+        range ``inversion_step``.
+
+        Checkpoint/resume: with ``checkpoint_path``, after every
+        ``checkpoint_every`` steps and at the last, a snapshot (the step,
+        ``mu``, Adam's count and moments, the metrics so far and the
+        generator's state) is written there with ``torch.save``;
+        ``resume=True`` continues from the file's step if the file exists.
+        The resumed steps draw from the saved generator state, after the
+        corruption has drawn from ``generator`` as in the first run, so a
+        resume repeats the uninterrupted run exactly when ``generator``
+        starts in the same state.
+
+        ``use_scan`` and ``segment_steps`` are accepted with the JAX
+        engine's checks (``checkpoint_path`` needs ``use_scan``;
+        ``segment_steps`` needs ``use_scan`` and excludes
+        ``checkpoint_path``) and change nothing else: the JAX engine scans
+        the loop in one program, or in segments, where this loop runs one
+        step at a time. ``mesh`` other than None is not ported and
+        raises."""
         if mu.shape[0] != y.shape[0]:
             raise ValueError(
                 'Batch size mismatch between velocity and seismic data')
@@ -181,6 +213,23 @@ class InversionEngine:
         if is_diffusion and self.diffusion_model is None:
             raise ValueError(
                 "Diffusion model required for 'diffusion' regularization")
+        if mesh is not None:
+            raise NotImplementedError(
+                "a device mesh is not ported yet: ROADMAP, Queue 1, "
+                "'multi-GPU batch/shot sharding'")
+        if checkpoint_path is not None and not use_scan:
+            raise ValueError(
+                'checkpoint_path requires use_scan=True (snapshots are '
+                'written between scan segments)')
+        if segment_steps is not None and not use_scan:
+            raise ValueError(
+                'segment_steps segments the scanned loop; with '
+                'use_scan=False every step is already its own dispatch')
+        if segment_steps is not None and checkpoint_path is not None:
+            raise ValueError(
+                'segment_steps and checkpoint_path both segment the '
+                'scan; use checkpoint_path with checkpoint_every='
+                f'{segment_steps} to get snapshots at that granularity')
 
         dev = self.device
         mu = torch.as_tensor(mu, dtype=_F32, device=dev)
@@ -202,21 +251,33 @@ class InversionEngine:
                                    reg_lambda, self.sigma_x0, is_diffusion)
         opt_state = optimizer.init(mu)
         history = []
+        start = 0
+        path = None if checkpoint_path is None else Path(checkpoint_path)
+        if resume and path is not None and path.exists():
+            start, mu, opt_state, history = _load_snapshot(path, dev,
+                                                           generator)
+            print(f'Resumed inversion from step {start} ({path})')
+        every = max(1, int(checkpoint_every))
         timer = StepTimer()
-        for i in range(ts):
-            with timer:
-                mu, opt_state, m = step(mu, opt_state, y=y, mask=mask,
-                                        mu_true_norm=mu_true_norm,
-                                        generator=generator)
-            history.append(m)
-            if progress and (i % _LOG_INTERVAL == 0 or i == ts - 1):
-                t_str = (f"  t {int(round(float(m['t'].float().mean())))}"
-                         if 't' in m else '')
-                print(f"step {i:4d}/{ts}"
-                      f"  MAE {float(m['mae'].mean()):.4f}"
-                      f"  RMSE {float(m['rmse'].mean()):.4f}"
-                      f"  SSIM {float(m['ssim'].mean()):.4f}"
-                      + t_str, flush=True)
+        with trace(profile_dir, dev):
+            for i in range(start, ts):
+                with timer, record_function('inversion_step'):
+                    mu, opt_state, m = step(mu, opt_state, y=y, mask=mask,
+                                            mu_true_norm=mu_true_norm,
+                                            generator=generator)
+                history.append(m)
+                if progress and (i % log_interval == 0 or i == ts - 1):
+                    t_str = (f"  t {int(round(float(m['t'].float().mean())))}"
+                             if 't' in m else '')
+                    print(f"step {i:4d}/{ts}"
+                          f"  MAE {float(m['mae'].mean()):.4f}"
+                          f"  RMSE {float(m['rmse'].mean()):.4f}"
+                          f"  SSIM {float(m['ssim'].mean()):.4f}"
+                          + t_str, flush=True)
+                if path is not None and ((i + 1 - start) % every == 0
+                                         or i == ts - 1):
+                    _save_snapshot(path, i + 1, mu, opt_state, history,
+                                   generator)
         if progress and timer.times:
             print(f'timing: {timer.summary()}', flush=True)
 
@@ -227,3 +288,35 @@ class InversionEngine:
         per_model = [{k: list(metrics[k][:, i]) for k in keys}
                      for i in range(mu.shape[0])]
         return mu[:, :, 1:-1, 1:-1], per_model
+
+
+def _save_snapshot(path: Path, step: int, mu, opt_state, history,
+                   generator) -> None:
+    """The loop's state after ``step`` steps, written with ``torch.save``
+    through :func:`atomic_write_bytes`."""
+    metrics = {k: torch.stack([h[k] for h in history]).cpu()
+               for k in history[0]}
+    snapshot = {'step': step, 'mu': mu.cpu(),
+                'opt_state': {'count': opt_state['count'],
+                              'mu': opt_state['mu'].cpu(),
+                              'nu': opt_state['nu'].cpu()},
+                'metrics': metrics, 'generator': generator.get_state()}
+    buf = io.BytesIO()
+    torch.save(snapshot, buf)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    atomic_write_bytes(path, buf.getvalue())
+
+
+def _load_snapshot(path: Path, dev, generator):
+    """(step, mu, opt_state, per-step metrics) from a snapshot on ``dev``;
+    restores ``generator`` to the state it had after that step."""
+    snap = torch.load(io.BytesIO(path.read_bytes()), map_location=dev,
+                      weights_only=True)
+    generator.set_state(snap['generator'].cpu())
+    opt = snap['opt_state']
+    metrics = snap['metrics']
+    history = [{k: v[i] for k, v in metrics.items()}
+               for i in range(snap['step'])]
+    return (snap['step'], snap['mu'],
+            {'count': opt['count'], 'mu': opt['mu'], 'nu': opt['nu']},
+            history)

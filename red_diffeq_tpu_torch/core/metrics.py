@@ -7,6 +7,7 @@ from typing import Tuple
 
 import torch
 
+from red_diffeq_tpu_torch.utils.data_trans import v_normalize
 from red_diffeq_tpu_torch.utils.ssim import ssim
 
 
@@ -20,3 +21,14 @@ def calculate_metrics(mu: torch.Tensor, mu_true_norm: torch.Tensor
     rmse = (diff ** 2).mean(dim=(1, 2, 3)).sqrt()
     ssim_val = ssim((mu + 1) / 2, (mu_true_norm + 1) / 2, size_average=False)
     return mae, rmse, ssim_val
+
+
+class MetricsCalculator:
+    """The reference's class interface: ground truth in m/s, normalised
+    here. ``ssim_loss`` is accepted and unused, as in the JAX package."""
+
+    def __init__(self, ssim_loss=None):
+        del ssim_loss
+
+    def calculate(self, mu: torch.Tensor, mu_true: torch.Tensor):
+        return calculate_metrics(mu, v_normalize(mu_true))

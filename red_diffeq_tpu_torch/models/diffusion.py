@@ -12,10 +12,11 @@ feed JAX's draws. So do the training loss's (:meth:`GaussianDiffusion.loss`:
 the timesteps, the noise and the offset noise).
 """
 from dataclasses import dataclass
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from red_diffeq_tpu_torch.models.unet import Unet
 from red_diffeq_tpu_torch.utils.device import resolve_device
@@ -143,15 +144,20 @@ class GaussianDiffusion:
     [0, 1] to the model's [-1, 1] and back. The training loss adds
     ``offset_noise_strength`` times a per-(sample, channel) offset to the
     noise, and ``min_snr_loss_weight`` clips each timestep's SNR weight at
-    ``min_snr_gamma``."""
+    ``min_snr_gamma``. ``schedule_fn_kwargs`` go to the beta schedule.
+    ``params``, a flax-style tree of numpy arrays (the JAX package's U-Net
+    parameters), is loaded into ``model``. With ``half_precision``
+    :meth:`apply_fn` runs the U-Net in bf16 (:meth:`apply_fn`)."""
 
     def __init__(self, model: Unet, *, image_size, timesteps: int = 1000,
                  sampling_timesteps: Optional[int] = None,
                  objective: str = 'pred_noise', beta_schedule: str = 'sigmoid',
+                 schedule_fn_kwargs: Optional[dict] = None,
                  ddim_sampling_eta: float = 0.0, auto_normalize: bool = True,
                  offset_noise_strength: float = 0.0,
                  min_snr_loss_weight: bool = False,
-                 min_snr_gamma: float = 5.0, device=None):
+                 min_snr_gamma: float = 5.0, params=None,
+                 half_precision: bool = False, device=None):
         if objective not in ('pred_noise', 'pred_x0', 'pred_v'):
             raise ValueError(f'unknown objective {objective}')
         self.device = resolve_device(device)
@@ -159,6 +165,12 @@ class GaussianDiffusion:
         # dropout nor running statistics, so its output is the same in
         # both modes, as the JAX model's is.
         self.model = model.to(self.device).eval()
+        if params is not None:
+            from red_diffeq_tpu_torch.io.checkpoints import (
+                flax_to_state_dict,
+            )
+            self.model.load_state_dict(flax_to_state_dict(params,
+                                                          self.model))
         self.channels = model.channels
         if isinstance(image_size, int):
             image_size = (image_size, image_size)
@@ -173,15 +185,44 @@ class GaussianDiffusion:
         self.ddim_sampling_eta = ddim_sampling_eta
         self.offset_noise_strength = offset_noise_strength
         self.auto_normalize = auto_normalize
+        self.half_precision = half_precision
         self.normalize = _normalize if auto_normalize else _identity
         self.unnormalize = _unnormalize if auto_normalize else _identity
         self.schedule = DiffusionSchedule.create(
             timesteps, beta_schedule, objective, min_snr_loss_weight,
-            min_snr_gamma, device=self.device)
+            min_snr_gamma, schedule_fn_kwargs, device=self.device)
+        self._bf16 = None
+
+    def bf16_params(self) -> Dict[str, torch.Tensor]:
+        """A bf16 copy of the U-Net's parameters, made again whenever a
+        parameter has changed in place since the last copy (a loaded
+        checkpoint, a train step)."""
+        params = dict(self.model.named_parameters())
+        stamp = tuple((id(p), p._version) for p in params.values())
+        if self._bf16 is None or self._bf16[0] != stamp:
+            with torch.no_grad():
+                self._bf16 = (stamp, {n: p.detach().to(torch.bfloat16)
+                                      for n, p in params.items()})
+        return self._bf16[1]
+
+    def run_model(self, x, t, params: Optional[Dict[str, torch.Tensor]] = None):
+        """The U-Net on ``x`` at timesteps ``t`` with ``params`` (a dict of
+        parameter tensors by name, differentiable) in place of its own; the
+        input is cast to the parameters' dtype, so bf16 parameters run the
+        U-Net in bf16 (the embedding of ``t`` is computed in fp32 first)."""
+        if params is None:
+            return self.model(x, t)
+        x = x.to(next(iter(params.values())).dtype)
+        return torch.func.functional_call(self.model, params, (x, t))
 
     def apply_fn(self, x, t):
-        """One denoiser forward pass."""
-        return self.model(x, t)
+        """One denoiser forward pass (the profiler range ``unet``). With
+        ``half_precision`` the weights and activations are bf16 and the
+        input and output fp32; the schedule's arithmetic stays fp32."""
+        with record_function('unet'):
+            if self.half_precision:
+                return self.run_model(x, t, self.bf16_params()).float()
+            return self.model(x, t)
 
     def q_sample(self, x_start, t, noise):
         """Diffuse ``x_start`` to timestep ``t``."""
@@ -363,13 +404,17 @@ class GaussianDiffusion:
                 img, ti, noise=self._draw(noise, i + 2, x1.shape, generator))
         return img
 
-    def p_losses(self, x_start, t, noise=None, offset=None, generator=None):
+    def p_losses(self, x_start, t, noise=None, offset=None, generator=None,
+                 params: Optional[Dict[str, torch.Tensor]] = None):
         """The weighted denoising loss of ``x_start`` (in the model's range)
         diffused to timesteps ``t`` (B,): the per-sample mean squared error
         of the model's output against the objective's target, times the
         schedule's ``loss_weight[t]``, averaged over the batch. ``noise``
         (shaped as ``x_start``) and, with offset noise, ``offset`` (B, C)
-        are standard normal draws from ``generator`` unless given."""
+        are standard normal draws from ``generator`` unless given. The
+        U-Net runs on ``params`` if given (:meth:`run_model`: bf16
+        parameters run it in bf16, as the JAX trainer's ``amp`` does), else
+        on its own fp32 weights; the loss is fp32 either way."""
         if noise is None:
             noise = torch.randn(x_start.shape, generator=generator,
                                 device=x_start.device, dtype=x_start.dtype)
@@ -381,7 +426,7 @@ class GaussianDiffusion:
                                      dtype=x_start.dtype)
             noise = noise + ons * offset[:, :, None, None]
         x = self.q_sample(x_start, t, noise)
-        model_out = self.apply_fn(x, t)
+        model_out = self.run_model(x, t, params)
         if self.objective == 'pred_noise':
             target = noise
         elif self.objective == 'pred_x0':
@@ -392,10 +437,12 @@ class GaussianDiffusion:
         loss = loss * extract(self.schedule.loss_weight, t, 1)
         return loss.mean()
 
-    def loss(self, img, t=None, noise=None, offset=None, generator=None):
+    def loss(self, img, t=None, noise=None, offset=None, generator=None,
+             params: Optional[Dict[str, torch.Tensor]] = None):
         """The training loss of a batch of images in [0, 1] at timesteps
         ``t`` (B,), drawn uniformly from ``generator`` unless given
-        (reference ``models/diffusion.py:549-554``)."""
+        (reference ``models/diffusion.py:549-554``); ``params`` as
+        :meth:`p_losses` takes them."""
         b, _, h, w = img.shape
         if (h, w) != self.image_size:
             raise ValueError(f'image size must be {self.image_size}, got '
@@ -404,4 +451,5 @@ class GaussianDiffusion:
             t = torch.randint(0, self.num_timesteps, (b,),
                               generator=generator, device=img.device)
         return self.p_losses(self.normalize(img), t.long(), noise=noise,
-                             offset=offset, generator=generator)
+                             offset=offset, generator=generator,
+                             params=params)

@@ -273,10 +273,6 @@ class Trainer:
             'effective batch size should be at least 16'
         assert int(num_samples ** 0.5) ** 2 == num_samples, \
             'number of samples must have an integer square root'
-        if amp:
-            raise NotImplementedError(
-                'amp (the bf16 U-Net) is not ported yet: ROADMAP, Queue 1, '
-                "'the bf16 U-Net option'")
         # data_parallel: one card is the whole device set, as for the JAX
         # trainer on one device; multi-GPU training is ROADMAP Queue 1's.
         self.diffusion = diffusion_model
@@ -285,6 +281,7 @@ class Trainer:
         self.batch_size = train_batch_size
         self.grad_accum = gradient_accumulate_every
         self.train_num_steps = train_num_steps
+        self.amp = amp
         self.save_and_sample_every = save_and_sample_every
         self.num_samples = num_samples
         self.max_grad_norm = max_grad_norm
@@ -329,16 +326,23 @@ class Trainer:
         diffusion model's device): the gradients summed over the
         micro-batches and divided by their number, clipped (left in each
         parameter's ``.grad``), Adam, then the EMA when (step + 1) is a
-        multiple of ``update_every``. ``draws``, one dict per micro-batch
-        with any of ``t``, ``noise`` and ``offset``, feeds the loss's draws
-        (the rest come from the trainer's generator). Returns the mean
-        micro-batch loss, on the card."""
+        multiple of ``update_every``. With ``amp`` the loss runs the U-Net
+        on a differentiable bf16 cast of the fp32 master weights, so the
+        gradients, Adam and the EMA stay fp32 (the JAX trainer's
+        ``amp``). ``draws``, one dict per micro-batch with any of ``t``,
+        ``noise`` and ``offset``, feeds the loss's draws (the rest come
+        from the trainer's generator). Returns the mean micro-batch loss,
+        on the card."""
         for p in self.params:
             p.grad = None
         loss_sum = None
         with fp32_convolutions():
             for i, mb in enumerate(batches):
+                params = ({n: p.to(torch.bfloat16)
+                           for n, p in zip(self.names, self.params)}
+                          if self.amp else None)
                 loss = self.diffusion.loss(mb, generator=self._gen,
+                                           params=params,
                                            **(draws[i] if draws else {}))
                 loss.backward()
                 loss = loss.detach()

@@ -33,3 +33,25 @@ def make_reg_fn(regularization_type: Optional[str], diffusion=None,
     # None / 'none' / unimplemented 'hybrid' -> zero regularisation.
     return lambda mu, t=None, noise=None, generator=None: (
         mu.new_zeros(mu.shape[0]), None)
+
+
+class RegularizationMethod:
+    """Stateful shim with the reference class's interface."""
+
+    def __init__(self, regularization_type: Optional[str],
+                 diffusion_model=None, use_time_weight: bool = False,
+                 sigma_x0: float = 0.0001,
+                 fixed_timestep: Optional[int] = None):
+        self.regularization_type = regularization_type
+        self.diffusion_model = diffusion_model
+        self.use_time_weight = use_time_weight
+        self.sigma_x0 = sigma_x0
+        self.fixed_timestep = fixed_timestep
+        self._fn = make_reg_fn(regularization_type, diffusion_model,
+                               use_time_weight, fixed_timestep)
+
+    def get_reg_loss(self, mu, generator=None, t=None, noise=None):
+        """(per-sample loss, diffusion timesteps or None); the RED draws
+        ``t`` and ``noise`` come from ``generator`` unless given (the JAX
+        method's ``key``)."""
+        return self._fn(mu, t=t, noise=noise, generator=generator)

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from red_diffeq_tpu_torch.config.config_utils import JAX_BACKENDS
 from red_diffeq_tpu_torch.ops.stencil import laplacian4, stencil_chunk_fn
 from red_diffeq_tpu_torch.utils.device import check_on, resolve_device
 
@@ -144,9 +145,11 @@ class Geometry:
         return bool(np.all(np.diff(np.asarray(self.igx)) == 1))
 
     @staticmethod
-    def from_ctx(ctx: dict, sample_temporal: int = 1) -> 'Geometry':
+    def from_ctx(ctx: dict, sample_temporal: int = 1,
+                 sample_spatial: float = 1.0) -> 'Geometry':
         """Build from a pde config dict (optional sx/gx overrides in grid
-        units)."""
+        units). Without ``gx``, ``int(sample_spatial * ng)`` receivers are
+        spread evenly over the model's width."""
         n_grid, dx, nbc = ctx['n_grid'], float(ctx['dx']), int(ctx['nbc'])
         if ctx.get('sx') is not None:
             sx = np.asarray(ctx['sx'], dtype=np.float64) * dx
@@ -155,7 +158,8 @@ class Geometry:
         if ctx.get('gx') is not None:
             gx = np.asarray(ctx['gx'], dtype=np.float64) * dx
         else:
-            gx = np.linspace(0, n_grid - 1, num=int(ctx['ng'])) * dx
+            gx = np.linspace(0, n_grid - 1,
+                             num=int(sample_spatial * ctx['ng'])) * dx
         isx = np.around(sx / dx).astype(int) + nbc
         igx = np.around(gx / dx).astype(int) + nbc
         isz = int(np.around(float(ctx['sz']) / dx)) + nbc
@@ -237,15 +241,19 @@ def _plain_chunk(p0, p1, src_chunk, alpha, temp1, temp2, beta_pts, *,
 
 
 def forward_modeling(v_pad: torch.Tensor, geom: Geometry, *, chunk: int = 20,
-                     backend: str = 'plain',
+                     remat: bool = True, backend: str = 'plain',
                      adjoint: Optional[str] = None) -> torch.Tensor:
     """Propagate all shots through ``v_pad`` (B, 1, Hp, Wp) in m/s.
 
     Returns the seismogram (B, ns, ceil(nt / sample_temporal), ng).
-    ``backend`` is ``'kernel'`` or ``'plain'``; ``adjoint`` picks the
+    ``backend`` is ``'kernel'`` or ``'plain'`` (the JAX package's
+    ``'pallas'`` and ``'xla'`` name them too); ``adjoint`` picks the
     kernel backend's adjoint, ``'reverse'`` or ``'tape'`` (``None``:
     'reverse' unless the t2 guard routes to 'tape'); the plain backend
-    ignores it."""
+    ignores it. ``remat`` is accepted for the JAX signature and changes
+    nothing: both backends keep only each chunk's boundary carries for the
+    backward and recompute the chunk's steps."""
+    backend = JAX_BACKENDS.get(backend, backend)
     b, _, hp, wp = v_pad.shape
     alpha, temp1, temp2, beta_pts = coefficients(v_pad, geom)
     src_chunks = source_chunks(geom, chunk, v_pad.device)
@@ -288,32 +296,46 @@ def forward_modeling(v_pad: torch.Tensor, geom: Geometry, *, chunk: int = 20,
 class FWIForward:
     """Forward operator: normalised velocity -> seismogram.
 
-    ``__call__(v_norm)`` maps the input to m/s with ``v_denorm_func`` (none:
-    the input is in m/s), edge-pads by nbc, propagates, and applies
-    ``s_norm_func`` to the seismogram. Runs on ``device`` (default
+    ``__call__(v_norm)`` maps the input to m/s, edge-pads by nbc,
+    propagates, and applies ``s_norm_func`` to the seismogram. With
+    ``normalize=False`` the input is in m/s and the seismogram is left as
+    it is, as in the JAX package; with ``normalize=True`` the input goes
+    through ``v_denorm_func`` (none: it is taken as m/s) and the seismogram
+    through ``s_norm_func`` (if given). ``sample_spatial`` scales the
+    receiver count (:meth:`Geometry.from_ctx`); a receiver line that is not
+    contiguous runs only on the plain backend. ``backend`` is 'auto' (the
+    kernels on the card, the plain path on the CPU), 'kernel' or 'plain',
+    or the JAX package's 'pallas' and 'xla'. ``remat`` has no effect on
+    results (:func:`forward_modeling`). Runs on ``device`` (default
     ``'cuda'``; without a card it raises unless ``device='cpu'``)."""
 
     def __init__(self, ctx: dict, sample_temporal: int = 1,
+                 sample_spatial: float = 1.0, normalize: bool = True,
                  v_denorm_func: Optional[Callable] = None,
                  s_norm_func: Optional[Callable] = None,
-                 backend: str = 'auto', chunk: int = 20,
+                 backend: str = 'auto', chunk: int = 20, remat: bool = True,
                  adjoint: Optional[str] = None, device=None):
         self.device = resolve_device(device)
-        self.geom = Geometry.from_ctx(dict(ctx), sample_temporal)
+        self.geom = Geometry.from_ctx(dict(ctx), sample_temporal,
+                                      sample_spatial)
+        self.normalize = normalize
         self.v_denorm_func = v_denorm_func
         self.s_norm_func = s_norm_func
         if backend == 'auto':
             backend = 'kernel' if self.device.type == 'cuda' else 'plain'
-        self.backend = backend
+        self.backend = JAX_BACKENDS.get(backend, backend)
         self.chunk = chunk
+        self.remat = remat
         self.adjoint = adjoint
 
     def __call__(self, v_norm: torch.Tensor) -> torch.Tensor:
         check_on(v_norm, self.device, 'v_norm')
-        v = self.v_denorm_func(v_norm) if self.v_denorm_func else v_norm
+        v = (self.v_denorm_func(v_norm)
+             if self.normalize and self.v_denorm_func else v_norm)
         v_pad = edge_pad(v, self.geom.nbc)
         s = forward_modeling(v_pad, self.geom, chunk=self.chunk,
-                             backend=self.backend, adjoint=self.adjoint)
-        if self.s_norm_func is not None:
+                             remat=self.remat, backend=self.backend,
+                             adjoint=self.adjoint)
+        if self.normalize and self.s_norm_func is not None:
             s = self.s_norm_func(s)
         return s

@@ -91,3 +91,11 @@ class SeedContext:
         set_rng_state(self._saved)
         return False
 
+
+
+def worker_init_fn(worker_id: int, base_seed: int = 0) -> None:
+    """Seed a data-loading worker process: python's and numpy's generators
+    with ``base_seed + worker_id``."""
+    seed = base_seed + worker_id
+    random.seed(seed)
+    np.random.seed(seed)

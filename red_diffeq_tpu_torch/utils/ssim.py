@@ -45,3 +45,15 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
     if size_average:
         return ssim_map.mean()
     return ssim_map.mean(dim=(1, 2, 3))
+
+
+class SSIM:
+    """Callable wrapper with the reference module's interface."""
+
+    def __init__(self, window_size: int = 11, size_average: bool = True):
+        self.window_size = window_size
+        self.size_average = size_average
+
+    def __call__(self, img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+        return ssim(img1, img2, window_size=self.window_size,
+                    size_average=self.size_average)

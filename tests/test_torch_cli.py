@@ -183,12 +183,15 @@ def test_cli_flags_and_what_is_not_ported(monkeypatch, tmp_path):
     cfg.tpu.mesh_data = 2
     with pytest.raises(NotImplementedError, match='multi-GPU'):
         cli.check_ported(cfg)
+    # tpu.bf16_unet is ported: it reaches the denoiser as half_precision.
     cfg = get_config()
-    cfg.tpu.bf16_unet = True
-    with pytest.raises(NotImplementedError, match='bf16'):
+    cfg.model.dim, cfg.model.dim_mults = 8, (1, 2)
+    cfg.diffusion.image_size = 16
+    for bf16 in (True, False):
+        cfg.tpu.bf16_unet = bf16
         cli.check_ported(cfg)
-    cfg.tpu.bf16_unet = False
-    cli.check_ported(cfg)
+        d = cli.build_diffusion_model(cfg, load_weights=False, device='cpu')
+        assert d.half_precision is bf16
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='CUDA'):
         cli.main(['--results_dir', str(tmp_path)])

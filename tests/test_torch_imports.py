@@ -11,7 +11,8 @@ FORBIDDEN = ('jax', 'flax', 'optax', 'msgpack', 'yaml', 'ml_collections',
 SOURCES = sorted((REPO / 'red_diffeq_tpu_torch').rglob('*.py')) + [
     REPO / 'chip_smoke.py', REPO / 'tools' / 'export_ema_torch.py',
     REPO / 'tools' / 'torch_layout_probe.py',
-    REPO / 'tools' / 'torch_probe_breakdown.py']
+    REPO / 'tools' / 'torch_probe_breakdown.py',
+    REPO / 'tools' / 'torch_bf16_breakdown.py']
 # The training slice's modules, which the walk above must reach.
 TRAINING_SLICE = ('red_diffeq_tpu_torch/models/trainer.py',
                   'red_diffeq_tpu_torch/cli/datagen.py',

@@ -356,9 +356,15 @@ def test_image_folder_dataset_matches_jax(tmp_path):
 
 
 def test_amp_and_batch_asserts_raise(tmp_path):
+    """``amp`` is ported (its parity is in test_torch_bf16.py): a train
+    step keeps fp32 master weights with finite gradients. The batch
+    asserts raise as in JAX."""
     _, td = _pair()
-    with pytest.raises(NotImplementedError, match='bf16 U-Net'):
-        _trainer(td, tmp_path, amp=True)
+    tr = _trainer(td, tmp_path, amp=True)
+    loss = tr.train_step([torch.from_numpy(_images(5, 4))] * 4)
+    assert np.isfinite(float(loss))
+    assert all(p.dtype == torch.float32 and torch.isfinite(p.grad).all()
+               for p in tr.params)
     with pytest.raises(AssertionError, match='at least 16'):
         _trainer(td, tmp_path, gradient_accumulate_every=1)
     with pytest.raises(AssertionError, match='square root'):

@@ -23,7 +23,11 @@ dim-8 U-Net at batch 16 and lr 3e-3 for 40 steps, a milestone every 20, a
 2-step resume, 8 FID samples and 2 models a seismogram run; the layout
 probe on 2 fields of 13x13, 8 steps (its gates at 3 and 8, chunks of 4
 steps) and past the resident kernels' limit on one field of 342x342, 3 steps, its six kernels
-built from ``layout_probe.cu`` for the host. Times printed are
+built from ``layout_probe.cu`` for the host; the api slice with a dim-8
+U-Net (random weights) in place of the prior, 3 steps resumed at step 2,
+2 traced steps (the CPU trace holds no device activity, so its host
+operations stand in for it and the launch counters for its kernel counts),
+3 steps of the bf16 CLI run and 3 amp train steps. Times printed are
 meaningless; device memory reads 0. Exits with ``chip_smoke.main()``'s code. About thirty
 minutes.
 """
@@ -77,6 +81,15 @@ def main():
             self.backend = 'kernel'
 
     A.FWIForward.__init__ = kernel_backend
+    # The JAX-style calls give no device, which means the card: here the CPU.
+    from red_diffeq_tpu_torch.core.inversion import InversionEngine
+    from red_diffeq_tpu_torch.models.diffusion import GaussianDiffusion
+    for cls in (A.FWIForward, InversionEngine, GaussianDiffusion):
+        def on_cpu(self, *a, __init=cls.__init__, **kw):
+            kw.setdefault('device', 'cpu')
+            __init(self, *a, **kw)
+
+        cls.__init__ = on_cpu
     torch.cuda.is_available = lambda: True
     torch.cuda.synchronize = lambda *a: None
     torch.cuda.get_device_name = lambda *a: 'CPU rehearsal'
@@ -134,6 +147,27 @@ def main():
     ns['PROBE'] = dict(programs=2, size=13, nt=8, reps=1)
     ns['PROBE_BEYOND'] = dict(programs=1, size=342, nt=3, reps=1)
     ns['PROBE_GATE_STEPS'], ns['PROBE_CHUNK'] = 3, 4
+    ns['API_TS'], ns['API_RESUME_AT'], ns['API_TRACE_TS'] = 3, 2, 2
+    ns['API_CLI_TS'], ns['API_TRAIN_STEPS'] = 3, 3
+    from red_diffeq_tpu_torch.models.unet import Unet
+    phase_api, trace_split = ns['phase_api'], ns['trace_split']
+
+    def small_api(dev, root, training):
+        prior = ns['load_prior']
+        ns['load_prior'] = lambda dev: GaussianDiffusion(
+            Unet(dim=8, dim_mults=(1, 2, 4, 8)), image_size=16,
+            timesteps=1000, device=dev)
+        try:
+            return phase_api(dev, root, training)
+        finally:
+            ns['load_prior'] = prior
+
+    def cpu_trace_split(path, steps):
+        ns['DEVICE_CATS'] = ('cpu_op',)
+        _, *rest = trace_split(path, steps)
+        return (dict(S.launches), *rest)
+
+    ns['phase_api'], ns['trace_split'] = small_api, cpu_trace_split
     ns['cuda_ms'] = lambda fn, reps, warm=True: (fn(), 0.0)[1]
     ns['graph_ms'] = ns['cuda_ms']
     smi = types.SimpleNamespace(stdout='CPU rehearsal, 0 W\n')
