@@ -197,6 +197,30 @@ Phases, each printing its wall time:
    (s a train step, images/s and peak memory beside the training slice's;
    fp32 master weights; its first loss within AMP_LOSS_RTOL of a fp32
    run's on the same draws).
+17. the quality slice, through the port's quality tools: first
+   ``tools/torch_eval_quality.py`` at ``QUALITY.md``'s protocol (n=4
+   held-out samples of 70x70, nt=1000, 5 shots, 300 steps, refined
+   observations from the dt/2 + dx/2 grid on the plain path, the shipped
+   prior on the dim-64 U-Net) for TV and RED-DiffEq on the kernels: each
+   row's final SSIM within QUALITY_GAP (0.03) of ``QUALITY.md``'s refined
+   row (0.8888, 0.9274) and RED-DiffEq above TV, MAE, RMSE, SSIM and
+   s/sample printed; each configuration's ``InversionEngine.warm_compile``
+   launches every kernel of the tape-free route (one step's launches,
+   exactly) and holds the kernel library's only load (made to happen
+   again for this check), the timed rows none; exact launches over the
+   tool's run and the plain path only for the refined observations (their
+   time printed). Then, for their plumbing at full width with their depth
+   cut (PLUMBING_TS RED-DiffEq steps, PLUMBING_DTS competitor outer
+   steps): ``torch_compare_methods.py`` on the refined protocol (three
+   finite rows, the route's kernels launched); ``torch_milestone_eval.py``
+   over the training slice's milestones and the shipped prior (rows by
+   train step, the JSON sidecar, the loss summary, a different refined
+   SSIM for every checkpoint, exact launches) and the bf16 copy of a
+   ``GaussianDiffusion`` renewed by each ``params`` assignment;
+   ``torch_pick_best_milestone.py`` on that table (the pick by refined
+   SSIM, its export loaded back to the same weights); and
+   ``examples/torch_example_openfwi.py`` through the inversion CLI on its
+   synthetic dataset (exact launches, finite metrics).
 
 With ``--write-wide-dataset DIR`` (``--write-bench-dataset DIR``) the
 script only writes the wide (bench) slice's datasets and configs under DIR
@@ -209,14 +233,16 @@ both read in the slice that takes its route), launches per 1000-step pass
 and under ``wide`` the same at the 310x430 field with the launches of the
 wide slice's CLI run and under ``bench`` the launches of the bench slice's
 DiffusionFWI run and under ``training`` those of the training slice's
-seismogram run; then ``tape_step_stream`` with the launches of the
+seismogram run and under ``quality`` those of the quality slice's eval
+tool run; then ``tape_step_stream`` with the launches of the
 gradient past the cluster limit (420x420) and ``tape_step_global`` with
 those of the gradient past ``tape_step_stream``'s (680x680) and its times
 forced at 420x420, the four probe kernels with the
 launches of the probe tool's run and their times, and the probe's two
 ``*_global`` kernels with the launches of the tool's run past the
-resident limit; the card's line from
-nvidia-smi, and last ``{"ok": true, "device": ...}``.
+resident limit; before it, a line with the quality slice's SSIMs and
+s/sample; the card's line from nvidia-smi, and last ``{"ok": true,
+"device": ...}``.
 Any failed check raises and the script exits non-zero. Without a CUDA
 device, or without the package beside it, it exits non-zero and prints no
 result.
@@ -2201,7 +2227,8 @@ def phase_training(dev, root):
           f'loss {obs[1]:.5g} -> {obs[-1]:.5g}, total {tot[0]:.5g} -> '
           f'{tot[-1]:.5g}, SSIM {per_model[0]["ssim"][0]:.4f} -> '
           f'{per_model[0]["ssim"][-1]:.4f}', flush=True)
-    return dict(counts=counts, s_per_step=s_step, images_per_s=batch / s_step,
+    return dict(counts=counts, run=str(run), s_per_step=s_step,
+                images_per_s=batch / s_step,
                 peak_mib=peak / 2**20, milestone_s=milestone_s,
                 sim_s=sim_s[0], resume_max_rel=resume_d,
                 s_per_step_deterministic=s_step_det)
@@ -2836,6 +2863,332 @@ def phase_api(dev, root, training):
                 amp_s=amp_s)
 
 
+# The quality slice: tools/torch_eval_quality.py at QUALITY.md's protocol
+# (n=4 held-out samples, 300 steps, refined observations) for TV and
+# RED-DiffEq on the shipped prior, gated against QUALITY.md's refined rows
+# (the JAX package's): each within QUALITY_GAP, and RED-DiffEq above TV
+# (QUALITY_ORDER). RED sits 0.04 above TV and 0.06 above the competitors,
+# so a wider miss would change the paper's conclusion. Then the other
+# tools for their plumbing at full width, their depth cut: PLUMBING_TS
+# RED-DiffEq steps, the competitors' outer steps cut to PLUMBING_DTS.
+QUALITY_N, QUALITY_TS = 4, 300
+QUALITY_REGS = ('tv', 'diffusion')
+QUALITY_CKPT = CKPT
+QUALITY_SSIM = {'tv': 0.8888, 'diffusion': 0.9274}
+QUALITY_GAP = 0.03
+QUALITY_ORDER = (('diffusion', 'tv'),)
+PLUMBING_TS, PLUMBING_DTS = 5, 2
+QUALITY_TOOLS = ('quality', 'eval_quality', 'compare_methods',
+                 'milestone_eval', 'pick_best_milestone')
+EXAMPLE = 'examples/torch_example_openfwi.py'
+ROUTE_KERNELS = ('fwd_step', 'bwd_reverse_step', 'sum_shots')
+
+
+def _load_file(name, path):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def quality_tools():
+    """The port's quality tools (``tools/torch_<name>.py``) by name, all on
+    one ``torch_quality`` module (``'quality'``)."""
+    return {name: _load_file(f'torch_{name}', f'tools/torch_{name}.py')
+            for name in QUALITY_TOOLS}
+
+
+def route_launches(steps, nt, hp, wp):
+    """Launches of the tape-free route's kernels in ``steps`` inversion
+    steps on an hp x wp field: per chunk ceil(chunk/U) of each blocked
+    kernel and one ``sum_shots``."""
+    from red_diffeq_tpu_torch.ops import stencil
+    chunks = steps * -(-nt // CHUNK)
+    want = dict.fromkeys(stencil.launches, 0)
+    for name in ('fwd_step', 'bwd_reverse_step'):
+        want[name] = chunks * -(-CHUNK // stencil.pick_blocking(
+            name, hp, wp)[0])
+    want['sum_shots'] = chunks
+    return want
+
+
+def phase_quality(dev, root, training):
+    """The quality slice (see QUALITY_N above): the eval tool's refined
+    rows gated against QUALITY.md, its warm-up holding the library's load
+    and every kernel of the route and its timed rows none of it, exact
+    launches, the plain path only for the refined observations; then
+    compare_methods, milestone_eval over the training slice's milestones
+    and the shipped prior (the bf16 copy renewed on each swap),
+    pick_best_milestone (its export loaded back) and the OpenFWI example
+    through the inversion CLI. Returns the rows and launches."""
+    from pathlib import Path
+    import torch
+    from red_diffeq_tpu_torch.core.inversion import InversionEngine
+    from red_diffeq_tpu_torch.io.checkpoints import (
+        load_diffusion_params, load_params,
+    )
+    from red_diffeq_tpu_torch.models.diffusion import GaussianDiffusion
+    from red_diffeq_tpu_torch.models.unet import Unet
+    from red_diffeq_tpu_torch.ops import stencil
+    from red_diffeq_tpu_torch.solvers import acoustic
+
+    root = Path(root)
+    tools = quality_tools()
+    Q = tools['quality']
+    ctx = Q.CTX
+    hp, wp = Q.HEIGHT + 2 * ctx['nbc'], ctx['n_grid'] + 2 * ctx['nbc']
+    refined_chunks = -(-2 * ctx['nt'] // Q.CHUNK)
+    log, stage, problems = [], ['set-up'], []
+    warm, optimize, build = (InversionEngine.warm_compile,
+                             InversionEngine.optimize, stencil.build)
+    held = Q.held_out_problem
+
+    def spy_warm(self, *a, **kw):
+        stage[0] = 'warm-up'
+        rec = warm(self, *a, **kw)
+        stage[0] = 'set-up'
+        log.append(('warm', rec))
+        return rec
+
+    def spy_optimize(self, *a, **kw):
+        stage[0] = 'optimize'
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = optimize(self, *a, **kw)
+        torch.cuda.synchronize()
+        stage[0] = 'set-up'
+        log.append(('optimize', dict(ts=kw['ts'], seconds=time.perf_counter()
+                                     - t0)))
+        return out
+
+    def spy_build(*a, **kw):
+        log.append(('build', stage[0]))
+        return build(*a, **kw)
+
+    def spy_held(*a, **kw):
+        problems.append(held(*a, **kw))
+        return problems[-1]
+
+    def counted(fn):
+        """fn() with the launch counters and the plain path's chunks from 0;
+        returns its result, the launches and the plain chunks."""
+        del log[:]
+        stencil.reset_launches()
+        acoustic.plain_chunk_calls['chunk'] = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(stencil.launches), acoustic.plain_chunk_calls['chunk']
+
+    def check_counts(label, counts, plain, steps, forwards=0):
+        """The route's launches in ``steps`` inversion steps and
+        ``forwards`` passes of the forward alone, and the plain path only
+        for the refined observations."""
+        want = route_launches(steps, ctx['nt'], hp, wp)
+        want['fwd_step'] += forwards * route_launches(
+            1, ctx['nt'], hp, wp)['fwd_step']
+        check(counts == want, f'{label}: launches {counts}, expected {want}')
+        check(plain == refined_chunks, f'{label}: the plain path ran '
+              f'{plain} chunks, the refined observations take '
+              f'{refined_chunks}')
+
+    InversionEngine.warm_compile, InversionEngine.optimize = (spy_warm,
+                                                              spy_optimize)
+    stencil.build, Q.held_out_problem = spy_build, spy_held
+    try:
+        # a. The refined rows at the full protocol, and the warm-up.
+        stencil._lib = None     # so that the warm-up loads the library
+        t0 = time.perf_counter()
+        rows, counts, plain = counted(lambda: tools['eval_quality'].main([
+            '--n', str(QUALITY_N), '--ts', str(QUALITY_TS), '--width',
+            str(ctx['n_grid']), '--obs', 'refined', '--regs', *QUALITY_REGS,
+            '--ckpt', str(QUALITY_CKPT),
+            '--device', dev.type, '--out', str(root / 'quality.md')]))
+        eval_s = time.perf_counter() - t0
+        warms = [r for k, r in log if k == 'warm']
+        runs = [r for k, r in log if k == 'optimize']
+        builds = [s for k, s in log if k == 'build']
+        one_step = route_launches(1, ctx['nt'], hp, wp)
+        check(len(warms) == len(QUALITY_REGS)
+              and len(runs) == len(QUALITY_REGS) + 1,
+              f'eval tool: {len(warms)} warm-ups, {len(runs)} runs')
+        for reg, rec in zip(QUALITY_REGS, warms):
+            got = dict(one_step, **rec['launches'])
+            check(rec['backend'] == 'kernel' and rec['route'] == 'reverse'
+                  and got == one_step, f'warm-up of {reg}: {rec}, expected '
+                  f"the kernel backend's 'reverse' route, {one_step}")
+        check(builds == ['warm-up'], f'the kernel library was loaded in '
+              f'{builds}: expected once, in the first warm-up')
+        steps = len(warms) + sum(r['ts'] for r in runs)
+        check_counts('eval tool', counts, plain, steps)
+        p = problems[0]
+        y = p.observations['refined']
+        print(f'quality slice: held-out problem, refined observations '
+              f'{tuple(y.shape)} from the {2 * hp}x{2 * wp} grid, '
+              f'nt={2 * ctx["nt"]} (plain path) in '
+              f'{p.obs_seconds["refined"]:.3f} s; warm-ups '
+              + ', '.join(f'{reg} {r["seconds"]:.3f} s' for reg, r in
+                          zip(QUALITY_REGS, warms))
+              + f' ({warms[0]["launches"]} launches a step, U '
+              f'{warms[0]["unroll"]}); the discarded first run '
+              f'{runs[0]["seconds"]:.3f} s; tool {eval_s:.2f} s; launches '
+              f'{counts}', flush=True)
+        ssim = {}
+        for reg, run in zip(QUALITY_REGS, runs[1:]):
+            r = rows[f'refined/{reg}']
+            ssim[reg] = r['SSIM']
+            check(all(np.isfinite(r[k]) for k in ('MAE', 'RMSE', 'SSIM')),
+                  f'refined/{reg}: {r}')
+            print(f'quality slice, refined {reg}: MAE {r["MAE"]:.4f}  RMSE '
+                  f'{r["RMSE"]:.4f}  SSIM {r["SSIM"]:.4f} (QUALITY.md '
+                  f'{QUALITY_SSIM[reg]:.4f}, gap '
+                  f'{r["SSIM"] - QUALITY_SSIM[reg]:+.4f})  '
+                  f'{run["seconds"] / QUALITY_N:.4f} s/sample '
+                  f'({run["seconds"] / run["ts"]:.4f} s a step; the table '
+                  f'{r["seconds_per_sample"]})', flush=True)
+            check(abs(r['SSIM'] - QUALITY_SSIM[reg]) <= QUALITY_GAP,
+                  f'refined/{reg}: SSIM {r["SSIM"]:.4f}, QUALITY.md '
+                  f'{QUALITY_SSIM[reg]:.4f} (gate {QUALITY_GAP})')
+        for a, b in QUALITY_ORDER:
+            check(ssim[a] > ssim[b], f'refined SSIM of {a} {ssim[a]:.4f} '
+                  f'not above {b} {ssim[b]:.4f}')
+        out = dict(rows=rows, counts=counts, eval_s=eval_s,
+                   obs_s=p.obs_seconds['refined'],
+                   warm_s=[r['seconds'] for r in warms],
+                   first_s=runs[0]['seconds'],
+                   s_per_sample={reg: run['seconds'] / QUALITY_N
+                                 for reg, run in zip(QUALITY_REGS,
+                                                     runs[1:])})
+        del problems[:]
+
+        # b. compare_methods at the refined protocol, depth cut.
+        cm = tools['compare_methods']
+        cm.RED_TS = PLUMBING_TS
+        cm.BENCH_KW = dict(cm.BENCH_KW, diffusion_ts=PLUMBING_DTS)
+        t0 = time.perf_counter()
+        comp, counts, plain = counted(lambda: cm.main([
+            '--n', str(QUALITY_N), '--obs', 'refined', '--ckpt',
+            str(QUALITY_CKPT), '--device', dev.type, '--out',
+            str(root / 'compare.md')]))
+        methods = ('RED-DiffEq', 'DiffusionFWI', 'ILVR-FWI')
+        check(list(comp) == [f'refined/{m}' for m in methods]
+              and all(np.isfinite(list(r.values())).all()
+                      and 0 < r['SSIM'] <= 1 for r in comp.values()),
+              f'compare tool: {comp}')
+        check(all(counts[k] > 0 for k in ROUTE_KERNELS)
+              and not any(counts[k] for k in counts
+                          if k not in ROUTE_KERNELS)
+              and plain == refined_chunks, f'compare tool: launches '
+              f'{counts}, plain chunks {plain}')
+        check('Card:' in (root / 'compare.md').read_text(),
+              'compare tool: no card line')
+        print(f'quality slice, compare tool ({PLUMBING_TS} RED steps, '
+              f'{PLUMBING_DTS} x {cm.BENCH_KW["ts"]} competitor steps, '
+              f'{time.perf_counter() - t0:.2f} s): '
+              + '; '.join(f'{m} SSIM {comp[f"refined/{m}"]["SSIM"]:.4f} '
+                          f'{comp[f"refined/{m}"]["s_per_sample"]} s/sample'
+                          for m in methods)
+              + f'; launches {counts}', flush=True)
+
+        # c. milestone_eval over the training slice's milestones and the
+        # shipped prior, then the bf16 copy across a swap.
+        run_dir = Path(training['run'])
+        ckpts = sorted(run_dir.glob('model-*.ckpt'),
+                       key=lambda f: int(f.stem.split('-')[1]))
+        ckpts.append(Path(QUALITY_CKPT))
+        t0 = time.perf_counter()
+        ms_rows, counts, plain = counted(lambda: tools['milestone_eval']
+                                         .main([
+            '--ckpts', *map(str, ckpts), '--run', str(run_dir), '--n',
+            str(QUALITY_N), '--ts', str(PLUMBING_TS), '--out',
+            str(root / 'milestones.md'), '--device', dev.type]))
+        n_ms = len(ckpts) - 1
+        want_steps = [m * TRAIN_SAVE_EVERY for m in range(1, n_ms + 1)]
+        check([r['step'] for r in ms_rows] == want_steps + ['?'],
+              f'milestone tool: steps {[r["step"] for r in ms_rows]}')
+        check(json.loads((root / 'milestones.json').read_text()) == ms_rows
+              and '## Training loss' in (root / 'milestones.md').read_text(),
+              'milestone tool: sidecar or loss summary missing')
+        refined = [r['refined']['SSIM'] for r in ms_rows]
+        check(len(set(refined)) == len(refined), 'milestone tool: equal '
+              f'refined SSIMs {refined}: a swap kept the weights')
+        # The clean observations a forward on the kernels, the refined on
+        # the plain path, and PLUMBING_TS steps a checkpoint and protocol.
+        check_counts('milestone tool', counts, plain,
+                     2 * len(ckpts) * PLUMBING_TS, forwards=1)
+        d = GaussianDiffusion(Unet(**Q.UNET), image_size=Q.IMAGE_SIZE,
+                              timesteps=Q.TIMESTEPS, half_precision=True,
+                              device=dev)
+        copies = []
+        for ck in (ckpts[0], ckpts[-1], ckpts[0]):
+            state = load_params(ck)
+            d.params = state.get('ema_params', state)
+            fresh = GaussianDiffusion(Unet(**Q.UNET),
+                                      image_size=Q.IMAGE_SIZE,
+                                      timesteps=Q.TIMESTEPS,
+                                      params=state.get('ema_params', state),
+                                      device=dev)
+            got = d.bf16_params()
+            check(all(torch.equal(got[n], w.to(torch.bfloat16))
+                      for n, w in fresh.model.named_parameters()),
+                  f'bf16 copy after assigning {ck.name}: stale')
+            copies.append(got)
+        check(not all(torch.equal(copies[0][n], copies[1][n])
+                      for n in copies[0]), 'bf16 copy did not change '
+              'between a milestone and the shipped prior')
+        print(f'quality slice, milestone tool ({len(ckpts)} checkpoints, '
+              f'{PLUMBING_TS} steps, {time.perf_counter() - t0:.2f} s): '
+              + '; '.join(f'step {r["step"]}: clean SSIM '
+                          f'{r["clean"]["SSIM"]:.4f}, refined '
+                          f'{r["refined"]["SSIM"]:.4f}' for r in ms_rows)
+              + '; the bf16 copy renewed on every swap', flush=True)
+
+        # d. pick_best_milestone on that table; the export loaded back.
+        best = tools['pick_best_milestone'].main([
+            '--eval', str(root / 'milestones.md'), '--out',
+            str(root / 'best.ckpt')])
+        want = max(ms_rows, key=lambda r: (r['refined']['SSIM'],
+                                           r['clean']['SSIM']))
+        check(best['ckpt'] == want['ckpt'], f'pick: {best["ckpt"]}, '
+              f'expected {want["ckpt"]}')
+        state = load_params(want['ckpt'])
+        ref = GaussianDiffusion(Unet(**Q.UNET), image_size=Q.IMAGE_SIZE,
+                                timesteps=Q.TIMESTEPS,
+                                params=state.get('ema_params', state),
+                                device=dev)
+        load_diffusion_params(d, root / 'best.ckpt')
+        check(all(torch.equal(a, b) for a, b in zip(
+            d.model.parameters(), ref.model.parameters())),
+            'the exported pick does not load back to its weights')
+
+        # e. The OpenFWI example through the inversion CLI.
+        ex = _load_file('torch_example_openfwi', EXAMPLE)
+        from red_diffeq_tpu_torch.config import load_config
+        pde = load_config('configs/openfwi/red-diffeq.yaml').pde.to_dict()
+        t0 = time.perf_counter()
+        final, counts, plain = counted(lambda: ex.main(
+            ['--results_dir', str(root / 'example'), '--device', dev.type,
+             '--ts', str(PLUMBING_TS)], data_root=root / 'example_data'))
+        ex_hp = 70 + 2 * pde['nbc']
+        ex_wp = pde['n_grid'] + 2 * pde['nbc']
+        want = route_launches(PLUMBING_TS, pde['nt'], ex_hp, ex_wp)
+        check(counts == want and plain == -(-2 * pde['nt'] // Q.CHUNK),
+              f'example: launches {counts}, plain chunks {plain}; expected '
+              f'{want} and the refined observations only')
+        check(all(np.isfinite(v) for v in final.values()),
+              f'example: {final}')
+        print(f'quality slice, OpenFWI example ({PLUMBING_TS} steps through '
+              f'the CLI, {time.perf_counter() - t0:.2f} s): MAE '
+              f'{final["mae"]:.4f} RMSE {final["rmse"]:.4f} SSIM '
+              f'{final["ssim"]:.4f}; launches {counts}', flush=True)
+    finally:
+        InversionEngine.warm_compile, InversionEngine.optimize = warm, \
+            optimize
+        stencil.build, Q.held_out_problem = build, held
+    return out
+
+
 def main(argv=None):
     """Run every phase (no arguments), or with ``--write-wide-dataset DIR``
     or ``--write-bench-dataset DIR`` only write that slice's dataset and
@@ -2938,14 +3291,19 @@ def main(argv=None):
             bench_counts, bench = phase_bench(dev, root)
     with Phase('tape past the cluster limit'):
         beyond = phase_beyond(dev)
+    # The training slice's milestones stay for the quality slice.
+    train_root = tempfile.TemporaryDirectory()
     with Phase('training slice'):
-        with tempfile.TemporaryDirectory() as root:
-            training = phase_training(dev, root)
+        training = phase_training(dev, train_root.name)
     with Phase('layout probe'):
         probe = phase_layout_probe(dev)
     with Phase('api slice'):
         with tempfile.TemporaryDirectory() as root:
             phase_api(dev, root, training)
+    with Phase('quality slice'):
+        with tempfile.TemporaryDirectory() as root:
+            quality = phase_quality(dev, root, training)
+    train_root.cleanup()
 
     n_chunks = len(p['src'])
     steps = n_chunks * CHUNK
@@ -3000,6 +3358,7 @@ def main(argv=None):
     for k in kernels:
         k['bench'] = dict(launches=bench_counts[k['name']])
         k['training'] = dict(launches=training['counts'][k['name']])
+        k['quality'] = dict(launches=quality['counts'][k['name']])
     # The tape replay past tape_step's cluster limit (420x420, B=1):
     # tape_step_stream's launches in the velocity gradient there, its
     # numbers from that phase, its registers, planes and resident clusters
@@ -3020,7 +3379,8 @@ def main(argv=None):
         registers=stream_info['regs'],
         local_bytes=stream_info['local_bytes'],
         clusters=stream_info['clusters'],
-        training=dict(launches=training['counts']['tape_step_stream'])))
+        training=dict(launches=training['counts']['tape_step_stream']),
+        quality=dict(launches=quality['counts']['tape_step_stream'])))
     kernels.append(dict(
         name='tape_step_global', route='cuda', source=SOURCE,
         replaces='red_diffeq_tpu/ops/stencil.py:233',
@@ -3036,7 +3396,8 @@ def main(argv=None):
                     max_abs_err=gl['max_abs_err'], ms=gl['ms'],
                     graph_ms=gl['graph_ms'], plain_ms=gl['plain_ms'],
                     bound_ms=gl['bound_ms'], bound_by=gl['bound_by']),
-        training=dict(launches=training['counts']['tape_step_global'])))
+        training=dict(launches=training['counts']['tape_step_global']),
+        quality=dict(launches=quality['counts']['tape_step_global'])))
     # The probe's kernels: launches in the probe tool's run, their numbers
     # from the phase, one bound for all (the same function); roll and halo
     # one launch a call, with their *_global kernels' times at the same
@@ -3143,6 +3504,16 @@ def main(argv=None):
           + '; the products\' library ms: '
           + ', '.join(f'{v} {probe["variants"][v]["library_ms"]:.3f}'
                       for v in PRODUCTS), flush=True)
+    print(f'quality slice (n={QUALITY_N}, {QUALITY_TS} steps, refined '
+          'observations): '
+          + ', '.join(f'{reg} SSIM {quality["rows"][f"refined/{reg}"]["SSIM"]:.4f}'
+                      f' (QUALITY.md {QUALITY_SSIM[reg]:.4f}), '
+                      f'{quality["s_per_sample"][reg]:.4f} s/sample'
+                      for reg in QUALITY_REGS)
+          + f'; the refined observations {quality["obs_s"]:.3f} s; warm-ups '
+          + ', '.join(f'{s:.3f}' for s in quality['warm_s'])
+          + f' s; the discarded first run {quality["first_s"]:.3f} s',
+          flush=True)
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -14,6 +14,7 @@ one, ``optimize`` takes the next generator of the global sequence
 """
 import io
 import math
+import time
 from pathlib import Path
 from typing import Callable, Dict, Optional
 
@@ -146,6 +147,91 @@ class InversionEngine:
         self.use_time_weight = use_time_weight
         self.sigma_x0 = sigma_x0
         self.fixed_timestep = fixed_timestep
+
+    def warm_compile(self, mu_shape, y_shape, fwi_forward, ts: int = 300,
+                     lr: float = 0.03, reg_lambda: float = 0.01,
+                     regularization: Optional[str] = None,
+                     use_scan: bool = True, params_template=None):
+        """Pay in advance what the first :meth:`optimize` of one
+        configuration would pay; counterpart of the JAX engine's
+        ahead-of-time compile (``red_diffeq_tpu/core/inversion.py:218``).
+
+        One inversion step runs on zero inputs of ``mu_shape`` (padded)
+        and ``y_shape``: the kernel library's nvcc build and ``ctypes``
+        load, the adjoint route the operator resolves for these shapes,
+        the first launch of each kernel on it, and the first U-Net call at
+        the configuration's batch and precision (where cuDNN picks its
+        algorithms). Its draws come from a generator of its own, so it
+        changes nothing that ``optimize`` reads: no draw from the caller's
+        or the global generators, no Adam state, no curve. It runs the
+        same on every device. ``params_template`` (a flax parameter tree,
+        the JAX signature's) is checked against the U-Net's parameters and
+        is not loaded; ``use_scan``, ``ts`` and ``lr`` change nothing the
+        step launches. The JAX method's checks raise as there (e.g.
+        'diffusion' without a model).
+
+        Returns what it warmed: the operator's ``backend``, the adjoint
+        ``route`` ('reverse' or 'tape' on the kernel backend, else the
+        backend's name), the steps per launch of each blocked kernel it
+        launched (``unroll``), each kernel's ``launches`` and the
+        ``seconds`` it took."""
+        from red_diffeq_tpu_torch.ops import stencil
+
+        mu_shape, y_shape = tuple(mu_shape), tuple(y_shape)
+        if len(mu_shape) != 4 or len(y_shape) != 4:
+            raise ValueError('mu_shape and y_shape must be 4-D, got '
+                             f'{mu_shape} and {y_shape}')
+        if mu_shape[0] != y_shape[0]:
+            raise ValueError(
+                'Batch size mismatch between velocity and seismic data')
+        if regularization not in _VALID_REG:
+            raise ValueError(f'Unknown regularization: {regularization}')
+        if fwi_forward is None or not callable(fwi_forward):
+            raise ValueError(
+                'fwi_forward must be a callable forward modeling function')
+        if int(ts) < 1:
+            raise ValueError(f'ts must be at least 1, got {ts}')
+        reg_name = (regularization if regularization is not None
+                    else self.regularization)
+        is_diffusion = reg_name == 'diffusion'
+        reg_fn = make_reg_fn(reg_name, self.diffusion_model,
+                             use_time_weight=self.use_time_weight,
+                             fixed_timestep=self.fixed_timestep)
+        if is_diffusion and params_template is not None:
+            from red_diffeq_tpu_torch.io.checkpoints import (
+                flax_to_state_dict,
+            )
+            flax_to_state_dict(params_template, self.diffusion_model.model)
+
+        dev = self.device
+        optimizer = Adam(cosine_decay_schedule(lr, ts))
+        step = make_inversion_step(fwi_forward, reg_fn, optimizer,
+                                   reg_lambda, self.sigma_x0, is_diffusion)
+        mu = torch.zeros(mu_shape, dtype=_F32, device=dev)
+        y = torch.zeros(y_shape, dtype=_F32, device=dev)
+        b, c, hp, wp = mu_shape
+        mu_true_norm = torch.zeros((b, c, hp - 2, wp - 2), dtype=_F32,
+                                   device=dev)
+        own = torch.Generator(device=dev)
+        own.manual_seed(0)
+        before = dict(stencil.launches)
+        t0 = time.perf_counter()
+        step(mu, optimizer.init(mu), y=y, mask=torch.ones_like(y),
+             mu_true_norm=mu_true_norm, generator=own)
+        if dev.type == 'cuda':
+            torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        launched = {k: n - before[k] for k, n in stencil.launches.items()
+                    if n > before[k]}
+        backend = getattr(fwi_forward, 'backend', None)
+        route = backend
+        if backend == 'kernel':
+            route, _ = stencil.resolve_run_config(
+                fwi_forward.geom, fwi_forward.chunk, fwi_forward.adjoint)
+        return {'backend': backend, 'route': route,
+                'unroll': {k: stencil.last_unroll[k] for k in launched
+                           if k in stencil.BLOCKED},
+                'launches': launched, 'seconds': seconds}
 
     def optimize(self, mu, mu_true, y, fwi_forward, ts: int = 300,
                  lr: float = 0.03, reg_lambda: float = 0.01,

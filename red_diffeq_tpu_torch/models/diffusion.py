@@ -166,11 +166,7 @@ class GaussianDiffusion:
         # both modes, as the JAX model's is.
         self.model = model.to(self.device).eval()
         if params is not None:
-            from red_diffeq_tpu_torch.io.checkpoints import (
-                flax_to_state_dict,
-            )
-            self.model.load_state_dict(flax_to_state_dict(params,
-                                                          self.model))
+            self.params = params
         self.channels = model.channels
         if isinstance(image_size, int):
             image_size = (image_size, image_size)
@@ -192,6 +188,21 @@ class GaussianDiffusion:
             timesteps, beta_schedule, objective, min_snr_loss_weight,
             min_snr_gamma, schedule_fn_kwargs, device=self.device)
         self._bf16 = None
+
+    @property
+    def params(self) -> dict:
+        """The U-Net's weights as a flax parameter tree of float32 numpy
+        arrays, the JAX bundle's ``params``. Assigning a tree (the shipped
+        prior's, a milestone's ``ema_params``) copies it into the U-Net in
+        place, which bumps the parameters' versions, so the bf16 copy
+        (:meth:`bf16_params`) is made again at its next use."""
+        from red_diffeq_tpu_torch.io.checkpoints import state_dict_to_flax
+        return state_dict_to_flax(self.model.state_dict())
+
+    @params.setter
+    def params(self, tree) -> None:
+        from red_diffeq_tpu_torch.io.checkpoints import flax_to_state_dict
+        self.model.load_state_dict(flax_to_state_dict(tree, self.model))
 
     def bf16_params(self) -> Dict[str, torch.Tensor]:
         """A bf16 copy of the U-Net's parameters, made again whenever a

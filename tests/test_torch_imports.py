@@ -12,7 +12,20 @@ SOURCES = sorted((REPO / 'red_diffeq_tpu_torch').rglob('*.py')) + [
     REPO / 'chip_smoke.py', REPO / 'tools' / 'export_ema_torch.py',
     REPO / 'tools' / 'torch_layout_probe.py',
     REPO / 'tools' / 'torch_probe_breakdown.py',
-    REPO / 'tools' / 'torch_bf16_breakdown.py']
+    REPO / 'tools' / 'torch_bf16_breakdown.py'] + [
+    REPO / 'tools' / f'torch_{name}.py' for name in (
+        'quality', 'eval_quality', 'compare_methods', 'milestone_eval',
+        'lambda_sweep', 'pick_best_milestone', 'quality_seeds')] + [
+    REPO / 'examples' / f'torch_example_{name}.py'
+    for name in ('openfwi', 'marmousi')]
+# The quality slice's tools and examples, which the walk above must reach.
+QUALITY_SLICE = ('tools/torch_eval_quality.py',
+                 'tools/torch_compare_methods.py',
+                 'tools/torch_milestone_eval.py',
+                 'tools/torch_lambda_sweep.py',
+                 'tools/torch_pick_best_milestone.py',
+                 'examples/torch_example_openfwi.py',
+                 'examples/torch_example_marmousi.py')
 # The training slice's modules, which the walk above must reach.
 TRAINING_SLICE = ('red_diffeq_tpu_torch/models/trainer.py',
                   'red_diffeq_tpu_torch/cli/datagen.py',
@@ -43,6 +56,11 @@ def test_port_imports_nothing_of_jax(path):
 def test_training_slice_is_walked():
     walked = {str(p.relative_to(REPO)) for p in SOURCES}
     assert set(TRAINING_SLICE) <= walked
+
+
+def test_quality_slice_is_walked():
+    walked = {str(p.relative_to(REPO)) for p in SOURCES}
+    assert set(QUALITY_SLICE) <= walked
 
 
 def test_import_walk_sees_every_form():

@@ -27,9 +27,13 @@ built from ``layout_probe.cu`` for the host; the api slice with a dim-8
 U-Net (random weights) in place of the prior, 3 steps resumed at step 2,
 2 traced steps (the CPU trace holds no device activity, so its host
 operations stand in for it and the launch counters for its kernel counts),
-3 steps of the bf16 CLI run and 3 amp train steps. Times printed are
-meaningless; device memory reads 0. Exits with ``chip_smoke.main()``'s code. About thirty
-minutes.
+3 steps of the bf16 CLI run and 3 amp train steps; the quality slice on
+the headline's 14x14 problem, 2 samples, 3 steps, with a dim-8 U-Net of
+random weights as the prior (its SSIM gates opened: they hold only at the
+full protocol), the other tools at 2 steps, 2 competitor outer steps, and
+the OpenFWI example at the preset's width with nt=60. Times printed are
+meaningless; device memory reads 0. Exits with ``chip_smoke.main()``'s code. About fifty
+minutes (the quality slice about twenty of them).
 """
 import ctypes
 import shutil
@@ -168,6 +172,30 @@ def main():
         return (dict(S.launches), *rest)
 
     ns['phase_api'], ns['trace_split'] = small_api, cpu_trace_split
+    # The quality slice on the headline's small problem with a dim-8 U-Net
+    # (random weights, the training slice's width) in place of the prior;
+    # the SSIM gates hold only at the full protocol, so they are opened.
+    ns['QUALITY_N'], ns['QUALITY_TS'] = 2, 3
+    ns['PLUMBING_TS'], ns['PLUMBING_DTS'] = 2, 2
+    ns['QUALITY_SSIM'] = dict.fromkeys(ns['QUALITY_SSIM'], 0.5)
+    ns['QUALITY_GAP'], ns['QUALITY_ORDER'] = 1.0, ()
+    from red_diffeq_tpu_torch.io.checkpoints import save_params
+    unet = dict(dim=8, dim_mults=(1, 2, 4, 8), channels=1)
+    size = ns['HEADLINE']['n_grid'] + 2
+    torch.manual_seed(0)
+    ns['QUALITY_CKPT'] = out / 'quality_prior.ckpt'
+    save_params(GaussianDiffusion(Unet(**unet), image_size=size,
+                                  device='cpu').params, ns['QUALITY_CKPT'])
+    quality_tools = ns['quality_tools']
+
+    def small_quality_tools():
+        tools = quality_tools()
+        q = tools['quality']
+        q.CTX, q.HEIGHT = dict(ns['HEADLINE']), ns['HEADLINE']['n_grid']
+        q.UNET, q.IMAGE_SIZE = unet, size
+        return tools
+
+    ns['quality_tools'] = small_quality_tools
     ns['cuda_ms'] = lambda fn, reps, warm=True: (fn(), 0.0)[1]
     ns['graph_ms'] = ns['cuda_ms']
     smi = types.SimpleNamespace(stdout='CPU rehearsal, 0 W\n')
