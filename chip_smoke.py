@@ -221,6 +221,33 @@ Phases, each printing its wall time:
    SSIM, its export loaded back to the same weights); and
    ``examples/torch_example_openfwi.py`` through the inversion CLI on its
    synthetic dataset (exact launches, finite metrics).
+18. the mesh slice, the headline over a ('data', 'shot') device mesh
+   (``red_diffeq_tpu_torch/parallel/mesh.py``) of the cards round-robin,
+   which on a one-card machine is the card 10 times: 20 RED-DiffEq steps
+   at full width (B=4, 310x310, nt=1000, 5 shots, the shipped prior,
+   lambda 0.75, lr 0.03) unsharded and twice over a (2 x 5) mesh, each of
+   the 10 shards stepping 2 samples and 1 shot; the repeat bit for bit,
+   the sharded run held to the unsharded one at PR 10's gate (mu 1e-4 on
+   all but 1% of its cells and 0.1 lr on every cell, the curves rtol
+   1e-4) and its first step's losses to 1e-6 relative (the shot split is
+   exact: each shot shard steps its shots, the data shard sums all shots'
+   coefficient cotangents each chunk; the data shards' U-Net calls may
+   round apart from the whole batch's), the launches
+   of ``fwd_step`` and ``bwd_reverse_step`` exactly 10 times the
+   unsharded run's and of ``sum_shots`` twice (one a chunk a data shard),
+   the plain path unused, s/step of both; the same
+   at nbc=40 (the taped route: ``tape_step`` and ``bwd_tape_step``) over
+   (4 x 1) for 3 steps; the inversion CLI with ``tpu.mesh_data: 2`` and
+   ``tpu.mesh_shot: 5`` on a 2-sample synthetic dataset of the OpenFWI
+   preset, 5 steps, against the unsharded CLI at the same gate, its
+   datasets read by the native loader (``native``; a batch read's and its
+   prefetch call's ms); the trainer's data-parallel step over the card
+   twice, 6 steps at batch 32 and dim 64, its losses within rtol 2e-5 of
+   one device's; a dim-64 U-Net with self-conditioning, learned variance,
+   random Fourier features, per-stage full attention and heads on the
+   card against the CPU (max-rel 1e-4, TF32 off); the shipped prior
+   written in the upstream layout and converted back by
+   ``tools/torch_convert_checkpoint.py``, bit for bit.
 
 With ``--write-wide-dataset DIR`` (``--write-bench-dataset DIR``) the
 script only writes the wide (bench) slice's datasets and configs under DIR
@@ -234,7 +261,8 @@ and under ``wide`` the same at the 310x430 field with the launches of the
 wide slice's CLI run and under ``bench`` the launches of the bench slice's
 DiffusionFWI run and under ``training`` those of the training slice's
 seismogram run and under ``quality`` those of the quality slice's eval
-tool run; then ``tape_step_stream`` with the launches of the
+tool run and under ``mesh`` those of the mesh slice's sharded headline
+(``launches``, over ``shards``) and taped (``launches_taped``) runs; then ``tape_step_stream`` with the launches of the
 gradient past the cluster limit (420x420) and ``tape_step_global`` with
 those of the gradient past ``tape_step_stream``'s (680x680) and its times
 forced at 420x420, the four probe kernels with the
@@ -3189,6 +3217,390 @@ def phase_quality(dev, root, training):
     return out
 
 
+# The mesh slice (phase 18): the headline over a (data x shot) mesh of the
+# cards, round-robin (one card repeated on a one-card machine): MESH_TS
+# RED-DiffEq steps sharded (2 x 5) against unsharded, the taped route
+# (nbc=40) over (4 x 1) for MESH_NARROW_TS steps, the inversion CLI over
+# its tpu.mesh_* for MESH_CLI_TS steps, the trainer's data-parallel step
+# over MESH_TRAIN_DEVICES copies of the card for MESH_TRAIN_STEPS steps at
+# batch MESH_TRAIN_BATCH, the U-Net's full constructor, and the upstream
+# checkpoint converter.
+MESH = dict(data=2, shot=5)
+MESH_NARROW = dict(data=4, shot=1)
+MESH_NARROW_TS, MESH_CLI_TS = 3, 5
+MESH_PRESET = 'configs/openfwi/red-diffeq.yaml'
+MESH_SEED = 6060
+MESH_TRAIN_STEPS, MESH_TRAIN_BATCH, MESH_TRAIN_DEVICES = 6, 32, 2
+MESH_TRAIN_SIZE, MESH_TRAIN_UNET = 72, dict(dim=64, dim_mults=(1, 2, 4, 8))
+# PR 10's gate: Adam turns a gradient within rounding of 0 into another
+# fraction of a step. The shot split is exact on the kernels; a data shard
+# runs the U-Net on its own rows, whose convolutions may round apart from
+# the whole batch's (cuDNN picks its algorithm by the batch).
+MESH_SHARE, MESH_STEP_FRACTION = 0.01, 0.1
+MESH_UNET = dict(dim=64, dim_mults=(1, 2, 4, 8), self_condition=True,
+                 learned_variance=True, random_fourier_features=True,
+                 full_attn=(False, True, False, True), attn_heads=(2, 4, 4, 8))
+MESH_UNET_BATCH = 4
+CONVERT_TOOL = 'tools/torch_convert_checkpoint.py'
+
+
+def mesh_devices(dev, n):
+    """``n`` devices for a mesh: the cards round-robin (on a one-card
+    machine the card ``n`` times); ``dev`` repeated off the card."""
+    import torch
+    if dev.type != 'cuda':
+        return [dev] * n
+    return [torch.device('cuda', i % torch.cuda.device_count())
+            for i in range(n)]
+
+
+def gate_sharded(label, got, want, lr):
+    """PR 10's gate of a sharded run (mu, curves) against the unsharded
+    one: mu within 1e-4 on all but MESH_SHARE of its cells and within
+    MESH_STEP_FRACTION of one Adam step (lr) on every cell, the curves rtol
+    1e-4, and the first step's losses (before any update) 1e-6 relative.
+    Returns (max |d mu|, share of cells beyond 1e-4)."""
+    (mu_g, c_g), (mu_w, c_w) = got, want
+    diff = (mu_g - mu_w).abs()
+    d, share = float(diff.max()), float((diff > 1e-4).float().mean())
+    check(share <= MESH_SHARE and d <= MESH_STEP_FRACTION * lr,
+          f'{label}: max |d mu| {d:.3e} (at most '
+          f'{MESH_STEP_FRACTION * lr:.3g}), {share:.2%} of the cells beyond '
+          f'1e-4 (at most {MESH_SHARE:.0%})')
+    for i, (g, w) in enumerate(zip(c_g, c_w)):
+        for k in w:
+            np.testing.assert_allclose(g[k], w[k], rtol=1e-4, atol=1e-7,
+                                       err_msg=f'{label}: sample {i} {k}')
+        for k in ('obs_losses', 'total_losses'):
+            rel = abs(g[k][0] - w[k][0]) / abs(w[k][0])
+            check(rel <= 1e-6, f'{label}: sample {i} first {k} '
+                  f'{g[k][0]:.9g} vs {w[k][0]:.9g} (rel {rel:.2e})')
+    return d, share
+
+
+def mesh_route_launches(route, steps, nt, hp, wp, layout=None):
+    """Launches of ``route``'s kernels in ``steps`` steps
+    (:func:`route_launches`; on the taped route ``bwd_tape_step`` in place
+    of ``bwd_reverse_step`` and one ``tape_step`` a chunk). Over a mesh of
+    ``layout`` every shard launches the stepping kernels as the unsharded
+    run does, and each data shard one ``sum_shots`` a chunk over all its
+    shots."""
+    from red_diffeq_tpu_torch.ops import stencil
+    want = route_launches(steps, nt, hp, wp)
+    if route == 'tape':
+        chunks = steps * -(-nt // CHUNK)
+        want['bwd_reverse_step'] = 0
+        want['bwd_tape_step'] = chunks * -(-CHUNK // stencil.pick_blocking(
+            'bwd_tape_step', hp, wp)[0])
+        want['tape_step'] = chunks
+    if layout is not None:
+        want = {k: v * (layout['data'] if k == 'sum_shots'
+                        else layout['data'] * layout['shot'])
+                for k, v in want.items()}
+    return want
+
+
+def mesh_inversion(dev, diffusion, ctx, layout, ts, route):
+    """``ts`` RED-DiffEq steps of the headline problem at ``ctx``
+    unsharded, then twice over a mesh of ``layout`` on
+    :func:`mesh_devices`: the repeat bit for bit, the sharded run held to
+    the unsharded one by :func:`gate_sharded`, each run's launches exactly
+    the route's per shard times the shards, the plain path unused. Returns
+    the sharded run's launches, s/step of both and the gate's numbers."""
+    import torch
+    from red_diffeq_tpu_torch.core.inversion import InversionEngine
+    from red_diffeq_tpu_torch.ops import stencil
+    from red_diffeq_tpu_torch.parallel.mesh import make_mesh
+    from red_diffeq_tpu_torch.solvers import acoustic
+    from red_diffeq_tpu_torch.utils.data_trans import (
+        s_normalize_none, v_denormalize,
+    )
+
+    problem = slice_problem(dev, ctx)
+    op = acoustic.FWIForward(ctx, v_denorm_func=v_denormalize,
+                             s_norm_func=s_normalize_none, chunk=CHUNK,
+                             device=dev)
+    check(stencil.resolve_run_config(op.geom, CHUNK)[0] == route,
+          f'nbc={ctx["nbc"]}: not the {route!r} route')
+    engine = InversionEngine(diffusion, regularization='diffusion',
+                             sigma_x0=1e-4, device=dev)
+    shards = layout['data'] * layout['shot']
+    mesh = make_mesh(devices=mesh_devices(dev, shards), **layout)
+
+    def run(m, steps):
+        gen = torch.Generator(device=dev).manual_seed(8888)
+        stencil.reset_launches()
+        acoustic.plain_chunk_calls['chunk'] = 0
+        t0 = time.perf_counter()
+        out = engine.optimize(problem['mu0'], problem['v_true'],
+                              problem['y'], op, ts=steps, lr=0.03,
+                              reg_lambda=0.75, generator=gen,
+                              progress=False, mesh=m)
+        torch.cuda.synchronize()
+        s = (time.perf_counter() - t0) / steps
+        check(acoustic.plain_chunk_calls['chunk'] == 0,
+              'the plain path ran')
+        return out, s, dict(stencil.launches)
+
+    run(None, 1)                # warm-ups: cuDNN plans at both U-Net
+    run(mesh, 1)                # batches, the allocator
+    one, s_one, n_one = run(None, ts)
+    sharded, s_mesh, n_mesh = run(mesh, ts)
+    again, _, _ = run(mesh, ts)
+    hp = ctx['n_grid'] + 2 * ctx['nbc']
+    want = mesh_route_launches(route, ts, ctx['nt'], hp, hp)
+    want_mesh = mesh_route_launches(route, ts, ctx['nt'], hp, hp, layout)
+    label = f'mesh {layout["data"]} x {layout["shot"]} at nbc={ctx["nbc"]}'
+    for name in want:
+        check(n_one[name] == want[name], f'unsharded: {name} launched '
+              f'{n_one[name]} times, expected {want[name]}')
+        check(n_mesh[name] == want_mesh[name], f'{label}: {name} launched '
+              f'{n_mesh[name]} times, expected {want_mesh[name]}')
+    check(torch.equal(again[0], sharded[0]) and again[1] == sharded[1],
+          f'{label}: a second sharded run differs')
+    d, share = gate_sharded(label, sharded, one, 0.03)
+    print(f'{label} ({shards} shards on {len(set(mesh.devices.flat))} '
+          f'card(s)), {ts} steps: {s_mesh:.4f} s/step sharded, {s_one:.4f} '
+          f'unsharded (host clock); max |d mu| {d:.3e} ('
+          + ('bit for bit' if d == 0 else f'{share:.2%} of the cells beyond '
+             '1e-4') + f'); the repeat bit for bit; launches {n_mesh}',
+          flush=True)
+    return dict(counts=n_mesh, s_mesh=s_mesh, s_one=s_one, d=d, share=share)
+
+
+def mesh_cli(dev, root):
+    """The inversion CLI over ``tpu.mesh_data`` x ``tpu.mesh_shot`` = MESH
+    on :func:`mesh_devices` (``run_experiment(mesh_devices=...)``) against
+    the same preset unsharded, on a 2-sample synthetic dataset at the
+    headline preset's width, MESH_CLI_TS steps of both samples as one
+    batch: the results within :func:`gate_sharded`, the datasets read by
+    native loaders. Returns the ms of a batch read and of its prefetch
+    call."""
+    from pathlib import Path
+    import torch
+    from red_diffeq_tpu_torch.cli import run_inversion
+    from red_diffeq_tpu_torch.config import load_config
+    from red_diffeq_tpu_torch.io import native_loader
+    from red_diffeq_tpu_torch.io.synthetic import generate_mixed_dataset
+
+    root = Path(root)
+    cfg = load_config(MESH_PRESET)
+    ctx = cfg.pde.to_dict()
+    v_true = generate_mixed_dataset(2, h=ctx['n_grid'], w=ctx['n_grid'],
+                                    seed=MESH_SEED)
+    y = refined_observations(dev, ctx, v_true)
+    for key, sub, arr in (('seismic_data_dir', 'Seismic_Data', y),
+                          ('velocity_data_dir', 'Velocity_Data', v_true)):
+        (root / 'OpenFWI' / sub).mkdir(parents=True, exist_ok=True)
+        np.save(root / 'OpenFWI' / sub / 'synthetic.npy', arr)
+        cfg.data[key] = str(root / 'OpenFWI' / sub)
+    cfg.diffusion.model_path = str(Path(CKPT).resolve())
+    cfg.experiment.results_dir = str(root / 'results')
+    cfg.optimization.ts = MESH_CLI_TS
+    cfg.data.batch_size = 2
+    loaders = []
+
+    class Loader(native_loader.NpyBatchLoader):
+        def __init__(self, path):
+            super().__init__(path)
+            loaders.append(self)
+
+    opened = run_inversion.NpyBatchLoader
+    run_inversion.NpyBatchLoader = Loader
+    results = {}
+    try:
+        for name, layout in (('unsharded', dict(data=1, shot=1)),
+                             ('sharded', MESH)):
+            cfg.tpu.mesh_data, cfg.tpu.mesh_shot = layout['data'], \
+                layout['shot']
+            cfg.experiment.name = f'mesh_{name}'
+            t0 = time.perf_counter()
+            out = run_inversion.run_experiment(
+                cfg, device=dev,
+                mesh_devices=mesh_devices(dev, layout['data']
+                                          * layout['shot']))
+            torch.cuda.synchronize()
+            results[name] = (out, time.perf_counter() - t0)
+    finally:
+        run_inversion.NpyBatchLoader = opened
+    check(len(loaders) == 4 and all(ld.path.suffix == '.npy'
+                                    for ld in loaders),
+          f'{len(loaders)} loaders opened, expected 4')
+    runs = {}
+    for name, (out, _) in results.items():
+        npz = [np.load(out / 'synthetic' / f'{i}_results.npz')
+               for i in range(2)]
+        runs[name] = (torch.from_numpy(np.stack([d['result'] for d in npz])),
+                      [{k: d[k] for k in NPZ_KEYS[3:]} for d in npz])
+    d, share = gate_sharded('CLI over the mesh', runs['sharded'],
+                            runs['unsharded'], cfg.optimization.lr)
+    probe = native_loader.NpyBatchLoader(
+        root / 'OpenFWI' / 'Seismic_Data' / 'synthetic.npy')
+    check(probe.native, 'the native loader is not built on the card')
+    t0 = time.perf_counter()
+    probe.prefetch(0, 2)
+    prefetch_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    batch = probe[0:2]
+    read_ms = (time.perf_counter() - t0) * 1e3
+    probe.close()
+    check(np.array_equal(batch, y), 'the loader read other rows')
+    print(f'CLI over tpu.mesh_data={MESH["data"]} x mesh_shot='
+          f'{MESH["shot"]}: {MESH_CLI_TS} steps in '
+          f'{results["sharded"][1]:.2f} s (unsharded '
+          f'{results["unsharded"][1]:.2f} s, set-up included), max |d mu| '
+          f'{d:.3e}, {share:.2%} of the cells beyond 1e-4; native loaders: '
+          f'a batch of {batch.nbytes / 1e6:.2f} MB read in {read_ms:.3f} ms '
+          f'(warm page cache), its prefetch call {prefetch_ms:.3f} ms',
+          flush=True)
+    return dict(read_ms=read_ms, prefetch_ms=prefetch_ms, d=d, share=share)
+
+
+def mesh_trainer(dev, root):
+    """The trainer's data-parallel step over MESH_TRAIN_DEVICES copies of
+    the card (``Trainer(devices=...)``) against one device, at the shipped
+    prior's width, MESH_TRAIN_STEPS steps of batch MESH_TRAIN_BATCH under
+    deterministic cuDNN: the losses within rtol 2e-5. Returns s per step of
+    both, the first step not timed."""
+    from pathlib import Path
+    import torch
+    from red_diffeq_tpu_torch.models.diffusion import GaussianDiffusion
+    from red_diffeq_tpu_torch.models.trainer import TensorDataset, Trainer
+    from red_diffeq_tpu_torch.models.unet import Unet
+
+    n = MESH_TRAIN_SIZE
+    data = np.random.RandomState(0).rand(64, 1, n, n).astype(np.float32)
+    losses, secs = {}, {}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for split in (False, True):
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(0)
+                unet = Unet(**MESH_TRAIN_UNET)
+            d = GaussianDiffusion(unet, image_size=n, timesteps=1000,
+                                  device=dev)
+            tr = Trainer(d, TensorDataset(data),
+                         train_batch_size=MESH_TRAIN_BATCH,
+                         train_num_steps=MESH_TRAIN_STEPS,
+                         save_and_sample_every=10 ** 6, train_lr=2e-4,
+                         results_folder=str(Path(root) / f'dp_{split}'),
+                         seed=7, devices=(mesh_devices(
+                             dev, MESH_TRAIN_DEVICES) if split else None))
+            check((tr.devices is not None) is split, 'devices not taken')
+            tr.train_num_steps = 1          # the first step picks cuDNN's
+            tr.train(log_every=10 ** 6)     # plans: not timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.train_num_steps = MESH_TRAIN_STEPS
+            tr.train(log_every=10 ** 6)
+            torch.cuda.synchronize()
+            secs[split] = (time.perf_counter() - t0) / (MESH_TRAIN_STEPS - 1)
+            losses[split] = np.array([e['loss'] for e in tr.training_losses])
+    finally:
+        torch.backends.cudnn.deterministic = det
+    check(losses[True].shape == (MESH_TRAIN_STEPS,),
+          f'{losses[True].shape} losses')
+    np.testing.assert_allclose(losses[True], losses[False], rtol=2e-5,
+                               atol=1e-6, err_msg='data-parallel losses')
+    rel = float(np.max(np.abs(losses[True] - losses[False])
+                       / np.abs(losses[False])))
+    print(f'trainer, batch {MESH_TRAIN_BATCH} split over '
+          f'{MESH_TRAIN_DEVICES} copies of the card: losses max rel diff '
+          f'{rel:.3e} from one device over {MESH_TRAIN_STEPS} steps; '
+          f'{secs[True]:.4f} s/step split, {secs[False]:.4f} unsplit',
+          flush=True)
+    return dict(rel=rel, s_split=secs[True], s_one=secs[False])
+
+
+def mesh_unet(dev):
+    """A dim-64 U-Net with MESH_UNET's fields on the card against the same
+    weights on the CPU (TF32 off): batch MESH_UNET_BATCH at 72x72, with a
+    self-conditioning input, max-rel 1e-4. Returns the max-rel."""
+    import copy
+    import torch
+    from red_diffeq_tpu_torch.models.unet import Unet
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(3)
+        unet = Unet(**MESH_UNET).eval()
+        x = torch.randn(MESH_UNET_BATCH, 1, 72, 72)
+        cond = torch.rand_like(x) * 2 - 1
+    t = torch.tensor([0, 250, 500, 999])[:MESH_UNET_BATCH]
+    with torch.no_grad():
+        want = unet(x, t, cond)
+        got = copy.deepcopy(unet).to(dev)(x.to(dev), t.to(dev),
+                                          cond.to(dev)).cpu()
+    check(tuple(got.shape) == (MESH_UNET_BATCH, 2, 72, 72),
+          f'U-Net output {tuple(got.shape)}')
+    rel = max_rel(got, want)
+    check(rel <= 1e-4, f'U-Net fields on the card vs CPU: max-rel {rel:.3e}')
+    print(f'U-Net with {sorted(k for k in MESH_UNET if k != "dim")}: '
+          f'card vs CPU max-rel {rel:.3e}', flush=True)
+    return rel
+
+
+def mesh_converter(dev, root):
+    """The shipped prior written out in the upstream layout (a
+    ``model-<k>.pt`` dict, ``model.``-prefixed) and converted back by
+    CONVERT_TOOL: every weight bit for bit, and the U-Net's output on the
+    card unchanged. Returns the tool's seconds."""
+    from pathlib import Path
+    import torch
+    from red_diffeq_tpu_torch.io.checkpoints import (
+        _flatten, load_diffusion_params, load_params,
+    )
+    from red_diffeq_tpu_torch.models.diffusion import GaussianDiffusion
+    from red_diffeq_tpu_torch.models.unet import Unet
+
+    tool = _load_file('torch_convert_checkpoint', CONVERT_TOOL)
+    prior = load_params(CKPT)
+    pt = Path(root) / 'model-4.pt'
+    torch.save({'step': 4, 'version': 'upstream', 'model': {
+        f'model.{k}': torch.from_numpy(np.array(v))
+        for k, v in tool.to_upstream(prior, 64, (1, 2, 4, 8)).items()}}, pt)
+    out = Path(root) / 'model-4.ckpt'
+    t0 = time.perf_counter()
+    tool.main([str(pt), str(out), '--source', 'model'])
+    secs = time.perf_counter() - t0
+    want, got = dict(_flatten(prior)), dict(_flatten(load_params(out)))
+    check(got.keys() == want.keys(), 'converted tree has other leaves')
+    for k in want:
+        check(got[k].dtype == want[k].dtype
+              and np.array_equal(got[k], want[k]), f'{k} changed')
+    outs = []
+    x = torch.randn(2, 1, 72, 72, generator=torch.Generator().manual_seed(5))
+    for path in (CKPT, out):
+        d = GaussianDiffusion(Unet(dim=64, dim_mults=(1, 2, 4, 8)),
+                              image_size=72, timesteps=1000, device=dev)
+        load_diffusion_params(d, str(path))
+        with torch.no_grad():
+            outs.append(d.model(x.to(dev), torch.tensor([10, 900],
+                                                        device=dev)))
+    check(torch.equal(outs[0], outs[1]), 'the converted prior denoises '
+          'differently')
+    print(f'{CONVERT_TOOL}: the shipped prior through the upstream layout '
+          f'and back, {len(want)} leaves bit for bit, the U-Net output '
+          f'unchanged ({secs:.2f} s)', flush=True)
+    return secs
+
+
+def phase_mesh(dev, root):
+    """The mesh slice (see MESH above). Returns the sharded headline's and
+    the taped route's launches and the phase's numbers."""
+    diffusion = load_prior(dev)
+    out = dict(headline=mesh_inversion(dev, diffusion, HEADLINE, MESH, TS,
+                                       'reverse'),
+               narrow=mesh_inversion(dev, diffusion, NARROW, MESH_NARROW,
+                                     MESH_NARROW_TS, 'tape'))
+    del diffusion
+    out['cli'] = mesh_cli(dev, root)
+    out['trainer'] = mesh_trainer(dev, root)
+    out['unet_rel'] = mesh_unet(dev)
+    out['convert_s'] = mesh_converter(dev, root)
+    return out
+
+
 def main(argv=None):
     """Run every phase (no arguments), or with ``--write-wide-dataset DIR``
     or ``--write-bench-dataset DIR`` only write that slice's dataset and
@@ -3304,6 +3716,9 @@ def main(argv=None):
         with tempfile.TemporaryDirectory() as root:
             quality = phase_quality(dev, root, training)
     train_root.cleanup()
+    with Phase('mesh slice'):
+        with tempfile.TemporaryDirectory() as root:
+            mesh = phase_mesh(dev, root)
 
     n_chunks = len(p['src'])
     steps = n_chunks * CHUNK
@@ -3359,6 +3774,11 @@ def main(argv=None):
         k['bench'] = dict(launches=bench_counts[k['name']])
         k['training'] = dict(launches=training['counts'][k['name']])
         k['quality'] = dict(launches=quality['counts'][k['name']])
+        k['mesh'] = dict(
+            launches=mesh['headline']['counts'][k['name']],
+            shards=MESH['data'] * MESH['shot'],
+            launches_taped=mesh['narrow']['counts'][k['name']],
+            shards_taped=MESH_NARROW['data'] * MESH_NARROW['shot'])
     # The tape replay past tape_step's cluster limit (420x420, B=1):
     # tape_step_stream's launches in the velocity gradient there, its
     # numbers from that phase, its registers, planes and resident clusters
@@ -3514,6 +3934,18 @@ def main(argv=None):
           + ', '.join(f'{s:.3f}' for s in quality['warm_s'])
           + f' s; the discarded first run {quality["first_s"]:.3f} s',
           flush=True)
+    h, nw, cli, tr = (mesh[k] for k in ('headline', 'narrow', 'cli',
+                                         'trainer'))
+    print(f'mesh slice: headline over {MESH["data"]} x {MESH["shot"]} '
+          f'{h["s_mesh"]:.4f} s/step (unsharded {h["s_one"]:.4f}), max |d mu| '
+          f'{h["d"]:.3e}; taped over {MESH_NARROW["data"]} x '
+          f'{MESH_NARROW["shot"]} {nw["s_mesh"]:.4f} (unsharded '
+          f'{nw["s_one"]:.4f}); CLI max |d mu| {cli["d"]:.3e}, a batch read '
+          f'{cli["read_ms"]:.3f} ms, its prefetch call {cli["prefetch_ms"]:.3f}'
+          f' ms; trainer split {tr["s_split"]:.4f} s/step (one device '
+          f'{tr["s_one"]:.4f}), losses rel {tr["rel"]:.3e}; U-Net fields '
+          f'max-rel {mesh["unet_rel"]:.3e}; converter {mesh["convert_s"]:.2f}'
+          ' s', flush=True)
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -15,7 +15,10 @@ Run it on the card (the default) or, with ``--device cpu``, on the CPU:
         --config configs/ablation/OpenFWI_Ablation/ablation_all_tricks_dt30_ts10.yaml
 
 The solver backend is the config's ``tpu.solver_backend``, read as the
-inversion CLI reads it.
+inversion CLI reads it; ``tpu.mesh_data`` and ``tpu.mesh_shot`` are read by
+neither this CLI nor the JAX one (the methods run on one device). The
+datasets are read through the native loader (``io/native_loader.py``), the
+next batch prefetched.
 """
 import argparse
 from datetime import datetime
@@ -27,12 +30,12 @@ import torch
 from red_diffeq_tpu_torch.bench_methods.diffusion_fwi import DiffusionFWI
 from red_diffeq_tpu_torch.bench_methods.ilvr_fwi import ILVR_FWI
 from red_diffeq_tpu_torch.cli.run_inversion import (
-    build_diffusion_model, build_forward_operator, check_ported,
-    get_data_files,
+    build_diffusion_model, build_forward_operator, get_data_files,
 )
 from red_diffeq_tpu_torch.config import (
     ConfigDict, get_config, load_config, save_config,
 )
+from red_diffeq_tpu_torch.io.native_loader import NpyBatchLoader, read_batches
 from red_diffeq_tpu_torch.utils.data_trans import prepare_initial_model
 from red_diffeq_tpu_torch.utils.device import resolve_device
 from red_diffeq_tpu_torch.utils.seed_utils import next_key, set_seed
@@ -116,7 +119,6 @@ def run_experiment(config: ConfigDict, method: str = 'diffusionfwi',
         set_seed(int(np.random.randint(0, 2 ** 31)))
     name = torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'CPU'
     print(f'PyTorch {torch.__version__}, device: {dev} ({name})')
-    check_ported(config)
 
     print('Initializing models...')
     diffusion = build_diffusion_model(config, device=dev)
@@ -144,10 +146,10 @@ def run_experiment(config: ConfigDict, method: str = 'diffusionfwi',
         print(f'\nProcessing: {family_name}')
         family_dir = results_dir / Path(family_name).stem
         family_dir.mkdir(exist_ok=True)
-        seis = np.load(Path(config.data.seismic_data_dir) / family_name,
-                       mmap_mode='r')
-        vel = np.load(Path(config.data.velocity_data_dir) / family_name,
-                      mmap_mode='r')
+        # Native mmap loaders with the next batch prefetched (numpy's mmap
+        # without a toolchain).
+        seis = NpyBatchLoader(Path(config.data.seismic_data_dir) / family_name)
+        vel = NpyBatchLoader(Path(config.data.velocity_data_dir) / family_name)
         num_models = len(seis)
 
         sample_index = config.data.get('sample_index', None)
@@ -155,6 +157,8 @@ def run_experiment(config: ConfigDict, method: str = 'diffusionfwi',
             if sample_index < 0 or sample_index >= num_models:
                 print(f'Warning: sample_index {sample_index} out of range '
                       f'[0, {num_models - 1}]. Skipping {family_name}.')
+                seis.close()
+                vel.close()
                 continue
             batches = [(sample_index, sample_index + 1)]
         else:
@@ -162,9 +166,8 @@ def run_experiment(config: ConfigDict, method: str = 'diffusionfwi',
             batches = [(s, min(s + bs, num_models))
                        for s in range(0, num_models, bs)]
 
-        for batch_start, batch_end in batches:
-            seis_batch = seis[batch_start:batch_end].astype(np.float32)
-            vel_batch = vel[batch_start:batch_end].astype(np.float32)
+        for batch_start, batch_end, seis_batch, vel_batch in read_batches(
+                seis, vel, batches):
             mu, per_model, mu0 = process_batch(
                 seis_batch, vel_batch, config, bench, fwi_forward,
                 generator=next_key(dev))

@@ -17,7 +17,11 @@ the CPU), 'plain' or 'kernel'; a config file's 'xla' and 'pallas' are read
 as 'plain' and 'kernel'. ``tpu.bf16_unet`` runs the U-Net in bf16
 (``GaussianDiffusion(half_precision=True)``). ``tpu.remat`` and
 ``tpu.use_scan`` are passed on as in the JAX CLI and change nothing (the
-step loop is a host loop). A device mesh is not ported and raises.
+step loop is a host loop). ``tpu.mesh_data`` x ``tpu.mesh_shot`` > 1 runs
+each batch over a ('data', 'shot') mesh of the visible cards
+(:func:`build_mesh`; ``['cpu'] * (data * shot)`` with ``--device cpu``).
+The datasets are read through the native loader
+(``io/native_loader.py``), the next batch prefetched.
 """
 import argparse
 from datetime import datetime
@@ -31,8 +35,10 @@ from red_diffeq_tpu_torch.config import (
 )
 from red_diffeq_tpu_torch.core.inversion import InversionEngine
 from red_diffeq_tpu_torch.io.checkpoints import load_diffusion_params
+from red_diffeq_tpu_torch.io.native_loader import NpyBatchLoader, read_batches
 from red_diffeq_tpu_torch.models.diffusion import GaussianDiffusion
 from red_diffeq_tpu_torch.models.unet import Unet
+from red_diffeq_tpu_torch.parallel.mesh import make_mesh
 from red_diffeq_tpu_torch.solvers.acoustic import FWIForward
 from red_diffeq_tpu_torch.utils.data_trans import (
     prepare_initial_model, s_normalize_none, v_denormalize,
@@ -49,7 +55,8 @@ def build_diffusion_model(config: ConfigDict, load_weights: bool = True,
         torch.manual_seed(0)
         model = Unet(dim=config.model.dim,
                      dim_mults=tuple(config.model.dim_mults),
-                     channels=config.model.channels)
+                     channels=config.model.channels,
+                     flash_attn=config.model.get('flash_attn', False))
     diffusion = GaussianDiffusion(
         model,
         image_size=config.diffusion.image_size,
@@ -123,21 +130,33 @@ def prepare_batch_initial_models(vel_batch: np.ndarray,
     return torch.from_numpy(np.pad(init, ((0, 0), (0, 0), (1, 1), (1, 1))))
 
 
-def check_ported(config: ConfigDict) -> None:
-    """Refuse the ``tpu`` option that is not ported: a ('data', 'shot')
-    mesh of more than one device."""
+def build_mesh(config: ConfigDict, device=None, devices=None):
+    """The ('data', 'shot') mesh of the ``tpu`` section's ``mesh_data`` x
+    ``mesh_shot``, or None for 1 x 1. Its devices are ``devices`` if given
+    (a list that may repeat a device), else the visible cards for a CUDA
+    ``device`` (raising, with both numbers, when there are fewer than the
+    mesh needs), else ``device`` repeated."""
     tpu_cfg = config.get('tpu', {})
     data = int(tpu_cfg.get('mesh_data', 1))
     shot = int(tpu_cfg.get('mesh_shot', 1))
-    if data * shot > 1:
-        raise NotImplementedError(
-            f'a device mesh (mesh_data={data}, mesh_shot={shot}) is not '
-            "ported yet: ROADMAP, Queue 1, 'multi-GPU batch/shot sharding'")
+    if data * shot <= 1:
+        return None
+    if devices is None:
+        dev = torch.device('cuda' if device is None else device)
+        if dev.type == 'cuda':
+            count = torch.cuda.device_count()
+            if count < data * shot:
+                raise ValueError(
+                    f'the mesh mesh_data={data} x mesh_shot={shot} needs '
+                    f'{data * shot} cards, and {count} are visible')
+        else:
+            devices = [dev] * (data * shot)
+    return make_mesh(data=data, shot=shot, devices=devices)
 
 
 def process_batch(seis_batch, vel_batch, config, engine, fwi_forward,
-                  generator=None):
-    """One batch through the engine."""
+                  generator=None, mesh=None):
+    """One batch through the engine, over ``mesh`` if given."""
     mu0 = prepare_batch_initial_models(vel_batch, config)
     reg = config.optimization.regularization
     reg = None if (not reg or reg == 'none') else reg
@@ -155,6 +174,7 @@ def process_batch(seis_batch, vel_batch, config, engine, fwi_forward,
         regularization=reg,
         generator=generator,
         use_scan=bool(config.get('tpu', {}).get('use_scan', True)),
+        mesh=mesh,
     )
     return mu, per_model, mu0
 
@@ -181,9 +201,11 @@ def save_batch_results(batch_start, mu, per_model, mu0, vel_batch,
         )
 
 
-def run_experiment(config: ConfigDict, device=None) -> Path:
+def run_experiment(config: ConfigDict, device=None,
+                   mesh_devices=None) -> Path:
     """The whole experiment on ``device`` (default ``'cuda'``); returns the
-    run directory."""
+    run directory. ``mesh_devices``: the devices of the ``tpu`` section's
+    mesh (:func:`build_mesh`), e.g. one card repeated."""
     dev = resolve_device(device)
     seed = config.experiment.random_seed
     if seed is not None:
@@ -193,7 +215,7 @@ def run_experiment(config: ConfigDict, device=None) -> Path:
         set_seed(int(np.random.randint(0, 2 ** 31)))
     name = torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'CPU'
     print(f'PyTorch {torch.__version__}, device: {dev} ({name})')
-    check_ported(config)
+    mesh = build_mesh(config, dev, mesh_devices)
 
     needs_diffusion = config.optimization.regularization == 'diffusion'
     print('Initializing models...')
@@ -226,15 +248,18 @@ def run_experiment(config: ConfigDict, device=None) -> Path:
 
     family_files = get_data_files(config)
     print(f'Found {len(family_files)} data families to process')
+    if mesh is not None:
+        print(f'Device mesh: data={mesh.shape["data"]} '
+              f'shot={mesh.shape["shot"]}')
 
     for family_name in family_files:
         print(f'\nProcessing: {family_name}')
         family_dir = results_dir / Path(family_name).stem
         family_dir.mkdir(exist_ok=True)
-        seis = np.load(Path(config.data.seismic_data_dir) / family_name,
-                       mmap_mode='r')
-        vel = np.load(Path(config.data.velocity_data_dir) / family_name,
-                      mmap_mode='r')
+        # Native mmap loaders with the next batch prefetched (numpy's mmap
+        # without a toolchain).
+        seis = NpyBatchLoader(Path(config.data.seismic_data_dir) / family_name)
+        vel = NpyBatchLoader(Path(config.data.velocity_data_dir) / family_name)
         num_models = len(seis)
 
         sample_index = config.data.get('sample_index', None)
@@ -242,6 +267,8 @@ def run_experiment(config: ConfigDict, device=None) -> Path:
             if sample_index < 0 or sample_index >= num_models:
                 print(f'Warning: sample_index {sample_index} out of range '
                       f'[0, {num_models - 1}]. Skipping {family_name}.')
+                seis.close()
+                vel.close()
                 continue
             batches = [(sample_index, sample_index + 1)]
         else:
@@ -249,12 +276,11 @@ def run_experiment(config: ConfigDict, device=None) -> Path:
             batches = [(s, min(s + bs, num_models))
                        for s in range(0, num_models, bs)]
 
-        for batch_start, batch_end in batches:
-            seis_batch = seis[batch_start:batch_end].astype(np.float32)
-            vel_batch = vel[batch_start:batch_end].astype(np.float32)
+        for batch_start, batch_end, seis_batch, vel_batch in read_batches(
+                seis, vel, batches):
             mu, per_model, mu0 = process_batch(
                 seis_batch, vel_batch, config, engine, fwi_forward,
-                generator=next_key(dev))
+                generator=next_key(dev), mesh=mesh)
             save_batch_results(batch_start, mu, per_model, mu0, vel_batch,
                                family_dir)
 

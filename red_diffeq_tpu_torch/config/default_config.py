@@ -7,8 +7,9 @@ own. Of the ``tpu`` section the port reads ``solver_backend`` ('auto',
 'plain' or 'kernel'; a file's 'xla' and 'pallas' are read as 'plain' and
 'kernel') and ``solver_chunk``; ``remat`` and ``use_scan`` have no
 counterpart (the plain path always recomputes each chunk in its backward,
-and the step loop is a host loop); ``mesh_data`` x ``mesh_shot`` > 1 and
-``bf16_unet`` raise, not being ported.
+and the step loop is a host loop); ``mesh_data`` x ``mesh_shot`` > 1 runs
+the inversion over a device mesh (``parallel/mesh.py``); ``bf16_unet``
+runs the U-Net in bf16.
 """
 from red_diffeq_tpu_torch.config.config_utils import ConfigDict
 
@@ -83,9 +84,9 @@ def get_config() -> ConfigDict:
     config.tpu.solver_backend = 'auto'
     config.tpu.solver_chunk = 20     # FD steps per chunk
     config.tpu.remat = True          # no counterpart
-    config.tpu.mesh_data = 1         # > 1 not ported
-    config.tpu.mesh_shot = 1         # > 1 not ported
-    config.tpu.bf16_unet = False     # True not ported
+    config.tpu.mesh_data = 1         # batch shards
+    config.tpu.mesh_shot = 1         # shot shards
+    config.tpu.bf16_unet = False     # the U-Net in bf16
 
     return config
 

@@ -11,6 +11,15 @@ Each step's draws (the ``sigma_x0`` noise, the RED timestep and the RED
 noise) come from a ``torch.Generator`` unless given explicitly; without
 one, ``optimize`` takes the next generator of the global sequence
 (``utils/seed_utils.py``), as the JAX engine takes ``next_key()``.
+
+With a ('data', 'shot') device mesh (``parallel/mesh.py``) each data
+shard's samples step on the shard's first device, and each shot shard
+propagates its slice of the shots on its own device
+(``solvers/acoustic.py:forward_modeling``'s ``shot_devices``): the
+seismogram is gathered on the data shard, and each chunk's per-shot
+coefficient cotangents are summed there over all shots in shot order. The
+draws are made for the whole batch in the unsharded order and sliced. On
+the kernel backend a sharded run is the unsharded run bit for bit.
 """
 import io
 import math
@@ -24,6 +33,7 @@ from torch.profiler import record_function
 from red_diffeq_tpu_torch.core.losses import observation_loss, total_loss
 from red_diffeq_tpu_torch.core.metrics import calculate_metrics
 from red_diffeq_tpu_torch.io.checkpoints import atomic_write_bytes
+from red_diffeq_tpu_torch.parallel.mesh import Mesh, batch_sharding
 from red_diffeq_tpu_torch.regularization.base import make_reg_fn
 from red_diffeq_tpu_torch.utils.data_trans import (
     add_noise_to_seismic, missing_trace, v_normalize,
@@ -124,6 +134,93 @@ def make_inversion_step(fwi_fn: Callable, reg_fn: Callable, optimizer: Adam,
         return mu, opt_state, metrics
 
     return step
+
+
+class _MeshSteps:
+    """The inversion step over a ('data', 'shot') mesh. The model, Adam's
+    moments, the observations, their mask and the targets of the metrics
+    are held as one part per data shard on the shard's first device
+    (:meth:`split`, :meth:`gather`); each data shard's operator splits its
+    shots over the shard's devices (:meth:`FWIForward.sharded`)."""
+
+    def __init__(self, mesh, fwi_forward, reg_fn, optimizer, reg_lambda,
+                 sigma_x0, is_diffusion, y, mask, mu_true_norm):
+        self.mesh = mesh
+        self.data, shot = mesh.devices.shape
+        if y.shape[1] % shot:
+            raise ValueError(f'{y.shape[1]} shots do not divide over mesh '
+                             f"axis 'shot' of size {shot}")
+        if shot > 1 and not hasattr(fwi_forward, 'sharded'):
+            raise ValueError('a mesh with shot > 1 needs an FWIForward (an '
+                             'operator that can split its shots)')
+        self.is_diffusion = is_diffusion
+        self.reg_fn = reg_fn
+        self.batch = batch_sharding(mesh)
+        self.ys, self.masks, self.targets = (
+            self.split(t) for t in (y, mask, mu_true_norm))
+        self.steps = [make_inversion_step(
+            fwi_forward.sharded(list(mesh.devices[d]))
+            if hasattr(fwi_forward, 'sharded') else fwi_forward,
+            reg_fn, optimizer, reg_lambda, sigma_x0, is_diffusion)
+            for d in range(self.data)]
+
+    def split(self, x):
+        """One part of ``x`` (B, ...) per data shard, on its first device."""
+        return [x[self.batch.index(x.shape, d, 0)].to(self.mesh.device(d, 0))
+                for d in range(self.data)]
+
+    def gather(self, parts):
+        first = self.mesh.first_device
+        return torch.cat([p.to(first) for p in parts])
+
+    def split_state(self, state):
+        mus, nus = self.split(state['mu']), self.split(state['nu'])
+        return [{'count': state['count'], 'mu': m, 'nu': n}
+                for m, n in zip(mus, nus)]
+
+    def gather_state(self, states):
+        return {'count': states[0]['count'],
+                'mu': self.gather([s['mu'] for s in states]),
+                'nu': self.gather([s['nu'] for s in states])}
+
+    def __call__(self, mus, states, generator, draws=None):
+        """One step of every data shard: the whole batch's draws from
+        ``generator`` in the unsharded order (or ``draws``, a dict of the
+        whole batch's ``x0_noise``, ``t`` and ``reg_noise``), each shard's
+        slice of them. Returns (parts of mu, Adam states, metrics gathered
+        on the mesh's first device)."""
+        if draws is not None:
+            x0_noise, t, noise = (draws.get(k) for k in
+                                  ('x0_noise', 't', 'reg_noise'))
+        else:
+            gdev = generator.device
+            shape = (sum(m.shape[0] for m in mus), *mus[0].shape[1:])
+            x0_noise = t = noise = None
+            if self.is_diffusion:
+                x0_noise = torch.randn(shape, generator=generator,
+                                       device=gdev, dtype=_F32)
+            if hasattr(self.reg_fn, 'draws'):
+                t, noise = self.reg_fn.draws(shape, generator, gdev, _F32)
+        out_mu, out_states, out_metrics = [], [], []
+        lo = 0
+        for d, (step, mu, state) in enumerate(zip(self.steps, mus, states)):
+            dev = mu.device
+            rows = slice(lo, lo + mu.shape[0])
+            lo += mu.shape[0]
+
+            def part(v):
+                return None if v is None else v[rows].to(dev)
+
+            mu, state, m = step(
+                mu, state, y=self.ys[d], mask=self.masks[d],
+                mu_true_norm=self.targets[d], x0_noise=part(x0_noise),
+                t=part(t), reg_noise=part(noise), generator=generator)
+            out_mu.append(mu)
+            out_states.append(state)
+            out_metrics.append(m)
+        metrics = {k: self.gather([m[k] for m in out_metrics])
+                   for k in out_metrics[0]}
+        return out_mu, out_states, metrics
 
 
 class InversionEngine:
@@ -283,8 +380,15 @@ class InversionEngine:
         ``segment_steps`` needs ``use_scan`` and excludes
         ``checkpoint_path``) and change nothing else: the JAX engine scans
         the loop in one program, or in segments, where this loop runs one
-        step at a time. ``mesh`` other than None is not ported and
-        raises."""
+        step at a time.
+
+        ``mesh``: a ('data', 'shot') mesh (:func:`make_mesh`): the batch is
+        split over 'data' and the shots over 'shot' (each must divide; a
+        shot split needs an :class:`FWIForward`). The corruption runs on the
+        engine's device before the split, each step draws for the whole
+        batch and hands each data shard its slice, and the result and the
+        curves are gathered on the mesh's first device. Snapshots hold the
+        gathered state, so a run resumes on any mesh or none."""
         if mu.shape[0] != y.shape[0]:
             raise ValueError(
                 'Batch size mismatch between velocity and seismic data')
@@ -299,10 +403,12 @@ class InversionEngine:
         if is_diffusion and self.diffusion_model is None:
             raise ValueError(
                 "Diffusion model required for 'diffusion' regularization")
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported yet: ROADMAP, Queue 1, "
-                "'multi-GPU batch/shot sharding'")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f'mesh must be a Mesh of make_mesh, got '
+                            f'{type(mesh).__name__}')
+        if mesh is not None and mesh.first_device.type != self.device.type:
+            raise ValueError(f'the mesh lies on {mesh.first_device}, the '
+                             f'engine on {self.device}')
         if checkpoint_path is not None and not use_scan:
             raise ValueError(
                 'checkpoint_path requires use_scan=True (snapshots are '
@@ -343,14 +449,30 @@ class InversionEngine:
             start, mu, opt_state, history = _load_snapshot(path, dev,
                                                            generator)
             print(f'Resumed inversion from step {start} ({path})')
+        if mesh is None:
+            def advance(mu, opt_state):
+                return step(mu, opt_state, y=y, mask=mask,
+                            mu_true_norm=mu_true_norm, generator=generator)
+
+            def gather(mu, opt_state):
+                return mu, opt_state
+        else:
+            shards = _MeshSteps(mesh, fwi_forward, reg_fn, optimizer,
+                                reg_lambda, self.sigma_x0, is_diffusion, y,
+                                mask, mu_true_norm)
+            mu, opt_state = shards.split(mu), shards.split_state(opt_state)
+
+            def advance(mu, opt_state):
+                return shards(mu, opt_state, generator)
+
+            def gather(mu, opt_state):
+                return shards.gather(mu), shards.gather_state(opt_state)
         every = max(1, int(checkpoint_every))
         timer = StepTimer()
         with trace(profile_dir, dev):
             for i in range(start, ts):
                 with timer, record_function('inversion_step'):
-                    mu, opt_state, m = step(mu, opt_state, y=y, mask=mask,
-                                            mu_true_norm=mu_true_norm,
-                                            generator=generator)
+                    mu, opt_state, m = advance(mu, opt_state)
                 history.append(m)
                 if progress and (i % log_interval == 0 or i == ts - 1):
                     t_str = (f"  t {int(round(float(m['t'].float().mean())))}"
@@ -362,10 +484,11 @@ class InversionEngine:
                           + t_str, flush=True)
                 if path is not None and ((i + 1 - start) % every == 0
                                          or i == ts - 1):
-                    _save_snapshot(path, i + 1, mu, opt_state, history,
-                                   generator)
+                    _save_snapshot(path, i + 1, *gather(mu, opt_state),
+                                   history, generator)
         if progress and timer.times:
             print(f'timing: {timer.summary()}', flush=True)
+        mu, _ = gather(mu, opt_state)
 
         keys = ('total_losses', 'obs_losses', 'reg_losses', 'ssim', 'mae',
                 'rmse')

@@ -247,8 +247,13 @@ def flax_to_state_dict(tree: dict, model: torch.nn.Module
 
     Layout moves (the inverse of ``tools/convert_torch_checkpoint.py``):
     conv kernel HWIO -> OIHW, dense kernel (I, O) -> (O, I), GroupNorm
-    ``scale`` -> ``weight``, RMSNorm ``g`` (1, 1, 1, C) -> (1, C, 1, 1).
-    Raises on a leaf left over, a parameter missing, or a shape mismatch."""
+    ``scale`` -> ``weight``, RMSNorm ``g`` (1, 1, 1, C) -> (1, C, 1, 1);
+    other leaves (``mem_kv``, the Fourier embedding's ``sinu_pos_emb``
+    ``weights``) as they are. Every field of the U-Net's constructor is
+    carried across: the shapes (per-stage attention widths, a wider
+    ``init_conv`` under self-conditioning, a wider ``final_conv`` under
+    learned variance) come from ``model``. Raises on a leaf left over, a
+    parameter missing, or a shape mismatch."""
     want = model.state_dict()
     out = {}
     for path, leaf in _flatten(tree):

@@ -168,6 +168,7 @@ class GaussianDiffusion:
         if params is not None:
             self.params = params
         self.channels = model.channels
+        self.self_condition = model.self_condition
         if isinstance(image_size, int):
             image_size = (image_size, image_size)
         self.image_size = tuple(image_size)
@@ -216,24 +217,30 @@ class GaussianDiffusion:
                                       for n, p in params.items()})
         return self._bf16[1]
 
-    def run_model(self, x, t, params: Optional[Dict[str, torch.Tensor]] = None):
-        """The U-Net on ``x`` at timesteps ``t`` with ``params`` (a dict of
-        parameter tensors by name, differentiable) in place of its own; the
-        input is cast to the parameters' dtype, so bf16 parameters run the
-        U-Net in bf16 (the embedding of ``t`` is computed in fp32 first)."""
+    def run_model(self, x, t, params: Optional[Dict[str, torch.Tensor]] = None,
+                  x_self_cond=None):
+        """The U-Net on ``x`` (and ``x_self_cond`` under self-conditioning)
+        at timesteps ``t`` with ``params`` (a dict of parameter tensors by
+        name, differentiable) in place of its own; the inputs are cast to
+        the parameters' dtype, so bf16 parameters run the U-Net in bf16 (the
+        embedding of ``t`` is computed in fp32 first)."""
         if params is None:
-            return self.model(x, t)
-        x = x.to(next(iter(params.values())).dtype)
-        return torch.func.functional_call(self.model, params, (x, t))
+            return self.model(x, t, x_self_cond)
+        dtype = next(iter(params.values())).dtype
+        if x_self_cond is not None:
+            x_self_cond = x_self_cond.to(dtype)
+        return torch.func.functional_call(self.model, params,
+                                          (x.to(dtype), t, x_self_cond))
 
-    def apply_fn(self, x, t):
+    def apply_fn(self, x, t, x_self_cond=None):
         """One denoiser forward pass (the profiler range ``unet``). With
         ``half_precision`` the weights and activations are bf16 and the
         input and output fp32; the schedule's arithmetic stays fp32."""
         with record_function('unet'):
             if self.half_precision:
-                return self.run_model(x, t, self.bf16_params()).float()
-            return self.model(x, t)
+                return self.run_model(x, t, self.bf16_params(),
+                                      x_self_cond).float()
+            return self.model(x, t, x_self_cond)
 
     def q_sample(self, x_start, t, noise):
         """Diffuse ``x_start`` to timestep ``t``."""
@@ -263,9 +270,9 @@ class GaussianDiffusion:
         return (extract(s.sqrt_alphas_cumprod, t, x_t.ndim) * x_t
                 - extract(s.sqrt_one_minus_alphas_cumprod, t, x_t.ndim) * v)
 
-    def model_predictions(self, x, t, clip_x_start=False,
+    def model_predictions(self, x, t, x_self_cond=None, clip_x_start=False,
                           rederive_pred_noise=False) -> ModelPrediction:
-        out = self.apply_fn(x, t)
+        out = self.apply_fn(x, t, x_self_cond)
         clip = (lambda v: v.clamp(-1.0, 1.0)) if clip_x_start \
             else (lambda v: v)
         if self.objective == 'pred_noise':
@@ -290,10 +297,11 @@ class GaussianDiffusion:
         log_var = extract(s.posterior_log_variance_clipped, t, x_t.ndim)
         return mean, var, log_var
 
-    def p_mean_variance(self, x, t, clip_denoised: bool = True):
+    def p_mean_variance(self, x, t, x_self_cond=None,
+                        clip_denoised: bool = True):
         """(mean, variance, log variance, x_start) of p(x_{t-1} | x_t), the
         predicted x_start clamped to [-1, 1] with ``clip_denoised``."""
-        x_start = self.model_predictions(x, t).pred_x_start
+        x_start = self.model_predictions(x, t, x_self_cond).pred_x_start
         if clip_denoised:
             x_start = x_start.clamp(-1.0, 1.0)
         mean, var, log_var = self.q_posterior(x_start, x, t)
@@ -311,13 +319,14 @@ class GaussianDiffusion:
         return torch.randn(shape, generator=generator, device=self.device)
 
     @torch.no_grad()
-    def p_sample(self, x, t: int, noise=None, generator=None):
+    def p_sample(self, x, t: int, noise=None, generator=None,
+                 x_self_cond=None):
         """One ancestral reverse step from timestep ``t``: the posterior
         mean plus its standard deviation times ``noise`` (drawn from
         ``generator`` unless given), except at t == 0. Returns
         (x_{t-1}, x_start)."""
         mean, _, log_var, x_start = self.p_mean_variance(
-            x, self._batch_t(x, t))
+            x, self._batch_t(x, t), x_self_cond)
         if noise is None:
             noise = torch.randn(x.shape, generator=generator,
                                 device=x.device, dtype=x.dtype)
@@ -325,9 +334,10 @@ class GaussianDiffusion:
         return mean + nz * torch.exp(0.5 * log_var) * noise, x_start
 
     @torch.no_grad()
-    def p_sample_deterministic(self, x, t: int):
+    def p_sample_deterministic(self, x, t: int, x_self_cond=None):
         """The posterior mean without noise. Returns (mean, x_start)."""
-        mean, _, _, x_start = self.p_mean_variance(x, self._batch_t(x, t))
+        mean, _, _, x_start = self.p_mean_variance(x, self._batch_t(x, t),
+                                                   x_self_cond)
         return mean, x_start
 
     def _finish(self, img, trail, return_all_timesteps):

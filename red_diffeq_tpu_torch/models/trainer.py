@@ -22,6 +22,14 @@ a ``torch.Generator`` on the card. A :class:`TensorDataset` that fits under
 ``device_data_max_bytes`` is uploaded once and its batches gathered on the
 card by index; the choice is by size, made once.
 
+With ``data_parallel`` and more than one card (or an explicit ``devices``
+list, which may repeat a device) each micro-batch is split over the
+devices: each runs a replica of the U-Net on its rows with the master
+weights, and the gradients are added onto the first device in device
+order before the clip, Adam and the EMA, as the JAX trainer's all-reduce
+implies. The draws are made for the whole micro-batch and sliced, so a
+split step sees the draws of an unsplit one.
+
 Checkpoints are the shipped prior's format (``io/checkpoints.py``):
 ``model-<k>.ckpt`` holds ``{'step', 'params', 'ema_params', 'opt_state',
 'version'}`` with the U-Net weights, the EMA weights and Adam's moments as
@@ -33,7 +41,7 @@ supported.
 import copy
 import json
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from pathlib import Path
 from typing import List, Optional
 
@@ -205,6 +213,14 @@ class ImageFolderDataset:
         return batch
 
 
+def _canonical(dev) -> torch.device:
+    """``dev`` with the current CUDA device's index where it has none."""
+    dev = torch.device(dev)
+    if dev.type == 'cuda' and dev.index is None:
+        return torch.device('cuda', torch.cuda.current_device())
+    return dev
+
+
 def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float
                         ) -> torch.Tensor:
     """optax's ``clip_by_global_norm``, in place: g / norm * max_norm for
@@ -268,15 +284,23 @@ class Trainer:
                  keep_last_checkpoints: int = 0,
                  calculate_fid: bool = False, num_fid_samples: int = 64,
                  device_data: bool = True,
-                 device_data_max_bytes: int = 4 * 1024 ** 3):
+                 device_data_max_bytes: int = 4 * 1024 ** 3, devices=None):
         assert train_batch_size * gradient_accumulate_every >= 16, \
             'effective batch size should be at least 16'
         assert int(num_samples ** 0.5) ** 2 == num_samples, \
             'number of samples must have an integer square root'
-        # data_parallel: one card is the whole device set, as for the JAX
-        # trainer on one device; multi-GPU training is ROADMAP Queue 1's.
         self.diffusion = diffusion_model
         self.device = diffusion_model.device
+        # The data-parallel devices: every card when there is more than one
+        # (one card is the whole device set, as for the JAX trainer on one
+        # device), or the list given.
+        if devices is None and data_parallel and self.device.type == 'cuda' \
+                and torch.cuda.device_count() > 1:
+            devices = [torch.device('cuda', i)
+                       for i in range(torch.cuda.device_count())]
+        self.devices = (None if devices is None or len(devices) < 2
+                        else [torch.device(d) for d in devices])
+        self._replicas = {}
         self.dataset = dataset
         self.batch_size = train_batch_size
         self.grad_accum = gradient_accumulate_every
@@ -315,7 +339,10 @@ class Trainer:
         # Device-resident data: a TensorDataset under the byte budget is
         # uploaded once (at the first train()) and gathered by index.
         self._data_dev = None
+        # Only without a split, as in the JAX trainer: a copy per device would
+        # multiply the dataset's claim on device memory.
         self._device_data = (device_data and isinstance(dataset, TensorDataset)
+                             and self.devices is None
                              and dataset.data.nbytes <= device_data_max_bytes)
 
     # -- one step ---------------------------------------------------------
@@ -331,23 +358,31 @@ class Trainer:
         gradients, Adam and the EMA stay fp32 (the JAX trainer's
         ``amp``). ``draws``, one dict per micro-batch with any of ``t``,
         ``noise`` and ``offset``, feeds the loss's draws (the rest come
-        from the trainer's generator). Returns the mean micro-batch loss,
-        on the card."""
+        from the trainer's generator). With ``devices`` (:meth:`split_loss`)
+        each micro-batch is split over them. Returns the mean micro-batch
+        loss, on the card."""
         for p in self.params:
             p.grad = None
         loss_sum = None
         with fp32_convolutions():
             for i, mb in enumerate(batches):
-                params = ({n: p.to(torch.bfloat16)
-                           for n, p in zip(self.names, self.params)}
-                          if self.amp else None)
-                loss = self.diffusion.loss(mb, generator=self._gen,
-                                           params=params,
+                if self.devices is not None:
+                    loss = self.split_loss(mb, self.devices,
                                            **(draws[i] if draws else {}))
-                loss.backward()
-                loss = loss.detach()
+                else:
+                    params = ({n: p.to(torch.bfloat16)
+                               for n, p in zip(self.names, self.params)}
+                              if self.amp else None)
+                    loss = self.diffusion.loss(mb, generator=self._gen,
+                                               params=params,
+                                               **(draws[i] if draws else {}))
+                    loss.backward()
+                    loss = loss.detach()
                 loss_sum = loss if loss_sum is None else loss_sum + loss
-        grads = [p.grad for p in self.params]
+        # A parameter the loss does not reach (the frozen random Fourier
+        # weights) gets a zero gradient, as under the JAX stop_gradient.
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in self.params]
         if self.grad_accum > 1:
             torch._foreach_div_(grads, self.grad_accum)
         clip_by_global_norm(grads, self.max_grad_norm)
@@ -357,6 +392,68 @@ class Trainer:
             if self.step % self.ema_cfg.update_every == 0:
                 self._update_ema(_ema_decay_at(self.step, self.ema_cfg))
         return loss_sum / self.grad_accum
+
+    def _replica(self, dev):
+        """The diffusion model with a copy of the U-Net and the schedule on
+        ``dev`` (the diffusion model itself on its own device)."""
+        if _canonical(dev) == _canonical(self.device):
+            return self.diffusion
+        if dev not in self._replicas:
+            rep = copy.copy(self.diffusion)
+            rep.device = dev
+            rep.model = copy.deepcopy(self.diffusion.model).to(dev)
+            s = self.diffusion.schedule
+            rep.schedule = type(s)(**{f.name: getattr(s, f.name).to(dev)
+                                      for f in fields(s)})
+            self._replicas[dev] = rep
+        return self._replicas[dev]
+
+    def split_loss(self, mb, devices, t=None, noise=None, offset=None):
+        """The loss of micro-batch ``mb`` split into equal parts over
+        ``devices``; adds its gradient to each parameter's ``.grad``. The
+        timesteps, noise and offset are drawn for the whole micro-batch as
+        :meth:`GaussianDiffusion.loss` draws them (unless given) and
+        sliced; each part's weighted loss (its mean times its share of
+        the rows) is differentiated on its device with the master weights
+        copied there, and the gradients are added on the diffusion model's
+        device in device order. Returns the loss on that device."""
+        b = mb.shape[0]
+        n = len(devices)
+        if b % n:
+            raise ValueError(f'a batch of {b} does not split over {n} '
+                             'devices')
+        d, gen = self.diffusion, self._gen
+        if t is None:
+            t = torch.randint(0, d.num_timesteps, (b,), generator=gen,
+                              device=self.device)
+        if noise is None:
+            noise = torch.randn(mb.shape, generator=gen, device=self.device,
+                                dtype=mb.dtype)
+        if offset is None and d.offset_noise_strength > 0.0:
+            offset = torch.randn(mb.shape[:2], generator=gen,
+                                 device=self.device, dtype=mb.dtype)
+        k = b // n
+        total, grads = None, None
+        for i, dev in enumerate(devices):
+            rows = slice(i * k, (i + 1) * k)
+            leaves = [p.detach().to(dev).requires_grad_(True)
+                      for p in self.params]
+            params = {name: (v.to(torch.bfloat16) if self.amp else v)
+                      for name, v in zip(self.names, leaves)}
+            part = self._replica(dev).loss(
+                mb[rows].to(dev), t=t[rows].to(dev),
+                noise=noise[rows].to(dev),
+                offset=None if offset is None else offset[rows].to(dev),
+                params=params) * (k / b)
+            g = torch.autograd.grad(part, leaves, allow_unused=True)
+            g = [torch.zeros_like(p) if x is None else x.to(self.device)
+                 for p, x in zip(self.params, g)]
+            grads = g if grads is None else torch._foreach_add(grads, g)
+            part = part.detach().to(self.device)
+            total = part if total is None else total + part
+        for p, g in zip(self.params, grads):
+            p.grad = g if p.grad is None else p.grad + g
+        return total
 
     def _update_ema(self, decay: float):
         """ema = ema * decay + params * (1 - decay); a copy while the decay

@@ -9,7 +9,7 @@ packing the channel axis as (p1, p2, c). Convolutions run in full fp32
 (no TF32) on the card.
 """
 import math
-from typing import Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
@@ -38,6 +38,24 @@ def sinusoidal_pos_emb(t, dim: int, theta: float = 10000.0):
                       * (-math.log(theta) / (half - 1)))
     args = t.float()[:, None] * freqs[None, :]
     return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+
+
+class RandomOrLearnedSinusoidalPosEmb(nn.Module):
+    """Fourier-feature timestep embedding, (B,) -> (B, dim + 1): the
+    timestep, then the sin and cos of 2 pi t w for ``dim // 2`` frequencies
+    ``weights`` (standard normal at initialisation), learned, or held fixed
+    with ``is_random`` (the JAX model's ``stop_gradient``)."""
+
+    def __init__(self, dim: int, is_random: bool = False):
+        super().__init__()
+        self.is_random = is_random
+        self.weights = nn.Parameter(torch.randn(dim // 2))
+
+    def forward(self, t):
+        w = self.weights.detach() if self.is_random else self.weights
+        t = t.float()[:, None]
+        freqs = t * w[None, :] * 2 * math.pi
+        return torch.cat([t, torch.sin(freqs), torch.cos(freqs)], dim=-1)
 
 
 class Block(nn.Module):
@@ -156,70 +174,126 @@ def nearest_upsample(x):
 
 
 class Unet(nn.Module):
-    """The denoiser: ``forward(x (B, channels, H, W), time (B,))``; H and W
-    must divide by 2**(stages-1). The JAX model's defaults: GroupNorm(8),
-    4 attention heads of width 32, linear attention in every stage but the
-    innermost, which has full attention."""
+    """The denoiser: ``forward(x (B, channels, H, W), time (B,),
+    x_self_cond=None)``; H and W must divide by 2**(stages-1).
 
-    def __init__(self, dim: int, dim_mults: Sequence[int] = (1, 2, 4, 8),
-                 channels: int = 1):
+    The JAX model's 16 fields in its order, with its defaults: ``init_dim``
+    (the width of the 7x7 input convolution, default ``dim``),
+    ``out_dim`` (default ``channels``, twice that with
+    ``learned_variance``), ``dim_mults``, ``channels``,
+    ``self_condition`` (the input is ``x_self_cond``, zeros if None,
+    stacked before ``x`` on the channel axis), ``resnet_block_groups``
+    (GroupNorm's groups), ``learned_variance``, ``learned_sinusoidal_cond``
+    and ``random_fourier_features`` (the timestep embedded by
+    :class:`RandomOrLearnedSinusoidalPosEmb` of ``learned_sinusoidal_dim``
+    frequencies, as ``sinu_pos_emb``, fixed with random Fourier features),
+    ``sinusoidal_pos_emb_theta``, ``attn_dim_head`` and ``attn_heads`` (one
+    value or one per stage), ``full_attn`` (per stage: full softmax
+    attention, else linear; default only the innermost stage) and
+    ``flash_attn`` (accepted and changing nothing, as in the JAX model).
+    The bottleneck takes the innermost stage's heads. With the defaults
+    the parameter names are those of the shipped prior."""
+
+    def __init__(self, dim: int, init_dim: Optional[int] = None,
+                 out_dim: Optional[int] = None,
+                 dim_mults: Sequence[int] = (1, 2, 4, 8), channels: int = 1,
+                 self_condition: bool = False, resnet_block_groups: int = 8,
+                 learned_variance: bool = False,
+                 learned_sinusoidal_cond: bool = False,
+                 random_fourier_features: bool = False,
+                 learned_sinusoidal_dim: int = 16,
+                 sinusoidal_pos_emb_theta: float = 10000.0,
+                 attn_dim_head: Union[int, Sequence[int]] = 32,
+                 attn_heads: Union[int, Sequence[int]] = 4,
+                 full_attn: Optional[Sequence[bool]] = None,
+                 flash_attn: bool = False):
         super().__init__()
         self.dim = dim
         self.channels = channels
+        self.self_condition = self_condition
+        self.theta = sinusoidal_pos_emb_theta
         n = len(dim_mults)
         self.num_stages = n
-        dims = [dim] + [dim * m for m in dim_mults]
+
+        def per_stage(v):
+            return tuple(v) if isinstance(v, (tuple, list)) else (v,) * n
+
+        full = (tuple(full_attn) if full_attn is not None
+                else (False,) * (n - 1) + (True,))
+        heads, dim_heads = per_stage(attn_heads), per_stage(attn_dim_head)
+        init_dim = init_dim or dim
+        dims = [init_dim] + [dim * m for m in dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
         time_dim = dim * 4
+        groups = resnet_block_groups
 
-        def attn(ind, d):
-            return Attention(d) if ind == n - 1 else LinearAttention(d)
+        def attn(stage, d):
+            cls = Attention if full[stage] else LinearAttention
+            return cls(d, heads=heads[stage], dim_head=dim_heads[stage])
 
-        self.time_dense_0 = nn.Linear(dim, time_dim)
+        def block(d_in, d_out):
+            return ResnetBlock(d_in, d_out, time_dim, groups)
+
+        if learned_sinusoidal_cond or random_fourier_features:
+            self.sinu_pos_emb = RandomOrLearnedSinusoidalPosEmb(
+                learned_sinusoidal_dim, random_fourier_features)
+            fourier_dim = learned_sinusoidal_dim + 1
+        else:
+            self.sinu_pos_emb = None
+            fourier_dim = dim
+        self.time_dense_0 = nn.Linear(fourier_dim, time_dim)
         self.time_dense_1 = nn.Linear(time_dim, time_dim)
-        self.init_conv = nn.Conv2d(channels, dim, 7, padding=3)
+        self.init_conv = nn.Conv2d(channels * (2 if self_condition else 1),
+                                   init_dim, 7, padding=3)
 
         for ind, (d_in, d_out) in enumerate(in_out):
             last = ind == n - 1
-            self.add_module(f'down_{ind}_block1',
-                            ResnetBlock(d_in, d_in, time_dim))
-            self.add_module(f'down_{ind}_block2',
-                            ResnetBlock(d_in, d_in, time_dim))
+            self.add_module(f'down_{ind}_block1', block(d_in, d_in))
+            self.add_module(f'down_{ind}_block2', block(d_in, d_in))
             self.add_module(f'down_{ind}_attn', attn(ind, d_in))
             self.add_module(f'down_{ind}_downsample',
                             nn.Conv2d(d_in, d_out, 3, padding=1) if last
                             else nn.Conv2d(4 * d_in, d_out, 1))
 
         mid = dims[-1]
-        self.mid_block1 = ResnetBlock(mid, mid, time_dim)
-        self.mid_attn = Attention(mid)
-        self.mid_block2 = ResnetBlock(mid, mid, time_dim)
+        self.mid_block1 = block(mid, mid)
+        self.mid_attn = Attention(mid, heads=heads[-1], dim_head=dim_heads[-1])
+        self.mid_block2 = block(mid, mid)
 
         for ind, (d_in, d_out) in enumerate(reversed(in_out)):
-            self.add_module(f'up_{ind}_block1', ResnetBlock(
-                d_out + d_in, d_out, time_dim))
-            self.add_module(f'up_{ind}_block2', ResnetBlock(
-                d_out + d_in, d_out, time_dim))
+            self.add_module(f'up_{ind}_block1', block(d_out + d_in, d_out))
+            self.add_module(f'up_{ind}_block2', block(d_out + d_in, d_out))
             self.add_module(f'up_{ind}_attn', attn(n - 1 - ind, d_out))
             self.add_module(f'up_{ind}_upsample',
                             nn.Conv2d(d_out, d_in, 3, padding=1))
 
-        self.final_res_block = ResnetBlock(dim * 2, dim, time_dim)
-        self.final_conv = nn.Conv2d(dim, channels, 1)
+        # Its input is the last stage's output and the init conv's (2 *
+        # init_dim wide); the JAX block, declared 2 * dim wide, always has
+        # its 1x1 projection.
+        self.final_res_block = block(2 * init_dim, dim)
+        if self.final_res_block.res_conv is None:
+            self.final_res_block.res_conv = nn.Conv2d(dim, dim, 1)
+        self.final_conv = nn.Conv2d(
+            dim, out_dim or channels * (2 if learned_variance else 1), 1)
 
-    def forward(self, x, time):
+    def forward(self, x, time, x_self_cond=None):
         factor = 2 ** (self.num_stages - 1)
         if x.shape[-2] % factor or x.shape[-1] % factor:
             raise ValueError(f'input spatial dims {tuple(x.shape[-2:])} must '
                              f'divide by {factor}')
+        if self.self_condition:
+            if x_self_cond is None:
+                x_self_cond = torch.zeros_like(x)
+            x = torch.cat([x_self_cond, x], dim=1)
         with fp32_convolutions():
             return self._forward(x, time)
 
     def _forward(self, x, time):
         n = self.num_stages
         m = self.get_submodule
-        emb = sinusoidal_pos_emb(time, self.dim).to(x.dtype)
-        t = self.time_dense_1(F.gelu(self.time_dense_0(emb)))
+        emb = (self.sinu_pos_emb(time) if self.sinu_pos_emb is not None
+               else sinusoidal_pos_emb(time, self.dim, self.theta))
+        t = self.time_dense_1(F.gelu(self.time_dense_0(emb.to(x.dtype))))
 
         x = self.init_conv(x)
         r = x

@@ -324,6 +324,7 @@ def run_variant(variant, p0, p1, alpha, t1, t2, *, nt, route_to=None):
                                route_to=route_to)
 
 
+@stencil.on_device_of(1)
 def _run_variant_kernel(variant, p0, p1, alpha, t1, t2, *, nt,
                         route_to=None):
     if variant not in KERNELS:

@@ -75,7 +75,9 @@ call), ``sum_shots``, ``tape_chunk``, ``bwd_tape_steps``,
 ``bwd_tape_chunk``) take the plain version only for tensors on the CPU; on
 a CUDA tensor they launch the kernel or raise.
 """
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -498,6 +500,30 @@ def _stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def on_device(device):
+    """Make the CUDA device ``device`` current for a library call (no-op
+    for another device type): the library sets each kernel's attributes and
+    asks for its occupancy on the current device, which the stream handed
+    to it does not choose."""
+    if device.type != 'cuda':
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def on_device_of(index: int = 0):
+    """Decorate a launcher so that it runs under :func:`on_device` of its
+    positional argument ``index``'s device."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def launch(*args, **kwargs):
+            with on_device(args[index].device):
+                return fn(*args, **kwargs)
+        return launch
+
+    return wrap
+
+
 def fwd_chunk(p0, p1, alpha, t1, t2, inj, src_chunk, *, isz, igz, g0, ng):
     """One chunk of the forward stepper: the CUDA kernel ``fwd_step`` for
     CUDA tensors, :func:`fwd_chunk_plain` for CPU tensors. Returns
@@ -511,6 +537,7 @@ def fwd_chunk(p0, p1, alpha, t1, t2, inj, src_chunk, *, isz, igz, g0, ng):
                              igz=igz, g0=g0, ng=ng)
 
 
+@on_device_of(0)
 def _fwd_chunk_kernel(p0, p1, alpha, t1, t2, inj, src_chunk, *, isz, igz, g0,
                       ng):
     b, ns, hp, wp = _check_args({'p0': p0, 'p1': p1}, alpha, t1, t2,
@@ -603,6 +630,7 @@ def _adjoint_sums(gp0o, shot_sums):
     return parts, sums, [_ptr(t) for t in sums]
 
 
+@on_device_of(0)
 def _bwd_reverse_kernel(p0o, p1o, gp0o, gp1o, grec, alpha, t1, t2, inj,
                         src_chunk, *, isz, igz, g0, ng, shot_sums):
     """One library call: the blocked steps and, with ``shot_sums``, the
@@ -652,6 +680,7 @@ def sum_shots(pa, p1, p2):
     return _sum_shots_kernel(pa, p1, p2)
 
 
+@on_device_of(0)
 def _sum_shots_kernel(pa, p1, p2):
     if pa.dim() != 4:
         raise ValueError(f'partial sums must be (B, ns, Hp, Wp), got shape '
@@ -684,6 +713,7 @@ def tape_chunk(p0, p1, alpha, t1, t2, inj, src_chunk, *, isz):
     return _tape_chunk_kernel(p0, p1, alpha, t1, t2, inj, src_chunk, isz=isz)
 
 
+@on_device_of(0)
 def _tape_chunk_kernel(p0, p1, alpha, t1, t2, inj, src_chunk, *, isz):
     b, ns, hp, wp = _check_args({'p0': p0, 'p1': p1}, alpha, t1, t2,
                                 src_chunk, isz=isz, inj=inj)
@@ -770,6 +800,7 @@ def _bwd_tape_steps_kernel(tape, gp0o, gp1o, grec, alpha, t1, t2, src_chunk,
                             isz=isz, igz=igz, g0=g0, ng=ng, shot_sums=False)
 
 
+@on_device_of(0)
 def _bwd_tape_kernel(tape, gp0o, gp1o, grec, alpha, t1, t2, src_chunk, *,
                      isz, igz, g0, ng, shot_sums):
     """One library call: the blocked steps and, with ``shot_sums``, the
@@ -870,13 +901,72 @@ class StencilChunk(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
+class ShotShardedChunk(torch.autograd.Function):
+    """One chunk of :class:`StencilChunk` with the shots split over shot
+    shards: ``shards`` is a list of ``(device, lo, hi, alpha, t1, t2, inj)``,
+    each shard's shots [lo, hi) with detached copies of the coefficients
+    and its rows of the injection field on its device, and ``carries`` the
+    shards' (p0, p1) in turn. Each shard steps its own fields with the
+    kernels on its device; the receiver rows are gathered on the
+    coefficients' device. The backward runs each shard's adjoint steps
+    (``bwd_reverse_steps``, or ``tape_chunk`` and ``bwd_tape_steps``) into
+    per-shot coefficient cotangents, gathers those on the coefficients'
+    device and sums all the shots there with one ``sum_shots``, in shot
+    order: every output is the unsharded chunk's bit for bit."""
+
+    @staticmethod
+    def forward(ctx, alpha, t1, t2, inj, src_chunk, shards, geo, mode,
+                *carries):
+        isz, igz, g0, ng = geo
+        outs, recs, saved = [], [], []
+        for k, (dev, lo, hi, a, c1, c2, inj_s) in enumerate(shards):
+            p0, p1 = carries[2 * k], carries[2 * k + 1]
+            p0o, p1o, r = fwd_chunk(p0, p1, a, c1, c2, inj_s,
+                                    src_chunk.to(dev), isz=isz, igz=igz,
+                                    g0=g0, ng=ng)
+            saved += [p0o, p1o] if mode == 'reverse' else [p0, p1]
+            outs += [p0o, p1o]
+            recs.append(r.to(alpha.device))
+        ctx.save_for_backward(src_chunk, *saved)
+        ctx.shards, ctx.geo, ctx.mode = shards, geo, mode
+        return (torch.cat(recs, dim=1), *outs)
+
+    @staticmethod
+    def backward(ctx, grec, *gcarries):
+        src_chunk, *saved = ctx.saved_tensors
+        isz, igz, g0, ng = ctx.geo
+        geo = dict(isz=isz, igz=igz, g0=g0, ng=ng)
+        home = grec.device
+        parts, ginj, gout = ([], [], []), [], []
+        for k, (dev, lo, hi, a, c1, c2, inj_s) in enumerate(ctx.shards):
+            s0, s1 = saved[2 * k], saved[2 * k + 1]
+            gp0o, gp1o = (g.contiguous() for g in gcarries[2 * k:2 * k + 2])
+            grec_s = grec[:, lo:hi].to(dev).contiguous()
+            src = src_chunk.to(dev)
+            if ctx.mode == 'reverse':
+                out = bwd_reverse_steps(s0, s1, gp0o, gp1o, grec_s, a, c1, c2,
+                                        inj_s, src, **geo)
+            else:
+                tape = tape_chunk(s0, s1, a, c1, c2, inj_s, src, isz=isz)
+                out = bwd_tape_steps(tape, gp0o, gp1o, grec_s, a, c1, c2,
+                                     src, **geo)
+            gout += out[:2]
+            for part, t in zip(parts, out[2:5]):
+                part.append(t.to(home))
+            ginj.append(out[5].to(home))
+        sums = sum_shots(*(torch.cat(p, dim=1).contiguous() for p in parts))
+        return (*sums, torch.cat(ginj, dim=1), None, None, None, None, *gout)
+
+
 def stencil_chunk_fn(*, alpha, temp1, temp2, beta_pts, geom, chunk,
-                     mode=None):
+                     mode=None, shot_shards=None):
     """Adapter with the (carry, src_chunk) -> (carry, recs) signature of
     the solver's chunk loop, ``recs`` as (B, ns, chunk, ng); counterpart
     of ``pallas_chunk_fn`` (``red_diffeq_tpu/ops/stencil.py:801-827``).
     ``mode=None`` takes the adjoint the t2 guard picks
-    (:func:`resolve_run_config`)."""
+    (:func:`resolve_run_config`). ``shot_shards``, a list of (device, lo,
+    hi), splits the shots over those devices (:class:`ShotShardedChunk`);
+    the carry is then each shard's (p0, p1) in turn."""
     if not geom.receivers_contiguous:
         raise NotImplementedError(
             'the kernel backend requires a contiguous receiver line; '
@@ -886,6 +976,19 @@ def stencil_chunk_fn(*, alpha, temp1, temp2, beta_pts, geom, chunk,
     inj = build_injection_field(beta_pts, geom.isx, wp).contiguous()
     geo = (geom.isz, geom.igz, geom.igx[0], geom.ng)
     alpha, temp1, temp2 = (c.contiguous() for c in (alpha, temp1, temp2))
+
+    if shot_shards is not None:
+        shards = [(dev, lo, hi, *(c.detach().to(dev) for c in (
+            alpha, temp1, temp2)), inj[:, lo:hi].detach().to(dev).contiguous())
+            for dev, lo, hi in shot_shards]
+
+        def chunk_fn(carry, src_chunk):
+            recs, *carry = ShotShardedChunk.apply(
+                alpha, temp1, temp2, inj, src_chunk, shards, geo, mode,
+                *carry)
+            return tuple(carry), recs
+
+        return chunk_fn
 
     def chunk_fn(carry, src_chunk):
         p0o, p1o, recs = StencilChunk.apply(*carry, alpha, temp1, temp2,

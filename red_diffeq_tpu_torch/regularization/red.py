@@ -145,17 +145,27 @@ def make_red_reg_fn(diffusion, use_time_weight: bool = False,
                     fixed_timestep: Optional[int] = None):
     """The engine-facing ``reg_fn(mu, t=None, noise=None, generator=None)
     -> (loss, t)``, patched for a model wider or taller than the denoiser's
-    input."""
+    input. ``reg_fn.draws(shape, generator, device, dtype)`` returns the
+    (t, noise) that ``reg_fn`` would draw for a model of ``shape``, so that
+    a caller can draw for a whole batch and hand each part its slice."""
     red = RED_DiffEq(diffusion, use_time_weight=use_time_weight,
                      fixed_timestep=fixed_timestep)
 
+    def patched(shape):
+        return shape[3] > red.input_size or shape[2] > red.input_size
+
     def reg_fn(mu, t=None, noise=None, generator=None):
-        h, w = mu.shape[2], mu.shape[3]
-        patched = w > red.input_size or h > red.input_size
-        fn = red.get_reg_loss_patched if patched else red.get_reg_loss
+        fn = (red.get_reg_loss_patched if patched(mu.shape)
+              else red.get_reg_loss)
         reg, _, t = fn(mu, t=t, noise=noise, generator=generator)
         return reg, t
 
+    def draws(shape, generator, device, dtype):
+        b, c, h, w = shape
+        noise_shape = (b, c, h - 2, w - 2) if patched(shape) else shape
+        return red._draws(noise_shape, None, None, generator, device, dtype)
+
+    reg_fn.draws = draws
     return reg_fn
 
 

@@ -22,8 +22,9 @@ The sponge pad (:func:`edge_pad`) is PyTorch's replicate pad forward with a
 backward that sums the edge strips in a fixed order, so the velocity
 gradient is the same bit for bit from run to run on the card.
 """
+import copy
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -240,9 +241,22 @@ def _plain_chunk(p0, p1, src_chunk, alpha, temp1, temp2, beta_pts, *,
     return p0, p1, torch.stack(recs, dim=2)
 
 
+def shot_shards(ns: int, devices) -> list:
+    """[(device, lo, hi)]: the ``ns`` shots split into equal runs over
+    ``devices`` (which may repeat a device); raises where they do not
+    divide."""
+    n = len(devices)
+    if ns % n:
+        raise ValueError(f'{ns} shots do not divide over {n} shot shards')
+    width = ns // n
+    return [(torch.device(d), s * width, (s + 1) * width)
+            for s, d in enumerate(devices)]
+
+
 def forward_modeling(v_pad: torch.Tensor, geom: Geometry, *, chunk: int = 20,
                      remat: bool = True, backend: str = 'plain',
-                     adjoint: Optional[str] = None) -> torch.Tensor:
+                     adjoint: Optional[str] = None,
+                     shot_devices=None) -> torch.Tensor:
     """Propagate all shots through ``v_pad`` (B, 1, Hp, Wp) in m/s.
 
     Returns the seismogram (B, ns, ceil(nt / sample_temporal), ng).
@@ -252,8 +266,24 @@ def forward_modeling(v_pad: torch.Tensor, geom: Geometry, *, chunk: int = 20,
     'reverse' unless the t2 guard routes to 'tape'); the plain backend
     ignores it. ``remat`` is accepted for the JAX signature and changes
     nothing: both backends keep only each chunk's boundary carries for the
-    backward and recompute the chunk's steps."""
+    backward and recompute the chunk's steps.
+
+    ``shot_devices`` (a list, which may repeat a device) splits the shots
+    into equal runs over those devices, each stepped there; the seismogram
+    is gathered on ``v_pad``'s device. On the kernel backend the shards'
+    per-shot coefficient cotangents are summed over all shots on
+    ``v_pad``'s device each chunk (:class:`ShotShardedChunk`), so the
+    result and its gradient are the unsharded ones bit for bit; on the
+    plain backend each shard propagates from its own copy of ``v_pad``
+    and autograd adds their gradients."""
     backend = JAX_BACKENDS.get(backend, backend)
+    shards = (None if shot_devices is None or len(shot_devices) < 2
+              else shot_shards(geom.ns, shot_devices))
+    if shards is not None and backend == 'plain':
+        return torch.cat([forward_modeling(
+            v_pad.to(dev), replace(geom, isx=geom.isx[lo:hi]), chunk=chunk,
+            backend='plain').to(v_pad.device) for dev, lo, hi in shards],
+            dim=1)
     b, _, hp, wp = v_pad.shape
     alpha, temp1, temp2, beta_pts = coefficients(v_pad, geom)
     src_chunks = source_chunks(geom, chunk, v_pad.device)
@@ -261,7 +291,8 @@ def forward_modeling(v_pad: torch.Tensor, geom: Geometry, *, chunk: int = 20,
     if backend == 'kernel':
         chunk_fn = stencil_chunk_fn(alpha=alpha, temp1=temp1, temp2=temp2,
                                     beta_pts=beta_pts, geom=geom,
-                                    chunk=chunk, mode=adjoint)
+                                    chunk=chunk, mode=adjoint,
+                                    shot_shards=shards)
     elif backend == 'plain':
         dev = v_pad.device
         src_idx = (torch.arange(b, device=dev)[:, None],
@@ -283,8 +314,12 @@ def forward_modeling(v_pad: torch.Tensor, geom: Geometry, *, chunk: int = 20,
         raise ValueError(f"unknown backend {backend!r} "
                          "(expected 'kernel' or 'plain')")
 
-    shape = (b, geom.ns, hp, wp)
-    carry = (v_pad.new_zeros(shape), v_pad.new_zeros(shape))
+    if shards is None:
+        shape = (b, geom.ns, hp, wp)
+        carry = (v_pad.new_zeros(shape), v_pad.new_zeros(shape))
+    else:
+        carry = tuple(torch.zeros((b, hi - lo, hp, wp), device=dev)
+                      for dev, lo, hi in shards for _ in range(2))
     recs = []
     for src_chunk in src_chunks:
         carry, r = chunk_fn(carry, src_chunk)
@@ -327,6 +362,16 @@ class FWIForward:
         self.chunk = chunk
         self.remat = remat
         self.adjoint = adjoint
+        self.shot_devices = None
+
+    def sharded(self, devices) -> 'FWIForward':
+        """A copy of the operator for one data shard of a device mesh: its
+        input on ``devices[0]``, its shots split over ``devices`` (one
+        shot shard each; :func:`forward_modeling`'s ``shot_devices``)."""
+        op = copy.copy(self)
+        op.device = torch.device(devices[0])
+        op.shot_devices = [torch.device(d) for d in devices]
+        return op
 
     def __call__(self, v_norm: torch.Tensor) -> torch.Tensor:
         check_on(v_norm, self.device, 'v_norm')
@@ -335,7 +380,8 @@ class FWIForward:
         v_pad = edge_pad(v, self.geom.nbc)
         s = forward_modeling(v_pad, self.geom, chunk=self.chunk,
                              remat=self.remat, backend=self.backend,
-                             adjoint=self.adjoint)
+                             adjoint=self.adjoint,
+                             shot_devices=self.shot_devices)
         if self.normalize and self.s_norm_func is not None:
             s = self.s_norm_func(s)
         return s

@@ -78,14 +78,20 @@ DEVICE = ('append', ['device'],
 KEY = ('key', ['generator', 'noise_draw', 'trace_mask'],
        "a torch.Generator in place of the PRNG key, then the explicit "
        "draws that let tests feed JAX's")
+FLAX = [('parent', [], "flax's module plumbing, which a torch module has "
+          'no use for'),
+        ('name', [], "flax's module name, likewise")]
 ALLOWED = {
+    'Unet': FLAX,
     'FWIForward': [DEVICE],
     'InversionEngine': [DEVICE],
     'InversionEngine.optimize': [KEY],
     'DiffusionFWI': [DEVICE],
     'ILVR_FWI': [DEVICE],
     'GaussianDiffusion': [DEVICE],
-    'forward_modeling': [],
+    'forward_modeling': [('append', ['shot_devices'],
+                          "the devices of a data shard's shot shards, "
+                          "which JAX's sharding annotations carry")],
     'RegularizationMethod': [],
 }
 

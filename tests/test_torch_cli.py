@@ -179,17 +179,25 @@ def test_cli_flags_and_what_is_not_ported(monkeypatch, tmp_path):
     with pytest.raises(SystemExit):
         cli.build_parser().parse_args(['--solver_backend', 'xla'])
 
+    # A mesh is ported: tpu.mesh_* build one, over the CPU repeated with
+    # --device cpu; on the card it needs as many cards as shards.
     cfg = get_config()
-    cfg.tpu.mesh_data = 2
-    with pytest.raises(NotImplementedError, match='multi-GPU'):
-        cli.check_ported(cfg)
+    assert cli.build_mesh(cfg, 'cpu') is None
+    cfg.tpu.mesh_data, cfg.tpu.mesh_shot = 2, 5
+    mesh = cli.build_mesh(cfg, 'cpu')
+    assert mesh.shape == {'data': 2, 'shot': 5}
+    assert list(mesh.devices.flat) == [torch.device('cpu')] * 10
+    monkeypatch.setattr(torch.cuda, 'device_count', lambda: 1)
+    with pytest.raises(ValueError, match='needs 10 cards, and 1 are'):
+        cli.build_mesh(cfg, 'cuda')
+    assert cli.build_mesh(cfg, 'cuda', ['cpu'] * 10).shape['shot'] == 5
     # tpu.bf16_unet is ported: it reaches the denoiser as half_precision.
     cfg = get_config()
     cfg.model.dim, cfg.model.dim_mults = 8, (1, 2)
     cfg.diffusion.image_size = 16
     for bf16 in (True, False):
         cfg.tpu.bf16_unet = bf16
-        cli.check_ported(cfg)
+        assert cli.build_mesh(cfg, 'cpu') is None
         d = cli.build_diffusion_model(cfg, load_weights=False, device='cpu')
         assert d.half_precision is bf16
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)

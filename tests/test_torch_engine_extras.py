@@ -138,8 +138,14 @@ def test_argument_checks_raise_as_in_jax(problem, kw):
 
 
 def test_a_mesh_is_not_ported(problem):
-    with pytest.raises(NotImplementedError, match='multi-GPU'):
+    """A mesh is ported now (``tests/test_torch_parallel.py``); what is not
+    a mesh of :func:`make_mesh` is refused, and so is a mesh of another
+    device type than the engine's."""
+    from red_diffeq_tpu_torch.parallel.mesh import make_mesh
+    with pytest.raises(TypeError, match='make_mesh'):
         _run(problem, ts=1, mesh=object())
+    with pytest.raises(ValueError, match='the mesh lies on meta'):
+        _run(problem, ts=1, mesh=make_mesh(1, 1, ['meta']))
 
 
 def test_profile_dir_writes_a_chrome_trace(problem, tmp_path, monkeypatch):

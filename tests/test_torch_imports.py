@@ -7,12 +7,13 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ('jax', 'flax', 'optax', 'msgpack', 'yaml', 'ml_collections',
-             'red_diffeq_tpu')
+             'red_diffeq_tpu', 'convert_torch_checkpoint')
 SOURCES = sorted((REPO / 'red_diffeq_tpu_torch').rglob('*.py')) + [
     REPO / 'chip_smoke.py', REPO / 'tools' / 'export_ema_torch.py',
     REPO / 'tools' / 'torch_layout_probe.py',
     REPO / 'tools' / 'torch_probe_breakdown.py',
-    REPO / 'tools' / 'torch_bf16_breakdown.py'] + [
+    REPO / 'tools' / 'torch_bf16_breakdown.py',
+    REPO / 'tools' / 'torch_convert_checkpoint.py'] + [
     REPO / 'tools' / f'torch_{name}.py' for name in (
         'quality', 'eval_quality', 'compare_methods', 'milestone_eval',
         'lambda_sweep', 'pick_best_milestone', 'quality_seeds')] + [
@@ -26,6 +27,12 @@ QUALITY_SLICE = ('tools/torch_eval_quality.py',
                  'tools/torch_pick_best_milestone.py',
                  'examples/torch_example_openfwi.py',
                  'examples/torch_example_marmousi.py')
+# The mesh slice's modules and the converter, which the walk above must
+# reach (the converter must not lean on the JAX tool either).
+MESH_SLICE = ('red_diffeq_tpu_torch/parallel/__init__.py',
+              'red_diffeq_tpu_torch/parallel/mesh.py',
+              'red_diffeq_tpu_torch/io/native_loader.py',
+              'tools/torch_convert_checkpoint.py')
 # The training slice's modules, which the walk above must reach.
 TRAINING_SLICE = ('red_diffeq_tpu_torch/models/trainer.py',
                   'red_diffeq_tpu_torch/cli/datagen.py',
@@ -56,6 +63,11 @@ def test_port_imports_nothing_of_jax(path):
 def test_training_slice_is_walked():
     walked = {str(p.relative_to(REPO)) for p in SOURCES}
     assert set(TRAINING_SLICE) <= walked
+
+
+def test_mesh_slice_is_walked():
+    walked = {str(p.relative_to(REPO)) for p in SOURCES}
+    assert set(MESH_SLICE) <= walked
 
 
 def test_quality_slice_is_walked():

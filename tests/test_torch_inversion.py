@@ -7,7 +7,9 @@ and the RED noise) are fed to the port. Tolerances: mu atol 1e-5 (the
 Adam step is 0.03, so this is 3e-4 of one update); losses and metrics
 rtol 1e-4. The same three steps at nbc=8, where the t2 guard takes the
 taped adjoint, hold the port's kernel backend to the JAX engine on its
-Pallas kernels in interpret mode.
+Pallas kernels in interpret mode. The sharded step over a (2 x 2) mesh of
+the CPU repeated, on the same draws for the whole batch, is held to the
+same unsharded JAX steps.
 """
 from functools import partial
 
@@ -31,6 +33,7 @@ from red_diffeq_tpu_torch.core import inversion
 from red_diffeq_tpu_torch.io.checkpoints import flax_to_state_dict
 from red_diffeq_tpu_torch.models.diffusion import GaussianDiffusion
 from red_diffeq_tpu_torch.models.unet import Unet
+from red_diffeq_tpu_torch.parallel.mesh import make_mesh
 from red_diffeq_tpu_torch.regularization.base import make_reg_fn
 from red_diffeq_tpu_torch.ops.stencil import resolve_run_config
 from red_diffeq_tpu_torch.solvers.acoustic import FWIForward, Geometry
@@ -177,6 +180,38 @@ def _check_three_steps(r, ctx, backend):
             **{k: torch.from_numpy(np.array(v)) for k, v in d.items()})
         np.testing.assert_allclose(mu.numpy(), r['mus'][i], atol=1e-5,
                                    rtol=0)
+        for k in KEYS:
+            np.testing.assert_allclose(m[k].numpy(), r['metrics'][i][k],
+                                       rtol=1e-4, err_msg=k)
+        np.testing.assert_array_equal(m['t'].numpy(), r['metrics'][i]['t'])
+
+
+def test_sharded_red_steps_match_jax_on_the_reverse_route(jax_run):
+    """Three RED-DiffEq steps of the sharded step (data=2 x shot=2) at
+    nbc=60, where the kernel backend takes the tape-free adjoint (its
+    plain versions on the CPU), on JAX's U-Net weights and JAX's draws for
+    the whole batch, against the unsharded JAX steps."""
+    r = jax_run
+    op = FWIForward(CTX, v_denorm_func=tdt.v_denormalize,
+                    s_norm_func=tdt.s_normalize_none, backend='kernel',
+                    chunk=20, device='cpu')
+    unet = Unet(dim=8, dim_mults=(1, 2), channels=1)
+    unet.load_state_dict(flax_to_state_dict(r['params'], unet))
+    diff = GaussianDiffusion(unet, image_size=18, timesteps=20, device='cpu')
+    optimizer = inversion.Adam(inversion.cosine_decay_schedule(LR, TS))
+    y = torch.from_numpy(r['y'])
+    mesh = make_mesh(data=2, shot=2, devices=['cpu'] * 4)
+    steps = inversion._MeshSteps(
+        mesh, op, make_reg_fn('diffusion', diff), optimizer, LAM, SIGMA,
+        True, y, torch.ones_like(y),
+        tdt.v_normalize(torch.from_numpy(r['v_true'])))
+    mu = torch.from_numpy(r['mu0'])
+    mus, states = steps.split(mu), steps.split_state(optimizer.init(mu))
+    for i, d in enumerate(r['draws']):
+        mus, states, m = steps(mus, states, None, draws={
+            k: torch.from_numpy(np.array(v)) for k, v in d.items()})
+        np.testing.assert_allclose(steps.gather(mus).numpy(), r['mus'][i],
+                                   atol=1e-5, rtol=0)
         for k in KEYS:
             np.testing.assert_allclose(m[k].numpy(), r['metrics'][i][k],
                                        rtol=1e-4, err_msg=k)

@@ -20,6 +20,7 @@ operation alone (g++ -ffp-contract=off, nvcc -fmad=false), so the
 comparison is exact. The card's compiler, occupancy and speed are
 ``chip_smoke.py``'s to check.
 """
+import contextlib
 import hashlib
 import importlib.util
 import shutil
@@ -324,6 +325,74 @@ def test_tape_replay_size_limit(host_kernels):
         assert lib.rdt_tape_chunk_stream(*[None] * 8, 1, 1, h, w, 0, 4,
                                          ranks, planes, None) != 0, \
             (ranks, planes, h, w)
+
+
+class _Guarded(Exception):
+    pass
+
+
+def test_every_library_call_runs_on_its_tensors_device(host_kernels,
+                                                       monkeypatch):
+    """The library sets kernel attributes and asks for occupancy on the
+    current CUDA device, which the stream it is handed does not choose; so
+    each launcher makes its tensors' device current (``stencil.on_device``,
+    ``torch.cuda.device`` for a card) around every library call, the
+    launch and the blocking, cluster and plane queries alike. A stand-in
+    records the device made current at each call of the host build; the
+    layout probe's launcher enters the same guard first. (A card other
+    than the first is not there to show the fault itself.)"""
+    real = stencil.on_device
+    guard = real(torch.device('cuda', 1))
+    assert isinstance(guard, torch.cuda.device) and guard.idx == 1
+    assert isinstance(real(torch.device('cpu')), contextlib.nullcontext)
+    current, calls = [], []
+
+    @contextlib.contextmanager
+    def on_device(device):
+        current.append(device)
+        try:
+            yield
+        finally:
+            current.pop()
+
+    lib = stencil._load()
+
+    class Spy:
+        def __getattr__(self, name):
+            def call(*args):
+                calls.append((name, list(current)))
+                return getattr(lib, name)(*args)
+            return call
+
+    monkeypatch.setattr(stencil, 'on_device', on_device)
+    monkeypatch.setattr(stencil, '_lib', Spy())
+    b, ns, hp, wp, chunk, isz, igz, g0, ng = CASES[0]
+    d = _inputs(1, *CASES[0])
+    geo = dict(isz=isz, igz=igz, g0=g0, ng=ng)
+    coef = (d['alpha'], d['t1'], d['t2'], d['inj'], d['src'])
+    p0, p1, _ = stencil._fwd_chunk_kernel(d['p0'], d['p1'], *coef, **geo)
+    stencil._bwd_reverse_chunk_kernel(p0, p1, d['gp0'], d['gp1'], d['grec'],
+                                      *coef, **geo)
+    stencil._sum_shots_kernel(d['gp0'], d['gp1'], d['p0'])
+    tape = stencil._tape_chunk_kernel(d['p0'], d['p1'], *coef, isz=isz)
+    stencil._bwd_tape_chunk_kernel(tape, d['gp0'], d['gp1'], d['grec'],
+                                   d['alpha'], d['t1'], d['t2'], d['src'],
+                                   **geo)
+    names = {name for name, _ in calls}
+    assert {'rdt_fwd_chunk', 'rdt_bwd_reverse_chunk', 'rdt_sum_shots',
+            'rdt_tape_chunk', 'rdt_bwd_tape_chunk', 'rdt_blocking',
+            'rdt_tape_ranks'} <= names
+    assert all(devs == [torch.device('cpu')] for _, devs in calls), calls
+
+    from red_diffeq_tpu_torch.ops import layout_probe
+
+    def refuse(device):
+        raise _Guarded(device)
+
+    monkeypatch.setattr(stencil, 'on_device', refuse)
+    with pytest.raises(_Guarded):
+        layout_probe._run_variant_kernel('roll', torch.zeros(1, 8, 8), None,
+                                         None, None, None, nt=1)
 
 
 def test_tape_kernel_info_on_the_host_build(host_kernels):

@@ -31,7 +31,12 @@ operations stand in for it and the launch counters for its kernel counts),
 the headline's 14x14 problem, 2 samples, 3 steps, with a dim-8 U-Net of
 random weights as the prior (its SSIM gates opened: they hold only at the
 full protocol), the other tools at 2 steps, 2 competitor outer steps, and
-the OpenFWI example at the preset's width with nt=60. Times printed are
+the OpenFWI example at the preset's width with nt=60; the mesh slice on
+the headline's 14x14 problem (a dim-8 U-Net of random weights, 3 steps
+over 2 x 5, the taped route over 2 x 1 for 2 steps), the CLI over its mesh
+at the OpenFWI preset's width with nt=60 for 2 steps, the trainer's split
+step at dim 8 and batch 16 for 2 steps, the U-Net fields at dim 8, and the
+converter on the shipped prior. Times printed are
 meaningless; device memory reads 0. Exits with ``chip_smoke.main()``'s code. About fifty
 minutes (the quality slice about twenty of them).
 """
@@ -196,6 +201,25 @@ def main():
         return tools
 
     ns['quality_tools'] = small_quality_tools
+    ns['MESH_NARROW'] = dict(data=2, shot=1)
+    ns['MESH_NARROW_TS'], ns['MESH_CLI_TS'] = 2, 2
+    ns['MESH_TRAIN_STEPS'], ns['MESH_TRAIN_BATCH'] = 2, 16
+    ns['MESH_TRAIN_SIZE'] = 16
+    ns['MESH_TRAIN_UNET'] = dict(dim=8, dim_mults=(1, 2))
+    ns['MESH_UNET'] = dict(ns['MESH_UNET'], dim=8)
+    phase_mesh = ns['phase_mesh']
+
+    def small_mesh(dev, root):
+        prior = ns['load_prior']
+        ns['load_prior'] = lambda dev: GaussianDiffusion(
+            Unet(dim=8, dim_mults=(1, 2, 4, 8)), image_size=16,
+            timesteps=1000, device=dev)
+        try:
+            return phase_mesh(dev, root)
+        finally:
+            ns['load_prior'] = prior
+
+    ns['phase_mesh'] = small_mesh
     ns['cuda_ms'] = lambda fn, reps, warm=True: (fn(), 0.0)[1]
     ns['graph_ms'] = ns['cuda_ms']
     smi = types.SimpleNamespace(stdout='CPU rehearsal, 0 W\n')
