@@ -58,7 +58,8 @@ Phases, each printing its wall time:
    rtol 1e-4;
 8. the slice: the shipped prior read by the port's own reader, observations
    from the refined operator as ``bench.py`` makes them, and a few
-   RED-DiffEq steps of ``InversionEngine.optimize`` at the headline
+   RED-DiffEq steps of ``InversionEngine.optimize`` in its eager loop
+   (``use_scan=False``, where a hook sees every step) at the headline
    settings, where the t2 guard takes the tape-free adjoint, with the
    launch counts of that route's kernels (ceil(chunk/U) launches per chunk
    of each blocked kernel, one ``sum_shots`` per chunk), the tape kernels
@@ -79,8 +80,8 @@ Phases, each printing its wall time:
    ``configs/overthrust/tikhonov.yaml`` read and written back with the
    port's own config reader and writer, pointed at it and at the shipped
    prior. The RED-DiffEq preset through the inversion CLI
-   (``red_diffeq_tpu_torch.cli.run_inversion.main``) for 20 steps of
-   sample 0: ceil(chunk/U) launches of ``fwd_step`` and
+   (``red_diffeq_tpu_torch.cli.run_inversion.main``) with
+   ``tpu.use_scan: false`` (the eager loop) for 20 steps of sample 0: ceil(chunk/U) launches of ``fwd_step`` and
    ``bwd_reverse_step`` and one ``sum_shots`` per chunk, the tape kernels
    never, the plain path unused, one U-Net call a step with the patched
    RED's 3 windows, the observation loss falling, the run directory's
@@ -179,10 +180,10 @@ Phases, each printing its wall time:
    public calls (``FWIForward(ctx, normalize=True, v_denorm_func=...,
    s_norm_func=...)``, ``InversionEngine(diffusion, None, 'diffusion')``,
    no device: the card). 20 steps with a snapshot every 10
-   (``checkpoint_path``), a run cut in step 11, and a fresh engine that
-   resumes it at step 10: its final model and all 20 steps' metrics equal
+   (``checkpoint_path``), a run cut just after its snapshot at step 10
+   (:func:`cut_after_snapshot`), and a fresh engine that resumes it: its final model and all 20 steps' metrics equal
    the uninterrupted run's bit for bit, under deterministic cuDNN. 5 steps
-   traced with ``profile_dir``: the Chrome trace names ``fwd_step``,
+   of the eager loop traced with ``profile_dir``: the Chrome trace names ``fwd_step``,
    ``bwd_reverse_step`` and ``sum_shots`` exactly as often as the launch
    counters count them (250, 250, 50 a step), no tape kernel; each
    kernel's, the U-Net's and the rest's device ms a step and the device
@@ -248,6 +249,25 @@ Phases, each printing its wall time:
    card against the CPU (max-rel 1e-4, TF32 off); the shipped prior
    written in the upstream layout and converted back by
    ``tools/torch_convert_checkpoint.py``, bit for bit.
+19. the scan slice, the JAX engine's whole-loop dispatch: at the headline
+   (B=4, 70x70, nt=1000, 5 shots, the shipped prior, chunk 20), 20 steps
+   of ``optimize(use_scan=True)`` (a CUDA graph of the step, captured at
+   the first step and replayed; ``core/graphs.py``) against
+   ``use_scan=False`` (the eager loop), each graphed run (the capture, then
+   the kept graph's replays) the eager one bit for bit (the model and
+   every curve) with the same launches, on the tape-free route, the taped
+   route forced, nbc=40 (taped by the guard) and the bf16 U-Net; a replay's
+   launches 250 / 250 / 50 at the headline by the counters; s/step of both
+   modes by the host clock, the capture's seconds, the pool's bytes and
+   the peak allocated memory of both; ``segment_steps=7`` and a resume
+   from the snapshot at step 14 (snapshots every 7) equal the unsegmented
+   graph bit for bit; one ``warm_compile`` capture serves three runs; a
+   ``profile_dir`` trace of 3 replays names each kernel as often as the
+   counters count it, and its device window's idle share is printed; a
+   traced run that captures under the profiler, likewise; the (2 x 5)
+   mesh of the card repeated for 5 steps; the wide CLI (Marmousi preset,
+   310x430, 5 steps) with ``tpu.use_scan`` true and false writing the same
+   ``0_results.npz``; the plain backend at phase 7's 16x16 for 3 steps.
 
 With ``--write-wide-dataset DIR`` (``--write-bench-dataset DIR``) the
 script only writes the wide (bench) slice's datasets and configs under DIR
@@ -262,7 +282,9 @@ wide slice's CLI run and under ``bench`` the launches of the bench slice's
 DiffusionFWI run and under ``training`` those of the training slice's
 seismogram run and under ``quality`` those of the quality slice's eval
 tool run and under ``mesh`` those of the mesh slice's sharded headline
-(``launches``, over ``shards``) and taped (``launches_taped``) runs; then ``tape_step_stream`` with the launches of the
+(``launches``, over ``shards``) and taped (``launches_taped``) runs and
+under ``scan`` those of the scan slice's replayed headline run and nbc=40
+run and one replay's; then ``tape_step_stream`` with the launches of the
 gradient past the cluster limit (420x420) and ``tape_step_global`` with
 those of the gradient past ``tape_step_stream``'s (680x680) and its times
 forced at 420x420, the four probe kernels with the
@@ -275,6 +297,7 @@ Any failed check raises and the script exits non-zero. Without a CUDA
 device, or without the package beside it, it exits non-zero and prints no
 result.
 """
+import contextlib
 import json
 import subprocess
 import sys
@@ -1088,7 +1111,8 @@ def slice_problem(dev, ctx):
 
 def phase_slice(dev, diffusion, ctx, problem, route, adjoint=None):
     """``TS`` RED-DiffEq steps of ``InversionEngine.optimize`` at ``ctx``
-    after a one-step warm-up. Checks that the solver took ``route``; that
+    after a one-step warm-up, in the eager loop (``use_scan=False``: the
+    U-Net hook fires at every step; the scan slice runs the graph). Checks that the solver took ``route``; that
     the blocked kernels of the route (the forward and the tape-free or the
     taped adjoint) launched ceil(chunk/U) times per chunk, ``sum_shots``
     once per chunk and, on the taped route, ``tape_step`` once per chunk;
@@ -1122,7 +1146,7 @@ def phase_slice(dev, diffusion, ctx, problem, route, adjoint=None):
         out = engine.optimize(problem['mu0'], problem['v_true'],
                               problem['y'], op, ts=ts, lr=0.03,
                               reg_lambda=0.75, generator=gen,
-                              progress=False)
+                              progress=False, use_scan=False)
         torch.cuda.synchronize()
         return out
 
@@ -1349,10 +1373,13 @@ def phase_wide(dev, root):
     """The wide slice: the Marmousi preset through the CLI on the kernels
     (the tape-free route, the 3 windows of the patched RED in one U-Net
     call a step), then the TV and Tikhonov presets with corrupted
-    observations. Returns (launches, s per step by the U-Net calls'
-    events, U by kernel, the preset's pde settings)."""
+    observations. The RED-DiffEq run takes the eager loop
+    (``tpu.use_scan: false``), where the U-Net hook sees every step.
+    Returns (launches, s per step by the U-Net calls' events, U by kernel,
+    the preset's pde settings)."""
+    from pathlib import Path
     import torch
-    from red_diffeq_tpu_torch.config import load_config
+    from red_diffeq_tpu_torch.config import load_config, save_config
     from red_diffeq_tpu_torch.ops import stencil
     from red_diffeq_tpu_torch.solvers import acoustic
 
@@ -1363,8 +1390,13 @@ def phase_wide(dev, root):
     route = stencil.resolve_run_config(geom, CHUNK, None)[0]
     check(route == 'reverse', f'the wide preset takes {route!r}')
 
-    seen = run_cli(dev, ['--config', str(paths[WIDE_PRESET]), '--ts',
-                    str(WIDE_TS), '--sample_index', '0'])
+    # The U-Net hook fires at every step only in the eager loop.
+    cfg = load_config(paths[WIDE_PRESET])
+    cfg.tpu.use_scan = False
+    eager_cfg = Path(root) / 'marmousi-red-diffeq-eager.yaml'
+    save_config(cfg, eager_cfg)
+    seen = run_cli(dev, ['--config', str(eager_cfg), '--ts', str(WIDE_TS),
+                         '--sample_index', '0'])
     counts, chunks = seen['launches'], WIDE_TS * -(-ctx['nt'] // CHUNK)
     want = dict.fromkeys(counts, 0)
     for name in ('fwd_step', 'bwd_reverse_step'):
@@ -2606,7 +2638,30 @@ API_KERNELS = ('fwd_step', 'bwd_reverse_step', 'sum_shots')
 
 
 class Interrupted(Exception):
-    """Raised by the api slice's forward to cut a run short."""
+    """Raised to cut a run short (:func:`cut_after_snapshot`)."""
+
+
+@contextlib.contextmanager
+def cut_after_snapshot(step):
+    """Within the block, an inversion run raises :class:`Interrupted` just
+    after it has written its snapshot of ``step`` steps, as a run killed
+    there would leave it; the block absorbs the raise."""
+    from red_diffeq_tpu_torch.core import inversion
+    save = inversion._save_snapshot
+
+    def save_and_cut(path, at, *a, **kw):
+        save(path, at, *a, **kw)
+        if at == step:
+            raise Interrupted
+
+    inversion._save_snapshot = save_and_cut
+    try:
+        yield
+        check(False, f'the run was not cut at step {step}')
+    except Interrupted:
+        pass
+    finally:
+        inversion._save_snapshot = save
 
 
 def trace_split(path, steps):
@@ -2647,16 +2702,22 @@ def trace_split(path, steps):
                 us['unet'] += e['dur']
                 continue
         us['rest'] += e['dur']
+    busy, window = device_window(device)
+    ms = {k: v / steps / 1e3 for k, v in us.items()}
+    return (launches, ms, 1.0 - busy / window, window / steps / 1e3,
+            sum(host) / steps / 1e3)
+
+
+def device_window(device):
+    """(µs in which some device activity of ``device``, a trace's events,
+    runs; µs from the first to the last)."""
     spans = sorted((e['ts'], e['ts'] + e['dur']) for e in device)
     busy, end = 0.0, spans[0][0]
     for a, b in spans:
         if b > end:
             busy += b - max(a, end)
             end = b
-    window = end - spans[0][0]
-    ms = {k: v / steps / 1e3 for k, v in us.items()}
-    return (launches, ms, 1.0 - busy / window, window / steps / 1e3,
-            sum(host) / steps / 1e3)
+    return busy, end - spans[0][0]
 
 
 def phase_api(dev, root, training):
@@ -2698,30 +2759,21 @@ def phase_api(dev, root, training):
         return all(np.array_equal(np.array(x[k]), np.array(y[k]))
                    for x, y in zip(a, b) for k in x)
 
-    # 1. Resume, under deterministic cuDNN.
+    # 1. Resume, under deterministic cuDNN. The run is cut just after its
+    # snapshot at API_RESUME_AT (the graphed loop runs no Python per step
+    # that a cut could raise from).
     cudnn = torch.backends.cudnn
     saved = cudnn.deterministic, cudnn.benchmark
     cudnn.deterministic, cudnn.benchmark = True, False
-    calls = []
-
-    def cut(v):
-        calls.append(1)
-        if len(calls) > API_RESUME_AT:
-            raise Interrupted
-        return op(v)
-
     try:
         engine = rdt.InversionEngine(diffusion, None, 'diffusion')
         t0 = time.perf_counter()
         want_mu, want = run(engine, API_TS, checkpoint_path=root / 'a.pt',
                             checkpoint_every=API_RESUME_AT)
         full_s = time.perf_counter() - t0
-        try:
-            run(engine, API_TS, fwd=cut, checkpoint_path=root / 'b.pt',
+        with cut_after_snapshot(API_RESUME_AT):
+            run(engine, API_TS, checkpoint_path=root / 'b.pt',
                 checkpoint_every=API_RESUME_AT)
-            check(False, 'the cut run was not cut')
-        except Interrupted:
-            pass
         fresh = rdt.InversionEngine(diffusion, None, 'diffusion')
         got_mu, got = run(fresh, API_TS, checkpoint_path=root / 'b.pt',
                           checkpoint_every=API_RESUME_AT, resume=True)
@@ -2740,10 +2792,12 @@ def phase_api(dev, root, training):
           + ', '.join(f'{c["ssim"][0]:.4f} -> {c["ssim"][-1]:.4f}'
                       for c in got), flush=True)
 
-    # 2. The trace of API_TRACE_TS steps.
+    # 2. The trace of API_TRACE_TS steps of the eager loop (each step's
+    # U-Net range holds its kernels; the scan slice traces the graph).
     stencil.reset_launches()
     t0 = time.perf_counter()
-    run(engine, API_TRACE_TS, profile_dir=str(root / 'trace'))
+    run(engine, API_TRACE_TS, profile_dir=str(root / 'trace'),
+        use_scan=False)
     traced_s = (time.perf_counter() - t0) / API_TRACE_TS
     counts = dict(stencil.launches)
     files = sorted((root / 'trace').glob('*.pt.trace.json'))
@@ -2793,12 +2847,12 @@ def phase_api(dev, root, training):
     s_step = {}
     for label, d in (('fp32', diffusion), ('bf16', d16)):
         eng = rdt.InversionEngine(d, None, 'diffusion')
-        run(eng, 1)
+        run(eng, 1, use_scan=False)
         seen, handle = step_events(d.model)
         acoustic.plain_chunk_calls['chunk'] = 0
         t0 = time.perf_counter()
         try:
-            mu, curves = run(eng, API_TS)
+            mu, curves = run(eng, API_TS, use_scan=False)
         finally:
             handle.remove()
         host = (time.perf_counter() - t0) / API_TS
@@ -2830,6 +2884,7 @@ def phase_api(dev, root, training):
     paths = write_wide_dataset(dev, root / 'wide')
     cfg = load_config(paths[WIDE_PRESET])
     cfg.tpu.bf16_unet = True
+    cfg.tpu.use_scan = False        # the dtype hook sees every step
     bf16_cfg = root / 'marmousi-red-diffeq-bf16.yaml'
     save_config(cfg, bf16_cfg)
     built = []
@@ -3601,6 +3656,339 @@ def phase_mesh(dev, root):
     return out
 
 
+# The scan slice: the JAX engine's whole-loop dispatch as a CUDA graph of
+# the step (core/graphs.py), at the headline. SCAN_TS steps a run, graphed
+# against eager on each route; segments of SCAN_SEGMENT steps and snapshots
+# as often, the resume from SCAN_RESUME_AT; a trace of SCAN_TRACE_TS
+# replays; the mesh for SCAN_MESH_TS steps; the wide CLI for SCAN_CLI_TS;
+# the plain backend at phase_small_reference's size for SCAN_PLAIN_TS.
+SCAN_TS, SCAN_SEGMENT, SCAN_RESUME_AT = 20, 7, 14
+SCAN_TRACE_TS, SCAN_MESH_TS, SCAN_CLI_TS, SCAN_PLAIN_TS = 3, 5, 5, 3
+SMALL = dict(n_grid=16, nt=100, dx=10.0, dt=0.001, nbc=60, f=15.0, sz=10,
+             gz=10, ng=16, ns=2)
+
+
+def same_run(a, b):
+    """Whether two runs' (mu, curves) are equal bit for bit."""
+    import torch
+    return torch.equal(a[0], b[0]) and all(
+        np.array_equal(np.asarray(x[k]), np.asarray(y[k]))
+        for x, y in zip(a[1], b[1]) for k in x)
+
+
+def scan_runner(dev, engine, op, problem, ts, mesh=None):
+    """A function running ``ts`` steps of ``engine.optimize`` on
+    ``problem`` from one generator seed, its keywords passed on, with the
+    launch counters, the plain path's chunks and the peak device memory
+    set to 0 just before it and read just after; returns (mu, curves), s
+    a step by the host clock, launches, plain chunks, peak bytes."""
+    import torch
+    from red_diffeq_tpu_torch.ops import stencil
+    from red_diffeq_tpu_torch.solvers import acoustic
+
+    def run(**kw):
+        gen = torch.Generator(device=dev).manual_seed(8888)
+        torch.cuda.synchronize()
+        stencil.reset_launches()
+        acoustic.plain_chunk_calls['chunk'] = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = engine.optimize(problem['mu0'], problem['v_true'],
+                              problem['y'], op, ts=ts, lr=0.03,
+                              reg_lambda=0.75, generator=gen,
+                              progress=False, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        return dict(out=out, s=(time.perf_counter() - t0) / ts,
+                    launches=dict(stencil.launches),
+                    plain=acoustic.plain_chunk_calls['chunk'],
+                    peak=torch.cuda.max_memory_allocated())
+
+    return run
+
+
+def scan_pair(label, run, engine, ts, want=None):
+    """Graph against eager: ``run`` eagerly (``use_scan=False``), graphed
+    (the first step eager, then the capture), graphed again (the kept
+    graph's replays, no capture) and eagerly again. Each graphed run equals
+    the eager one bit for bit (the model, every curve) and launches as it
+    did; one capture. ``want``: a launches dict one replay must make.
+    Returns the numbers of each mode (s a step by the host clock of the
+    second run of each, the graph's capture seconds, pool bytes, launches
+    a replay, peak bytes) and the graphed run."""
+    captures = engine.graph_captures
+    eager, first, graphed, eager2 = (run(use_scan=False),
+                                     run(use_scan=True), run(use_scan=True),
+                                     run(use_scan=False))
+    check(engine.graph_captures == captures + 1, f'{label}: '
+          f'{engine.graph_captures - captures} captures, expected 1')
+    info = engine.graph_info()[-1]
+    per_step = {k: n // ts for k, n in eager['launches'].items() if n}
+    if eager['plain']:
+        per_step['plain_chunk'] = eager['plain'] // ts
+    for name, r in (('captured', first), ('replayed', graphed),
+                    ('eager again', eager2)):
+        d = float((r['out'][0] - eager['out'][0]).abs().max())
+        check(same_run(r['out'], eager['out']), f'{label}: the {name} run '
+              f'differs from the eager one (max |d mu| {d:.3e})')
+        check(r['launches'] == eager['launches']
+              and r['plain'] == eager['plain'], f'{label}: the {name} run '
+              f'launched {r["launches"]} (plain {r["plain"]}), the eager '
+              f'one {eager["launches"]} (plain {eager["plain"]})')
+    check(info['launches'] == per_step and (want is None
+                                            or info['launches'] == want),
+          f'{label}: a replay launches {info["launches"]}, an eager step '
+          f'{per_step}' + ('' if want is None else f', expected {want}'))
+    res = dict(s_eager=eager2['s'], s_graph=graphed['s'],
+               s_first=first['s'], capture_s=info['seconds'],
+               pool_bytes=info['pool_bytes'], per_replay=info['launches'],
+               peak_eager=eager2['peak'], peak_graph=graphed['peak'],
+               peak_capture=first['peak'], launches=graphed['launches'])
+    print(f'{label}: graphed = eager bit for bit over {ts} steps; '
+          f'{res["s_graph"]:.4f} s/step graphed against '
+          f'{res["s_eager"]:.4f} eager (host clock; '
+          f'{res["s_first"]:.4f} with the capture), capture '
+          f'{res["capture_s"]:.3f} s, pool {res["pool_bytes"] / 2**20:.1f} '
+          f'MiB, a replay launches {res["per_replay"]}; peak allocated '
+          f'{res["peak_graph"] / 2**20:.1f} MiB replaying, '
+          f'{res["peak_capture"] / 2**20:.1f} capturing, '
+          f'{res["peak_eager"] / 2**20:.1f} eager', flush=True)
+    return res, graphed['out']
+
+
+def scan_trace_kernels(trace_dir, run, want, label):
+    """The Chrome trace in ``trace_dir`` of a SCAN_TRACE_TS-step ``run``
+    (:func:`scan_runner`'s): its kernels by name equal the run's counters
+    and SCAN_TRACE_TS times ``want``, one ``inversion_step`` range a step.
+    Returns its device events."""
+    import re
+    files = sorted(trace_dir.glob('*.pt.trace.json'))
+    check(len(files) == 1, f'{label}: profile_dir holds {files}')
+    events = json.loads(files[0].read_text())['traceEvents']
+    device = [e for e in events if e.get('ph') == 'X'
+              and e.get('cat') in DEVICE_CATS]
+    names = (*API_KERNELS, *TAPE_KERNELS, 'bwd_tape_step')
+    kernels = dict.fromkeys(names, 0)
+    for e in device:
+        hit = [k for k in names if e['cat'] == 'kernel'
+               and re.search(rf'\b{k}\b', e['name'])]
+        if hit:
+            kernels[hit[0]] += 1
+    steps = [e for e in events if e.get('name') == 'inversion_step'
+             and e.get('ph') == 'X' and e.get('cat') == 'user_annotation']
+    expect = {k: SCAN_TRACE_TS * want.get(k, 0) for k in names}
+    check(kernels == expect == {k: run['launches'][k] for k in names},
+          f'{label}: kernels {kernels}, counters {run["launches"]}, '
+          f'expected {expect}')
+    check(len(steps) == SCAN_TRACE_TS, f'{label}: {len(steps)} '
+          f'inversion_step ranges, expected {SCAN_TRACE_TS}')
+    print(f'{label}: kernels {kernels} (= the counters)', flush=True)
+    return device
+
+
+def scan_trace(dev, engine, op, problem, root, want):
+    """SCAN_TRACE_TS replays of a graph ``warm_compile`` captured, traced
+    with ``profile_dir``: the trace's kernels by name equal the counters
+    and SCAN_TRACE_TS times ``want`` (a replay's launches); then a traced
+    run that captures its graph under the profiler, likewise. Returns the
+    device window's idle share and its ms a step of the first."""
+    y = problem['y']
+    engine.warm_compile(problem['mu0'].shape, y.shape, op,
+                        ts=SCAN_TRACE_TS, lr=0.03, reg_lambda=0.75)
+    captures = engine.graph_captures
+    r = scan_runner(dev, engine, op, problem, SCAN_TRACE_TS)(
+        profile_dir=str(root / 'scan_trace'))
+    check(engine.graph_captures == captures, 'the traced run captured')
+    device = scan_trace_kernels(root / 'scan_trace', r, want,
+                                'scan trace')
+    engine.release_graphs()
+    r2 = scan_runner(dev, engine, op, problem, SCAN_TRACE_TS)(
+        profile_dir=str(root / 'scan_trace_capture'))
+    check(engine.graph_captures == captures + 1, 'the second traced run '
+          'did not capture')
+    scan_trace_kernels(root / 'scan_trace_capture', r2, want,
+                       'scan trace with the capture')
+    busy, window = device_window(device)
+    idle = 1.0 - busy / window
+    print(f'scan trace ({SCAN_TRACE_TS} replays of a warm_compile graph): '
+          f'the device window {window / SCAN_TRACE_TS / 1e3:.3f} ms a step, '
+          f'busy {busy / SCAN_TRACE_TS / 1e3:.3f}, idle {idle:.2%}; '
+          f'{r["s"]:.4f} s/step by the host clock under the profiler',
+          flush=True)
+    return idle, window / SCAN_TRACE_TS / 1e3
+
+
+def phase_scan(dev, root):
+    """The scan slice (see SCAN_TS above): ``optimize(use_scan=True)``, a
+    CUDA graph of the step captured at the first step and replayed, against
+    the eager loop, bit for bit, on the tape-free route, the taped route
+    forced, nbc=40 (taped by the guard) and the bf16 U-Net; segments and a
+    resume against the unsegmented graph; one ``warm_compile`` capture
+    serving three runs; the launches of a replay by the counters and by a
+    trace, with the graphed step's idle share; the (2 x 5) mesh over the
+    card; the wide CLI with ``tpu.use_scan`` true against false; the plain
+    backend. Returns the numbers and the headline's launches."""
+    from pathlib import Path
+    import torch
+    from red_diffeq_tpu_torch.config import load_config, save_config
+    from red_diffeq_tpu_torch.core.inversion import InversionEngine
+    from red_diffeq_tpu_torch.models.diffusion import GaussianDiffusion
+    from red_diffeq_tpu_torch.models.unet import Unet
+    from red_diffeq_tpu_torch.parallel.mesh import make_mesh
+    from red_diffeq_tpu_torch.solvers import acoustic
+    from red_diffeq_tpu_torch.utils.data_trans import (
+        s_normalize_none, v_denormalize, v_normalize,
+    )
+
+    root = Path(root)
+    diffusion = load_prior(dev)
+    out = {}
+
+    def operator(ctx, adjoint=None, backend='auto'):
+        return acoustic.FWIForward(ctx, v_denorm_func=v_denormalize,
+                                   s_norm_func=s_normalize_none, chunk=CHUNK,
+                                   adjoint=adjoint, backend=backend,
+                                   device=dev)
+
+    hp = HEADLINE['n_grid'] + 2 * HEADLINE['nbc']
+    want = {k: n for k, n in route_launches(1, HEADLINE['nt'], hp,
+                                            hp).items() if n}
+    problem = slice_problem(dev, HEADLINE)
+    op = operator(HEADLINE)
+    engine = InversionEngine(diffusion, regularization='diffusion',
+                             sigma_x0=1e-4, device=dev)
+    run = scan_runner(dev, engine, op, problem, SCAN_TS)
+    out['reverse'], graphed = scan_pair('scan, headline (reverse)', run,
+                                        engine, SCAN_TS, want)
+
+    # Segments, snapshots and the resume, against the unsegmented graph.
+    seg = run(segment_steps=SCAN_SEGMENT)
+    check(same_run(seg['out'], graphed), f'segment_steps={SCAN_SEGMENT} '
+          'differs from the unsegmented graph')
+    with cut_after_snapshot(SCAN_RESUME_AT):
+        run(checkpoint_path=root / 'scan.pt', checkpoint_every=SCAN_SEGMENT)
+    fresh = InversionEngine(diffusion, regularization='diffusion',
+                            sigma_x0=1e-4, device=dev)
+    resumed = scan_runner(dev, fresh, op, problem, SCAN_TS)(
+        checkpoint_path=root / 'scan.pt', checkpoint_every=SCAN_SEGMENT,
+        resume=True)
+    check(same_run(resumed['out'], graphed), f'the graphed run resumed at '
+          f'step {SCAN_RESUME_AT} differs from the uninterrupted one')
+    print(f'scan: segment_steps={SCAN_SEGMENT} and a resume at step '
+          f'{SCAN_RESUME_AT} (snapshots every {SCAN_SEGMENT}) equal the '
+          'unsegmented graph bit for bit', flush=True)
+    del fresh
+
+    # One warm_compile capture serves three runs.
+    warm = InversionEngine(diffusion, regularization='diffusion',
+                           sigma_x0=1e-4, device=dev)
+    rec = warm.warm_compile(problem['mu0'].shape, problem['y'].shape, op,
+                            ts=SCAN_TS, lr=0.03, reg_lambda=0.75)
+    check(rec['graph'] is not None and rec['graph']['launches'] == want
+          and rec['launches'] == want, f'warm_compile: {rec}')
+    wrun = scan_runner(dev, warm, op, problem, SCAN_TS)
+    calls = [wrun() for _ in range(3)]
+    check(warm.graph_captures == 1 and all(same_run(c['out'], graphed)
+                                           for c in calls),
+          f'warm_compile: {warm.graph_captures} captures for three runs, '
+          'or a run differs from the graphed one')
+    out['cache'] = dict(warm_s=rec['seconds'],
+                        capture_s=rec['graph']['seconds'],
+                        first_s=calls[0]['s'], third_s=calls[2]['s'])
+    print(f'scan: warm_compile {rec["seconds"]:.3f} s (capture '
+          f'{rec["graph"]["seconds"]:.3f} s), then 1 capture for 3 runs: '
+          f'{calls[0]["s"]:.4f} s/step the first, {calls[2]["s"]:.4f} the '
+          'third', flush=True)
+    warm.release_graphs()
+    del warm
+
+    # The launches by a trace, and the graphed step's idle share.
+    out['idle'], out['window_ms'] = scan_trace(dev, engine, op, problem,
+                                               root, want)
+    engine.release_graphs()
+
+    # The taped route forced, and the bf16 U-Net.
+    tape_want = {k: n for k, n in mesh_route_launches(
+        'tape', 1, HEADLINE['nt'], hp, hp).items() if n}
+    out['tape'], _ = scan_pair(
+        'scan, headline (tape forced)',
+        scan_runner(dev, engine, operator(HEADLINE, 'tape'), problem,
+                    SCAN_TS), engine, SCAN_TS, tape_want)
+    diffusion.half_precision = True
+    try:
+        out['bf16'], _ = scan_pair('scan, headline bf16 U-Net', run, engine,
+                                   SCAN_TS, want)
+    finally:
+        diffusion.half_precision = False
+    engine.release_graphs()
+
+    # The mesh over the card repeated.
+    mesh = make_mesh(devices=mesh_devices(dev, MESH['data'] * MESH['shot']),
+                     **MESH)
+    out['mesh'], _ = scan_pair(
+        f'scan, mesh {MESH["data"]} x {MESH["shot"]}',
+        scan_runner(dev, engine, op, problem, SCAN_MESH_TS, mesh=mesh),
+        engine, SCAN_MESH_TS)
+    engine.release_graphs()
+    del problem
+
+    # nbc=40: the guard's taped route.
+    hn = NARROW['n_grid'] + 2 * NARROW['nbc']
+    narrow = slice_problem(dev, NARROW)
+    out['narrow'], _ = scan_pair(
+        f'scan, nbc={NARROW["nbc"]} (tape)',
+        scan_runner(dev, engine, operator(NARROW), narrow, SCAN_TS), engine,
+        SCAN_TS, {k: n for k, n in mesh_route_launches(
+            'tape', 1, NARROW['nt'], hn, hn).items() if n})
+    engine.release_graphs()
+    del narrow, engine
+
+    # The wide CLI, tpu.use_scan true against false.
+    paths = write_wide_dataset(dev, root / 'wide')
+    results = {}
+    for flag in (True, False):
+        cfg = load_config(paths[WIDE_PRESET])
+        cfg.tpu.use_scan = flag
+        cfg.experiment.results_dir = str(root / f'scan_cli_{flag}')
+        path = root / f'scan-cli-{flag}.yaml'
+        save_config(cfg, path)
+        seen = run_cli(dev, ['--config', str(path), '--ts', str(SCAN_CLI_TS),
+                             '--sample_index', '0'])
+        npz = sorted(seen['out'].glob('*/0_results.npz'))
+        check(len(npz) == 1, f'scan CLI ({flag}): {npz}')
+        results[flag] = (np.load(npz[0]), seen['wall_s'])
+    d_scan, d_eager = results[True][0], results[False][0]
+    check(sorted(d_scan.files) == sorted(NPZ_KEYS)
+          and all(np.array_equal(d_scan[k], d_eager[k]) for k in NPZ_KEYS),
+          'scan CLI: the graphed run\'s 0_results.npz differs from the '
+          'eager one\'s')
+    out['cli_s'] = {flag: r[1] for flag, r in results.items()}
+    print(f'scan, wide CLI ({WIDE_ROWS}x{load_config(paths[WIDE_PRESET]).pde.n_grid}'
+          f', {SCAN_CLI_TS} steps): tpu.use_scan true and false write the '
+          f'same 0_results.npz; {results[True][1]:.2f} s against '
+          f'{results[False][1]:.2f} s for the CLI', flush=True)
+
+    # The plain backend at phase_small_reference's size.
+    torch.manual_seed(0)
+    small = GaussianDiffusion(Unet(dim=8, dim_mults=(1, 2), channels=1),
+                              image_size=18, timesteps=20, device=dev)
+    v_true = np.full((2, 1, 16, 16), 2000.0, np.float32)
+    v_true[:, :, 9:] = 3200.0
+    plain_op = operator(SMALL, backend='plain')
+    with torch.no_grad():
+        y = plain_op(v_normalize(torch.from_numpy(v_true).to(dev)))
+    mu0 = np.pad(np.full((2, 1, 16, 16), -0.2, np.float32),
+                 ((0, 0), (0, 0), (1, 1), (1, 1)))
+    small_engine = InversionEngine(small, regularization='diffusion',
+                                   sigma_x0=1e-4, device=dev)
+    out['plain'], _ = scan_pair(
+        'scan, plain backend (16x16)',
+        scan_runner(dev, small_engine, plain_op,
+                    dict(mu0=mu0, v_true=v_true, y=y), SCAN_PLAIN_TS),
+        small_engine, SCAN_PLAIN_TS)
+    small_engine.release_graphs()
+    return out
+
+
 def main(argv=None):
     """Run every phase (no arguments), or with ``--write-wide-dataset DIR``
     or ``--write-bench-dataset DIR`` only write that slice's dataset and
@@ -3719,6 +4107,9 @@ def main(argv=None):
     with Phase('mesh slice'):
         with tempfile.TemporaryDirectory() as root:
             mesh = phase_mesh(dev, root)
+    with Phase('scan slice'):
+        with tempfile.TemporaryDirectory() as root:
+            scan = phase_scan(dev, root)
 
     n_chunks = len(p['src'])
     steps = n_chunks * CHUNK
@@ -3779,6 +4170,15 @@ def main(argv=None):
             shards=MESH['data'] * MESH['shot'],
             launches_taped=mesh['narrow']['counts'][k['name']],
             shards_taped=MESH_NARROW['data'] * MESH_NARROW['shot'])
+        # The scan slice's replayed headline run (its route's kernels) and
+        # nbc=40 run (the taped route's), and one replay's launches.
+        k['scan'] = dict(
+            launches=scan['reverse']['launches'][k['name']],
+            launches_per_replay=scan['reverse']['per_replay'].get(
+                k['name'], 0),
+            launches_taped=scan['narrow']['launches'][k['name']],
+            launches_per_replay_taped=scan['narrow']['per_replay'].get(
+                k['name'], 0))
     # The tape replay past tape_step's cluster limit (420x420, B=1):
     # tape_step_stream's launches in the velocity gradient there, its
     # numbers from that phase, its registers, planes and resident clusters
@@ -3946,6 +4346,22 @@ def main(argv=None):
           f'{tr["s_one"]:.4f}), losses rel {tr["rel"]:.3e}; U-Net fields '
           f'max-rel {mesh["unet_rel"]:.3e}; converter {mesh["convert_s"]:.2f}'
           ' s', flush=True)
+    print('scan slice (graphed s/step against eager by the host clock, '
+          'capture s, pool MiB): '
+          + '; '.join(f'{label} {scan[k]["s_graph"]:.4f} against '
+                      f'{scan[k]["s_eager"]:.4f}, {scan[k]["capture_s"]:.3f}'
+                      f' s, {scan[k]["pool_bytes"] / 2**20:.1f} MiB'
+                      for k, label in (('reverse', 'headline'),
+                                       ('tape', "'tape' forced"),
+                                       ('narrow', f'nbc={NARROW["nbc"]}'),
+                                       ('bf16', 'bf16 U-Net'),
+                                       ('mesh', 'mesh'),
+                                       ('plain', 'plain backend')))
+          + f'; a graphed headline step idles {scan["idle"]:.2%} of its '
+          f'{scan["window_ms"]:.3f} ms device window (traced); '
+          f'warm_compile then 3 runs on 1 capture: '
+          f'{scan["cache"]["first_s"]:.4f} s/step the first, '
+          f'{scan["cache"]["third_s"]:.4f} the third', flush=True)
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -15,9 +15,12 @@ Run it on the card (the default) or, with ``--device cpu``, on the CPU:
 ``--solver_backend`` is 'auto' (the kernels on the card, the plain path on
 the CPU), 'plain' or 'kernel'; a config file's 'xla' and 'pallas' are read
 as 'plain' and 'kernel'. ``tpu.bf16_unet`` runs the U-Net in bf16
-(``GaussianDiffusion(half_precision=True)``). ``tpu.remat`` and
-``tpu.use_scan`` are passed on as in the JAX CLI and change nothing (the
-step loop is a host loop). ``tpu.mesh_data`` x ``tpu.mesh_shot`` > 1 runs
+(``GaussianDiffusion(half_precision=True)``). ``tpu.use_scan`` (default
+true, the presets' setting) is passed on as in the JAX CLI: on the card the
+inversion step is a CUDA graph, captured at a batch's first step and
+replayed (``InversionEngine.optimize``); false runs the eager loop.
+``tpu.remat`` is accepted and changes nothing: the port always recomputes a
+chunk in its backward. ``tpu.mesh_data`` x ``tpu.mesh_shot`` > 1 runs
 each batch over a ('data', 'shot') mesh of the visible cards
 (:func:`build_mesh`; ``['cpu'] * (data * shot)`` with ``--device cpu``).
 The datasets are read through the native loader

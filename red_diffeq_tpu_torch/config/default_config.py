@@ -5,9 +5,11 @@ sections and values (``pde``, ``model``, ``diffusion``, ``optimization``,
 ``data``, ``experiment``, ``tpu``), as a :class:`ConfigDict` of the port's
 own. Of the ``tpu`` section the port reads ``solver_backend`` ('auto',
 'plain' or 'kernel'; a file's 'xla' and 'pallas' are read as 'plain' and
-'kernel') and ``solver_chunk``; ``remat`` and ``use_scan`` have no
-counterpart (the plain path always recomputes each chunk in its backward,
-and the step loop is a host loop); ``mesh_data`` x ``mesh_shot`` > 1 runs
+'kernel') and ``solver_chunk``; ``use_scan`` (the JAX engine's whole-loop
+scan) replays the step as a CUDA graph on the card
+(``InversionEngine.optimize``); ``remat`` has no counterpart (the port
+always recomputes each chunk in its backward); ``mesh_data`` x
+``mesh_shot`` > 1 runs
 the inversion over a device mesh (``parallel/mesh.py``); ``bf16_unet``
 runs the U-Net in bf16.
 """

@@ -30,6 +30,9 @@ from typing import Callable, Dict, Optional
 import torch
 from torch.profiler import record_function
 
+from red_diffeq_tpu_torch.core.graphs import (
+    METRICS, GraphCache, StepBuffers, StepGraph,
+)
 from red_diffeq_tpu_torch.core.losses import observation_loss, total_loss
 from red_diffeq_tpu_torch.core.metrics import calculate_metrics
 from red_diffeq_tpu_torch.io.checkpoints import atomic_write_bytes
@@ -49,35 +52,41 @@ _F32 = torch.float32
 def constant_schedule(value: float):
     """A constant rate in float32, as ``optax.adam(value)`` takes it."""
 
-    def schedule(count: int) -> torch.Tensor:
-        return torch.tensor(value, dtype=_F32)
+    def schedule(count: torch.Tensor) -> torch.Tensor:
+        return torch.full((), value, dtype=_F32, device=count.device)
 
     return schedule
 
 
 def cosine_decay_schedule(init_value: float, decay_steps: int):
     """``optax.cosine_decay_schedule(init_value, decay_steps, alpha=0)`` in
-    float32: lr(k) = init * 0.5 * (1 + cos(pi * min(k, decay) / decay))."""
+    float32 on the count's device: lr(k) = init * 0.5 * (1 + cos(pi *
+    min(k, decay) / decay))."""
 
-    def schedule(count: int) -> torch.Tensor:
-        c = torch.tensor(min(count, decay_steps), dtype=_F32)
+    def schedule(count: torch.Tensor) -> torch.Tensor:
+        c = count.clamp(max=decay_steps).to(_F32)
         decayed = 0.5 * (1 + torch.cos(math.pi * c / decay_steps))
-        return torch.tensor(init_value, dtype=_F32) * decayed
+        return init_value * decayed
 
     return schedule
 
 
 class Adam:
     """``optax.adam(schedule)`` (b1 0.9, b2 0.999, eps 1e-8 added after the
-    square root) on one tensor, as a pure update."""
+    square root) on one tensor, as a pure update. The step count is an
+    int32 tensor on the parameters' device, as optax's, and the rate and
+    the bias corrections are computed there from it, so that a CUDA graph
+    of the update reads the count of the step it replays."""
 
-    def __init__(self, schedule: Callable[[int], torch.Tensor],
+    def __init__(self, schedule: Callable[[torch.Tensor], torch.Tensor],
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
         self.schedule = schedule
         self.b1, self.b2, self.eps = b1, b2, eps
 
     def init(self, params: torch.Tensor) -> Dict:
-        return {'count': 0, 'mu': torch.zeros_like(params),
+        return {'count': torch.zeros((), dtype=torch.int32,
+                                     device=params.device),
+                'mu': torch.zeros_like(params),
                 'nu': torch.zeros_like(params)}
 
     def update(self, grads: torch.Tensor, state: Dict):
@@ -86,13 +95,11 @@ class Adam:
         mu = (1 - b1) * grads + b1 * state['mu']
         nu = (1 - b2) * (grads * grads) + b2 * state['nu']
         count = state['count'] + 1
-        bc1 = 1 - torch.tensor(b1, dtype=_F32) ** count
-        bc2 = 1 - torch.tensor(b2, dtype=_F32) ** count
-        mu_hat = mu / bc1.to(mu.device)
-        nu_hat = nu / bc2.to(nu.device)
+        k = count.to(_F32)
+        mu_hat = mu / (1 - b1 ** k)
+        nu_hat = nu / (1 - b2 ** k)
         updates = mu_hat / (torch.sqrt(nu_hat) + self.eps)
-        step_size = -self.schedule(state['count'])
-        updates = updates * step_size.to(updates.device)
+        updates = updates * -self.schedule(state['count'])
         return updates, {'count': count, 'mu': mu, 'nu': nu}
 
 
@@ -136,6 +143,20 @@ def make_inversion_step(fwi_fn: Callable, reg_fn: Callable, optimizer: Adam,
     return step
 
 
+def _step_draws(reg_fn, is_diffusion: bool, shape, generator, device):
+    """One step's draws in the order the step makes them: the ``sigma_x0``
+    noise of ``shape`` (diffusion only), then RED's timesteps and noise
+    (``reg_fn.draws``)."""
+    out = {}
+    if is_diffusion:
+        out['x0_noise'] = torch.randn(shape, generator=generator,
+                                      device=device, dtype=_F32)
+    if hasattr(reg_fn, 'draws'):
+        out['t'], out['reg_noise'] = reg_fn.draws(shape, generator, device,
+                                                  _F32)
+    return out
+
+
 class _MeshSteps:
     """The inversion step over a ('data', 'shot') mesh. The model, Adam's
     moments, the observations, their mask and the targets of the metrics
@@ -165,7 +186,8 @@ class _MeshSteps:
             for d in range(self.data)]
 
     def split(self, x):
-        """One part of ``x`` (B, ...) per data shard, on its first device."""
+        """One part of ``x`` (B, ...) per data shard, on its first device
+        (a view of ``x`` where that is ``x``'s device)."""
         return [x[self.batch.index(x.shape, d, 0)].to(self.mesh.device(d, 0))
                 for d in range(self.data)]
 
@@ -175,11 +197,11 @@ class _MeshSteps:
 
     def split_state(self, state):
         mus, nus = self.split(state['mu']), self.split(state['nu'])
-        return [{'count': state['count'], 'mu': m, 'nu': n}
+        return [{'count': state['count'].to(m.device), 'mu': m, 'nu': n}
                 for m, n in zip(mus, nus)]
 
     def gather_state(self, states):
-        return {'count': states[0]['count'],
+        return {'count': states[0]['count'].to(self.mesh.first_device),
                 'mu': self.gather([s['mu'] for s in states]),
                 'nu': self.gather([s['nu'] for s in states])}
 
@@ -189,18 +211,12 @@ class _MeshSteps:
         whole batch's ``x0_noise``, ``t`` and ``reg_noise``), each shard's
         slice of them. Returns (parts of mu, Adam states, metrics gathered
         on the mesh's first device)."""
-        if draws is not None:
-            x0_noise, t, noise = (draws.get(k) for k in
-                                  ('x0_noise', 't', 'reg_noise'))
-        else:
-            gdev = generator.device
+        if draws is None:
             shape = (sum(m.shape[0] for m in mus), *mus[0].shape[1:])
-            x0_noise = t = noise = None
-            if self.is_diffusion:
-                x0_noise = torch.randn(shape, generator=generator,
-                                       device=gdev, dtype=_F32)
-            if hasattr(self.reg_fn, 'draws'):
-                t, noise = self.reg_fn.draws(shape, generator, gdev, _F32)
+            draws = _step_draws(self.reg_fn, self.is_diffusion, shape,
+                                generator, generator.device)
+        x0_noise, t, noise = (draws.get(k) for k in
+                              ('x0_noise', 't', 'reg_noise'))
         out_mu, out_states, out_metrics = [], [], []
         lo = 0
         for d, (step, mu, state) in enumerate(zip(self.steps, mus, states)):
@@ -223,13 +239,55 @@ class _MeshSteps:
         return out_mu, out_states, metrics
 
 
+def _one_device(mesh) -> bool:
+    return len({torch.device(d) for d in mesh.devices.flat}) == 1
+
+
+def _operator_key(fwi_forward):
+    """The operator's part of a step graph's key, as the JAX engine's
+    ``_operator_key``: an :class:`FWIForward` by its geometry, backend,
+    chunk, adjoint and the route that resolves to, its normalisation and
+    its devices; any other callable by itself (held, so that a recycled
+    id never aliases a stale graph)."""
+    if not hasattr(fwi_forward, 'geom'):
+        return fwi_forward
+    from red_diffeq_tpu_torch.ops import stencil
+    route = fwi_forward.backend
+    if route == 'kernel':
+        route, _ = stencil.resolve_run_config(
+            fwi_forward.geom, fwi_forward.chunk, fwi_forward.adjoint)
+    return (fwi_forward.geom, fwi_forward.backend, fwi_forward.chunk,
+            fwi_forward.adjoint, route, fwi_forward.normalize,
+            fwi_forward.v_denorm_func, fwi_forward.s_norm_func,
+            fwi_forward.device, tuple(fwi_forward.shot_devices or ()))
+
+
+def _sync(dev) -> None:
+    if dev.type == 'cuda':
+        torch.cuda.synchronize(dev)
+
+
+def _print_step(i: int, ts: int, m) -> None:
+    t_str = (f"  t {int(round(float(m['t'].float().mean())))}"
+             if 't' in m else '')
+    print(f"step {i:4d}/{ts}"
+          f"  MAE {float(m['mae'].mean()):.4f}"
+          f"  RMSE {float(m['rmse'].mean()):.4f}"
+          f"  SSIM {float(m['ssim'].mean()):.4f}"
+          + t_str, flush=True)
+
+
 class InversionEngine:
     """Drives the velocity-model optimisation on ``device`` (default
     ``'cuda'``; without a card it raises unless ``device='cpu'``).
     ``diffusion_model`` is a GaussianDiffusion bundle, or None when no
     diffusion regularisation is used. ``ssim_loss`` is accepted for the JAX
     signature and unused, as there: the metrics take the batched
-    functional SSIM."""
+    functional SSIM.
+
+    On the card :meth:`optimize` replays a CUDA graph of the step
+    (``core/graphs.py``), which the engine keeps per configuration
+    (:meth:`_cache_key`) until :meth:`release_graphs`."""
 
     def __init__(self, diffusion_model=None, ssim_loss=None,
                  regularization: Optional[str] = None,
@@ -244,6 +302,76 @@ class InversionEngine:
         self.use_time_weight = use_time_weight
         self.sigma_x0 = sigma_x0
         self.fixed_timestep = fixed_timestep
+        self._graphs = GraphCache()
+
+    def _cache_key(self, reg_name, ts, lr, reg_lambda, mu_shape, y_shape,
+                   fwi_forward, mesh=None):
+        """(configuration, weights stamp) of a step graph. The
+        configuration is the JAX engine's ``_cache_key`` (regulariser, ts,
+        lr, lambda, sigma_x0, the shapes, the operator) with the engine's
+        other settings, its device, the mesh, and for 'diffusion' the
+        bundle and its precision; the stamp is the U-Net weights' identity
+        and version (:meth:`GaussianDiffusion.weights_stamp`), which a
+        ``params`` assignment or a train step changes."""
+        d = self.diffusion_model if reg_name == 'diffusion' else None
+        config = (reg_name, int(ts), float(lr), float(reg_lambda),
+                  float(self.sigma_x0), bool(self.use_time_weight),
+                  self.fixed_timestep, tuple(mu_shape), tuple(y_shape),
+                  _operator_key(fwi_forward), self.device, mesh, d,
+                  None if d is None else bool(d.half_precision))
+        return config, None if d is None else d.weights_stamp()
+
+    def release_graphs(self) -> None:
+        """Free the captured step graphs and their memory pools."""
+        self._graphs.release()
+
+    @property
+    def graph_captures(self) -> int:
+        """Step graphs this engine has captured."""
+        return self._graphs.captures
+
+    def graph_info(self):
+        """What each kept step graph holds: the kernel ``launches`` of one
+        replay, the capture's ``seconds``, the pool's ``pool_bytes``."""
+        return self._graphs.info()
+
+    def _scan_buffers(self, mesh, fwi_forward, reg_fn, optimizer, reg_lambda,
+                      is_diffusion, mu_shape, ts, y, mask, mu_true_norm):
+        """The step on fixed buffers (:class:`StepBuffers`) for ``ts``
+        steps, its inputs ``y``, ``mask`` and ``mu_true_norm`` loaded;
+        ``split`` and ``gather`` map a whole (B, ...) tensor to the model's
+        parts and back."""
+        history = dict.fromkeys(METRICS, _F32)
+        if is_diffusion:
+            history['t'] = torch.int64
+        bufs = StepBuffers(tuple(y.shape), tuple(mu_true_norm.shape), ts,
+                           history, self.device)
+        bufs.load_inputs(y, mask, mu_true_norm)
+        zeros = torch.zeros(mu_shape, dtype=_F32, device=self.device)
+        if mesh is None:
+            step = make_inversion_step(fwi_forward, reg_fn, optimizer,
+                                       reg_lambda, self.sigma_x0,
+                                       is_diffusion)
+
+            def advance(mus, states, draws):
+                mu, state, m = step(mus[0], states[0], y=bufs.y,
+                                    mask=bufs.mask,
+                                    mu_true_norm=bufs.target, **draws)
+                return [mu], [state], m
+
+            bufs.split, bufs.gather = (lambda x: [x]), (lambda p: p[0])
+            bufs.bind(advance, [zeros])
+            return bufs
+        shards = _MeshSteps(mesh, fwi_forward, reg_fn, optimizer, reg_lambda,
+                            self.sigma_x0, is_diffusion, bufs.y, bufs.mask,
+                            bufs.target)
+
+        def advance(mus, states, draws):
+            return shards(mus, states, None, draws=draws)
+
+        bufs.split, bufs.gather = shards.split, shards.gather
+        bufs.bind(advance, shards.split(zeros))
+        return bufs
 
     def warm_compile(self, mu_shape, y_shape, fwi_forward, ts: int = 300,
                      lr: float = 0.03, reg_lambda: float = 0.01,
@@ -258,20 +386,27 @@ class InversionEngine:
         load, the adjoint route the operator resolves for these shapes,
         the first launch of each kernel on it, and the first U-Net call at
         the configuration's batch and precision (where cuDNN picks its
-        algorithms). Its draws come from a generator of its own, so it
-        changes nothing that ``optimize`` reads: no draw from the caller's
-        or the global generators, no Adam state, no curve. It runs the
-        same on every device. ``params_template`` (a flax parameter tree,
-        the JAX signature's) is checked against the U-Net's parameters and
-        is not loaded; ``use_scan``, ``ts`` and ``lr`` change nothing the
-        step launches. The JAX method's checks raise as there (e.g.
-        'diffusion' without a model).
+        algorithms). On the card with ``use_scan`` that step is the
+        warm-up of the step's CUDA graph for this configuration
+        (``ts``, ``lr`` and ``reg_lambda`` included), which is then
+        captured and kept, so that :meth:`optimize` with the same
+        configuration replays it with no capture of its own. The step's
+        draws come from a generator of its own, so it changes nothing that
+        ``optimize`` reads: no draw from the caller's or the global
+        generators, no Adam state, no curve. On the CPU, or without
+        ``use_scan``, the step runs and nothing is captured.
+        ``params_template`` (a flax parameter tree, the JAX signature's)
+        is checked against the U-Net's parameters and is not loaded. The
+        JAX method's checks raise as there (e.g. 'diffusion' without a
+        model).
 
         Returns what it warmed: the operator's ``backend``, the adjoint
         ``route`` ('reverse' or 'tape' on the kernel backend, else the
         backend's name), the steps per launch of each blocked kernel it
-        launched (``unroll``), each kernel's ``launches`` and the
-        ``seconds`` it took."""
+        launched (``unroll``), each kernel's ``launches`` in the step, the
+        ``seconds`` it took, and ``graph``: None, or what the capture
+        made (the kernel ``launches`` of one replay, the capture's
+        ``seconds`` and the memory pool's ``pool_bytes``)."""
         from red_diffeq_tpu_torch.ops import stencil
 
         mu_shape, y_shape = tuple(mu_shape), tuple(y_shape)
@@ -302,8 +437,6 @@ class InversionEngine:
 
         dev = self.device
         optimizer = Adam(cosine_decay_schedule(lr, ts))
-        step = make_inversion_step(fwi_forward, reg_fn, optimizer,
-                                   reg_lambda, self.sigma_x0, is_diffusion)
         mu = torch.zeros(mu_shape, dtype=_F32, device=dev)
         y = torch.zeros(y_shape, dtype=_F32, device=dev)
         b, c, hp, wp = mu_shape
@@ -313,10 +446,27 @@ class InversionEngine:
         own.manual_seed(0)
         before = dict(stencil.launches)
         t0 = time.perf_counter()
-        step(mu, optimizer.init(mu), y=y, mask=torch.ones_like(y),
-             mu_true_norm=mu_true_norm, generator=own)
-        if dev.type == 'cuda':
-            torch.cuda.synchronize(dev)
+        captured = None
+        if dev.type == 'cuda' and use_scan:
+            bufs = self._scan_buffers(None, fwi_forward, reg_fn, optimizer,
+                                      reg_lambda, is_diffusion, mu_shape,
+                                      int(ts), y, torch.ones_like(y),
+                                      mu_true_norm)
+            bufs.fill_draws(lambda: _step_draws(reg_fn, is_diffusion,
+                                                mu_shape, own, dev),
+                            range(1), own)
+            graph = StepGraph(bufs)
+            self._graphs.put(*self._cache_key(
+                reg_name, ts, lr, reg_lambda, mu_shape, y_shape,
+                fwi_forward), graph)
+            captured = graph.info()
+        else:
+            step = make_inversion_step(fwi_forward, reg_fn, optimizer,
+                                       reg_lambda, self.sigma_x0,
+                                       is_diffusion)
+            step(mu, optimizer.init(mu), y=y, mask=torch.ones_like(y),
+                 mu_true_norm=mu_true_norm, generator=own)
+        _sync(dev)
         seconds = time.perf_counter() - t0
         launched = {k: n - before[k] for k, n in stencil.launches.items()
                     if n > before[k]}
@@ -328,7 +478,7 @@ class InversionEngine:
         return {'backend': backend, 'route': route,
                 'unroll': {k: stencil.last_unroll[k] for k in launched
                            if k in stencil.BLOCKED},
-                'launches': launched, 'seconds': seconds}
+                'launches': launched, 'seconds': seconds, 'graph': captured}
 
     def optimize(self, mu, mu_true, y, fwi_forward, ts: int = 300,
                  lr: float = 0.03, reg_lambda: float = 0.01,
@@ -365,22 +515,32 @@ class InversionEngine:
         Chrome trace in that directory (:func:`trace`); each step is the
         range ``inversion_step``.
 
-        Checkpoint/resume: with ``checkpoint_path``, after every
-        ``checkpoint_every`` steps and at the last, a snapshot (the step,
-        ``mu``, Adam's count and moments, the metrics so far and the
-        generator's state) is written there with ``torch.save``;
-        ``resume=True`` continues from the file's step if the file exists.
-        The resumed steps draw from the saved generator state, after the
-        corruption has drawn from ``generator`` as in the first run, so a
-        resume repeats the uninterrupted run exactly when ``generator``
-        starts in the same state.
+        ``use_scan=True`` (the default), the JAX engine's whole-loop scan:
+        on the card the step is a CUDA graph (``core/graphs.py``), captured
+        at the first step of a configuration (or by :meth:`warm_compile`)
+        and replayed for every step. Every step's draws are made before the
+        loop from ``generator``, in the order and shapes the eager loop
+        draws them, so the values are the same; the metrics stay on the
+        card in a (ts, B) history until the end. The host waits for the
+        card only at a ``progress`` line, a segment's end, a snapshot and
+        the end. A capture or launch error raises. The timing line is the
+        host's clock over the replays after the first, to the card's
+        finish. On the CPU, which has no CUDA graph, the same loop calls
+        the step on its buffers directly, so both settings run eagerly
+        there, with the same results. ``use_scan=False``: the eager loop,
+        one step at a time, its draws made in the step. ``segment_steps``
+        (needs ``use_scan``) waits for the card every that many steps.
 
-        ``use_scan`` and ``segment_steps`` are accepted with the JAX
-        engine's checks (``checkpoint_path`` needs ``use_scan``;
-        ``segment_steps`` needs ``use_scan`` and excludes
-        ``checkpoint_path``) and change nothing else: the JAX engine scans
-        the loop in one program, or in segments, where this loop runs one
-        step at a time.
+        Checkpoint/resume (needs ``use_scan``, excludes
+        ``segment_steps``, as in the JAX engine): with ``checkpoint_path``,
+        after every ``checkpoint_every`` steps and at the last, a snapshot
+        (the step, ``mu``, Adam's count and moments, the metrics so far and
+        the generator's state after that step's draws) is written there
+        with ``torch.save``; ``resume=True`` continues from the file's step
+        if the file exists. The resumed steps draw from the saved generator
+        state, after the corruption has drawn from ``generator`` as in the
+        first run, so a resume repeats the uninterrupted run exactly when
+        ``generator`` starts in the same state.
 
         ``mesh``: a ('data', 'shot') mesh (:func:`make_mesh`): the batch is
         split over 'data' and the shots over 'shot' (each must divide; a
@@ -388,7 +548,10 @@ class InversionEngine:
         engine's device before the split, each step draws for the whole
         batch and hands each data shard its slice, and the result and the
         curves are gathered on the mesh's first device. Snapshots hold the
-        gathered state, so a run resumes on any mesh or none."""
+        gathered state, so a run resumes on any mesh or none. A mesh whose
+        devices are all one card is one CUDA graph of all the shards'
+        steps; a mesh over distinct cards runs the steps eagerly (says
+        so)."""
         if mu.shape[0] != y.shape[0]:
             raise ValueError(
                 'Batch size mismatch between velocity and seismic data')
@@ -439,23 +602,41 @@ class InversionEngine:
                              use_time_weight=self.use_time_weight,
                              fixed_timestep=self.fixed_timestep)
         optimizer = Adam(cosine_decay_schedule(lr, ts))
-        step = make_inversion_step(fwi_forward, reg_fn, optimizer,
-                                   reg_lambda, self.sigma_x0, is_diffusion)
+        args = (mu, y, mask, mu_true_norm, generator, fwi_forward, reg_fn,
+                optimizer, reg_lambda, is_diffusion, ts, mesh, progress,
+                log_interval, profile_dir)
+        if use_scan:
+            mu, metrics = self._scan_loop(
+                *args, reg_name=reg_name, lr=lr,
+                path=None if checkpoint_path is None else Path(
+                    checkpoint_path),
+                every=max(1, int(checkpoint_every)), resume=resume,
+                seg=None if segment_steps is None
+                else max(1, int(segment_steps)))
+        else:
+            mu, metrics = self._eager_loop(*args)
+        per_model = [{k: list(metrics[k][:, i]) for k in METRICS}
+                     for i in range(mu.shape[0])]
+        return mu[:, :, 1:-1, 1:-1], per_model
+
+    def _eager_loop(self, mu, y, mask, mu_true_norm, generator, fwi_forward,
+                    reg_fn, optimizer, reg_lambda, is_diffusion, ts, mesh,
+                    progress, log_interval, profile_dir):
+        """``use_scan=False``: one step at a time, each drawing for
+        itself. Returns (mu, {metric: (ts, B) array})."""
+        dev = self.device
         opt_state = optimizer.init(mu)
-        history = []
-        start = 0
-        path = None if checkpoint_path is None else Path(checkpoint_path)
-        if resume and path is not None and path.exists():
-            start, mu, opt_state, history = _load_snapshot(path, dev,
-                                                           generator)
-            print(f'Resumed inversion from step {start} ({path})')
         if mesh is None:
+            step = make_inversion_step(fwi_forward, reg_fn, optimizer,
+                                       reg_lambda, self.sigma_x0,
+                                       is_diffusion)
+
             def advance(mu, opt_state):
                 return step(mu, opt_state, y=y, mask=mask,
                             mu_true_norm=mu_true_norm, generator=generator)
 
-            def gather(mu, opt_state):
-                return mu, opt_state
+            def gather(mu):
+                return mu
         else:
             shards = _MeshSteps(mesh, fwi_forward, reg_fn, optimizer,
                                 reg_lambda, self.sigma_x0, is_diffusion, y,
@@ -465,51 +646,109 @@ class InversionEngine:
             def advance(mu, opt_state):
                 return shards(mu, opt_state, generator)
 
-            def gather(mu, opt_state):
-                return shards.gather(mu), shards.gather_state(opt_state)
-        every = max(1, int(checkpoint_every))
+            gather = shards.gather
+        history = []
         timer = StepTimer()
         with trace(profile_dir, dev):
-            for i in range(start, ts):
+            for i in range(ts):
                 with timer, record_function('inversion_step'):
                     mu, opt_state, m = advance(mu, opt_state)
                 history.append(m)
                 if progress and (i % log_interval == 0 or i == ts - 1):
-                    t_str = (f"  t {int(round(float(m['t'].float().mean())))}"
-                             if 't' in m else '')
-                    print(f"step {i:4d}/{ts}"
-                          f"  MAE {float(m['mae'].mean()):.4f}"
-                          f"  RMSE {float(m['rmse'].mean()):.4f}"
-                          f"  SSIM {float(m['ssim'].mean()):.4f}"
-                          + t_str, flush=True)
-                if path is not None and ((i + 1 - start) % every == 0
-                                         or i == ts - 1):
-                    _save_snapshot(path, i + 1, *gather(mu, opt_state),
-                                   history, generator)
+                    _print_step(i, ts, m)
         if progress and timer.times:
             print(f'timing: {timer.summary()}', flush=True)
-        mu, _ = gather(mu, opt_state)
-
-        keys = ('total_losses', 'obs_losses', 'reg_losses', 'ssim', 'mae',
-                'rmse')
         metrics = {k: torch.stack([h[k] for h in history]).cpu().numpy()
-                   for k in keys}
-        per_model = [{k: list(metrics[k][:, i]) for k in keys}
-                     for i in range(mu.shape[0])]
-        return mu[:, :, 1:-1, 1:-1], per_model
+                   for k in METRICS}
+        return gather(mu), metrics
+
+    def _scan_loop(self, mu, y, mask, mu_true_norm, generator, fwi_forward,
+                   reg_fn, optimizer, reg_lambda, is_diffusion, ts, mesh,
+                   progress, log_interval, profile_dir, *, reg_name, lr,
+                   path, every, resume, seg):
+        """``use_scan=True``: the step on fixed buffers, replayed as a
+        CUDA graph on the card. Returns (mu, {metric: (ts, B) array})."""
+        dev = self.device
+        graphed = dev.type == 'cuda' and (mesh is None or _one_device(mesh))
+        if dev.type == 'cuda' and not graphed:
+            print(f'mesh over {len(set(mesh.devices.flat))} distinct cards: '
+                  'the steps run eagerly (no CUDA graph across cards)',
+                  flush=True)
+        start, opt_state, done = 0, optimizer.init(mu), None
+        if resume and path is not None and path.exists():
+            start, mu, opt_state, done = _load_snapshot(path, dev, generator)
+            print(f'Resumed inversion from step {start} ({path})')
+        graph = key = None
+        if graphed:
+            key, stamp = self._cache_key(reg_name, ts, lr, reg_lambda,
+                                         mu.shape, y.shape, fwi_forward, mesh)
+            graph = self._graphs.get(key, stamp)
+        if graph is not None:
+            bufs = graph.buffers
+            bufs.load_inputs(y, mask, mu_true_norm)
+        else:
+            bufs = self._scan_buffers(mesh, fwi_forward, reg_fn, optimizer,
+                                      reg_lambda, is_diffusion, mu.shape, ts,
+                                      y, mask, mu_true_norm)
+        bufs.load_state(bufs.split(mu), bufs.split(opt_state['mu']),
+                        bufs.split(opt_state['nu']), start)
+        if done is not None:
+            bufs.load_history(done)
+        saves = (set(range(start + every, ts + 1, every)) | {ts}
+                 if path is not None else set())
+        gen_states = bufs.fill_draws(
+            lambda: _step_draws(reg_fn, is_diffusion, mu.shape, generator,
+                                dev), range(start, ts), generator, saves)
+
+        timer = StepTimer()
+        t0 = None
+        with trace(profile_dir, dev):
+            for i in range(start, ts):
+                with record_function('inversion_step'):
+                    if graph is not None:
+                        graph.replay()
+                    elif graphed and i + 1 < ts:
+                        # Step i eagerly (the warm-up), then the capture.
+                        graph = StepGraph(bufs)
+                        self._graphs.put(key, stamp, graph)
+                    else:
+                        bufs.body()
+                if i == start:
+                    _sync(dev)
+                    t0 = time.perf_counter()
+                if progress and (i % log_interval == 0 or i == ts - 1):
+                    _print_step(i, ts, {k: h[i] for k, h in
+                                        bufs.history.items()})
+                if seg is not None and (i + 1) % seg == 0:
+                    _sync(dev)
+                if i + 1 in saves:
+                    _save_snapshot(
+                        path, i + 1, bufs.gather(bufs.mus),
+                        {'count': bufs.count, 'mu': bufs.gather(bufs.ms),
+                         'nu': bufs.gather(bufs.vs)},
+                        {k: h[:i + 1] for k, h in bufs.history.items()},
+                        gen_states[i + 1])
+            _sync(dev)
+        if ts - start > 1:
+            timer.add_span(time.perf_counter() - t0, ts - start - 1)
+        if progress and timer.times:
+            print(f'timing: {timer.summary()}', flush=True)
+        metrics = {k: bufs.history[k].cpu().numpy() for k in METRICS}
+        return bufs.gather(bufs.mus).clone(), metrics
 
 
-def _save_snapshot(path: Path, step: int, mu, opt_state, history,
-                   generator) -> None:
+def _save_snapshot(path: Path, step: int, mu, opt_state, metrics,
+                   generator_state) -> None:
     """The loop's state after ``step`` steps, written with ``torch.save``
-    through :func:`atomic_write_bytes`."""
-    metrics = {k: torch.stack([h[k] for h in history]).cpu()
-               for k in history[0]}
+    through :func:`atomic_write_bytes`: ``metrics`` the (step, B) history
+    of each metric, ``generator_state`` the generator's after that step's
+    draws."""
     snapshot = {'step': step, 'mu': mu.cpu(),
-                'opt_state': {'count': opt_state['count'],
+                'opt_state': {'count': int(opt_state['count']),
                               'mu': opt_state['mu'].cpu(),
                               'nu': opt_state['nu'].cpu()},
-                'metrics': metrics, 'generator': generator.get_state()}
+                'metrics': {k: v.cpu() for k, v in metrics.items()},
+                'generator': generator_state}
     buf = io.BytesIO()
     torch.save(snapshot, buf)
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -517,15 +756,14 @@ def _save_snapshot(path: Path, step: int, mu, opt_state, history,
 
 
 def _load_snapshot(path: Path, dev, generator):
-    """(step, mu, opt_state, per-step metrics) from a snapshot on ``dev``;
-    restores ``generator`` to the state it had after that step."""
+    """(step, mu, opt_state, the (step, B) metrics) from a snapshot on
+    ``dev``; restores ``generator`` to the state it had after that step's
+    draws."""
     snap = torch.load(io.BytesIO(path.read_bytes()), map_location=dev,
                       weights_only=True)
     generator.set_state(snap['generator'].cpu())
     opt = snap['opt_state']
-    metrics = snap['metrics']
-    history = [{k: v[i] for k, v in metrics.items()}
-               for i in range(snap['step'])]
+    count = torch.tensor(int(opt['count']), dtype=torch.int32, device=dev)
     return (snap['step'], snap['mu'],
-            {'count': opt['count'], 'mu': opt['mu'], 'nu': opt['nu']},
-            history)
+            {'count': count, 'mu': opt['mu'], 'nu': opt['nu']},
+            snap['metrics'])

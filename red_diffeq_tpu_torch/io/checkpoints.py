@@ -118,9 +118,33 @@ def unpackb(data: bytes):
     return out
 
 
-def load_params(path) -> dict:
-    """The raw flax state dict stored at ``path``."""
-    return unpackb(Path(path).read_bytes())
+def load_params(path, template=None):
+    """The raw flax state dict stored at ``path``; with ``template`` (a
+    tree of the same structure, as flax's ``from_bytes`` takes) the
+    template's structure with the file's leaves, raising where the file
+    lacks one of its keys."""
+    raw = unpackb(Path(path).read_bytes())
+    return raw if template is None else _restore(template, raw, '')
+
+
+def _restore(template, raw, where: str):
+    """``template``'s dicts, lists and tuples filled from the state dict
+    ``raw`` (a list there, or keyed '0', '1', ... as flax writes one)."""
+    if not isinstance(template, (dict, list, tuple)):
+        return raw
+    if isinstance(raw, (list, tuple)):
+        raw = {str(i): v for i, v in enumerate(raw)}
+    keys = (list(template) if isinstance(template, dict)
+            else [str(i) for i in range(len(template))])
+    missing = sorted(set(keys) - set(raw)) if isinstance(raw, dict) else keys
+    if missing:
+        raise ValueError(f'the checkpoint does not match the template at '
+                         f'{where or "the root"}: missing {missing}')
+    if isinstance(template, dict):
+        return {k: _restore(v, raw[k], f'{where}/{k}')
+                for k, v in template.items()}
+    return type(template)(_restore(v, raw[k], f'{where}/{k}')
+                          for v, k in zip(template, keys))
 
 
 class _Writer:
@@ -330,20 +354,25 @@ def export_ema(run, milestone='latest', out=None) -> Path:
     return src
 
 
-def load_diffusion_params(diffusion, path: Optional[Union[str, Path]]):
+def load_diffusion_params(diffusion, path: Optional[Union[str, Path]],
+                          verbose: bool = True):
     """Load the U-Net weights of ``diffusion`` from a flax checkpoint: the
     bare parameter tree or a training state ``{'ema_params': ...}``, the
     JAX trainer's or the port's milestone
     (counterpart of ``red_diffeq_tpu/io/checkpoints.py:47-70``). As the JAX
-    loader does, a missing file warns, naming the path, and keeps the
-    model's random weights."""
+    loader does, a missing file keeps the model's random weights and, with
+    ``verbose``, warns naming the path; a loaded one is reported with
+    ``verbose``."""
     if not path or not Path(path).exists():
-        warnings.warn(f'pretrained model not found at {path}; continuing '
-                      'with randomly initialized weights')
+        if verbose:
+            warnings.warn(f'pretrained model not found at {path}; continuing '
+                          'with randomly initialized weights')
         return diffusion
     raw = load_params(path)
     if 'ema_params' in raw:
         raw = raw['ema_params']
     sd = flax_to_state_dict(raw, diffusion.model)
     diffusion.model.load_state_dict(sd)
+    if verbose:
+        print(f'Loaded pretrained model from: {path}')
     return diffusion

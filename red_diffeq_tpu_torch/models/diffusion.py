@@ -11,6 +11,7 @@ JAX package's are one ``lax.scan``); their draws come from a
 feed JAX's draws. So do the training loss's (:meth:`GaussianDiffusion.loss`:
 the timesteps, the noise and the offset noise).
 """
+import copy
 from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional
 
@@ -205,12 +206,29 @@ class GaussianDiffusion:
         from red_diffeq_tpu_torch.io.checkpoints import flax_to_state_dict
         self.model.load_state_dict(flax_to_state_dict(tree, self.model))
 
+    def with_params(self, params) -> 'GaussianDiffusion':
+        """A bundle like this one whose U-Net holds ``params`` (a flax
+        parameter tree), as the JAX bundle's ``with_params``: a copy of the
+        U-Net, so this bundle's weights stay as they are."""
+        new = copy.copy(self)
+        new.model = copy.deepcopy(self.model)
+        new._bf16 = None
+        new.params = params
+        return new
+
+    def weights_stamp(self) -> tuple:
+        """The identity and version of each U-Net parameter. A ``params``
+        assignment (an in-place copy) or a train step changes it, and so
+        does a new parameter tensor; a CUDA graph of a step that reads the
+        weights (or their bf16 copy) is kept only under its stamp."""
+        return tuple((id(p), p._version) for p in self.model.parameters())
+
     def bf16_params(self) -> Dict[str, torch.Tensor]:
         """A bf16 copy of the U-Net's parameters, made again whenever a
         parameter has changed in place since the last copy (a loaded
         checkpoint, a train step)."""
         params = dict(self.model.named_parameters())
-        stamp = tuple((id(p), p._version) for p in params.values())
+        stamp = self.weights_stamp()
         if self._bf16 is None or self._bf16[0] != stamp:
             with torch.no_grad():
                 self._bf16 = (stamp, {n: p.detach().to(torch.bfloat16)
@@ -242,8 +260,12 @@ class GaussianDiffusion:
                                       x_self_cond).float()
             return self.model(x, t, x_self_cond)
 
-    def q_sample(self, x_start, t, noise):
-        """Diffuse ``x_start`` to timestep ``t``."""
+    def q_sample(self, x_start, t, noise=None, generator=None):
+        """Diffuse ``x_start`` to timestep ``t`` with ``noise``, drawn from
+        ``generator`` (the JAX method's ``key``) when not given."""
+        if noise is None:
+            noise = torch.randn(x_start.shape, generator=generator,
+                                device=x_start.device, dtype=x_start.dtype)
         s = self.schedule
         return (extract(s.sqrt_alphas_cumprod, t, x_start.ndim) * x_start
                 + extract(s.sqrt_one_minus_alphas_cumprod, t, x_start.ndim)
@@ -319,7 +341,7 @@ class GaussianDiffusion:
         return torch.randn(shape, generator=generator, device=self.device)
 
     @torch.no_grad()
-    def p_sample(self, x, t: int, noise=None, generator=None,
+    def p_sample(self, x, t: int, generator=None, noise=None,
                  x_self_cond=None):
         """One ancestral reverse step from timestep ``t``: the posterior
         mean plus its standard deviation times ``noise`` (drawn from
@@ -409,8 +431,8 @@ class GaussianDiffusion:
                   return_all_timesteps=return_all_timesteps)
 
     @torch.no_grad()
-    def interpolate(self, x1, x2, t: Optional[int] = None, lam: float = 0.5,
-                    noise=None, generator=None):
+    def interpolate(self, x1, x2, generator=None, t: Optional[int] = None,
+                    lam: float = 0.5, noise=None):
         """Diffuse ``x1`` and ``x2`` to timestep ``t`` (default T - 1), mix
         them with weight ``lam`` and run the ancestral chain from t - 1 to
         0. ``noise`` (t + 2, *x1.shape), if given, holds x1's and x2's

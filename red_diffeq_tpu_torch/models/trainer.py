@@ -579,7 +579,14 @@ class Trainer:
 
     # -- loop -------------------------------------------------------------
 
-    def train(self, log_every: int = 100):
+    def train(self, log_every: int = 100, steps_per_call: int = 20):
+        """Train to ``train_num_steps`` in calls of up to
+        ``steps_per_call`` steps, as the JAX trainer dispatches them: no
+        call crosses a milestone, a milestone is saved after the call that
+        reaches it, and the loss line is printed after a call that crosses
+        a multiple of ``log_every`` (``step % log_every < k`` for a call
+        of k steps). Here a call is k train steps from the host; the
+        losses stay on the card until a line or a milestone reads them."""
         t0 = time.time()
         step0 = self.step
         if self._device_data and self._data_dev is None:
@@ -588,10 +595,15 @@ class Trainer:
             print(f'dataset resident on the device '
                   f'({self.dataset.data.nbytes / 1e9:.2f} GB)', flush=True)
         while self.step < self.train_num_steps:
-            step = self.step
-            loss = self.train_step(self._next_batches())
-            self._pending.append((step, loss))
-            if self.step % log_every == 0:
+            to_milestone = self.save_and_sample_every - (
+                self.step % self.save_and_sample_every)
+            k = min(max(1, int(steps_per_call)),
+                    self.train_num_steps - self.step, to_milestone)
+            for _ in range(k):
+                step = self.step
+                loss = self.train_step(self._next_batches())
+                self._pending.append((step, loss))
+            if self.step % log_every < k:
                 self._flush_losses()
                 rate = (self.step - step0) / (time.time() - t0)
                 print(f'step {self.step}/{self.train_num_steps} loss '

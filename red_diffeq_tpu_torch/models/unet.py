@@ -276,8 +276,14 @@ class Unet(nn.Module):
         self.final_conv = nn.Conv2d(
             dim, out_dim or channels * (2 if learned_variance else 1), 1)
 
+    @property
+    def downsample_factor(self) -> int:
+        """2**(stages - 1): the factor H and W must divide by, the JAX
+        model's property."""
+        return 2 ** (self.num_stages - 1)
+
     def forward(self, x, time, x_self_cond=None):
-        factor = 2 ** (self.num_stages - 1)
+        factor = self.downsample_factor
         if x.shape[-2] % factor or x.shape[-1] % factor:
             raise ValueError(f'input spatial dims {tuple(x.shape[-2:])} must '
                              f'divide by {factor}')

@@ -89,10 +89,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from red_diffeq_tpu_torch.utils.device import device_index
+
 C1, C2, C3 = -2.5, 4.0 / 3.0, -1.0 / 12.0
 
 # Kernel launches made by the wrappers, by kernel. Each wrapper adds one for
-# every kernel launch it makes, and nowhere else.
+# every kernel launch it makes, and nowhere else; a replay of a CUDA graph
+# of the inversion step adds the launches its capture counted
+# (core/graphs.py), so the counts stay the kernels enqueued on the card.
 launches = {'fwd_step': 0, 'bwd_reverse_step': 0, 'sum_shots': 0,
             'tape_step': 0, 'bwd_tape_step': 0, 'tape_step_global': 0,
             'tape_step_stream': 0}
@@ -217,7 +221,9 @@ def build_injection_field(beta_pts: torch.Tensor, isx, wp: int
     beta at each shot's source column. Differentiable w.r.t. beta_pts."""
     b, ns = beta_pts.shape
     inj = beta_pts.new_zeros(b, ns, wp)
-    inj[:, torch.arange(ns), torch.as_tensor(isx)] = beta_pts
+    dev = beta_pts.device
+    inj[:, torch.arange(ns, device=dev),
+        device_index(tuple(int(i) for i in isx), dev)] = beta_pts
     return inj[:, :, None, :]
 
 

@@ -60,12 +60,16 @@ def _time_weight(diffusion, tensor, t):
 
 
 class RED_DiffEq:
-    """The RED regulariser over a GaussianDiffusion bundle."""
+    """The RED regulariser over a GaussianDiffusion bundle. ``sigma_x0`` is
+    kept for the JAX class's signature, as there: the engine perturbs the
+    model by it before the regulariser sees it."""
 
     def __init__(self, diffusion_model, use_time_weight: bool = False,
+                 sigma_x0: float = 0.0001,
                  fixed_timestep: Optional[int] = None):
         self.diffusion_model = diffusion_model
         self.use_time_weight = use_time_weight
+        self.sigma_x0 = sigma_x0
         self.fixed_timestep = fixed_timestep
         self.input_size = diffusion_model.image_size[0]
 
@@ -82,7 +86,7 @@ class RED_DiffEq:
                                 dtype=dtype)
         return t, noise
 
-    def get_reg_loss(self, mu, t=None, noise=None, generator=None):
+    def get_reg_loss(self, mu, generator=None, t=None, noise=None):
         """Unpatched RED loss. ``t`` (B,) and ``noise`` (shape of ``mu``)
         are drawn from ``generator`` unless given. Returns
         (reg_per_sample, gradient_per_sample, t)."""
@@ -96,7 +100,7 @@ class RED_DiffEq:
         return (reg_field.reshape(b, -1).mean(dim=1),
                 gradient_field.reshape(b, -1).mean(dim=1), t)
 
-    def get_reg_loss_patched(self, mu, t=None, noise=None, generator=None):
+    def get_reg_loss_patched(self, mu, generator=None, t=None, noise=None):
         """Patched RED loss for a padded model ``mu`` (B, C, H+2, W+2)
         wider than the denoiser. ``noise`` has the unpadded shape (B, C, H,
         W); each window of it is zero-padded like the model's, so its pad
@@ -179,8 +183,8 @@ class RED_DiffEq_POST_PROCESS:
         self.diffusion_model = diffusion_model
 
     @torch.no_grad()
-    def diffusion_denoise(self, mu, timesteps: int, noise=None,
-                          generator=None):
+    def diffusion_denoise(self, mu, timesteps: int, generator=None,
+                          noise=None):
         """``mu`` in [-1, 1] (B, C, H, W) -> the polished model in [0, 1].
         ``noise`` (shape of ``mu``) is the one forward draw, from
         ``generator`` unless given."""

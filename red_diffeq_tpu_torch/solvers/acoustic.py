@@ -23,6 +23,7 @@ backward that sums the edge strips in a fixed order, so the velocity
 gradient is the same bit for bit from run to run on the card.
 """
 import copy
+import functools
 import math
 from dataclasses import dataclass, replace
 from typing import Callable, Optional, Tuple
@@ -34,12 +35,16 @@ from torch.utils.checkpoint import checkpoint
 
 from red_diffeq_tpu_torch.config.config_utils import JAX_BACKENDS
 from red_diffeq_tpu_torch.ops.stencil import laplacian4, stencil_chunk_fn
-from red_diffeq_tpu_torch.utils.device import check_on, resolve_device
+from red_diffeq_tpu_torch.utils.device import (
+    check_on, device_index, resolve_device,
+)
 
 # 4th-order spatial stencil coefficients.
 C1, C2, C3 = -2.5, 4.0 / 3.0, -1.0 / 12.0
 
-# Chunks stepped by the plain path (the counterpart of ``_xla_chunk``).
+# Chunks stepped by the plain path (the counterpart of ``_xla_chunk``); a
+# replay of a CUDA graph of the inversion step adds its capture's count
+# (core/graphs.py).
 plain_chunk_calls = {'chunk': 0}
 
 
@@ -212,7 +217,8 @@ def coefficients(v_pad: torch.Tensor, geom: Geometry):
     temp1 = 2.0 + 2.0 * C1 * alpha - kappa
     temp2 = 1.0 - kappa
     beta = (v_pad * dt) ** 2
-    beta_pts = beta[:, 0, geom.isz, :][:, list(geom.isx)]
+    beta_pts = beta[:, 0, geom.isz, :][:, device_index(geom.isx,
+                                                        v_pad.device)]
     return alpha, temp1, temp2, beta_pts
 
 
@@ -223,6 +229,16 @@ def source_chunks(geom: Geometry, chunk: int, device) -> torch.Tensor:
     src = np.pad(src, (0, n_chunks * chunk - geom.nt))
     return torch.from_numpy(src.astype(np.float32)).to(device).reshape(
         n_chunks, chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def _source_chunks_on(geom: Geometry, chunk: int,
+                      device: torch.device) -> torch.Tensor:
+    """:func:`source_chunks` made once per (geometry, chunk, device) and
+    kept for the process: the solver reads it without a copy from the
+    host, which a CUDA graph's capture does not allow, and a captured
+    graph never reads a freed one."""
+    return source_chunks(geom, chunk, device)
 
 
 def _plain_chunk(p0, p1, src_chunk, alpha, temp1, temp2, beta_pts, *,
@@ -286,7 +302,7 @@ def forward_modeling(v_pad: torch.Tensor, geom: Geometry, *, chunk: int = 20,
             dim=1)
     b, _, hp, wp = v_pad.shape
     alpha, temp1, temp2, beta_pts = coefficients(v_pad, geom)
-    src_chunks = source_chunks(geom, chunk, v_pad.device)
+    src_chunks = _source_chunks_on(geom, chunk, v_pad.device)
 
     if backend == 'kernel':
         chunk_fn = stencil_chunk_fn(alpha=alpha, temp1=temp1, temp2=temp2,
@@ -298,15 +314,18 @@ def forward_modeling(v_pad: torch.Tensor, geom: Geometry, *, chunk: int = 20,
         src_idx = (torch.arange(b, device=dev)[:, None],
                    torch.arange(geom.ns, device=dev)[None, :],
                    torch.full((1, 1), geom.isz, device=dev),
-                   torch.tensor(geom.isx, device=dev)[None, :])
-        igx = torch.tensor(geom.igx, device=dev)
+                   device_index(geom.isx, dev)[None, :])
+        igx = device_index(geom.igx, dev)
 
         def chunk_fn(carry, src_chunk):
             args = (*carry, src_chunk, alpha, temp1, temp2, beta_pts)
             kw = dict(src_idx=src_idx, igz=geom.igz, igx=igx)
             if torch.is_grad_enabled() and v_pad.requires_grad:
+                # The chunk draws nothing, so no generator state is saved
+                # (reading one is not allowed while a CUDA graph captures).
                 p0o, p1o, recs = checkpoint(_plain_chunk, *args,
-                                            use_reentrant=False, **kw)
+                                            use_reentrant=False,
+                                            preserve_rng_state=False, **kw)
             else:
                 p0o, p1o, recs = _plain_chunk(*args, **kw)
             return (p0o, p1o), recs

@@ -71,20 +71,22 @@ def add_noise_to_seismic(y: torch.Tensor, std: float,
 
 
 def missing_trace(y: torch.Tensor, num_missing: int,
+                  return_mask: bool = True,
                   generator: Optional[torch.Generator] = None,
                   trace_mask: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Zero ``num_missing`` receivers per sample of ``y`` (B, ns, nt, ng):
     the same receivers on every shot of a sample; returns the observations
-    and their mask. ``trace_mask`` (B, ng) of
+    and their mask (with ``return_mask``, as the JAX function; else the
+    observations alone). ``trace_mask`` (B, ng) of
     ones and zeros says which; without it each sample's receivers are the
     first ``num_missing`` of a random permutation drawn from
-    ``generator``."""
+    ``generator`` (the JAX function's ``key``)."""
     if num_missing < 0:
         raise ValueError('the number of missing traces must be >= 0')
     mask = torch.ones_like(y)
     if num_missing == 0:
-        return y, mask
+        return (y, mask) if return_mask else y
     batch, ng = y.shape[0], y.shape[-1]
     if trace_mask is None:
         trace_mask = torch.ones(batch, ng, dtype=y.dtype, device=y.device)
@@ -93,7 +95,7 @@ def missing_trace(y: torch.Tensor, num_missing: int,
             trace_mask[b, perm[:num_missing]] = 0.0
     trace_mask = torch.as_tensor(trace_mask, dtype=y.dtype, device=y.device)
     mask = trace_mask[:, None, None, :] * mask
-    return y * mask, mask
+    return (y * mask, mask) if return_mask else y * mask
 
 
 def _gaussian_kernel1d(sigma: float, radius: int) -> np.ndarray:

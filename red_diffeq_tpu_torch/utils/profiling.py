@@ -6,9 +6,15 @@ Counterpart of ``red_diffeq_tpu/utils/profiling.py``:
   operations, and the card's kernels when the device is a card) and writes
   a Chrome trace, as the JAX package's wraps ``jax.profiler.trace``;
 * :class:`StepTimer` keeps the host's wall-clock time per step with the
-  first (warm-up) step left out. The device runs behind the host, so a
-  step's host time is the time to queue it until the queue is full; it is
-  a progress figure, not a device time.
+  first ``skip_first`` (warm-up) steps left out. The device runs behind
+  the host, so a step's host time is the time to queue it until the queue
+  is full; it is a progress figure, not a device time. A run of CUDA graph
+  replays is timed as one span that ends when the card has finished
+  (:meth:`StepTimer.add_span`).
+
+The engine wraps each step in the range ``inversion_step``, a replay of
+the step's CUDA graph too; the U-Net's range ``unet`` is recorded where
+its Python code runs, so on the card's graphed path only at the capture.
 """
 import contextlib
 import time
@@ -42,12 +48,12 @@ def trace(log_dir: Optional[Union[str, Path]], device=None):
 
 
 class StepTimer:
-    """Wall-clock step timing with warm-up exclusion."""
+    """Wall-clock step timing with warm-up exclusion: the first
+    ``skip_first`` steps timed as a block are left out (the first builds
+    the kernels and warms up)."""
 
-    # Steps left out at the start: the first compiles and warms up.
-    SKIP_FIRST = 1
-
-    def __init__(self):
+    def __init__(self, skip_first: int = 1):
+        self.skip_first = skip_first
         self.times = []
         self._t0 = None
         self._count = 0
@@ -59,9 +65,15 @@ class StepTimer:
     def __exit__(self, *exc):
         dt = time.perf_counter() - self._t0
         self._count += 1
-        if self._count > self.SKIP_FIRST:
+        if self._count > self.skip_first:
             self.times.append(dt)
         return False
+
+    def add_span(self, seconds: float, steps: int) -> None:
+        """Record ``steps`` steps that took ``seconds`` together, each as
+        an equal share (replays whose end only a synchronisation shows);
+        the caller leaves the warm-up steps out of the span."""
+        self.times.extend([seconds / steps] * steps)
 
     @property
     def mean(self) -> float:

@@ -4,6 +4,8 @@ Counterpart of ``red_diffeq_tpu/utils/ssim.py:14-73``: a depthwise
 convolution with zero padding of window_size//2, C1=0.01^2, C2=0.03^2.
 The JAX version asks for HIGHEST precision; here cuDNN is kept off TF32.
 """
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -19,6 +21,13 @@ def gaussian_window(window_size: int = 11, sigma: float = 1.5) -> np.ndarray:
     return np.outer(g, g).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _window_on(window_size: int, device: torch.device) -> torch.Tensor:
+    """The window on ``device``, made once and kept for the process (a
+    CUDA graph's capture allows no copy from the host)."""
+    return torch.from_numpy(gaussian_window(window_size)).to(device)
+
+
 def _filter2d(x: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
     c = x.shape[1]
     pad = window.shape[0] // 2
@@ -30,7 +39,7 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
          size_average: bool = True) -> torch.Tensor:
     """Structural similarity of two NCHW images in [0, 1]: a scalar mean
     with ``size_average``, else a per-sample mean of shape (N,)."""
-    window = torch.from_numpy(gaussian_window(window_size)).to(img1.device)
+    window = _window_on(window_size, img1.device)
     with fp32_convolutions():
         mu1 = _filter2d(img1, window)
         mu2 = _filter2d(img2, window)

@@ -123,6 +123,223 @@ def test_signatures_follow_the_jax_package(name):
     assert all(reason for *_, reason in ALLOWED[name])
 
 
+# Every public function and method of the JAX package, by an AST walk of
+# both packages' sources: its parameters in the port, at the same module
+# path, in the JAX order. JAX's ``key`` is the port's ``generator`` at that
+# place, which explicit draws of its own (DRAWS) may follow, as above; the
+# port may add parameters only after the JAX ones. Exempt, each with its
+# reason:
+JAX_ONLY = {
+    'ops.stencil:pallas_chunk': 'the Pallas chunk with its custom VJP; the '
+    "port's is StencilChunk, a torch.autograd.Function",
+    'ops.stencil:pallas_chunk_fn': "the Pallas chunk's adapter; the port's "
+    'is stencil_chunk_fn',
+    'ops.stencil:band_circulant_x': "the TPU-only 'mxu' x-stencil layout's "
+    'circulant, not ported (ops/layout_probe.py ports the layouts probe)',
+    'ops.stencil:pick_even_unroll': "the TPU-only 'roll' layout's unroll; "
+    'the CUDA kernels pick their steps a launch from the field '
+    '(pick_blocking)',
+    'utils.cache:enable_persistent_cache': "JAX's persistent compilation "
+    'cache; the port builds its kernels into a library kept by its hash',
+    'models.diffusion:GaussianDiffusion.init_params': 'flax initialises the '
+    "U-Net's parameters in a call; a torch module makes them in its "
+    'constructor',
+}
+FLAX_CALL = ("a flax module's __call__; a torch module's is forward, called "
+             'through __call__')
+# JAX parameters the port leaves out.
+DROPPED = {
+    'ops.stencil:resolve_run_config': (
+        ['layout'], "the TPU-only x-stencil layout the JAX kernels bake in; "
+        'the CUDA kernels have one'),
+}
+# Functions whose JAX form differs as a whole.
+OTHER_FORM = {
+    'models.diffusion:GaussianDiffusion.p_losses': 'the JAX form takes the '
+    'weights and a key explicitly for jax.grad; the port differentiates '
+    "the module's own weights (or params, last) and takes its draws",
+    'models.diffusion:GaussianDiffusion.loss': "p_losses's explicit "
+    'params/key form, likewise',
+}
+DRAWS = ('noise', 'noise_draw', 'trace_mask', 'draw', 'ilvr_noise', 't',
+         'offset')
+
+
+def _params(fn):
+    a = fn.args
+    names = [p.arg for p in a.posonlyargs + a.args]
+    if names and names[0] in ('self', 'cls'):
+        names = names[1:]
+    return (names + ([f'*{a.vararg.arg}'] if a.vararg else [])
+            + [p.arg for p in a.kwonlyargs]
+            + ([f'**{a.kwarg.arg}'] if a.kwarg else []))
+
+
+def _public(path):
+    """{name: parameter names} of the public functions and methods
+    (``__init__`` and ``__call__`` included, properties not) of the module
+    at ``path``."""
+    out = {}
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.FunctionDef) and not node.name.startswith('_'):
+            out[node.name] = _params(node)
+        if isinstance(node, ast.ClassDef) and not node.name.startswith('_'):
+            for m in node.body:
+                decorators = [ast.unparse(d) for d in m.decorator_list] \
+                    if isinstance(m, ast.FunctionDef) else []
+                if (isinstance(m, ast.FunctionDef)
+                        and (not m.name.startswith('_')
+                             or m.name in ('__init__', '__call__'))
+                        and 'property' not in decorators
+                        and not any(d.endswith('.setter')
+                                    for d in decorators)):
+                    out[f'{node.name}.{m.name}'] = _params(m)
+    return out
+
+
+def _follows(want, got):
+    """Whether ``got`` holds ``want`` in order, ``key`` as ``generator``
+    and then any DRAWS, the port's own parameters only after."""
+    i = 0
+    for n, p in enumerate(want):
+        if p == 'key':
+            if got[i:i + 1] != ['generator']:
+                return False
+            i += 1
+            after = want[n + 1] if n + 1 < len(want) else None
+            while i < len(got) and got[i] in DRAWS and got[i] != after:
+                i += 1
+        elif got[i:i + 1] == [p]:
+            i += 1
+        else:
+            return False
+    return True
+
+
+JAX_MODULES = sorted(str(p.relative_to(REPO / 'red_diffeq_tpu'))
+                     for p in (REPO / 'red_diffeq_tpu').rglob('*.py'))
+
+
+@pytest.mark.parametrize('module', JAX_MODULES)
+def test_public_functions_and_methods_follow_the_jax_package(module):
+    """Each public function and method of one JAX module against the
+    port's (see JAX_ONLY above)."""
+    jax_fns = _public(REPO / 'red_diffeq_tpu' / module)
+    port_path = REPO / 'red_diffeq_tpu_torch' / module
+    port_fns = _public(port_path) if port_path.exists() else {}
+    mod = module[:-3].replace('/', '.')
+    for name, want in jax_fns.items():
+        key = f'{mod}:{name}'
+        if key in JAX_ONLY or key in OTHER_FORM or (
+                name.endswith('.__call__') and name not in port_fns):
+            assert key not in port_fns or key in OTHER_FORM, key
+            continue
+        assert name in port_fns, f'{key} is not in the port'
+        dropped = DROPPED.get(key, ([], ''))[0]
+        assert _follows([p for p in want if p not in dropped],
+                        port_fns[name]), (key, want, port_fns[name])
+    assert all(JAX_ONLY.values()) and all(OTHER_FORM.values())
+    assert FLAX_CALL and all(r for _, r in DROPPED.values())
+
+
+def test_the_repaired_signatures_take_jax_calls(tmp_path):
+    """The calls that ran in JAX and failed or differed in the port."""
+    from red_diffeq_tpu.models.unet import Unet as JUnet
+    from red_diffeq_tpu_torch.io import checkpoints
+    from red_diffeq_tpu_torch.utils import data_trans, profiling
+    torch.manual_seed(0)
+    diff = tpkg.GaussianDiffusion(tpkg.Unet(dim=8, dim_mults=(1, 2)),
+                                  image_size=16, timesteps=10, device='cpu')
+    # RED_DiffEq(d, use_time_weight, sigma_x0, fixed_timestep).
+    red = tpkg.RED_DiffEq(diff, False, 1e-4)
+    assert red.sigma_x0 == 1e-4 and red.fixed_timestep is None
+    assert tpkg.RED_DiffEq(diff, False, 1e-4, 5).fixed_timestep == 5
+    # The key's place takes the generator.
+    mu = torch.rand(2, 1, 16, 16) * 2 - 1
+    a = red.get_reg_loss(mu, torch.Generator().manual_seed(1))
+    b = red.get_reg_loss(mu, generator=torch.Generator().manual_seed(1))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    x = torch.randn(2, 1, 16, 16)
+    assert torch.equal(
+        diff.p_sample(x, 3, torch.Generator().manual_seed(2))[0],
+        diff.p_sample(x, 3, generator=torch.Generator().manual_seed(2))[0])
+    assert torch.equal(
+        diff.q_sample(x, torch.tensor([1, 2]), None,
+                      torch.Generator().manual_seed(4)),
+        diff.q_sample(x, torch.tensor([1, 2]), torch.randn(
+            x.shape, generator=torch.Generator().manual_seed(4))))
+    assert diff.interpolate(x, x, torch.Generator().manual_seed(3),
+                            2).shape == x.shape
+    # missing_trace(y, num_missing, return_mask, key).
+    y = torch.rand(2, 2, 5, 8)
+    got = data_trans.missing_trace(y, 3, False,
+                                   torch.Generator().manual_seed(5))
+    want, _ = data_trans.missing_trace(
+        y, 3, generator=torch.Generator().manual_seed(5))
+    assert torch.equal(got, want)
+    assert data_trans.missing_trace(y, 0, False) is y
+    # StepTimer(skip_first).
+    timer = profiling.StepTimer(skip_first=2)
+    for _ in range(5):
+        with timer:
+            pass
+    assert len(timer.times) == 3 and timer.skip_first == 2
+    # load_params(path, template), load_diffusion_params(..., verbose).
+    path = tmp_path / 'p.ckpt'
+    tree = {'a': {'w': np.arange(3.0)}, 'b': [np.ones(2), np.zeros(1)]}
+    checkpoints.save_params(tree, path)
+    back = checkpoints.load_params(path, {'a': {'w': None},
+                                          'b': [None, None]})
+    assert isinstance(back['b'], list)
+    np.testing.assert_array_equal(back['a']['w'], tree['a']['w'])
+    np.testing.assert_array_equal(back['b'][1], tree['b'][1])
+    with pytest.raises(ValueError, match='missing'):
+        checkpoints.load_params(path, {'c': None})
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter('error')
+        assert checkpoints.load_diffusion_params(
+            diff, tmp_path / 'absent.ckpt', verbose=False) is diff
+    # GaussianDiffusion.with_params: a new bundle, this one unchanged.
+    params = diff.params
+    zeroed = jax.tree_util.tree_map(np.zeros_like, params)
+    other = diff.with_params(zeroed)
+    assert other is not diff and other.model is not diff.model
+    assert all(float(p.detach().abs().sum()) == 0
+               for p in other.model.parameters())
+    assert any(float(p.detach().abs().sum()) > 0
+               for p in diff.model.parameters())
+    # Unet.downsample_factor.
+    for mults in ((1, 2), (1, 2, 4, 8)):
+        assert tpkg.Unet(dim=8, dim_mults=mults).downsample_factor == \
+            JUnet(dim=8, dim_mults=mults).downsample_factor
+
+
+def test_trainer_train_takes_steps_per_call(tmp_path, capsys):
+    """``Trainer.train(log_every, steps_per_call)``, the JAX trainer's
+    call: no call crosses a milestone (saved after the call that reaches
+    it), and a loss line follows each call that crosses a multiple of
+    ``log_every``. 5 steps in calls of up to 2 with a milestone at 3: calls
+    of 2, 1 and 2 steps, lines at steps 2 and 5, the milestone at 3."""
+    from red_diffeq_tpu_torch.models import trainer as ttrainer
+    torch.manual_seed(0)
+    diff = tpkg.GaussianDiffusion(tpkg.Unet(dim=8, dim_mults=(1, 2)),
+                                  image_size=16, timesteps=8, device='cpu')
+    images = np.random.RandomState(2).rand(16, 1, 16, 16).astype(np.float32)
+    tr = ttrainer.Trainer(diff, ttrainer.TensorDataset(images),
+                          train_batch_size=4, gradient_accumulate_every=4,
+                          train_num_steps=5,
+                          save_and_sample_every=3, num_samples=4,
+                          results_folder=str(tmp_path), seed=3)
+    tr.train(2, 2)
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith('step ')]
+    assert [ln.split()[1] for ln in lines] == ['2/5', '5/5']
+    assert tr.step == 5 and len(tr.training_losses) == 5
+    assert sorted(p.name for p in tmp_path.glob('model-*.ckpt')) == \
+        ['model-1.ckpt']
+
+
 def _velocity(seed=0):
     rng = np.random.RandomState(seed)
     v = np.full((2, 1, 16, 16), -0.4, np.float32)
