@@ -268,6 +268,30 @@ Phases, each printing its wall time:
    mesh of the card repeated for 5 steps; the wide CLI (Marmousi preset,
    310x430, 5 steps) with ``tpu.use_scan`` true and false writing the same
    ``0_results.npz``; the plain backend at phase 7's 16x16 for 3 steps.
+20. the loop graphs, the JAX package's other one-program loops as CUDA
+   graphs (``core/graphs.py``), each graphed against its body run eagerly
+   in the same call (``graphs.eager_loops()``), bit for bit:
+   ``red-diffeq-torch-bench`` with DiffusionFWI and ILVR-FWI at the OpenFWI
+   ablation preset (30 x 10 steps; the eight ``.npz`` arrays; exact
+   launches; the denoise, the inner step, the metrics and each ILVR blend
+   factor captured once, a replay of the inner step one gradient's
+   launches, of the metrics one evaluation's); a traced graphed run of 3 x
+   10 steps (its kernels by name equal the counters; the device window's
+   idle share); DDIM (250 steps, batch 4; and with
+   ``return_all_timesteps``), the ancestral chain (a 100-step schedule of
+   the prior's U-Net), ``interpolate`` from t=50 and RED's post-process
+   chain from t=50, each captured once and replayed; 20 + 20 train steps
+   at the train CLI's defaults under deterministic cuDNN and a milestone
+   (losses, weights and samples). s an outer step, s/sample, s and ms a
+   step, s per train step, images/s and s per milestone of both modes,
+   each graph's capture seconds, pool MiB and launches a replay, the peak
+   allocated memory of both.
+
+The bench slice's CLI runs, the training slice's 200-step run and its
+resume's reference, and the api slice's ``--amp`` run hook every call (the
+U-Net's events, the observation losses), so they run their loops in
+``graphs.eager_loops()``; the resume itself runs graphed against that
+reference.
 
 With ``--write-wide-dataset DIR`` (``--write-bench-dataset DIR``) the
 script only writes the wide (bench) slice's datasets and configs under DIR
@@ -284,9 +308,11 @@ seismogram run and under ``quality`` those of the quality slice's eval
 tool run and under ``mesh`` those of the mesh slice's sharded headline
 (``launches``, over ``shards``) and taped (``launches_taped``) runs and
 under ``scan`` those of the scan slice's replayed headline run and nbc=40
-run and one replay's; then ``tape_step_stream`` with the launches of the
-gradient past the cluster limit (420x420) and ``tape_step_global`` with
-those of the gradient past ``tape_step_stream``'s (680x680) and its times
+run and one replay's and under ``loops`` those of the loop-graphs slice's
+graphed DiffusionFWI run and a replay of its inner step and metrics;
+then ``tape_step_stream`` with the launches of the gradient past the
+cluster limit (420x420) and ``tape_step_global`` with those of the
+gradient past ``tape_step_stream``'s (680x680) and its times
 forced at 420x420, the four probe kernels with the
 launches of the probe tool's run and their times, and the probe's two
 ``*_global`` kernels with the launches of the tool's run past the
@@ -1588,10 +1614,13 @@ def run_bench_cli(dev, argv):
     reset just before it and read just after, :func:`unet_timer` on the
     U-Net instance the CLI builds, and every observation loss the method
     computes (in its inner FWI steps, with autograd on, and at its
-    evaluations) in order."""
+    evaluations) in order. The method's programs run eagerly
+    (``graphs.eager_loops()``), so that the hooks and the spy see every
+    call; phase ``loop graphs`` runs the same CLI graphed against this."""
     import torch
     from red_diffeq_tpu_torch.bench_methods import diffusion_fwi
     from red_diffeq_tpu_torch.cli import run_bench
+    from red_diffeq_tpu_torch.core import graphs
     from red_diffeq_tpu_torch.ops import stencil
     from red_diffeq_tpu_torch.solvers import acoustic
 
@@ -1617,7 +1646,8 @@ def run_bench_cli(dev, argv):
         stencil.reset_launches()
         acoustic.plain_chunk_calls['chunk'] = 0
         t0 = time.perf_counter()
-        seen['out'] = run_bench.main([*argv, '--device', str(dev)])
+        with graphs.eager_loops():
+            seen['out'] = run_bench.main([*argv, '--device', str(dev)])
         torch.cuda.synchronize()
         seen['wall_s'] = time.perf_counter() - t0
         seen['launches'] = dict(stencil.launches)
@@ -1626,6 +1656,37 @@ def run_bench_cli(dev, argv):
         run_bench.build_diffusion_model = build
         diffusion_fwi.observation_loss = loss
     return seen
+
+
+def bench_launches(cfg, label):
+    """The launches of a bench run of the config ``cfg`` (the tape-free
+    route, which the check requires): (one gradient's, one evaluating
+    forward's, the run's: per gradient a pass of ``fwd_step`` and of
+    ``bwd_reverse_step``, one ``sum_shots`` a chunk; per outer step an
+    evaluation), by kernel."""
+    from red_diffeq_tpu_torch.ops import stencil
+    from red_diffeq_tpu_torch.solvers import acoustic
+
+    o, ctx = cfg.optimization, cfg.pde.to_dict()
+    dts, ts, chunk = o.diffusion_ts, o.ts, int(cfg.tpu.solver_chunk)
+    geom = acoustic.Geometry.from_ctx(ctx)
+    route = stencil.resolve_run_config(geom, chunk, None)[0]
+    check(route == 'reverse', f'{label}: the preset takes {route!r}')
+    hp, wp = WIDE_ROWS + 2 * ctx['nbc'], ctx['n_grid'] + 2 * ctx['nbc']
+    chunks = len(acoustic.source_chunks(geom, chunk, 'cpu'))
+
+    def per_chunk(name):
+        return -(-chunk // stencil.pick_blocking(name, hp, wp)[0])
+
+    grad = {'fwd_step': chunks * per_chunk('fwd_step'),
+            'bwd_reverse_step': chunks * per_chunk('bwd_reverse_step'),
+            'sum_shots': chunks}
+    evaluation = {'fwd_step': grad['fwd_step']}
+    grads, evals = (dts - 1) * ts, dts
+    run = dict.fromkeys(stencil.launches, 0)
+    for name in grad:
+        run[name] = grads * grad[name] + evals * evaluation.get(name, 0)
+    return grad, evaluation, run
 
 
 def bench_run(dev, path, method, label, extra=()):
@@ -1642,30 +1703,17 @@ def bench_run(dev, path, method, label, extra=()):
     import torch
     from red_diffeq_tpu_torch.config import load_config
     from red_diffeq_tpu_torch.core.metrics import calculate_metrics
-    from red_diffeq_tpu_torch.ops import stencil
-    from red_diffeq_tpu_torch.solvers import acoustic
     from red_diffeq_tpu_torch.utils.data_trans import v_normalize
 
     seen = run_bench_cli(dev, ['--config', str(path), '--method', method,
                                *extra])
     cfg = load_config(seen['out'] / 'config.yaml')
     o, ctx = cfg.optimization, cfg.pde.to_dict()
-    dts, ts, chunk = o.diffusion_ts, o.ts, int(cfg.tpu.solver_chunk)
+    dts, ts = o.diffusion_ts, o.ts
     grads, evals = (dts - 1) * ts, dts
-    geom = acoustic.Geometry.from_ctx(ctx)
-    route = stencil.resolve_run_config(geom, chunk, None)[0]
-    check(route == 'reverse', f'{label}: the preset takes {route!r}')
     hp, wp = WIDE_ROWS + 2 * ctx['nbc'], ctx['n_grid'] + 2 * ctx['nbc']
-    chunks = len(acoustic.source_chunks(geom, chunk, 'cpu'))
-
-    def per_chunk(name):
-        return -(-chunk // stencil.pick_blocking(name, hp, wp)[0])
-
     counts = seen['launches']
-    want = dict.fromkeys(counts, 0)
-    want['fwd_step'] = (grads + evals) * chunks * per_chunk('fwd_step')
-    want['bwd_reverse_step'] = grads * chunks * per_chunk('bwd_reverse_step')
-    want['sum_shots'] = grads * chunks
+    want = bench_launches(cfg, label)[2]
     print(f'{label}: {dts} outer x {ts} inner steps ({grads} gradients, '
           f'{evals} evaluations) at {hp}x{wp}: launches {counts}, plain '
           f'chunks {seen["plain"]}, U-Net batches {seen["batches"]}',
@@ -2057,14 +2105,18 @@ def run_datagen(dev, argv):
             seconds)
 
 
-def train_cli(dev, argv):
+def train_cli(dev, argv, eager=False):
     """``red-diffeq-torch-train`` with ``argv`` on ``dev``. A forward hook
     on the U-Net instance the CLI builds records a CUDA event and the
     allocated device memory at each train step's forward (grad enabled;
     the samplers run without), and each milestone's sampling, FID and save
-    is timed. Returns (trainer, events, memory, milestone seconds)."""
+    is timed. The hook fires at every step only with ``eager`` (the train
+    steps and samplers run in ``graphs.eager_loops()``); graphed, only at
+    each graph's warm-up and capture. Returns (trainer, events, memory,
+    milestone seconds)."""
     import torch
     from red_diffeq_tpu_torch.cli import diffusion_train
+    from red_diffeq_tpu_torch.core import graphs
     from red_diffeq_tpu_torch.models import trainer as trainer_mod
 
     seen = dict(events=[], memory=[], milestones=[])
@@ -2093,7 +2145,8 @@ def train_cli(dev, argv):
     diffusion_train.build_diffusion = hooked
     trainer_mod.Trainer._sample_and_save = timed
     try:
-        trainer = diffusion_train.main([*argv, '--device', dev.type])
+        with (graphs.eager_loops() if eager else contextlib.nullcontext()):
+            trainer = diffusion_train.main([*argv, '--device', dev.type])
     finally:
         diffusion_train.build_diffusion = build
         trainer_mod.Trainer._sample_and_save = sample_and_save
@@ -2172,7 +2225,7 @@ def phase_training(dev, root):
     t0 = time.perf_counter()
     trainer, events, memory, milestone_s = train_cli(
         dev, [*data, '--results_folder', str(run), '--calculate_fid',
-              '--train_num_steps', str(TRAIN_STEPS)])
+              '--train_num_steps', str(TRAIN_STEPS)], eager=True)
     train_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     losses = [e['loss'] for e in trainer.training_losses]
@@ -2231,7 +2284,10 @@ def phase_training(dev, root):
     resume_args = [*data, '--results_folder', str(ref_run),
                    '--train_num_steps', str(TRAIN_SAVE_EVERY + RESUME_STEPS)]
     try:
-        reference, ref_events, _, _ = train_cli(dev, resume_args)
+        # The reference eagerly (its hook times each step), the resume
+        # graphed: the gate holds the graph to the eager steps too.
+        reference, ref_events, _, _ = train_cli(dev, resume_args,
+                                                eager=True)
         resumed, _, _, _ = train_cli(dev, [*resume_args,
                                            '--resume_milestone', '1'])
     finally:
@@ -2708,6 +2764,13 @@ def trace_split(path, steps):
             sum(host) / steps / 1e3)
 
 
+def trace_margins(dev):
+    """Seconds the tracer adds to a traced block on ``dev`` by the host's
+    clock (``utils/profiling.WINDOW_MARGIN_S`` at each end on a card)."""
+    from red_diffeq_tpu_torch.utils import profiling
+    return 2 * profiling.WINDOW_MARGIN_S if dev.type == 'cuda' else 0.0
+
+
 def device_window(device):
     """(µs in which some device activity of ``device``, a trace's events,
     runs; µs from the first to the last)."""
@@ -2798,7 +2861,7 @@ def phase_api(dev, root, training):
     t0 = time.perf_counter()
     run(engine, API_TRACE_TS, profile_dir=str(root / 'trace'),
         use_scan=False)
-    traced_s = (time.perf_counter() - t0) / API_TRACE_TS
+    traced_s = (time.perf_counter() - t0 - trace_margins(dev)) / API_TRACE_TS
     counts = dict(stencil.launches)
     files = sorted((root / 'trace').glob('*.pt.trace.json'))
     check(len(files) == 1, f'profile_dir holds {files}')
@@ -2817,7 +2880,8 @@ def phase_api(dev, root, training):
               f'{counts[name]}, expected {expect[name]}')
     print(f'api slice trace ({files[0].stat().st_size / 2**20:.1f} MiB, '
           f'{API_TRACE_TS} steps, {traced_s:.4f} s a step by the host '
-          f'clock under the profiler): launches '
+          f'clock under the profiler, its window margins left out): '
+          f'launches '
           + ', '.join(f'{k} {launches[k]}' for k in API_KERNELS)
           + ' (= the counters); device ms a step: '
           + ', '.join(f'{k} {v:.3f}' for k, v in ms.items())
@@ -2921,7 +2985,7 @@ def phase_api(dev, root, training):
     torch.cuda.reset_peak_memory_stats()
     amp, events, memory, _ = train_cli(dev, [
         *data, '--results_folder', str(root / 'amp'), '--amp',
-        '--train_num_steps', str(API_TRAIN_STEPS)])
+        '--train_num_steps', str(API_TRAIN_STEPS)], eager=True)
     peak = torch.cuda.max_memory_allocated()
     losses = [e['loss'] for e in amp.training_losses]
     first32 = fp32.training_losses[0]['loss']
@@ -3812,7 +3876,9 @@ def scan_trace(dev, engine, op, problem, root, want):
     print(f'scan trace ({SCAN_TRACE_TS} replays of a warm_compile graph): '
           f'the device window {window / SCAN_TRACE_TS / 1e3:.3f} ms a step, '
           f'busy {busy / SCAN_TRACE_TS / 1e3:.3f}, idle {idle:.2%}; '
-          f'{r["s"]:.4f} s/step by the host clock under the profiler',
+          f'{r["s"] - trace_margins(dev) / SCAN_TRACE_TS:.4f} '
+          's/step by the host clock under the profiler (its window '
+          'margins left out)',
           flush=True)
     return idle, window / SCAN_TRACE_TS / 1e3
 
@@ -3989,6 +4055,491 @@ def phase_scan(dev, root):
     return out
 
 
+# The loop-graphs slice: the JAX package's other one-program loops as CUDA
+# graphs (core/graphs.py), each against its body run eagerly in the same
+# call (graphs.eager_loops()), bit for bit: DiffusionFWI and ILVR-FWI at the
+# OpenFWI ablation preset through red-diffeq-torch-bench (30 x 10 steps)
+# and at the Marmousi ablation preset (the patched denoise) cut to
+# BENCH_WIDE_DIFFUSION_TS outer steps, and a traced graphed DiffusionFWI
+# run of LOOP_TRACE (outer, inner) steps for the idle share; DDIM at
+# SAMPLER_STEPS and SAMPLER_BATCH (and once with return_all_timesteps);
+# the ancestral chain on a LOOP_ANCESTRAL_T-step schedule of the prior's
+# U-Net, interpolate from LOOP_INTERP_T on it and RED's post-process chain
+# from LOOP_POST_TS on the prior's own schedule; at the train CLI's
+# defaults under deterministic cuDNN, fp32 and then with --amp and
+# --calculate_fid: LOOP_TRAIN_STEPS train steps twice (the second call's
+# replays timed), a milestone, and LOOP_TRAIN_STEPS steps after it.
+LOOP_ANCESTRAL_T, LOOP_INTERP_T, LOOP_POST_TS = 100, 50, 50
+LOOP_TRAIN_STEPS = 20
+LOOP_TRACE = (3, 10)
+# (diffusion_ts, ts) of the bench CLI runs, or None for the preset's own.
+LOOP_BENCH_DEPTH = None
+
+
+@contextlib.contextmanager
+def loop_spy():
+    """Within the block, a spy on ``graphs.LoopGraphs.run``: a CUDA event
+    recorded before each run of a program named 'denoise' (one an outer
+    step of the competitor methods; their spacing is the period of an
+    outer step), and the name and ``StepGraph.info()`` of each graph a run
+    captures."""
+    import torch
+    from red_diffeq_tpu_torch.core import graphs
+
+    seen = dict(events=[], graphs=[])
+    run = graphs.LoopGraphs.run
+
+    def spy(self, name, program, capture=True):
+        if name == 'denoise':
+            seen['events'].append(torch.cuda.Event(enable_timing=True))
+            seen['events'][-1].record()
+        had = name in self.graphs
+        out = run(self, name, program, capture)
+        if not had and name in self.graphs:
+            seen['graphs'].append((name, self.graphs[name].info()))
+        return out
+
+    graphs.LoopGraphs.run = spy
+    try:
+        yield seen
+    finally:
+        graphs.LoopGraphs.run = run
+
+
+def loop_mode(dev, graphed, fn):
+    """``fn()`` graphed, or with ``graphed`` False inside
+    ``graphs.eager_loops()``, under :func:`loop_spy`, with the launch
+    counters, the plain path's chunk count and the peak device memory set
+    to 0 just before and read just after. Returns its output, seconds by
+    the host clock, launches, plain chunks, peak bytes, the graphs it
+    captured (count and infos) and the spy's events."""
+    import torch
+    from red_diffeq_tpu_torch.core import graphs
+    from red_diffeq_tpu_torch.ops import stencil
+    from red_diffeq_tpu_torch.solvers import acoustic
+
+    cuda = dev.type == 'cuda'
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    stencil.reset_launches()
+    acoustic.plain_chunk_calls['chunk'] = 0
+    n = graphs.captures['n']
+    mode = contextlib.nullcontext() if graphed else graphs.eager_loops()
+    with loop_spy() as seen, mode:
+        t0 = time.perf_counter()
+        out = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+    return dict(out=out, s=s, launches=dict(stencil.launches),
+                plain=acoustic.plain_chunk_calls['chunk'],
+                peak=torch.cuda.max_memory_allocated() if cuda else 0,
+                captures=graphs.captures['n'] - n, graphs=seen['graphs'],
+                events=seen['events'])
+
+
+def loop_pair(dev, label, fn, same, captures):
+    """``fn`` graphed (its graphs captured), graphed again (replays
+    alone) and eagerly: each run ``same`` as the eager one, ``captures``
+    graphs made by the first run and none by the others. Returns the three
+    runs' records (:func:`loop_mode`)."""
+    first = loop_mode(dev, True, fn)
+    again = loop_mode(dev, True, fn)
+    eager = loop_mode(dev, False, fn)
+    graphed = dev.type == 'cuda'
+    for name, r in (('captured', first), ('replayed', again)):
+        check(same(r['out'], eager['out']), f'{label}: the {name} run '
+              'differs from the eager one')
+    check((first['captures'], again['captures'], eager['captures'])
+          == ((captures if graphed else 0), 0, 0), f'{label}: captures '
+          f'{first["captures"]}, {again["captures"]}, {eager["captures"]}; '
+          f'expected {captures if graphed else 0}, 0, 0')
+    return first, again, eager
+
+
+def graph_numbers(rec):
+    """(capture s, pool MiB, launches a replay by program, each program's
+    capture s and pool MiB) of the graphs a :func:`loop_mode` run
+    captured."""
+    return (sum(i['seconds'] for _, i in rec['graphs']),
+            sum(i['pool_bytes'] for _, i in rec['graphs']) / 2**20,
+            {name: i['launches'] for name, i in rec['graphs']},
+            {name: (round(i['seconds'], 3), i['pool_bytes'] / 2**20)
+             for name, i in rec['graphs']})
+
+
+def loop_bench(dev, path, root, method, diffusion_ts=None,
+               preset='OpenFWI ablation preset'):
+    """``red-diffeq-torch-bench`` with ``method`` on the preset config at
+    ``path`` (its outer steps cut to ``diffusion_ts`` if given; the
+    Marmousi preset takes the patched denoise), graphed and then eagerly: the eight ``.npz`` arrays bit for
+    bit, exact launches in both (:func:`bench_launches`), the plain path
+    unused; graphed, the denoise, the inner step, the metrics and each of
+    ILVR's blend factors captured once, a replay of the inner step one
+    gradient's launches, of the metrics one evaluation's, of the denoise
+    and the blends none. Times ``DiffusionFWI.optimize`` (s/sample, the
+    captures included) and the outer step (the denoise events' spacing).
+    Returns the numbers."""
+    from red_diffeq_tpu_torch.bench_methods import diffusion_fwi
+    from red_diffeq_tpu_torch.bench_methods.ilvr_fwi import (
+        ilvr_down_schedule,
+    )
+    from red_diffeq_tpu_torch.cli import run_bench
+    from red_diffeq_tpu_torch.config import load_config
+
+    label = f'loop graphs, {method}, {preset}'
+    dts, ts = LOOP_BENCH_DEPTH or (diffusion_ts, None)
+    depth = ((['--diffusion_ts', str(dts)] if dts else [])
+             + (['--ts', str(ts)] if ts else []))
+    tag = 'wide_' if diffusion_ts else ''
+    timed = diffusion_fwi.DiffusionFWI.optimize
+    sample_s = []
+
+    def optimize(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = timed(self, *a, **kw)
+        sample_s.append(time.perf_counter() - t0)
+        return out
+
+    runs = {}
+    diffusion_fwi.DiffusionFWI.optimize = optimize
+    try:
+        for mode in ('graph', 'eager'):
+            out = root / f'loops_{tag}{method}_{mode}'
+            argv = ['--config', str(path), '--method', method, *depth,
+                    '--results_dir', str(out), '--device', str(dev)]
+            runs[mode] = loop_mode(dev, mode == 'graph',
+                                   lambda: run_bench.main(argv))
+            runs[mode]['sample_s'] = sample_s[-1]
+    finally:
+        diffusion_fwi.DiffusionFWI.optimize = timed
+    cfg = load_config(runs['graph']['out'] / 'config.yaml')
+    o = cfg.optimization
+    grad, evaluation, want = bench_launches(cfg, label)
+    programs = {'denoise', 'inner', 'metrics'}
+    if method != 'diffusionfwi' and o.get('use_ilvr', True):
+        down = ilvr_down_schedule(o.get('ilvr_down_schedule', 'linear'),
+                                  o.diffusion_ts)
+        programs |= {f'blend {int(down[t])}'
+                     for t in range(1, o.diffusion_ts)}
+    npz = {m: np.load(sorted(r['out'].glob('*/0_results.npz'))[0])
+           for m, r in runs.items()}
+    check(sorted(npz['graph'].files) == sorted(BENCH_NPZ_KEYS)
+          and all(np.array_equal(npz['graph'][k], npz['eager'][k])
+                  for k in BENCH_NPZ_KEYS), f'{label}: the graphed run\'s '
+          '0_results.npz differs from the eager one\'s')
+    g, e = runs['graph'], runs['eager']
+    for mode, r in runs.items():
+        check(r['launches'] == want and r['plain'] == 0, f'{label} '
+              f'({mode}): launches {r["launches"]}, plain {r["plain"]}; '
+              f'expected {want}')
+    capture_s, pool, per_replay, each = graph_numbers(g)
+    if dev.type == 'cuda':
+        check(set(per_replay) == programs and e['captures'] == 0
+              and g['captures'] == len(programs), f'{label}: captured '
+              f'{sorted(per_replay)} ({g["captures"]}), expected '
+              f'{sorted(programs)}; eager {e["captures"]}')
+        check(per_replay['inner'] == grad
+              and per_replay['metrics'] == evaluation
+              and all(not v for k, v in per_replay.items()
+                      if k not in ('inner', 'metrics')),
+              f'{label}: launches a replay {per_replay}, expected inner '
+              f'{grad}, metrics {evaluation}, none elsewhere')
+    res = {m: dict(sample_s=r['sample_s'], wall_s=r['s'], peak=r['peak'],
+                   outer_s=(step_period(r['events'])
+                            if len(r['events']) > 2 else float('nan')))
+           for m, r in runs.items()}
+    res.update(capture_s=capture_s, pool_mib=pool, per_replay=per_replay,
+               each=each, launches=g['launches'], dts=o.diffusion_ts,
+               ts=o.ts, captures=g['captures'])
+    print(f'{label} ({o.diffusion_ts} x {o.ts} steps): graphed = eager bit '
+          f'for bit (the model and every curve); s per outer step '
+          f'{res["graph"]["outer_s"]:.4f} graphed against '
+          f'{res["eager"]["outer_s"]:.4f} eager (the denoise events, outer '
+          f'steps 1 to {o.diffusion_ts - 1}); s/sample '
+          f'{res["graph"]["sample_s"]:.3f} against '
+          f'{res["eager"]["sample_s"]:.3f} ({g["captures"]} captures, '
+          f'{capture_s:.3f} s, pool {pool:.1f} MiB); peak allocated '
+          f'{g["peak"] / 2**20:.1f} MiB graphed, {e["peak"] / 2**20:.1f} '
+          f'eager; a replay launches {per_replay}; capture s and pool MiB '
+          f'by graph {each}', flush=True)
+    return res
+
+
+def loop_bench_trace(dev, path, root):
+    """A graphed DiffusionFWI run of LOOP_TRACE outer x inner steps on the
+    preset at ``path`` (its graphs captured by an untraced run first),
+    traced with ``utils/profiling.trace``: the trace's solver kernels by
+    name equal the counters; the device window's idle share and its ms an
+    outer step."""
+    import re
+    import torch
+    from red_diffeq_tpu_torch.bench_methods import DiffusionFWI
+    from red_diffeq_tpu_torch.cli.run_inversion import (
+        build_diffusion_model, build_forward_operator,
+    )
+    from red_diffeq_tpu_torch.config import load_config
+    from red_diffeq_tpu_torch.utils.data_trans import prepare_initial_model
+    from red_diffeq_tpu_torch.utils.profiling import trace
+
+    cfg = load_config(path)
+    o = cfg.optimization
+    diffusion = build_diffusion_model(cfg, device=dev)
+    op = build_forward_operator(cfg, device=dev)
+    v_true = np.load(f'{cfg.data.velocity_data_dir}/synthetic.npy')[:1]
+    y = np.load(f'{cfg.data.seismic_data_dir}/synthetic.npy')[:1]
+    mu0 = prepare_initial_model(v_true, o.initial_type, sigma=o.sigma)
+    method = DiffusionFWI(diffusion, op, device=dev)
+    dts, ts = LOOP_TRACE
+
+    def run():
+        return method.optimize(
+            mu0, v_true, y, op, ts=ts, diffusion_ts=dts, lr=o.lr,
+            grad_norm=o.grad_norm, grad_smooth=o.grad_smooth,
+            model_blur=o.model_blur, grad_clip=o.grad_clip,
+            generator=torch.Generator(device=dev).manual_seed(0),
+            progress=False)
+
+    loop_mode(dev, True, run)
+    traced = loop_mode(dev, True, lambda: _traced(run, root / 'loop_trace',
+                                                   trace, dev))
+    check(traced['captures'] == 0, 'the traced run captured')
+    files = sorted((root / 'loop_trace').glob('*.pt.trace.json'))
+    check(len(files) == 1, f'loop trace: {files}')
+    events = json.loads(files[0].read_text())['traceEvents']
+    device = [e for e in events if e.get('ph') == 'X'
+              and e.get('cat') in DEVICE_CATS]
+    kernels = dict.fromkeys(API_KERNELS, 0)
+    for e in device:
+        hit = [k for k in API_KERNELS if e['cat'] == 'kernel'
+               and re.search(rf'\b{k}\b', e['name'])]
+        if hit:
+            kernels[hit[0]] += 1
+    check(kernels == {k: traced['launches'][k] for k in API_KERNELS},
+          f'loop trace: kernels {kernels}, counters {traced["launches"]}')
+    busy, window = device_window(device)
+    idle = 1.0 - busy / window
+    print(f'loop graphs, traced DiffusionFWI ({dts} x {ts} steps, graphed): '
+          f'kernels {kernels} (= the counters); the device window '
+          f'{window / dts / 1e3:.3f} ms an outer step, busy '
+          f'{busy / dts / 1e3:.3f}, idle {idle:.2%}', flush=True)
+    return idle, window / dts / 1e3
+
+
+def _traced(fn, log_dir, trace, dev):
+    with trace(str(log_dir), dev):
+        return fn()
+
+
+def loop_samplers(dev, path):
+    """DDIM (SAMPLER_STEPS steps, batch SAMPLER_BATCH) of the preset's
+    diffusion, with and without ``return_all_timesteps``; the ancestral
+    chain on a LOOP_ANCESTRAL_T-step schedule of the same U-Net,
+    ``interpolate`` from LOOP_INTERP_T on it; RED's post-process chain from
+    LOOP_POST_TS: each graphed (captured, then replayed) against its body
+    run eagerly, bit for bit, one capture each, finite and in range.
+    Returns {loop: numbers}."""
+    import torch
+    from red_diffeq_tpu_torch.cli.run_inversion import build_diffusion_model
+    from red_diffeq_tpu_torch.config import load_config
+    from red_diffeq_tpu_torch.models.diffusion import GaussianDiffusion
+    from red_diffeq_tpu_torch.regularization.red import (
+        RED_DiffEq_POST_PROCESS,
+    )
+
+    cfg = load_config(path)
+    cfg.diffusion.sampling_timesteps = SAMPLER_STEPS
+    d = build_diffusion_model(cfg, device=dev)
+    ancestral = GaussianDiffusion(
+        d.model, image_size=d.image_size, timesteps=LOOP_ANCESTRAL_T,
+        objective=d.objective, device=dev)
+    shape = (SAMPLER_BATCH, d.channels, *d.image_size)
+    rng = np.random.RandomState(5)
+    x1, x2, mu = (torch.from_numpy(rng.uniform(-1, 1, shape).astype(
+        np.float32)).to(dev) for _ in range(3))
+    post = RED_DiffEq_POST_PROCESS(d)
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(0)
+
+    loops = {
+        'ddim': (SAMPLER_STEPS, lambda: d.sample(SAMPLER_BATCH,
+                                                 generator=gen())),
+        'ddim_trail': (SAMPLER_STEPS, lambda: d.sample(
+            SAMPLER_BATCH, generator=gen(), return_all_timesteps=True)),
+        'ancestral': (LOOP_ANCESTRAL_T, lambda: ancestral.sample(
+            SAMPLER_BATCH, generator=gen())),
+        'interpolate': (LOOP_INTERP_T, lambda: ancestral.interpolate(
+            x1, x2, generator=gen(), t=LOOP_INTERP_T)),
+        'post_process': (LOOP_POST_TS, lambda: post.diffusion_denoise(
+            mu, LOOP_POST_TS, generator=gen())),
+    }
+    res = {}
+    for name, (steps, fn) in loops.items():
+        first, again, eager = loop_pair(dev, f'loop graphs, {name}', fn,
+                                        torch.equal, 1)
+        out = again['out']
+        check(bool(torch.isfinite(out).all()), f'{name}: not finite')
+        if name == 'ddim':
+            lo, hi = float(out.min()), float(out.max())
+            check(lo >= 0.0 and hi <= 1.0, f'{name}: [{lo}, {hi}]')
+        if name == 'ddim_trail':
+            check(tuple(out.shape) == (SAMPLER_BATCH, SAMPLER_STEPS + 1,
+                                       *shape[1:])
+                  and torch.equal(out[:, -1], res['ddim']['out']),
+                  f'ddim trail of shape {tuple(out.shape)}, or its last '
+                  'image is not the sample')
+        capture_s, pool, per_replay, _ = graph_numbers(first)
+        res[name] = dict(out=out, steps=steps, s=again['s'],
+                         s_eager=eager['s'], s_first=first['s'],
+                         capture_s=capture_s, pool_mib=pool,
+                         per_replay=per_replay, peak=again['peak'],
+                         peak_eager=eager['peak'])
+        print(f'loop graphs, {name} ({steps} steps, batch {SAMPLER_BATCH}): '
+              f'graphed = eager bit for bit; {again["s"]:.3f} s '
+              f'({again["s"] / steps * 1e3:.3f} ms a step) graphed against '
+              f'{eager["s"]:.3f} s ({eager["s"] / steps * 1e3:.3f}) eager, '
+              f'{first["s"]:.3f} s with the capture ({capture_s:.3f} s, pool '
+              f'{pool:.1f} MiB, a replay launches {per_replay}); peak '
+              f'allocated {again["peak"] / 2**20:.1f} MiB graphed, '
+              f'{eager["peak"] / 2**20:.1f} eager', flush=True)
+    for r in res.values():
+        del r['out']
+    return res
+
+
+def loop_trainer(dev, root, extra=(), tag='fp32'):
+    """``red-diffeq-torch-train`` at its defaults and ``extra`` for
+    LOOP_TRAIN_STEPS steps under deterministic cuDNN, graphed and eagerly,
+    each then trained LOOP_TRAIN_STEPS steps more (timed: a graphed call
+    replays the kept graph), a milestone (its samplers' graphs; with
+    ``--calculate_fid`` the FID's chains at its batch sizes; the train
+    step's graph released), and LOOP_TRAIN_STEPS steps after it (the train
+    step captured again): the losses, the weights, the milestone's samples
+    and FID bit for bit; the captures exact. Returns the numbers."""
+    import torch
+    from red_diffeq_tpu_torch.cli import diffusion_train
+
+    folder = root / 'loops_train'
+    if not folder.exists():
+        run_datagen(dev, ['--out', str(folder), '--n', str(TRAIN_FAMILY_N),
+                          '--velocity_only'])
+    data = ['--data_dir', str(folder / 'Velocity_Data'),
+            '--save_every', str(10 ** 6), *TRAIN_ARGS, *extra]
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    runs = {}
+    try:
+        for mode in ('graph', 'eager'):
+            out = root / f'loops_train_{tag}_{mode}'
+            graphed = mode == 'graph'
+            first = loop_mode(dev, graphed, lambda: diffusion_train.main([
+                *data, '--results_folder', str(out), '--train_num_steps',
+                str(LOOP_TRAIN_STEPS), '--device', dev.type]))
+            tr = first['out']
+
+            def more():
+                tr.train_num_steps += LOOP_TRAIN_STEPS
+                tr.train(log_every=10 ** 6)
+
+            second = loop_mode(dev, graphed, more)
+            milestone = loop_mode(dev, graphed,
+                                  lambda: tr._sample_and_save(99))
+            after = loop_mode(dev, graphed, more)
+            fid = out / 'fid_scores.json'
+            runs[mode] = dict(trainer=tr, first=first, second=second,
+                              milestone=milestone, after=after,
+                              sample=np.load(out / 'sample-99.npy'),
+                              fid=(json.loads(fid.read_text())
+                                   if fid.exists() else None))
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    g, e = runs['graph'], runs['eager']
+    label = f'loop graphs, trainer ({tag})'
+    steps = 3 * LOOP_TRAIN_STEPS
+    lg = [x['loss'] for x in g['trainer'].training_losses]
+    le = [x['loss'] for x in e['trainer'].training_losses]
+    check(len(lg) == steps and lg == le and all(
+        torch.equal(a, b) for a, b in zip(g['trainer'].params,
+                                          e['trainer'].params)),
+          f'{label}: {len(lg)} losses; graphed and eager differ (max rel '
+          f'{max(abs(a - b) / abs(b) for a, b in zip(lg, le)):.3e})')
+    check(np.array_equal(g['sample'], e['sample']) and g['fid'] == e['fid'],
+          f'{label}: the graphed milestone\'s samples or FID ({g["fid"]}) '
+          f'differ from the eager one\'s ({e["fid"]})')
+    tr = g['trainer']
+    check(tr.amp == ('--amp' in extra)
+          and tr.calculate_fid == ('--calculate_fid' in extra)
+          and (g['fid'] is not None) == tr.calculate_fid,
+          f'{label}: amp {tr.amp}, FID {tr.calculate_fid}')
+    # The milestone's chains by batch: the grid, then the FID's; the bundle
+    # keeps one DDIM graph, so each change of batch captures.
+    sizes, done = [tr.num_samples], 0
+    while tr.calculate_fid and done < tr.num_fid_samples:
+        sizes.append(min(tr.batch_size, tr.num_fid_samples - done))
+        done += sizes[-1]
+    chains = 1 + sum(a != b for a, b in zip(sizes, sizes[1:]))
+    want = (1, 0, chains, 1) if dev.type == 'cuda' else (0, 0, 0, 0)
+    got = tuple(g[k]['captures'] for k in ('first', 'second', 'milestone',
+                                           'after'))
+    eager = tuple(e[k]['captures'] for k in ('first', 'second', 'milestone',
+                                             'after'))
+    check(got == want and eager == (0, 0, 0, 0), f'{label}: captures {got}, '
+          f'eager {eager}; expected {want} (milestone chains by batch '
+          f'{sizes})')
+    batch = tr.batch_size
+    s_graph = g['second']['s'] / LOOP_TRAIN_STEPS
+    s_eager = e['second']['s'] / LOOP_TRAIN_STEPS
+    capture_s, pool, _, _ = graph_numbers(g['first'])
+    res = dict(s_graph=s_graph, s_eager=s_eager,
+               images_graph=batch / s_graph, images_eager=batch / s_eager,
+               milestone_graph=g['milestone']['s'],
+               milestone_eager=e['milestone']['s'], capture_s=capture_s,
+               pool_mib=pool, peak=g['second']['peak'],
+               peak_eager=e['second']['peak'],
+               milestone_peak=g['milestone']['peak'],
+               milestone_peak_eager=e['milestone']['peak'])
+    print(f'{label} ({steps} steps, batch {batch}, deterministic cuDNN): '
+          'graphed = eager bit for bit (losses, weights, the milestone\'s '
+          f'samples{" and FID" if tr.calculate_fid else ""}); {s_graph:.4f} s '
+          f'per train step graphed ({batch / s_graph:.1f} images/s) against '
+          f'{s_eager:.4f} ({batch / s_eager:.1f}) eager, the kept graph\'s '
+          f'call of {LOOP_TRAIN_STEPS} steps; capture {capture_s:.3f} s, pool '
+          f'{pool:.1f} MiB; peak allocated {res["peak"] / 2**20:.1f} MiB '
+          f'graphed, {res["peak_eager"] / 2**20:.1f} eager; a milestone '
+          f'(DDIM chains of batch {sizes}, save) {res["milestone_graph"]:.2f} '
+          f's graphed against {res["milestone_eager"]:.2f} s eager, peak '
+          f'{res["milestone_peak"] / 2**20:.1f} MiB graphed, '
+          f'{res["milestone_peak_eager"] / 2**20:.1f} eager; captures {got}',
+          flush=True)
+    return res
+
+
+def phase_loops(dev, root):
+    """The loop-graphs slice (see LOOP_* above). Returns the numbers and
+    the graphed DiffusionFWI run's launches."""
+    from pathlib import Path
+
+    root = Path(root)
+    paths = write_bench_dataset(dev, root)
+    out = {m: loop_bench(dev, paths[BENCH_PRESET], root, m)
+           for m in BENCH_METHODS}
+    for m in BENCH_METHODS:
+        out[f'{m} wide'] = loop_bench(
+            dev, paths[BENCH_WIDE_PRESET], root, m, BENCH_WIDE_DIFFUSION_TS,
+            f'Marmousi ablation preset (patched, diffusion_ts cut to '
+            f'{BENCH_WIDE_DIFFUSION_TS})')
+    out['idle'], out['window_ms'] = loop_bench_trace(
+        dev, paths[BENCH_PRESET], root)
+    out['samplers'] = loop_samplers(dev, paths[BENCH_PRESET])
+    out['trainer'] = loop_trainer(dev, root)
+    out['trainer amp'] = loop_trainer(dev, root, ['--amp', '--calculate_fid'],
+                                      'amp, FID')
+    return out
+
+
 def main(argv=None):
     """Run every phase (no arguments), or with ``--write-wide-dataset DIR``
     or ``--write-bench-dataset DIR`` only write that slice's dataset and
@@ -4110,6 +4661,9 @@ def main(argv=None):
     with Phase('scan slice'):
         with tempfile.TemporaryDirectory() as root:
             scan = phase_scan(dev, root)
+    with Phase('loop graphs'):
+        with tempfile.TemporaryDirectory() as root:
+            loops = phase_loops(dev, root)
 
     n_chunks = len(p['src'])
     steps = n_chunks * CHUNK
@@ -4179,6 +4733,13 @@ def main(argv=None):
             launches_taped=scan['narrow']['launches'][k['name']],
             launches_per_replay_taped=scan['narrow']['per_replay'].get(
                 k['name'], 0))
+        # The loop-graphs slice's graphed DiffusionFWI run of the OpenFWI
+        # ablation preset, and a replay of its inner step and its metrics.
+        d = loops['diffusionfwi']
+        k['loops'] = dict(
+            launches=d['launches'][k['name']],
+            launches_per_replay={p: d['per_replay'].get(p, {}).get(
+                k['name'], 0) for p in ('inner', 'metrics')})
     # The tape replay past tape_step's cluster limit (420x420, B=1):
     # tape_step_stream's launches in the velocity gradient there, its
     # numbers from that phase, its registers, planes and resident clusters
@@ -4362,6 +4923,20 @@ def main(argv=None):
           f'warm_compile then 3 runs on 1 capture: '
           f'{scan["cache"]["first_s"]:.4f} s/step the first, '
           f'{scan["cache"]["third_s"]:.4f} the third', flush=True)
+    lt, ls = loops['trainer'], loops['samplers']
+    print('loop graphs (graphed against eager in one call, bit for bit): '
+          + '; '.join(f'{m} {loops[m]["graph"]["outer_s"]:.4f} s per outer '
+                      f'step against {loops[m]["eager"]["outer_s"]:.4f}, '
+                      f'{loops[m]["graph"]["sample_s"]:.3f} s/sample against '
+                      f'{loops[m]["eager"]["sample_s"]:.3f}'
+                      for m in BENCH_METHODS)
+          + f'; a graphed outer step idles {loops["idle"]:.2%} of its '
+          f'{loops["window_ms"]:.3f} ms device window (traced); '
+          + '; '.join(f'{n} {r["s"]:.3f} s against {r["s_eager"]:.3f}'
+                      for n, r in ls.items())
+          + f'; train {lt["s_graph"]:.4f} s a step against '
+          f'{lt["s_eager"]:.4f}, a milestone {lt["milestone_graph"]:.2f} s '
+          f'against {lt["milestone_eager"]:.2f}', flush=True)
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

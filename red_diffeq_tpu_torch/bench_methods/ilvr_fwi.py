@@ -10,7 +10,10 @@ that of the pre-denoise model diffused to t:
 then clamped to [-1, 1]. LF is an anti-aliased down/up resampling pair
 (two :class:`Resizer` s, built once per shape and factor on the device).
 The down factor of step t is ``down_n[t]`` of a 'linear' (16 -> 2) or
-'stepwise' ([32, 16, 8, 4]) schedule.
+'stepwise' ([32, 16, 8, 4]) schedule. The blend is a program of its own
+on the run's buffers (one a factor: the low-pass matrices are device
+constants of that factor's graph on the card), its q_sample draws made
+before the loop.
 """
 from typing import Optional
 
@@ -102,22 +105,45 @@ class ILVR_FWI(DiffusionFWI):
             self._lowpass_cache[key] = lambda x: up(down(x))
         return self._lowpass_cache[key]
 
-    @torch.no_grad()
-    def _post_denoise_hook(self, denoised, prev_model, step, generator):
-        """The ILVR blend after the denoise of step ``step``; none at t = 0."""
+    def _blend_factor(self, step):
+        """The down factor of the blend after the denoise of ``step``;
+        none at t = 0 or without ILVR."""
         if not self.use_ilvr or step <= 0:
-            return denoised
-        lowpass = self._lowpass(denoised.shape, self.down_n[step])
-        t = torch.full((denoised.shape[0],), step, dtype=torch.long,
-                       device=denoised.device)
-        if self._ilvr_noise is not None:
-            noise = self._ilvr_noise[step].to(prev_model.device)
-        else:
-            noise = torch.randn(prev_model.shape, generator=generator,
-                                device=prev_model.device,
-                                dtype=prev_model.dtype)
-        noised_current = self.diffusion_model.q_sample(prev_model, t, noise)
+            return None
+        return int(self.down_n[step])
+
+    def _blend_key(self):
+        return (bool(self.use_ilvr), float(self.ilvr_weight),
+                tuple(int(f) for f in self.down_n))
+
+    def _blend_draws(self, b, steps, generator) -> None:
+        """The q_sample draw of each outer step that blends, into its row
+        of ``b.noise``, in the order the steps run: ``ilvr_noise[t]`` where
+        given, else one draw each from ``generator`` (the draws the eager
+        loop made after each denoise; nothing else draws in between)."""
+        for i, step in enumerate(steps):
+            if self._blend_factor(step) is None:
+                continue
+            if self._ilvr_noise is not None:
+                noise = self._ilvr_noise[step]
+            else:
+                noise = torch.randn(b.cur.shape, generator=generator,
+                                    device=b.device, dtype=b.cur.dtype)
+            b.noise[i].copy_(noise)
+
+    @torch.no_grad()
+    def _blend_body(self, b, factor) -> None:
+        """The ILVR blend after the denoise of outer step ``b.outer``: the
+        low band of ``b.cur`` exchanged, with weight ``ilvr_weight``, for
+        that of the pre-denoise model ``b.prev`` diffused to the step's
+        timestep with its draw; clamped to [-1, 1]."""
+        lowpass = self._lowpass(b.cur.shape, factor)
+        k = b.outer.reshape(1)
+        t = b.times.index_select(0, k).repeat(b.cur.shape[0])
+        noised_current = self.diffusion_model.q_sample(
+            b.prev, t, b.noise.index_select(0, k)[0])
+        denoised = b.cur
         conditioned = (denoised
                        - self.ilvr_weight * lowpass(denoised)
                        + self.ilvr_weight * lowpass(noised_current))
-        return conditioned.clamp(-1.0, 1.0)
+        b.cur.copy_(conditioned.clamp(-1.0, 1.0))

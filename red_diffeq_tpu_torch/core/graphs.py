@@ -1,4 +1,4 @@
-"""The inversion step as one CUDA graph: the port's whole-loop dispatch.
+"""Loop bodies as CUDA graphs: the port's whole-loop dispatch.
 
 Counterpart of the JAX engine's ``lax.scan`` over the steps
 (``red_diffeq_tpu/core/inversion.py:9-13, 203-207, 429-434``). The JAX
@@ -24,7 +24,18 @@ device and stacks them at the end. Here one step is captured once as a
   made for other U-Net weights (their identity or version, which a
   ``GaussianDiffusion.params`` assignment or a renewed bf16 copy changes)
   is dropped, never replayed.
+
+The JAX package's other one-program loops take the same path: the
+competitor methods' denoise, inner FWI step and metrics
+(``bench_methods/diffusion_fwi.py``), the samplers and RED's post-process
+chain (``models/diffusion.py``, ``regularization/red.py``) and the
+trainer's K steps a call (``models/trainer.py``). Each is a body on fixed
+buffers (a device step count indexing per-step tables and draws made
+before the loop) that :class:`StepGraph` captures; :class:`LoopGraphs`
+holds the graphs of one loop's programs over one set of buffers. On the
+CPU, and inside :func:`eager_loops`, the same bodies run eagerly.
 """
+import contextlib
 import time
 from typing import Callable, Dict, Optional
 
@@ -34,6 +45,39 @@ from red_diffeq_tpu_torch.ops import stencil
 from red_diffeq_tpu_torch.solvers import acoustic
 
 METRICS = ('total_losses', 'obs_losses', 'reg_losses', 'mae', 'rmse', 'ssim')
+
+# Bodies captured by StepGraph in this process, and the depth of
+# eager_loops() blocks around the caller.
+captures = {'n': 0}
+_eager = {'depth': 0}
+
+
+@contextlib.contextmanager
+def eager_loops():
+    """A check's tool: inside the block every loop body runs eagerly, also
+    on the card, so that a run can be held bit for bit against its graphed
+    twin and per-call Python (a forward hook, a spy) fires every step. No
+    graph is captured, replayed or dropped inside."""
+    _eager['depth'] += 1
+    try:
+        yield
+    finally:
+        _eager['depth'] -= 1
+
+
+def graphed(device) -> bool:
+    """Whether a loop body on ``device`` is captured and replayed: on a
+    CUDA device outside :func:`eager_loops`."""
+    return torch.device(device).type == 'cuda' and _eager['depth'] == 0
+
+
+class Body:
+    """A loop body ``fn()`` on fixed buffers on ``device``, as
+    :class:`StepGraph` takes it."""
+
+    def __init__(self, fn: Callable[[], None], device):
+        self.body = fn
+        self.device = torch.device(device)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -83,6 +127,10 @@ class StepBuffers:
         self.split: Optional[Callable] = None
         self.gather: Optional[Callable] = None
         self.mus = self.ms = self.vs = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.count.device
 
     def bind(self, advance: Callable, mu_parts) -> None:
         self.advance = advance
@@ -142,14 +190,18 @@ class StepBuffers:
 
 
 class StepGraph:
-    """``buffers.body`` captured as a CUDA graph. Construction runs one
-    real step eagerly on a side stream (the warm-up), then captures the
-    body into a private memory pool: ``seconds`` the capture took,
-    ``pool_bytes`` the device memory it reserved, ``launches`` the kernel
-    launches of one replay (by :func:`launch_counts` key)."""
+    """``buffers.body()`` captured as a CUDA graph, for any ``buffers``
+    with a ``body()`` and a ``device`` (:class:`StepBuffers`,
+    :class:`Body`). Construction runs one real step eagerly on a side
+    stream (the warm-up), then captures the body into a private memory
+    pool: ``seconds`` the capture took, ``pool_bytes`` the device memory
+    it reserved, ``launches`` the kernel launches of one replay (by
+    :func:`launch_counts` key). On the CPU it raises."""
 
-    def __init__(self, buffers: StepBuffers):
-        dev = buffers.count.device
+    def __init__(self, buffers):
+        dev = torch.device(buffers.device)
+        if dev.type != 'cuda':
+            raise RuntimeError(f'a CUDA graph needs a CUDA device, not {dev}')
         self.buffers = buffers
         with torch.cuda.device(dev):
             stream = torch.cuda.Stream(dev)
@@ -171,6 +223,7 @@ class StepGraph:
                 _set_counts(before)
             torch.cuda.synchronize(dev)
             self.seconds = time.perf_counter() - t0
+            captures['n'] += 1
             self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.launches = {k: n - before[k] for k, n in after.items()
                          if n > before[k]}
@@ -189,12 +242,16 @@ class StepGraph:
 
 class GraphCache:
     """An engine's step graphs, one per configuration key; ``stamp`` is
-    the identity and version of the U-Net weights the graph reads, and a
-    graph whose stamp differs from the caller's is dropped. ``captures``
-    counts the graphs made."""
+    the address and version of the U-Net weights the graph reads, and a
+    graph whose stamp differs from the caller's is dropped. With ``kind``
+    (a key's program kind, ``kind(key)``) the cache keeps one graph of each
+    kind: a new one releases the one it replaces, so that each new shape
+    or step count does not hold another pool. ``captures`` counts the
+    graphs made."""
 
-    def __init__(self):
+    def __init__(self, kind: Optional[Callable] = None):
         self._entries: Dict = {}
+        self.kind = kind
         self.captures = 0
 
     def get(self, key, stamp) -> Optional[StepGraph]:
@@ -207,9 +264,10 @@ class GraphCache:
         return entry[1]
 
     def put(self, key, stamp, graph: StepGraph) -> None:
-        old = self._entries.pop(key, None)
-        if old is not None:
-            old[1].release()
+        old = [k for k in self._entries if k == key or (
+            self.kind is not None and self.kind(k) == self.kind(key))]
+        for k in old:
+            self._entries.pop(k)[1].release()
         self._entries[key] = (stamp, graph)
         self.captures += 1
 
@@ -228,3 +286,47 @@ class GraphCache:
         del entries
         if torch.cuda.is_available():
             torch.cuda.empty_cache()
+
+
+class LoopGraphs:
+    """The graphs of one loop's programs over one set of fixed buffers
+    (``state``), by program name. :meth:`run` replays a program's graph,
+    or, where none is kept, runs the program once eagerly and, when
+    ``graph`` and ``capture``, captures it (:class:`StepGraph`: that run is
+    its warm-up). Kept in a :class:`GraphCache` by configuration."""
+
+    def __init__(self, state, graph: bool):
+        self.state = state
+        self.graph = graph
+        self.graphs: Dict[str, StepGraph] = {}
+
+    def run(self, name: str, program, capture: bool = True) -> None:
+        g = self.graphs.get(name)
+        if g is not None:
+            g.replay()
+        elif self.graph and capture:
+            self.graphs[name] = StepGraph(program)
+        else:
+            program.body()
+
+    def info(self) -> Dict:
+        return {name: g.info() for name, g in self.graphs.items()}
+
+    def release(self) -> None:
+        for g in self.graphs.values():
+            g.release()
+        self.graphs = {}
+
+
+def loop_graphs(cache: Optional[GraphCache], key, stamp, device,
+                make: Callable[[], object]) -> LoopGraphs:
+    """The :class:`LoopGraphs` kept in ``cache`` under ``key`` and
+    ``stamp``, or a new one over ``make()`` (kept when graphed). Eagerly
+    (the CPU, :func:`eager_loops`) always a new one, kept nowhere."""
+    if cache is None or not graphed(device):
+        return LoopGraphs(make(), False)
+    loops = cache.get(key, stamp)
+    if loops is None:
+        loops = LoopGraphs(make(), True)
+        cache.put(key, stamp, loops)
+    return loops

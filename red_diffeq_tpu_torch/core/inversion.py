@@ -31,7 +31,7 @@ import torch
 from torch.profiler import record_function
 
 from red_diffeq_tpu_torch.core.graphs import (
-    METRICS, GraphCache, StepBuffers, StepGraph,
+    METRICS, GraphCache, StepBuffers, StepGraph, graphed as _graphed,
 )
 from red_diffeq_tpu_torch.core.losses import observation_loss, total_loss
 from red_diffeq_tpu_torch.core.metrics import calculate_metrics
@@ -669,8 +669,9 @@ class InversionEngine:
         """``use_scan=True``: the step on fixed buffers, replayed as a
         CUDA graph on the card. Returns (mu, {metric: (ts, B) array})."""
         dev = self.device
-        graphed = dev.type == 'cuda' and (mesh is None or _one_device(mesh))
-        if dev.type == 'cuda' and not graphed:
+        one_card = mesh is None or _one_device(mesh)
+        graphed = _graphed(dev) and one_card
+        if dev.type == 'cuda' and not one_card:
             print(f'mesh over {len(set(mesh.devices.flat))} distinct cards: '
                   'the steps run eagerly (no CUDA graph across cards)',
                   flush=True)

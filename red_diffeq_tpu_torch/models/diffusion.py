@@ -5,11 +5,15 @@ training loss.
 Counterpart of ``red_diffeq_tpu/models/diffusion.py:82-431``. Schedule
 coefficients are computed in float64 on the host and stored as float32
 tensors on the device. Public functions keep the JAX package's
-(B, 1, H, W) layout. The samplers are host loops over the timesteps (the
-JAX package's are one ``lax.scan``); their draws come from a
-``torch.Generator`` unless given as one stacked tensor, so that tests can
-feed JAX's draws. So do the training loss's (:meth:`GaussianDiffusion.loss`:
-the timesteps, the noise and the offset noise).
+(B, 1, H, W) layout. The samplers (the JAX package's are one
+``lax.scan`` each) run one step as a body on fixed buffers
+(:class:`_Chain`) that on the card is a CUDA graph, captured once per
+configuration and replayed a step (``core/graphs.py``); on the CPU the
+same body runs eagerly. Their draws come from a ``torch.Generator``, all
+made before the chain in the order the steps take them, unless given as
+one stacked tensor, so that tests can feed JAX's draws. So do the
+training loss's (:meth:`GaussianDiffusion.loss`: the timesteps, the noise
+and the offset noise).
 """
 import copy
 from dataclasses import dataclass
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from red_diffeq_tpu_torch.core import graphs
 from red_diffeq_tpu_torch.models.unet import Unet
 from red_diffeq_tpu_torch.utils.device import resolve_device
 from red_diffeq_tpu_torch.utils.diffusion_utils import extract
@@ -190,6 +195,8 @@ class GaussianDiffusion:
             timesteps, beta_schedule, objective, min_snr_loss_weight,
             min_snr_gamma, schedule_fn_kwargs, device=self.device)
         self._bf16 = None
+        # Sampler chains' CUDA graphs, one per kind (``_chain``).
+        self._graphs = _chain_graphs()
 
     @property
     def params(self) -> dict:
@@ -212,16 +219,32 @@ class GaussianDiffusion:
         U-Net, so this bundle's weights stay as they are."""
         new = copy.copy(self)
         new.model = copy.deepcopy(self.model)
-        new._bf16 = None
         new.params = params
         return new
 
+    def __copy__(self) -> 'GaussianDiffusion':
+        """A shallow copy with a bf16 copy and sampler graphs of its own:
+        both belong to the U-Net's weights, which a copy mostly replaces
+        (``with_params``, the trainer's EMA bundle, a replica)."""
+        new = object.__new__(type(self))
+        new.__dict__.update(self.__dict__)
+        new._bf16 = None
+        new._graphs = _chain_graphs()
+        return new
+
+    def release_graphs(self) -> None:
+        """Drop the sampler chains' graphs and return their pools to the
+        card."""
+        self._graphs.release()
+
     def weights_stamp(self) -> tuple:
-        """The identity and version of each U-Net parameter. A ``params``
+        """The address and version of each U-Net parameter. A ``params``
         assignment (an in-place copy) or a train step changes it, and so
-        does a new parameter tensor; a CUDA graph of a step that reads the
-        weights (or their bf16 copy) is kept only under its stamp."""
-        return tuple((id(p), p._version) for p in self.model.parameters())
+        does a parameter tensor at another address; a CUDA graph of a step
+        that reads the weights (or their bf16 copy) is kept only under its
+        stamp."""
+        return tuple((p.data_ptr(), p._version)
+                     for p in self.model.parameters())
 
     def bf16_params(self) -> Dict[str, torch.Tensor]:
         """A bf16 copy of the U-Net's parameters, made again whenever a
@@ -333,12 +356,15 @@ class GaussianDiffusion:
         return torch.full((x.shape[0],), int(t), dtype=torch.long,
                           device=x.device)
 
-    def _draw(self, noise, i, shape, generator):
-        """Draw ``i`` of a stacked ``noise`` tensor, else a standard normal
-        of ``shape`` from ``generator``."""
+    def _draws(self, noise, n, shape, generator) -> torch.Tensor:
+        """A chain's ``n`` draws of ``shape``: ``noise`` (n, *shape) as
+        given, else ``n`` standard normals from ``generator``, one call
+        each, in the eager chain's order, stacked."""
         if noise is not None:
-            return noise[i]
-        return torch.randn(shape, generator=generator, device=self.device)
+            return noise
+        return torch.stack([torch.randn(shape, generator=generator,
+                                        device=self.device)
+                            for _ in range(n)])
 
     @torch.no_grad()
     def p_sample(self, x, t: int, generator=None, noise=None,
@@ -347,12 +373,16 @@ class GaussianDiffusion:
         mean plus its standard deviation times ``noise`` (drawn from
         ``generator`` unless given), except at t == 0. Returns
         (x_{t-1}, x_start)."""
-        mean, _, log_var, x_start = self.p_mean_variance(
-            x, self._batch_t(x, t), x_self_cond)
         if noise is None:
             noise = torch.randn(x.shape, generator=generator,
                                 device=x.device, dtype=x.dtype)
-        nz = float(t > 0)
+        return self._ancestral_step(x, self._batch_t(x, t), float(t > 0),
+                                    noise, x_self_cond)
+
+    def _ancestral_step(self, x, bt, nz, noise, x_self_cond=None):
+        """:meth:`p_sample` at timesteps ``bt`` (B,), ``nz`` 1 or 0 (a
+        number or a device scalar)."""
+        mean, _, log_var, x_start = self.p_mean_variance(x, bt, x_self_cond)
         return mean + nz * torch.exp(0.5 * log_var) * noise, x_start
 
     @torch.no_grad()
@@ -362,60 +392,86 @@ class GaussianDiffusion:
                                                    x_self_cond)
         return mean, x_start
 
-    def _finish(self, img, trail, return_all_timesteps):
-        if return_all_timesteps:
-            img = torch.stack(trail, dim=1)
-        return self.unnormalize(img)
+    def _chain(self, kind, start, times, draws=None, tables=None,
+               trail=False):
+        """Run one sampler chain (a step a timestep of ``times``) from
+        ``start`` as a body on fixed buffers (:class:`_Chain`): on the card
+        a CUDA graph of the step, captured once per configuration and
+        weights (``weights_stamp``) and replayed, else eagerly. ``draws``
+        (steps, *shape) are the steps' draws; ``tables()`` makes DDIM's
+        per-step coefficients. Returns the last image (a new tensor), or
+        with ``trail`` the start and every step's image stacked on axis
+        1."""
+        n = len(times)
+        key = (kind, self.model, tuple(start.shape), tuple(times), trail,
+               bool(self.half_precision), float(self.ddim_sampling_eta))
+        loops = graphs.loop_graphs(
+            self._graphs, key, self.weights_stamp(), self.device,
+            lambda: _Chain(self, kind, start.shape, times,
+                           draws is not None, tables, trail))
+        chain = loops.state
+        chain.load(start, draws)
+        for i in range(n):
+            loops.run('step', chain, capture=i + 1 < n)
+        return (chain.trail if trail else chain.img).clone()
 
     @torch.no_grad()
     def p_sample_loop(self, shape, generator=None, noise=None,
                       return_all_timesteps: bool = False):
-        """The ancestral chain from pure noise over every timestep.
-        ``noise`` (num_timesteps + 1, *shape), if given, holds the start
-        image, then each step's draw in the order the steps run (t from
-        num_timesteps - 1 down to 0). Returns images in [0, 1] (with
-        ``auto_normalize``), or with ``return_all_timesteps`` every image
-        of the chain stacked on axis 1."""
-        img = self._draw(noise, 0, shape, generator)
-        trail = [img]
-        for i, t in enumerate(range(self.num_timesteps - 1, -1, -1)):
-            img, _ = self.p_sample(
-                img, t, noise=self._draw(noise, i + 1, shape, generator))
-            if return_all_timesteps:
-                trail.append(img)
-        return self._finish(img, trail, return_all_timesteps)
+        """The ancestral chain from pure noise over every timestep, one
+        step a replay of its CUDA graph on the card (the JAX package's one
+        ``lax.scan``). ``noise`` (num_timesteps + 1, *shape), if given,
+        holds the start image, then each step's draw in the order the steps
+        run (t from num_timesteps - 1 down to 0); else all are drawn from
+        ``generator`` before the chain, in that order. Returns images in
+        [0, 1] (with ``auto_normalize``), or with ``return_all_timesteps``
+        every image of the chain stacked on axis 1."""
+        draws = self._draws(noise, self.num_timesteps + 1, shape, generator)
+        out = self._chain('ancestral', draws[0],
+                          list(range(self.num_timesteps - 1, -1, -1)),
+                          draws[1:], trail=return_all_timesteps)
+        return self.unnormalize(out)
+
+    def _ddim_tables(self, times):
+        """DDIM's per-step coefficients on the device, each computed as
+        the eager step computes it (scalar by scalar): sqrt(alpha_next),
+        c and sigma, and the last step's flag (time_next < 0)."""
+        eta, ac = self.ddim_sampling_eta, self.schedule.alphas_cumprod
+        rows = {'sqrt_alpha_next': [], 'c': [], 'sigma': []}
+        one = torch.ones((), device=self.device)
+        for time, time_next in zip(times[:-1], times[1:]):
+            alpha = ac[time]
+            alpha_next = one if time_next < 0 else ac[time_next]
+            sigma = eta * torch.sqrt((1 - alpha / alpha_next)
+                                     * (1 - alpha_next) / (1 - alpha))
+            rows['sqrt_alpha_next'].append(torch.sqrt(alpha_next))
+            rows['c'].append(torch.sqrt(
+                (1 - alpha_next - sigma ** 2).clamp_min(0.0)))
+            rows['sigma'].append(sigma)
+        tables = {k: torch.stack(v) for k, v in rows.items()}
+        tables['last'] = torch.tensor([bool(t < 0) for t in times[1:]],
+                                      device=self.device)
+        return tables
 
     @torch.no_grad()
     def ddim_sample(self, shape, generator=None, noise=None,
                     return_all_timesteps: bool = False):
         """The DDIM sampler over ``sampling_timesteps`` steps of the grid
         ``linspace(-1, T - 1, sampling_timesteps + 1)``, reversed; the last
-        step returns the clamped x_start. ``noise`` (sampling_timesteps + 1,
-        *shape), if given, holds the start image, then each step's draw
-        (which only ``ddim_sampling_eta`` > 0 lets in)."""
-        total, eta = self.num_timesteps, self.ddim_sampling_eta
-        times = np.linspace(-1, total - 1,
+        step returns the clamped x_start. One step a replay of its CUDA
+        graph on the card, its coefficients per-step device tables.
+        ``noise`` (sampling_timesteps + 1, *shape), if given, holds the
+        start image, then each step's draw (which only
+        ``ddim_sampling_eta`` > 0 lets in); else all are drawn from
+        ``generator`` before the chain, in that order."""
+        times = np.linspace(-1, self.num_timesteps - 1,
                             self.sampling_timesteps + 1).astype(int)[::-1]
-        ac = self.schedule.alphas_cumprod
-        img = self._draw(noise, 0, shape, generator)
-        trail = [img]
-        for i, (time, time_next) in enumerate(zip(times[:-1], times[1:])):
-            pred_noise, x_start = self.model_predictions(
-                img, self._batch_t(img, time), clip_x_start=True,
-                rederive_pred_noise=True)
-            step_noise = self._draw(noise, i + 1, shape, generator)
-            if time_next < 0:
-                img = x_start
-            else:
-                alpha, alpha_next = ac[time], ac[time_next]
-                sigma = eta * torch.sqrt((1 - alpha / alpha_next)
-                                         * (1 - alpha_next) / (1 - alpha))
-                c = torch.sqrt((1 - alpha_next - sigma ** 2).clamp_min(0.0))
-                img = (x_start * torch.sqrt(alpha_next) + c * pred_noise
-                       + sigma * step_noise)
-            if return_all_timesteps:
-                trail.append(img)
-        return self._finish(img, trail, return_all_timesteps)
+        draws = self._draws(noise, self.sampling_timesteps + 1, shape,
+                            generator)
+        out = self._chain('ddim', draws[0], [int(t) for t in times[:-1]],
+                          draws[1:], lambda: self._ddim_tables(times),
+                          trail=return_all_timesteps)
+        return self.unnormalize(out)
 
     def sample(self, batch_size: int = 16, generator=None, noise=None,
                return_all_timesteps: bool = False):
@@ -435,17 +491,20 @@ class GaussianDiffusion:
                     lam: float = 0.5, noise=None):
         """Diffuse ``x1`` and ``x2`` to timestep ``t`` (default T - 1), mix
         them with weight ``lam`` and run the ancestral chain from t - 1 to
-        0. ``noise`` (t + 2, *x1.shape), if given, holds x1's and x2's
-        forward draws, then each step's."""
+        0 (a replay of its step's CUDA graph a step on the card). ``noise``
+        (t + 2, *x1.shape), if given, holds x1's and x2's forward draws,
+        then each step's; else all are drawn from ``generator`` first, in
+        that order."""
         t = self.num_timesteps - 1 if t is None else t
+        draws = self._draws(noise, t + 2, x1.shape, generator)
         bt = self._batch_t(x1, t)
-        xt1 = self.q_sample(x1, bt, self._draw(noise, 0, x1.shape, generator))
-        xt2 = self.q_sample(x2, bt, self._draw(noise, 1, x1.shape, generator))
+        xt1 = self.q_sample(x1, bt, draws[0])
+        xt2 = self.q_sample(x2, bt, draws[1])
         img = (1 - lam) * xt1 + lam * xt2
-        for i, ti in enumerate(range(t - 1, -1, -1)):
-            img, _ = self.p_sample(
-                img, ti, noise=self._draw(noise, i + 2, x1.shape, generator))
-        return img
+        if t == 0:
+            return img
+        return self._chain('ancestral', img, list(range(t - 1, -1, -1)),
+                           draws[2:])
 
     def p_losses(self, x_start, t, noise=None, offset=None, generator=None,
                  params: Optional[Dict[str, torch.Tensor]] = None):
@@ -496,3 +555,67 @@ class GaussianDiffusion:
         return self.p_losses(self.normalize(img), t.long(), noise=noise,
                              offset=offset, generator=generator,
                              params=params)
+
+
+def _chain_graphs() -> graphs.GraphCache:
+    """A bundle's sampler graphs: one of each chain kind (ancestral, DDIM,
+    deterministic), the last configuration run."""
+    return graphs.GraphCache(kind=lambda key: key[0])
+
+
+class _Chain:
+    """One sampler chain's fixed buffers and its step on them: the image,
+    the step count (int64 on the device), each step's timestep (and the
+    ancestral chain's noise flag, t > 0), each step's draw, DDIM's
+    coefficient tables (``tables()``), and with ``trail`` a (B, steps + 1,
+    ...) buffer of the start and every step's image. ``kind`` is
+    'ancestral' (:meth:`GaussianDiffusion.p_sample`), 'ddim' or
+    'deterministic' (the posterior mean, between [0, 1] images: RED's
+    post-process)."""
+
+    def __init__(self, diffusion, kind, shape, times, has_draws, tables,
+                 trail):
+        dev = diffusion.device
+        self.diffusion, self.kind, self.device = diffusion, kind, dev
+        self.img = torch.zeros(shape, device=dev)
+        self.count = torch.zeros((), dtype=torch.int64, device=dev)
+        self.times = torch.tensor(times, dtype=torch.int64, device=dev)
+        self.nz = (self.times > 0).float()
+        self.draws = (torch.zeros((len(times), *shape), device=dev)
+                      if has_draws else None)
+        self.tables = tables() if tables is not None else None
+        self.trail = (torch.zeros((shape[0], len(times) + 1, *shape[1:]),
+                                  device=dev) if trail else None)
+
+    def load(self, start, draws) -> None:
+        """A run's start image and draws; the count back to 0."""
+        self.img.copy_(start)
+        self.count.zero_()
+        if draws is not None:
+            self.draws.copy_(draws)
+        if self.trail is not None:
+            self.trail[:, 0].copy_(start)
+
+    def body(self) -> None:
+        """Step ``count`` of the chain, its image into ``img`` (and the
+        trail)."""
+        d, img = self.diffusion, self.img
+        k = self.count.reshape(1)
+        bt = self.times.index_select(0, k.expand(img.shape[0]))
+        if self.kind == 'ancestral':
+            new, _ = d._ancestral_step(img, bt, self.nz.index_select(0, k),
+                                       self.draws.index_select(0, k)[0])
+        elif self.kind == 'ddim':
+            pred_noise, x_start = d.model_predictions(
+                img, bt, clip_x_start=True, rederive_pred_noise=True)
+            tb = {n: v.index_select(0, k) for n, v in self.tables.items()}
+            new = (x_start * tb['sqrt_alpha_next'] + tb['c'] * pred_noise
+                   + tb['sigma'] * self.draws.index_select(0, k)[0])
+            new = torch.where(tb['last'], x_start, new)
+        else:
+            mean, _, _, _ = d.p_mean_variance(d.normalize(img), bt)
+            new = d.unnormalize(mean)
+        self.img.copy_(new)
+        if self.trail is not None:
+            self.trail.index_copy_(1, k + 1, new[:, None])
+        self.count += 1

@@ -7,9 +7,16 @@ with update periodicity and warm-up, milestone checkpoints with a losses
 JSON and an RNG sidecar, EMA sample grids, and the inception-free FID
 proxy (Frechet distance in a frozen random-conv feature space).
 
-One optimiser step is one host call (:meth:`Trainer.train_step`): the JAX
-package scans K steps per dispatch (``_make_train_multi*``), a device for a
-remote TPU that the card does not need. The arithmetic is optax's:
+:meth:`Trainer.train` runs K steps a call, as the JAX package scans them
+in one dispatch (``_train_multi_idx``): the batch indices of the K steps
+from the host's stream, the batches gathered on the device, the draws
+made before the call in the eager order, and one train step on fixed
+buffers (:class:`_TrainBuffers`, its step count on the device indexing
+per-step tables of Adam's bias corrections and the EMA's gate and decay)
+that on the card is a CUDA graph, captured once and replayed K times
+(``core/graphs.py``); on the CPU the same body runs eagerly.
+:meth:`Trainer.train_step` is one step from the host. The arithmetic is
+optax's:
 ``clip_by_global_norm`` scales by ``max_norm / norm`` only when the norm
 reaches ``max_norm`` (no epsilon), and ``adam`` adds eps 1e-8 after the
 square root of the bias-corrected second moment (eps_root 0); both run as
@@ -49,6 +56,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from red_diffeq_tpu_torch.core import graphs
 from red_diffeq_tpu_torch.io.checkpoints import (
     atomic_write_bytes, flax_to_state_dict, load_params, packb,
     state_dict_to_flax,
@@ -249,7 +257,20 @@ class Adam:
         self.mu = [torch.zeros_like(p) for p in params]
         self.nu = [torch.zeros_like(p) for p in params]
 
-    def update(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+    def corrections(self, count: int):
+        """The bias corrections 1 - b1^count and 1 - b2^count, in float32
+        as optax computes them."""
+        f32 = np.float32
+        return (float(f32(1) - f32(self.b1) ** f32(count)),
+                float(f32(1) - f32(self.b2) ** f32(count)))
+
+    def update(self, grads: List[torch.Tensor], bc1=None, bc2=None
+               ) -> List[torch.Tensor]:
+        """The updates of ``grads``. Without ``bc1``/``bc2`` the count
+        advances and the bias corrections are its, as optax's ``update``
+        runs alone; the trainer passes its step's corrections (scalar
+        tensors on the device, :func:`_table_rows`) and advances the count
+        itself."""
         b1, b2 = self.b1, self.b2
         # mu = (1 - b1) * g + b1 * mu; nu = (1 - b2) * g^2 + b2 * nu
         torch._foreach_mul_(self.mu, b1)
@@ -257,10 +278,9 @@ class Adam:
         torch._foreach_mul_(self.nu, b2)
         torch._foreach_add_(self.nu, torch._foreach_mul(
             torch._foreach_mul(grads, grads), 1 - b2))
-        self.count += 1
-        f32 = np.float32
-        bc1 = float(f32(1) - f32(b1) ** f32(self.count))
-        bc2 = float(f32(1) - f32(b2) ** f32(self.count))
+        if bc1 is None:
+            self.count += 1
+            bc1, bc2 = self.corrections(self.count)
         denom = torch._foreach_sqrt(torch._foreach_div(self.nu, bc2))
         torch._foreach_add_(denom, self.EPS)
         updates = torch._foreach_div(torch._foreach_div(self.mu, bc1), denom)
@@ -335,6 +355,9 @@ class Trainer:
         self.optimizer = Adam(self.params, train_lr, b1=adam_betas[0],
                               b2=adam_betas[1])
         self._fid_weights = None
+        # The train step's CUDA graph (``_train_call``): one, released
+        # before each milestone's sampling (``_sample_and_save``).
+        self._graphs = graphs.GraphCache(kind=lambda key: 'train')
 
         # Device-resident data: a TensorDataset under the byte budget is
         # uploaded once (at the first train()) and gathered by index.
@@ -361,6 +384,18 @@ class Trainer:
         from the trainer's generator). With ``devices`` (:meth:`split_loss`)
         each micro-batch is split over them. Returns the mean micro-batch
         loss, on the card."""
+        at = {n: v[0] for n, v in _table_rows(self, 1).items()}
+        loss = self._step(batches, draws, at)
+        self.step += 1
+        self.optimizer.count += 1
+        return loss
+
+    def _step(self, batches, draws, at) -> torch.Tensor:
+        """:meth:`train_step` without advancing ``step`` and Adam's count,
+        which are the caller's: ``at`` is the step's row of the tables
+        (:func:`_table_rows`, scalar tensors on the device: Adam's bias
+        corrections ``bc1`` and ``bc2``, the EMA's gate ``ema``, ``copy``,
+        ``decay`` and ``keep`` = 1 - decay), as a graphed step reads it."""
         for p in self.params:
             p.grad = None
         loss_sum = None
@@ -387,11 +422,22 @@ class Trainer:
             torch._foreach_div_(grads, self.grad_accum)
         clip_by_global_norm(grads, self.max_grad_norm)
         with torch.no_grad():
-            torch._foreach_add_(self.params, self.optimizer.update(grads))
-            self.step += 1
-            if self.step % self.ema_cfg.update_every == 0:
-                self._update_ema(_ema_decay_at(self.step, self.ema_cfg))
+            torch._foreach_add_(self.params, self.optimizer.update(
+                grads, at['bc1'], at['bc2']))
+            self._update_ema(at)
         return loss_sum / self.grad_accum
+
+    def _update_ema(self, at) -> None:
+        """ema = ema * decay + params * (1 - decay) where ``at['ema']``
+        (the step is a multiple of ``update_every``), a copy of the params
+        where ``at['copy']`` (the decay is 0, through update_after_step +
+        1), else the EMA as it is: the update is computed every step and
+        kept by the flags, so that a graphed step holds no host choice."""
+        new = torch._foreach_add(
+            torch._foreach_mul(self.ema_params, at['decay']),
+            torch._foreach_mul(self.params, at['keep']))
+        for e, n, p in zip(self.ema_params, new, self.params):
+            e.copy_(torch.where(at['copy'], p, torch.where(at['ema'], n, e)))
 
     def _replica(self, dev):
         """The diffusion model with a copy of the U-Net and the schedule on
@@ -455,35 +501,31 @@ class Trainer:
             p.grad = g if p.grad is None else p.grad + g
         return total
 
-    def _update_ema(self, decay: float):
-        """ema = ema * decay + params * (1 - decay); a copy while the decay
-        is 0 (through update_after_step + 1)."""
-        if decay == 0.0:
-            torch._foreach_copy_(self.ema_params, self.params)
-            return
-        torch._foreach_mul_(self.ema_params, decay)
-        torch._foreach_add_(self.ema_params,
-                            torch._foreach_mul(self.params, 1.0 - decay))
-
     # -- data -------------------------------------------------------------
 
+    def _next_data(self) -> np.ndarray:
+        """One step's micro-batches from the host's stream, in the JAX
+        trainer's order of draws: (grad_accum, B) indices into the
+        resident dataset (:meth:`TensorDataset.sample_batch`'s draws), or
+        the (grad_accum, B, C, H, W) batches sampled on the host."""
+        if self._device_data:
+            n = len(self.dataset)
+            return np.stack([self._np_rng.randint(0, n, size=self.batch_size)
+                             for _ in range(self.grad_accum)])
+        return np.stack([self.dataset.sample_batch(self._np_rng,
+                                                   self.batch_size)
+                         for _ in range(self.grad_accum)])
+
     def _next_batches(self) -> List[torch.Tensor]:
-        """``grad_accum`` micro-batches on the device: gathered on the card
-        from the resident dataset by indices drawn as
-        :meth:`TensorDataset.sample_batch` draws them, or sampled on the
-        host and copied."""
+        """``grad_accum`` micro-batches on the device (:meth:`_next_data`):
+        gathered on the card from the resident dataset, or copied."""
+        data = torch.from_numpy(self._next_data())
         if not self._device_data:
-            return [torch.from_numpy(self.dataset.sample_batch(
-                self._np_rng, self.batch_size)).to(self.device)
-                for _ in range(self.grad_accum)]
-        n = len(self.dataset)
-        idx = np.stack([self._np_rng.randint(0, n, size=self.batch_size)
-                        for _ in range(self.grad_accum)])
-        idx = torch.from_numpy(idx)
+            return list(data.to(self.device))
         if self.device.type == 'cuda':
             # A pinned copy does not make the host wait for the card.
-            idx = idx.pin_memory().to(self.device, non_blocking=True)
-        return list(self._data_dev[idx])
+            data = data.pin_memory().to(self.device, non_blocking=True)
+        return list(self._data_dev[data])
 
     # -- checkpointing (reference models/diffusion.py:617-649) ------------
 
@@ -585,8 +627,9 @@ class Trainer:
         call crosses a milestone, a milestone is saved after the call that
         reaches it, and the loss line is printed after a call that crosses
         a multiple of ``log_every`` (``step % log_every < k`` for a call
-        of k steps). Here a call is k train steps from the host; the
-        losses stay on the card until a line or a milestone reads them."""
+        of k steps). A call is k replays of the train step's CUDA graph on
+        the card (:meth:`_train_call`); the losses stay on the card until a
+        line or a milestone reads them."""
         t0 = time.time()
         step0 = self.step
         if self._device_data and self._data_dev is None:
@@ -599,10 +642,7 @@ class Trainer:
                 self.step % self.save_and_sample_every)
             k = min(max(1, int(steps_per_call)),
                     self.train_num_steps - self.step, to_milestone)
-            for _ in range(k):
-                step = self.step
-                loss = self.train_step(self._next_batches())
-                self._pending.append((step, loss))
+            self._train_call(k, max(1, int(steps_per_call)))
             if self.step % log_every < k:
                 self._flush_losses()
                 rate = (self.step - step0) / (time.time() - t0)
@@ -613,6 +653,69 @@ class Trainer:
                 self._sample_and_save(self.step // self.save_and_sample_every)
         self._flush_losses()
         print('training complete')
+
+    def _one_card(self) -> bool:
+        """Whether the steps run on one device (no split, or a split over
+        one device repeated): then they are one CUDA graph on the card."""
+        return self.devices is None or len(
+            {_canonical(d) for d in self.devices}) == 1
+
+    def _train_call(self, k: int, size: int, draws=None) -> None:
+        """``k`` train steps as :func:`_TrainBuffers.body` on buffers for
+        ``size`` steps a call: the (k, grad_accum, B) batch indices from the
+        host's stream (or, for data off the device, the batches), the
+        steps' draws made before the call in the eager order (per step and
+        micro-batch: t, the noise, the offset), Adam's bias corrections and
+        the EMA's gate and decay as tables, copied in; then the steps, each
+        a replay of the graph on the card. Their losses go to the pending
+        list; ``step`` and Adam's count advance by ``k``. ``draws`` (a dict
+        a step and micro-batch, step-major), if given, are the draws, as
+        :meth:`train_step` takes them."""
+        d, dev = self.diffusion, self.device
+        data = np.stack([self._next_data() for _ in range(k)])
+        shape = ((self.batch_size, *self._data_dev.shape[1:])
+                 if self._device_data else data.shape[2:])
+        if draws is None:
+            draws = [self._loss_draws(shape)
+                     for _ in range(k * self.grad_accum)]
+        key = (size, self.grad_accum, tuple(shape), self._device_data,
+               self.amp, tuple(self.devices or ()), d.model)
+        # The graph reads and writes these tensors at their addresses: a
+        # tensor put in another's place (``load`` renews Adam's moments)
+        # changes the stamp unless it took the same address.
+        stamp = tuple(None if t is None else t.data_ptr() for t in (
+            *self.params, *self.ema_params, *self.optimizer.mu,
+            *self.optimizer.nu, self._data_dev))
+        loops = graphs.loop_graphs(
+            self._graphs if self._one_card() else None, key, stamp, dev,
+            lambda: _TrainBuffers(self, size, shape, draws[0]))
+        tb = loops.state
+        tb.load(self, k, data, draws)
+        for i in range(k):
+            loops.run('step', tb, capture=i + 1 < k)
+        if loops.graphs:
+            # A replay changes the weights without the in-place ops' version
+            # bumps, which ``weights_stamp`` (a kept sampler or inversion
+            # graph's, a bf16 copy's) reads.
+            for t in (*self.params, *self.ema_params):
+                torch.autograd.graph.increment_version(t)
+        losses = tb.losses[:k].clone()
+        self._pending.extend((self.step + i, losses[i]) for i in range(k))
+        self.step += k
+        self.optimizer.count += k
+
+    def _loss_draws(self, shape) -> dict:
+        """The draws of one micro-batch's loss of ``shape`` (B, C, H, W)
+        from the trainer's generator, in the loss's order: t, the noise,
+        the offset (with offset noise)."""
+        d, dev = self.diffusion, self.device
+        row = {'t': torch.randint(0, d.num_timesteps, shape[:1],
+                                  generator=self._gen, device=dev),
+               'noise': torch.randn(shape, generator=self._gen, device=dev)}
+        if d.offset_noise_strength > 0.0:
+            row['offset'] = torch.randn(shape[:2], generator=self._gen,
+                                        device=dev)
+        return row
 
     def _fid_features(self, images) -> np.ndarray:
         """(N, C, H, W) in [0, 1] -> (N, 128) frozen features."""
@@ -647,6 +750,10 @@ class Trainer:
         return score
 
     def _sample_and_save(self, milestone):
+        # The train step's graph makes way for the samplers' graphs, and
+        # they for it: a device holds one set of pools at a time, and each
+        # is captured again at its next use.
+        self._graphs.release()
         samples = self.ema_diffusion.sample(batch_size=self.num_samples,
                                             generator=self._gen)
         np.save(self.results_folder / f'sample-{milestone}.npy',
@@ -655,4 +762,91 @@ class Trainer:
             score = self._fid_score(milestone)
             print(f'milestone {milestone}: fid_frozen {score:.4f}',
                   flush=True)
+        self.ema_diffusion.release_graphs()
         self.save(milestone)
+
+
+# The per-step tables of a train step (:meth:`Trainer._step`): Adam's bias
+# corrections, the EMA's decay and 1 - decay, its gate and its copy flag.
+_TABLES = (('bc1', torch.float32), ('bc2', torch.float32),
+           ('decay', torch.float32), ('keep', torch.float32),
+           ('ema', torch.bool), ('copy', torch.bool))
+
+
+def _table_rows(trainer, k: int):
+    """The next ``k`` train steps' rows of :data:`_TABLES` on the trainer's
+    device, from its ``step`` and Adam's ``count``: the bias corrections in
+    float32 as optax computes them, the EMA's warm-up decay, its gate
+    (the step a multiple of ``update_every``) and the copy while the decay
+    is 0."""
+    rows = {n: [] for n, _ in _TABLES}
+    cfg, opt = trainer.ema_cfg, trainer.optimizer
+    for i in range(1, k + 1):
+        step = trainer.step + i
+        decay = _ema_decay_at(step, cfg)
+        on = step % cfg.update_every == 0
+        for n, v in zip(rows, (*opt.corrections(opt.count + i), decay,
+                               1.0 - decay, on, on and decay == 0.0)):
+            rows[n].append(v)
+    return {n: torch.tensor(rows[n], dtype=dtype, device=trainer.device)
+            for n, dtype in _TABLES}
+
+
+class _TrainBuffers:
+    """The fixed buffers of a trainer's K-step call and one train step on
+    them (:meth:`body`): the step count in the call (int64 on the device);
+    the (K, grad_accum, B) batch indices into the resident dataset, or the
+    batches themselves; each step's draws per micro-batch; the tables of
+    Adam's bias corrections and the EMA's gate, copy flag, decay and
+    1 - decay; the (K,) losses. The parameters, Adam's moments and the EMA
+    weights are the trainer's own tensors, updated in place."""
+
+    def __init__(self, trainer, size, shape, draw):
+        dev = trainer.device
+        self.trainer, self.device = trainer, dev
+        a, b = trainer.grad_accum, trainer.batch_size
+        self.count = torch.zeros((), dtype=torch.int64, device=dev)
+        if trainer._device_data:
+            self.idx = torch.zeros((size, a, b), dtype=torch.int64,
+                                   device=dev)
+            self.batches = None
+        else:
+            self.idx = None
+            self.batches = torch.zeros((size, a, *shape), device=dev)
+        self.draws = {n: torch.zeros((size, a, *v.shape), dtype=v.dtype,
+                                     device=dev) for n, v in draw.items()}
+        self.tables = {n: torch.zeros(size, dtype=dtype, device=dev)
+                       for n, dtype in _TABLES}
+        self.losses = torch.zeros(size, device=dev)
+
+    def load(self, trainer, k, data, draws) -> None:
+        """The call's ``k`` steps: their batch indices (or batches), draws
+        (step-major, then micro-batch) and table rows; the count back to
+        0."""
+        a = trainer.grad_accum
+        src = self.idx if self.idx is not None else self.batches
+        src[:k].copy_(torch.from_numpy(np.ascontiguousarray(data)))
+        for i, row in enumerate(draws):
+            for n, v in row.items():
+                self.draws[n][i // a, i % a].copy_(v)
+        for n, v in _table_rows(trainer, k).items():
+            self.tables[n][:k].copy_(v)
+        self.count.zero_()
+
+    def body(self) -> None:
+        """Train step ``count`` of the call: its batches (gathered on the
+        device), its draws, the step with its table row, its loss."""
+        tr = self.trainer
+        k = self.count.reshape(1)
+        if self.idx is not None:
+            batches = list(tr._data_dev[self.idx.index_select(0, k)[0]])
+        else:
+            batches = list(self.batches.index_select(0, k)[0])
+        step_draws = {n: v.index_select(0, k)[0] for n, v in
+                      self.draws.items()}
+        draws = [{n: v[i] for n, v in step_draws.items()}
+                 for i in range(tr.grad_accum)]
+        at = {n: v.index_select(0, k)[0] for n, v in self.tables.items()}
+        loss = tr._step(batches, draws, at)
+        self.losses.index_copy_(0, k, loss.reshape(1))
+        self.count += 1

@@ -176,8 +176,9 @@ def make_red_reg_fn(diffusion, use_time_weight: bool = False,
 class RED_DiffEq_POST_PROCESS:
     """Deterministic reverse-diffusion polish of a final velocity model:
     noise the [0, 1]-mapped model to timestep ``timesteps`` and run the
-    posterior-mean chain back to t = 0, one U-Net call a step (a host loop
-    where the JAX package runs one ``lax.scan``)."""
+    posterior-mean chain back to t = 0, one U-Net call a step (the JAX
+    package's one ``lax.scan``): on the card a CUDA graph of the step,
+    replayed a step (``GaussianDiffusion._chain``)."""
 
     def __init__(self, diffusion_model):
         self.diffusion_model = diffusion_model
@@ -187,7 +188,7 @@ class RED_DiffEq_POST_PROCESS:
                           noise=None):
         """``mu`` in [-1, 1] (B, C, H, W) -> the polished model in [0, 1].
         ``noise`` (shape of ``mu``) is the one forward draw, from
-        ``generator`` unless given."""
+        ``generator`` unless given, made before the chain."""
         d = self.diffusion_model
         if timesteps > d.num_timesteps:
             raise ValueError(
@@ -200,7 +201,7 @@ class RED_DiffEq_POST_PROCESS:
             noise = torch.randn(mu.shape, generator=generator,
                                 device=mu.device, dtype=mu.dtype)
         x_t = d.unnormalize(d.q_sample(d.normalize(mu01), t_full, noise))
-        for ti in range(timesteps - 1, -1, -1):
-            x_norm, _ = d.p_sample_deterministic(d.normalize(x_t), ti)
-            x_t = d.unnormalize(x_norm)
-        return x_t
+        if timesteps <= 0:
+            return x_t
+        return d._chain('deterministic', x_t,
+                        list(range(timesteps - 1, -1, -1)))

@@ -23,6 +23,13 @@ from typing import Optional, Union
 
 import torch
 
+# The profiler keeps only the device events whose span lies inside its
+# window (start to stop by the host's clock), and the card's clock and the
+# host's can disagree by milliseconds; so on a card the window opens this
+# long before the block and closes this long after the card has finished
+# it, and no kernel of the block falls outside.
+WINDOW_MARGIN_S = 0.25
+
 
 @contextlib.contextmanager
 def trace(log_dir: Optional[Union[str, Path]], device=None):
@@ -31,7 +38,9 @@ def trace(log_dir: Optional[Union[str, Path]], device=None):
     TensorBoard's profiler plugin and by ``chrome://tracing``. The host's
     operations are always recorded; the card's kernels (those of the
     port's CUDA library among them, under their own names) when
-    ``device`` is a CUDA device."""
+    ``device`` is a CUDA device, every kernel the block queued (the card
+    is synchronised before the profiler stops, with
+    :data:`WINDOW_MARGIN_S` at both ends)."""
     if log_dir is None:
         yield
         return
@@ -39,12 +48,18 @@ def trace(log_dir: Optional[Union[str, Path]], device=None):
         ProfilerActivity, profile, tensorboard_trace_handler,
     )
     activities = [ProfilerActivity.CPU]
-    if device is not None and torch.device(device).type == 'cuda':
+    cuda = device is not None and torch.device(device).type == 'cuda'
+    if cuda:
         activities.append(ProfilerActivity.CUDA)
     Path(log_dir).mkdir(parents=True, exist_ok=True)
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(str(log_dir))):
+        if cuda:
+            time.sleep(WINDOW_MARGIN_S)
         yield
+        if cuda:
+            torch.cuda.synchronize(device)
+            time.sleep(WINDOW_MARGIN_S)
 
 
 class StepTimer:

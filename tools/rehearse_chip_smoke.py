@@ -220,6 +220,24 @@ def main():
             ns['load_prior'] = prior
 
     ns['phase_mesh'] = small_mesh
+    # The loop graphs: the bench CLI and the traced run at 2 x 1 steps,
+    # 3-step chains, 2 + 2 train steps.
+    ns['LOOP_BENCH_DEPTH'], ns['LOOP_TRACE'] = (2, 1), (2, 1)
+    ns['LOOP_ANCESTRAL_T'], ns['LOOP_INTERP_T'], ns['LOOP_POST_TS'] = 3, 2, 2
+    ns['LOOP_TRAIN_STEPS'] = 2
+    loop_bench_trace = ns['loop_bench_trace']
+
+    def cpu_loop_trace(dev, path, root):
+        # The CPU trace has no device activity and no kernel by name: its
+        # host operations stand in for the window, and no kernel is read.
+        ns['DEVICE_CATS'], kernels = ('cpu_op',), ns['API_KERNELS']
+        ns['API_KERNELS'] = ()
+        try:
+            return loop_bench_trace(dev, path, root)
+        finally:
+            ns['API_KERNELS'] = kernels
+
+    ns['loop_bench_trace'] = cpu_loop_trace
     ns['cuda_ms'] = lambda fn, reps, warm=True: (fn(), 0.0)[1]
     ns['graph_ms'] = ns['cuda_ms']
     smi = types.SimpleNamespace(stdout='CPU rehearsal, 0 W\n')
