@@ -143,10 +143,11 @@ Phases, each printing its wall time:
    grid in [0, 1], losses JSON and a finite FID, device memory flat over
    the steps, s per train step by CUDA events, images/s, peak memory and
    each milestone's seconds, all under the CLI's own cuDNN settings; then,
-   under deterministic cuDNN, an uninterrupted 110-step reference run with
-   a milestone at 100 (no FID; its s per train step printed too) and a
-   resume of its milestone 1 for 10 steps that repeats its losses (rtol
-   1e-5);
+   under deterministic cuDNN, 20 + 20 steps, a milestone (no FID) and 20
+   steps more, graphed against eager (losses, weights and samples bit for
+   bit; the train step's graph captured again after the milestone; s per
+   train step of both), and a resume of the eager run's milestone 1 for
+   10 steps that repeats its losses (rtol 1e-5);
    the EMA exported by ``tools/export_ema_torch.py``, loaded by
    ``load_diffusion_params``, and 5 RED-DiffEq steps on it whose
    observation loss falls;
@@ -275,23 +276,41 @@ Phases, each printing its wall time:
    ablation preset (30 x 10 steps; the eight ``.npz`` arrays; exact
    launches; the denoise, the inner step, the metrics and each ILVR blend
    factor captured once, a replay of the inner step one gradient's
-   launches, of the metrics one evaluation's); a traced graphed run of 3 x
-   10 steps (its kernels by name equal the counters; the device window's
-   idle share); DDIM (250 steps, batch 4; and with
-   ``return_all_timesteps``), the ancestral chain (a 100-step schedule of
-   the prior's U-Net), ``interpolate`` from t=50 and RED's post-process
-   chain from t=50, each captured once and replayed; 20 + 20 train steps
-   at the train CLI's defaults under deterministic cuDNN and a milestone
-   (losses, weights and samples). s an outer step, s/sample, s and ms a
-   step, s per train step, images/s and s per milestone of both modes,
-   each graph's capture seconds, pool MiB and launches a replay, the peak
-   allocated memory of both.
+   launches, of the metrics one evaluation's), and at the Marmousi preset
+   cut to 4 outer steps, each against the bench slice's eager run of the
+   same flags; a traced graphed run of 3 x 10 steps (its kernels by name
+   equal the counters; the device window's idle share); DDIM (250 steps,
+   batch 4; and with ``return_all_timesteps``), the ancestral chain (a
+   100-step schedule of the prior's U-Net), ``interpolate`` from t=50 and
+   RED's post-process chain from t=50, each captured once and replayed;
+   20 + 20 train steps at the train CLI's defaults with ``--amp`` and
+   ``--calculate_fid`` under deterministic cuDNN, a milestone and 20 steps
+   after it (losses, weights, samples and FID; fp32 in the training
+   slice). s an outer step, s/sample, s and ms a step, s per train step,
+   images/s and s per milestone of both modes, each graph's capture
+   seconds, pool MiB and launches a replay, the peak allocated memory of
+   both.
+21. the configurations, graphed against eager in one call, bit for bit,
+   with exact launches and captures: the headline's RED-DiffEq at B=8 and
+   B=16 for 10 steps (``scan_pair``: a replay launches 250 / 250 / 50 at
+   any batch; s/step, s/sample of 300 steps, capture, pool, peak); the
+   bench CLI on the OpenFWI ablation presets ``no_tricks``,
+   ``grad_norm``, ``grad_smooth`` and ``model_blur`` (4 outer steps) and
+   ``all_tricks_dt300_ts1`` (6 outer steps of one inner step), ILVR-FWI
+   with ``--ilvr_down_schedule stepwise`` (12 outer steps: each factor's
+   blend graph captured and replayed) and the Marmousi ``grad_norm``
+   preset (patched denoise, 4 outer steps); the train CLI with
+   ``Trainer(gradient_accumulate_every=2)`` and with
+   ``device_data=False`` (host batches), 10 + 10 steps under deterministic
+   cuDNN; the refined TV and RED-DiffEq rows of the Marmousi-width quality
+   table (n=2, 70x190, sigma 20, 300 steps), each within 0.03 SSIM of
+   ``QUALITY_marmousi.md``'s, RED above TV.
 
-The bench slice's CLI runs, the training slice's 200-step run and its
-resume's reference, and the api slice's ``--amp`` run hook every call (the
-U-Net's events, the observation losses), so they run their loops in
-``graphs.eager_loops()``; the resume itself runs graphed against that
-reference.
+The bench slice's CLI runs, the training slice's 200-step run, the train
+CLI's eager twins and the api slice's ``--amp`` run hook every call or run
+the eager twin of a graphed run, so they run their loops in
+``graphs.eager_loops()``; the resume runs graphed against the training
+slice's eager twin.
 
 With ``--write-wide-dataset DIR`` (``--write-bench-dataset DIR``) the
 script only writes the wide (bench) slice's datasets and configs under DIR
@@ -1100,10 +1119,10 @@ def load_prior(dev):
     return diffusion
 
 
-def slice_problem(dev, ctx):
-    """The headline's velocity models at ``ctx``, their observations from
-    the refined operator as ``bench.py`` makes them, and the smoothed
-    initial models."""
+def slice_problem(dev, ctx, batch=BATCH):
+    """The headline's ``batch`` velocity models at ``ctx``, their
+    observations from the refined operator as ``bench.py`` makes them, and
+    the smoothed initial models."""
     import torch
     import torch.nn.functional as F
     from red_diffeq_tpu_torch.io.synthetic import generate_mixed_dataset
@@ -1114,7 +1133,7 @@ def slice_problem(dev, ctx):
 
     t0 = time.perf_counter()
     n, nt, ns, ng = (ctx[k] for k in ('n_grid', 'nt', 'ns', 'ng'))
-    v_true = generate_mixed_dataset(BATCH, h=n, w=n, seed=8888)
+    v_true = generate_mixed_dataset(batch, h=n, w=n, seed=8888)
     op_obs = acoustic.FWIForward(
         acoustic.refined_ctx(ctx, factor=2), sample_temporal=2,
         v_denorm_func=v_denormalize,
@@ -1124,13 +1143,13 @@ def slice_problem(dev, ctx):
         y = op_obs(v_normalize(torch.from_numpy(
             acoustic.upsample_velocity(v_true, 2)).to(dev)))
     torch.cuda.synchronize()
-    check(tuple(y.shape) == (BATCH, ns, nt, ng)
+    check(tuple(y.shape) == (batch, ns, nt, ng)
           and bool(torch.isfinite(y).all()), 'observations are malformed')
     print(f'observations {tuple(y.shape)} at nbc={ctx["nbc"]} (refined x2, '
           f'plain path) in {time.perf_counter() - t0:.2f} s', flush=True)
     init = np.concatenate([prepare_initial_model(v_true[b:b + 1], 'smoothed',
                                                  sigma=10.0)
-                           for b in range(BATCH)])
+                           for b in range(batch)])
     mu0 = F.pad(torch.from_numpy(init), (1, 1, 1, 1))
     return dict(v_true=v_true, y=y, mu0=mu0)
 
@@ -1547,41 +1566,45 @@ BENCH_PLAIN_SHARE = 0.01
 
 
 def write_bench_dataset(dev, root):
-    """2 synthetic models of 70 x each bench preset's width
+    """2 synthetic models of 70 x each bench preset family's width
     (``generate_mixed_dataset(2, seed=BENCH_SEED)``) with observations from
-    :func:`refined_observations`, saved as the wide slice's are, and each
-    preset read with the port's ``load_config``, pointed at its data, at
-    sample 0 (``data.sample_index``), at the shipped prior (standing in for
-    the presets' ``model-4.ckpt``, which the repository does not hold) and
-    at ``<root>/results``, and written back. Returns {preset: config
-    path}."""
+    :func:`refined_observations`, saved as the wide slice's are, once a
+    family, and each preset (BENCH_PRESET, BENCH_WIDE_PRESET and the
+    configurations phase's) read with the port's ``load_config``,
+    pointed at its family's data, at sample 0 (``data.sample_index``), at
+    the shipped prior (standing in for the presets' ``model-4.ckpt``, which
+    the repository does not hold) and at ``<root>/results``, and written
+    back. Returns {preset: config path}."""
     from pathlib import Path
     from red_diffeq_tpu_torch.config import load_config, save_config
     from red_diffeq_tpu_torch.io.synthetic import generate_mixed_dataset
 
     t0 = time.perf_counter()
     root = Path(root)
-    paths = {}
-    for preset in (BENCH_PRESET, BENCH_WIDE_PRESET):
+    paths, written = {}, set()
+    for preset in (BENCH_PRESET, BENCH_WIDE_PRESET,
+                   *dict.fromkeys(config_preset(c) for c in CONFIG_BENCH)):
         cfg = load_config(preset)
         ctx = cfg.pde.to_dict()
-        v_true = generate_mixed_dataset(2, h=WIDE_ROWS, w=ctx['n_grid'],
-                                        seed=BENCH_SEED)
-        y = refined_observations(dev, ctx, v_true)
         name = Path(cfg.data.seismic_data_dir).parts[-2]
-        for key, sub, arr in (('seismic_data_dir', 'Seismic_Data', y),
-                              ('velocity_data_dir', 'Velocity_Data',
-                               v_true)):
-            (root / name / sub).mkdir(parents=True, exist_ok=True)
-            np.save(root / name / sub / 'synthetic.npy', arr)
-            cfg.data[key] = str(root / name / sub)
+        if name not in written:
+            v_true = generate_mixed_dataset(2, h=WIDE_ROWS, w=ctx['n_grid'],
+                                            seed=BENCH_SEED)
+            y = refined_observations(dev, ctx, v_true)
+            for sub, arr in (('Seismic_Data', y), ('Velocity_Data', v_true)):
+                (root / name / sub).mkdir(parents=True, exist_ok=True)
+                np.save(root / name / sub / 'synthetic.npy', arr)
+            written.add(name)
+            print(f'{name} family: dataset {v_true.shape}, observations '
+                  f'{y.shape} (refined x2, plain path)', flush=True)
+        cfg.data.seismic_data_dir = str(root / name / 'Seismic_Data')
+        cfg.data.velocity_data_dir = str(root / name / 'Velocity_Data')
         cfg.data.sample_index = 0
         cfg.diffusion.model_path = str(Path(CKPT).resolve())
         cfg.experiment.results_dir = str(root / 'results')
         paths[preset] = root / f'{name.lower()}-{Path(preset).name}'
         save_config(cfg, paths[preset])
-        print(f'{preset}: dataset {v_true.shape}, observations {y.shape} '
-              f'(refined x2, plain path); prior {CKPT} in place of '
+        print(f'{preset}: prior {CKPT} in place of '
               f'{load_config(preset).diffusion.model_path}', flush=True)
     print(f'bench datasets in {time.perf_counter() - t0:.2f} s', flush=True)
     return paths
@@ -1614,9 +1637,11 @@ def run_bench_cli(dev, argv):
     reset just before it and read just after, :func:`unet_timer` on the
     U-Net instance the CLI builds, and every observation loss the method
     computes (in its inner FWI steps, with autograd on, and at its
-    evaluations) in order. The method's programs run eagerly
+    evaluations) in order, the seconds of ``DiffusionFWI.optimize`` and the
+    graphs captured (none). The method's programs run eagerly
     (``graphs.eager_loops()``), so that the hooks and the spy see every
-    call; phase ``loop graphs`` runs the same CLI graphed against this."""
+    call; phase ``loop graphs`` holds the same CLI run graphed against
+    this one."""
     import torch
     from red_diffeq_tpu_torch.bench_methods import diffusion_fwi
     from red_diffeq_tpu_torch.cli import run_bench
@@ -1625,9 +1650,10 @@ def run_bench_cli(dev, argv):
     from red_diffeq_tpu_torch.solvers import acoustic
 
     seen = dict(starts=[], batches=[], events=[], allocated=[], peak=[],
-                losses=[])
+                losses=[], sample_s=[])
     build = run_bench.build_diffusion_model
     loss = diffusion_fwi.observation_loss
+    optimize = diffusion_fwi.DiffusionFWI.optimize
 
     def build_and_time(*args, **kw):
         diffusion = build(*args, **kw)
@@ -1639,12 +1665,21 @@ def run_bench_cli(dev, argv):
         seen['losses'].append((torch.is_grad_enabled(), out.detach()))
         return out
 
+    def timed(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = optimize(self, *a, **kw)
+        torch.cuda.synchronize()
+        seen['sample_s'].append(time.perf_counter() - t0)
+        return out
+
     run_bench.build_diffusion_model = build_and_time
     diffusion_fwi.observation_loss = spy
+    diffusion_fwi.DiffusionFWI.optimize = timed
     try:
         torch.cuda.reset_peak_memory_stats()
         stencil.reset_launches()
         acoustic.plain_chunk_calls['chunk'] = 0
+        captures = graphs.captures['n']
         t0 = time.perf_counter()
         with graphs.eager_loops():
             seen['out'] = run_bench.main([*argv, '--device', str(dev)])
@@ -1652,9 +1687,12 @@ def run_bench_cli(dev, argv):
         seen['wall_s'] = time.perf_counter() - t0
         seen['launches'] = dict(stencil.launches)
         seen['plain'] = acoustic.plain_chunk_calls['chunk']
+        seen['captures'] = graphs.captures['n'] - captures
+        seen['run_peak'] = torch.cuda.max_memory_allocated()
     finally:
         run_bench.build_diffusion_model = build
         diffusion_fwi.observation_loss = loss
+        diffusion_fwi.DiffusionFWI.optimize = optimize
     return seen
 
 
@@ -1796,9 +1834,15 @@ def bench_run(dev, path, method, label, extra=()):
     print(f'{label}: {period:.4f} s per outer step by the U-Net calls\' '
           f'events (calls 1 to {dts - 1}), the U-Net {unet_ms:.2f} ms a call '
           f'({share:.1%}); the CLI took {seen["wall_s"]:.2f} s', flush=True)
+    # The run as phase 'loop graphs' takes it for the eager twin of its
+    # graphed run (loop_bench).
+    eager = dict(out=out, s=seen['wall_s'], launches=counts,
+                 plain=seen['plain'], peak=seen['run_peak'],
+                 captures=seen['captures'], sample_s=seen['sample_s'][-1],
+                 outer_s=period, argv=list(extra))
     return dict(counts=counts, s_per_outer_step=period, unet_ms=unet_ms,
                 ts=ts, dts=dts, ssim=(float(first), float(d['ssim'][-1])),
-                wall_s=seen['wall_s'], fwi=fwi)
+                wall_s=seen['wall_s'], fwi=fwi, eager=eager)
 
 
 def bench_kernel_ms(dev, ctx):
@@ -1911,8 +1955,10 @@ def bench_sampler(dev, path):
 
 
 def phase_bench(dev, root):
-    """The bench slice. Returns the launches of the OpenFWI DiffusionFWI
-    run and each run's summary."""
+    """The bench slice (the datasets and presets of phases 'loop graphs'
+    and 'configurations' written under ``root`` too). Returns the launches
+    of the OpenFWI DiffusionFWI run, each run's summary and the presets'
+    config paths."""
     from red_diffeq_tpu_torch.config import load_config
 
     paths = write_bench_dataset(dev, root)
@@ -1950,7 +1996,8 @@ def phase_bench(dev, root):
               f'{r["wall_s"]:.2f} s for the sample ({r["dts"]} outer steps)',
               flush=True)
     return runs[BENCH_METHODS[0]]['counts'], dict(
-        runs=runs, sampler_s=sampler_s, kernels_vs_plain=(d_mu, share))
+        runs=runs, sampler_s=sampler_s, kernels_vs_plain=(d_mu, share),
+        paths=paths)
 
 
 # Past tape_step's cluster limit: a 320x320 model at nbc=50 pads to
@@ -2065,7 +2112,8 @@ def phase_beyond(dev):
 
 # The training slice: red-diffeq-torch-datagen, red-diffeq-torch-train at
 # its defaults (the shipped prior's width: a dim-64 U-Net at 72x72, batch
-# 32, lr 2e-4), the resume and the EMA export.
+# 32, lr 2e-4), graphed against eager, the resume (RESUME_STEPS steps from
+# the eager run's milestone) and the EMA export.
 TRAIN_FAMILY_N = 64          # velocity models a family, 4 families
 TRAIN_STEPS, TRAIN_SAVE_EVERY, RESUME_STEPS = 200, 100, 10
 TRAIN_ARGS = []              # the CLI's defaults
@@ -2159,9 +2207,11 @@ def phase_training(dev, root):
     from ``red-diffeq-torch-datagen`` (velocities, then seismograms on the
     forward kernel, held against the plain path at the forward gate, and a
     310x430 family), ``red-diffeq-torch-train`` at the shipped prior's
-    width with milestones and the FID proxy, a resume, the EMA export, and
-    RED-DiffEq on the exported prior. Returns the numbers it printed and
-    the seismogram run's launches."""
+    width with milestones and the FID proxy, the train CLI graphed against
+    eager (:func:`loop_trainer`) and a resume of the eager run's milestone,
+    the EMA export, and RED-DiffEq on the exported prior. Returns the
+    numbers it printed, the graphed-against-eager run's and the seismogram
+    run's launches."""
     import importlib.util
     from pathlib import Path
     import torch
@@ -2272,43 +2322,40 @@ def phase_training(dev, root):
           f'{k}); fid_frozen ' + ', '.join(f'{e["fid_frozen"]:.3f}'
                                            for e in fid), flush=True)
 
-    # 3. Resume milestone 1 for RESUME_STEPS steps against an uninterrupted
-    # reference run to the same step, both under deterministic cuDNN (the
-    # CLI's default lets cuDNN pick convolution algorithms whose sums may
-    # run in another order each call); without the FID, which the run above
-    # covers.
+    # 3. The train CLI graphed against eagerly under deterministic cuDNN
+    # (loop_trainer: the CLI's default lets cuDNN pick convolution
+    # algorithms whose sums may run in another order each call), with a
+    # milestone after 2 * LOOP_TRAIN_STEPS steps and no FID, which the run
+    # above covers; then that eager run's milestone 1 resumed, graphed, for
+    # RESUME_STEPS steps, which must repeat the eager run's losses.
+    lt = loop_trainer(dev, root, root / 'train' / 'Velocity_Data')
+    at = 2 * LOOP_TRAIN_STEPS
     cudnn = torch.backends.cudnn
     saved = cudnn.deterministic, cudnn.benchmark
     cudnn.deterministic, cudnn.benchmark = True, False
-    ref_run = root / 'ref'
-    resume_args = [*data, '--results_folder', str(ref_run),
-                   '--train_num_steps', str(TRAIN_SAVE_EVERY + RESUME_STEPS)]
     try:
-        # The reference eagerly (its hook times each step), the resume
-        # graphed: the gate holds the graph to the eager steps too.
-        reference, ref_events, _, _ = train_cli(dev, resume_args,
-                                                eager=True)
-        resumed, _, _, _ = train_cli(dev, [*resume_args,
-                                           '--resume_milestone', '1'])
+        resumed, _, _, _ = train_cli(dev, [
+            '--data_dir', str(root / 'train' / 'Velocity_Data'),
+            '--save_every', str(10 ** 6), *TRAIN_ARGS, '--results_folder',
+            str(lt['eager_folder']), '--train_num_steps',
+            str(at + RESUME_STEPS), '--resume_milestone', '1'])
     finally:
         cudnn.deterministic, cudnn.benchmark = saved
-    got = resumed.training_losses[TRAIN_SAVE_EVERY:]
-    check(resumed.step == TRAIN_SAVE_EVERY + RESUME_STEPS
-          and [e['step'] for e in got] == list(range(
-              TRAIN_SAVE_EVERY, TRAIN_SAVE_EVERY + RESUME_STEPS)),
+    got = resumed.training_losses[at:]
+    check(resumed.step == at + RESUME_STEPS
+          and [e['step'] for e in got] == list(range(at, at + RESUME_STEPS)),
           f'resume reached step {resumed.step}')
-    want = [e['loss'] for e in reference.training_losses[
-        TRAIN_SAVE_EVERY:TRAIN_SAVE_EVERY + RESUME_STEPS]]
-    check(len(want) == RESUME_STEPS, f'reference run has {len(want)} losses '
-          f'after step {TRAIN_SAVE_EVERY}')
+    want = lt['losses'][at:at + RESUME_STEPS]
+    check(len(want) == RESUME_STEPS, f'the eager run has {len(want)} losses '
+          f'after step {at}')
     np.testing.assert_allclose([e['loss'] for e in got], want, rtol=1e-5)
     resume_d = max(abs(e['loss'] - w) / abs(w) for e, w in zip(got, want))
-    s_step_det = per_step(ref_events)
-    print(f'train under deterministic cuDNN (the reference run of the '
-          f'resume): {s_step_det:.4f} s per train step (CUDA events), '
+    s_step_det = lt['s_eager']
+    print(f'train under deterministic cuDNN (the eager run resumed): '
+          f'{s_step_det:.4f} s per train step (host clock), '
           f'{batch / s_step_det:.1f} images/s', flush=True)
     dim = trainer.diffusion.model.dim
-    del trainer, reference, resumed
+    del trainer, resumed
 
     # 4. Export the EMA prior and run RED-DiffEq on it.
     spec = importlib.util.spec_from_file_location('export_ema_torch',
@@ -2336,9 +2383,8 @@ def phase_training(dev, root):
     obs, tot = per_model[0]['obs_losses'], per_model[0]['total_losses']
     check(np.isfinite(tot).all() and obs[-1] < obs[1], f'RED-DiffEq on the '
           f'exported prior: obs loss {obs[1]:.5g} -> {obs[-1]:.5g}')
-    print(f'resume from milestone 1: steps {TRAIN_SAVE_EVERY}-'
-          f'{TRAIN_SAVE_EVERY + RESUME_STEPS - 1} repeat the uninterrupted '
-          f'losses (max rel diff {resume_d:.3e}); exported EMA prior -> '
+    print(f'resume from milestone 1: steps {at}-{at + RESUME_STEPS - 1} '
+          f'repeat the uninterrupted losses (max rel diff {resume_d:.3e}); exported EMA prior -> '
           f'{RED_TS} RED-DiffEq steps on sample 0 of the seismogram run: obs '
           f'loss {obs[1]:.5g} -> {obs[-1]:.5g}, total {tot[0]:.5g} -> '
           f'{tot[-1]:.5g}, SSIM {per_model[0]["ssim"][0]:.4f} -> '
@@ -2347,7 +2393,7 @@ def phase_training(dev, root):
                 images_per_s=batch / s_step,
                 peak_mib=peak / 2**20, milestone_s=milestone_s,
                 sim_s=sim_s[0], resume_max_rel=resume_d,
-                s_per_step_deterministic=s_step_det)
+                s_per_step_deterministic=s_step_det, loop_trainer=lt)
 
 
 # The stencil-layout probe at the JAX tool's default workload
@@ -3775,18 +3821,21 @@ def scan_pair(label, run, engine, ts, want=None):
     (the first step eager, then the capture), graphed again (the kept
     graph's replays, no capture) and eagerly again. Each graphed run equals
     the eager one bit for bit (the model, every curve) and launches as it
-    did; one capture. ``want``: a launches dict one replay must make.
-    Returns the numbers of each mode (s a step by the host clock of the
-    second run of each, the graph's capture seconds, pool bytes, launches
-    a replay, peak bytes) and the graphed run."""
+    did; one capture (none on the CPU, where the step runs eagerly and a
+    replay's launches are an eager step's). ``want``: a launches dict one
+    replay must make. Returns the numbers of each mode (s a step by the
+    host clock of the second run of each, the graph's capture seconds,
+    pool bytes, launches a replay, peak bytes) and the graphed run."""
     captures = engine.graph_captures
     eager, first, graphed, eager2 = (run(use_scan=False),
                                      run(use_scan=True), run(use_scan=True),
                                      run(use_scan=False))
-    check(engine.graph_captures == captures + 1, f'{label}: '
-          f'{engine.graph_captures - captures} captures, expected 1')
-    info = engine.graph_info()[-1]
+    cuda = engine.device.type == 'cuda'
+    check(engine.graph_captures == captures + cuda, f'{label}: '
+          f'{engine.graph_captures - captures} captures, expected {int(cuda)}')
     per_step = {k: n // ts for k, n in eager['launches'].items() if n}
+    info = (engine.graph_info()[-1] if cuda else
+            dict(launches=per_step, seconds=0.0, pool_bytes=0))
     if eager['plain']:
         per_step['plain_chunk'] = eager['plain'] // ts
     for name, r in (('captured', first), ('replayed', graphed),
@@ -4060,20 +4109,20 @@ def phase_scan(dev, root):
 # call (graphs.eager_loops()), bit for bit: DiffusionFWI and ILVR-FWI at the
 # OpenFWI ablation preset through red-diffeq-torch-bench (30 x 10 steps)
 # and at the Marmousi ablation preset (the patched denoise) cut to
-# BENCH_WIDE_DIFFUSION_TS outer steps, and a traced graphed DiffusionFWI
-# run of LOOP_TRACE (outer, inner) steps for the idle share; DDIM at
-# SAMPLER_STEPS and SAMPLER_BATCH (and once with return_all_timesteps);
-# the ancestral chain on a LOOP_ANCESTRAL_T-step schedule of the prior's
-# U-Net, interpolate from LOOP_INTERP_T on it and RED's post-process chain
-# from LOOP_POST_TS on the prior's own schedule; at the train CLI's
-# defaults under deterministic cuDNN, fp32 and then with --amp and
-# --calculate_fid: LOOP_TRAIN_STEPS train steps twice (the second call's
-# replays timed), a milestone, and LOOP_TRAIN_STEPS steps after it.
+# BENCH_WIDE_DIFFUSION_TS outer steps, each against the bench slice's eager
+# run of it, and a traced graphed DiffusionFWI run of LOOP_TRACE (outer,
+# inner) steps for the idle share; DDIM at SAMPLER_STEPS and SAMPLER_BATCH
+# (and once with return_all_timesteps); the ancestral chain on a
+# LOOP_ANCESTRAL_T-step schedule of the prior's U-Net, interpolate from
+# LOOP_INTERP_T on it and RED's post-process chain from LOOP_POST_TS on the
+# prior's own schedule; at the train CLI's defaults under deterministic
+# cuDNN with --amp and --calculate_fid (fp32 in the training slice, whose
+# resume check takes its eager run): LOOP_TRAIN_STEPS train steps twice
+# (the second call's replays timed), a milestone, and LOOP_TRAIN_STEPS
+# steps after it.
 LOOP_ANCESTRAL_T, LOOP_INTERP_T, LOOP_POST_TS = 100, 50, 50
 LOOP_TRAIN_STEPS = 20
 LOOP_TRACE = (3, 10)
-# (diffusion_ts, ts) of the bench CLI runs, or None for the preset's own.
-LOOP_BENCH_DEPTH = None
 
 
 @contextlib.contextmanager
@@ -4169,18 +4218,22 @@ def graph_numbers(rec):
              for name, i in rec['graphs']})
 
 
-def loop_bench(dev, path, root, method, diffusion_ts=None,
-               preset='OpenFWI ablation preset'):
+def loop_bench(dev, path, root, method, depth=(),
+               preset='OpenFWI ablation preset', tag='', eager=None,
+               phase='loop graphs'):
     """``red-diffeq-torch-bench`` with ``method`` on the preset config at
-    ``path`` (its outer steps cut to ``diffusion_ts`` if given; the
-    Marmousi preset takes the patched denoise), graphed and then eagerly: the eight ``.npz`` arrays bit for
-    bit, exact launches in both (:func:`bench_launches`), the plain path
-    unused; graphed, the denoise, the inner step, the metrics and each of
-    ILVR's blend factors captured once, a replay of the inner step one
-    gradient's launches, of the metrics one evaluation's, of the denoise
-    and the blends none. Times ``DiffusionFWI.optimize`` (s/sample, the
-    captures included) and the outer step (the denoise events' spacing).
-    Returns the numbers."""
+    ``path`` and the flags ``depth`` (its outer steps cut with
+    ``--diffusion_ts``, ILVR's schedule; the Marmousi preset takes the
+    patched denoise), graphed and eagerly (or, given the bench slice's
+    eager run of the same flags as ``eager``, graphed against that): the
+    eight ``.npz`` arrays bit for bit, exact launches in both
+    (:func:`bench_launches`), the plain path unused; graphed, the denoise,
+    the inner step, the metrics and each of ILVR's blend factors captured
+    once, a replay of the inner step one gradient's launches, of the
+    metrics one evaluation's, of the denoise and the blends none. Times
+    ``DiffusionFWI.optimize`` (s/sample, the captures included) and the
+    outer step (the denoise events' spacing; the U-Net calls' for the bench
+    slice's run). Returns the numbers."""
     from red_diffeq_tpu_torch.bench_methods import diffusion_fwi
     from red_diffeq_tpu_torch.bench_methods.ilvr_fwi import (
         ilvr_down_schedule,
@@ -4188,11 +4241,7 @@ def loop_bench(dev, path, root, method, diffusion_ts=None,
     from red_diffeq_tpu_torch.cli import run_bench
     from red_diffeq_tpu_torch.config import load_config
 
-    label = f'loop graphs, {method}, {preset}'
-    dts, ts = LOOP_BENCH_DEPTH or (diffusion_ts, None)
-    depth = ((['--diffusion_ts', str(dts)] if dts else [])
-             + (['--ts', str(ts)] if ts else []))
-    tag = 'wide_' if diffusion_ts else ''
+    label = f'{phase}, {method}, {preset}'
     timed = diffusion_fwi.DiffusionFWI.optimize
     sample_s = []
 
@@ -4203,15 +4252,22 @@ def loop_bench(dev, path, root, method, diffusion_ts=None,
         return out
 
     runs = {}
+    if eager is not None:
+        check(eager['argv'] == list(depth), f'{label}: the eager run took '
+              f'{eager["argv"]}, the graphed one {list(depth)}')
+        runs['eager'] = eager
     diffusion_fwi.DiffusionFWI.optimize = optimize
     try:
-        for mode in ('graph', 'eager'):
+        for mode in ('graph', 'eager')[:1 if eager is not None else 2]:
             out = root / f'loops_{tag}{method}_{mode}'
             argv = ['--config', str(path), '--method', method, *depth,
                     '--results_dir', str(out), '--device', str(dev)]
             runs[mode] = loop_mode(dev, mode == 'graph',
                                    lambda: run_bench.main(argv))
             runs[mode]['sample_s'] = sample_s[-1]
+            events = runs[mode]['events']
+            runs[mode]['outer_s'] = (step_period(events) if len(events) > 2
+                                     else float('nan'))
     finally:
         diffusion_fwi.DiffusionFWI.optimize = timed
     cfg = load_config(runs['graph']['out'] / 'config.yaml')
@@ -4247,17 +4303,15 @@ def loop_bench(dev, path, root, method, diffusion_ts=None,
               f'{label}: launches a replay {per_replay}, expected inner '
               f'{grad}, metrics {evaluation}, none elsewhere')
     res = {m: dict(sample_s=r['sample_s'], wall_s=r['s'], peak=r['peak'],
-                   outer_s=(step_period(r['events'])
-                            if len(r['events']) > 2 else float('nan')))
-           for m, r in runs.items()}
+                   outer_s=r['outer_s']) for m, r in runs.items()}
     res.update(capture_s=capture_s, pool_mib=pool, per_replay=per_replay,
                each=each, launches=g['launches'], dts=o.diffusion_ts,
                ts=o.ts, captures=g['captures'])
     print(f'{label} ({o.diffusion_ts} x {o.ts} steps): graphed = eager bit '
           f'for bit (the model and every curve); s per outer step '
           f'{res["graph"]["outer_s"]:.4f} graphed against '
-          f'{res["eager"]["outer_s"]:.4f} eager (the denoise events, outer '
-          f'steps 1 to {o.diffusion_ts - 1}); s/sample '
+          f'{res["eager"]["outer_s"]:.4f} eager (outer steps 1 to '
+          f'{o.diffusion_ts - 1}); s/sample '
           f'{res["graph"]["sample_s"]:.3f} against '
           f'{res["eager"]["sample_s"]:.3f} ({g["captures"]} captures, '
           f'{capture_s:.3f} s, pool {pool:.1f} MiB); peak allocated '
@@ -4409,134 +4463,317 @@ def loop_samplers(dev, path):
     return res
 
 
-def loop_trainer(dev, root, extra=(), tag='fp32'):
-    """``red-diffeq-torch-train`` at its defaults and ``extra`` for
-    LOOP_TRAIN_STEPS steps under deterministic cuDNN, graphed and eagerly,
-    each then trained LOOP_TRAIN_STEPS steps more (timed: a graphed call
-    replays the kept graph), a milestone (its samplers' graphs; with
+def loop_trainer(dev, root, data_dir, extra=(), tag='fp32', trainer_kw=None,
+                 milestone=True, steps=None, phase='loop graphs'):
+    """``red-diffeq-torch-train`` on the velocity models in ``data_dir`` at
+    its defaults and ``extra`` (the ``Trainer`` it builds given
+    ``trainer_kw`` too) for ``steps`` (default LOOP_TRAIN_STEPS) steps
+    under deterministic cuDNN, graphed and eagerly, each then trained
+    ``steps`` steps more (timed: a graphed call replays the kept graph),
+    and with ``milestone`` milestone 1 (its samplers' graphs; with
     ``--calculate_fid`` the FID's chains at its batch sizes; the train
-    step's graph released), and LOOP_TRAIN_STEPS steps after it (the train
-    step captured again): the losses, the weights, the milestone's samples
-    and FID bit for bit; the captures exact. Returns the numbers."""
+    step's graph released) and ``steps`` steps after it (the train step
+    captured again): the losses, the weights, the milestone's samples and
+    FID bit for bit; the captures exact. Returns the numbers, the eager
+    run's losses and its results folder."""
+    import functools
     import torch
     from red_diffeq_tpu_torch.cli import diffusion_train
 
-    folder = root / 'loops_train'
-    if not folder.exists():
-        run_datagen(dev, ['--out', str(folder), '--n', str(TRAIN_FAMILY_N),
-                          '--velocity_only'])
-    data = ['--data_dir', str(folder / 'Velocity_Data'),
-            '--save_every', str(10 ** 6), *TRAIN_ARGS, *extra]
+    steps = steps or LOOP_TRAIN_STEPS
+    data = ['--data_dir', str(data_dir), '--save_every', str(10 ** 6),
+            *TRAIN_ARGS, *extra]
     cudnn = torch.backends.cudnn
-    saved = cudnn.deterministic, cudnn.benchmark
+    saved = cudnn.deterministic, cudnn.benchmark, diffusion_train.Trainer
     cudnn.deterministic, cudnn.benchmark = True, False
+    if trainer_kw:
+        diffusion_train.Trainer = functools.partial(saved[2], **trainer_kw)
     runs = {}
     try:
         for mode in ('graph', 'eager'):
-            out = root / f'loops_train_{tag}_{mode}'
+            out = root / f'loops_train_{tag.replace(" ", "_")}_{mode}'
             graphed = mode == 'graph'
             first = loop_mode(dev, graphed, lambda: diffusion_train.main([
                 *data, '--results_folder', str(out), '--train_num_steps',
-                str(LOOP_TRAIN_STEPS), '--device', dev.type]))
+                str(steps), '--device', dev.type]))
             tr = first['out']
 
             def more():
-                tr.train_num_steps += LOOP_TRAIN_STEPS
+                tr.train_num_steps += steps
                 tr.train(log_every=10 ** 6)
 
             second = loop_mode(dev, graphed, more)
-            milestone = loop_mode(dev, graphed,
-                                  lambda: tr._sample_and_save(99))
-            after = loop_mode(dev, graphed, more)
-            fid = out / 'fid_scores.json'
             runs[mode] = dict(trainer=tr, first=first, second=second,
-                              milestone=milestone, after=after,
-                              sample=np.load(out / 'sample-99.npy'),
-                              fid=(json.loads(fid.read_text())
-                                   if fid.exists() else None))
+                              folder=out)
+            if milestone:
+                runs[mode]['milestone'] = loop_mode(
+                    dev, graphed, lambda: tr._sample_and_save(1))
+                runs[mode]['after'] = loop_mode(dev, graphed, more)
+                fid = out / 'fid_scores.json'
+                runs[mode].update(sample=np.load(out / 'sample-1.npy'),
+                                  fid=(json.loads(fid.read_text())
+                                       if fid.exists() else None))
     finally:
-        cudnn.deterministic, cudnn.benchmark = saved
+        (cudnn.deterministic, cudnn.benchmark,
+         diffusion_train.Trainer) = saved
     g, e = runs['graph'], runs['eager']
-    label = f'loop graphs, trainer ({tag})'
-    steps = 3 * LOOP_TRAIN_STEPS
+    label = f'{phase}, trainer ({tag})'
+    calls = ('first', 'second', 'milestone', 'after')[:4 if milestone else 2]
+    n_steps = (3 if milestone else 2) * steps
     lg = [x['loss'] for x in g['trainer'].training_losses]
     le = [x['loss'] for x in e['trainer'].training_losses]
-    check(len(lg) == steps and lg == le and all(
+    check(len(lg) == n_steps and lg == le and all(
         torch.equal(a, b) for a, b in zip(g['trainer'].params,
                                           e['trainer'].params)),
           f'{label}: {len(lg)} losses; graphed and eager differ (max rel '
           f'{max(abs(a - b) / abs(b) for a, b in zip(lg, le)):.3e})')
-    check(np.array_equal(g['sample'], e['sample']) and g['fid'] == e['fid'],
-          f'{label}: the graphed milestone\'s samples or FID ({g["fid"]}) '
-          f'differ from the eager one\'s ({e["fid"]})')
     tr = g['trainer']
+    kw = trainer_kw or {}
     check(tr.amp == ('--amp' in extra)
           and tr.calculate_fid == ('--calculate_fid' in extra)
-          and (g['fid'] is not None) == tr.calculate_fid,
-          f'{label}: amp {tr.amp}, FID {tr.calculate_fid}')
-    # The milestone's chains by batch: the grid, then the FID's; the bundle
-    # keeps one DDIM graph, so each change of batch captures.
-    sizes, done = [tr.num_samples], 0
-    while tr.calculate_fid and done < tr.num_fid_samples:
-        sizes.append(min(tr.batch_size, tr.num_fid_samples - done))
-        done += sizes[-1]
-    chains = 1 + sum(a != b for a, b in zip(sizes, sizes[1:]))
-    want = (1, 0, chains, 1) if dev.type == 'cuda' else (0, 0, 0, 0)
-    got = tuple(g[k]['captures'] for k in ('first', 'second', 'milestone',
-                                           'after'))
-    eager = tuple(e[k]['captures'] for k in ('first', 'second', 'milestone',
-                                             'after'))
-    check(got == want and eager == (0, 0, 0, 0), f'{label}: captures {got}, '
-          f'eager {eager}; expected {want} (milestone chains by batch '
+          and tr.grad_accum == kw.get('gradient_accumulate_every', 1)
+          and tr._device_data == kw.get('device_data', True),
+          f'{label}: amp {tr.amp}, FID {tr.calculate_fid}, accumulation '
+          f'{tr.grad_accum}, data on the device {tr._device_data}')
+    sizes, chains = [], 0
+    if milestone:
+        check(np.array_equal(g['sample'], e['sample'])
+              and g['fid'] == e['fid'], f'{label}: the graphed milestone\'s '
+              f'samples or FID ({g["fid"]}) differ from the eager one\'s '
+              f'({e["fid"]})')
+        check((g['fid'] is not None) == tr.calculate_fid,
+              f'{label}: FID {g["fid"]}')
+        # The milestone's chains by batch: the grid, then the FID's; the
+        # bundle keeps one DDIM graph, so each change of batch captures.
+        sizes, done = [tr.num_samples], 0
+        while tr.calculate_fid and done < tr.num_fid_samples:
+            sizes.append(min(tr.batch_size, tr.num_fid_samples - done))
+            done += sizes[-1]
+        chains = 1 + sum(a != b for a, b in zip(sizes, sizes[1:]))
+    want = ((1, 0, chains, 1)[:len(calls)] if dev.type == 'cuda'
+            else (0,) * len(calls))
+    got = tuple(g[k]['captures'] for k in calls)
+    eager = tuple(e[k]['captures'] for k in calls)
+    check(got == want and eager == (0,) * len(calls), f'{label}: captures '
+          f'{got}, eager {eager}; expected {want} (milestone chains by batch '
           f'{sizes})')
     batch = tr.batch_size
-    s_graph = g['second']['s'] / LOOP_TRAIN_STEPS
-    s_eager = e['second']['s'] / LOOP_TRAIN_STEPS
+    s_graph = g['second']['s'] / steps
+    s_eager = e['second']['s'] / steps
     capture_s, pool, _, _ = graph_numbers(g['first'])
     res = dict(s_graph=s_graph, s_eager=s_eager,
                images_graph=batch / s_graph, images_eager=batch / s_eager,
-               milestone_graph=g['milestone']['s'],
-               milestone_eager=e['milestone']['s'], capture_s=capture_s,
-               pool_mib=pool, peak=g['second']['peak'],
-               peak_eager=e['second']['peak'],
-               milestone_peak=g['milestone']['peak'],
-               milestone_peak_eager=e['milestone']['peak'])
-    print(f'{label} ({steps} steps, batch {batch}, deterministic cuDNN): '
-          'graphed = eager bit for bit (losses, weights, the milestone\'s '
-          f'samples{" and FID" if tr.calculate_fid else ""}); {s_graph:.4f} s '
+               capture_s=capture_s, pool_mib=pool, peak=g['second']['peak'],
+               peak_eager=e['second']['peak'], eager_folder=e['folder'],
+               losses=le)
+    text = ''
+    if milestone:
+        res.update(milestone_graph=g['milestone']['s'],
+                   milestone_eager=e['milestone']['s'],
+                   milestone_peak=g['milestone']['peak'],
+                   milestone_peak_eager=e['milestone']['peak'])
+        text = (f'; a milestone (DDIM chains of batch {sizes}, save) '
+                f'{res["milestone_graph"]:.2f} s graphed against '
+                f'{res["milestone_eager"]:.2f} s eager, peak '
+                f'{res["milestone_peak"] / 2**20:.1f} MiB graphed, '
+                f'{res["milestone_peak_eager"] / 2**20:.1f} eager')
+    print(f'{label} ({n_steps} steps, batch {batch} x {tr.grad_accum} '
+          f'micro-batches, data on the device {tr._device_data}, '
+          'deterministic cuDNN): graphed = eager bit for bit (losses, '
+          'weights' + (', the milestone\'s samples' if milestone else '')
+          + (' and FID' if tr.calculate_fid else '') + f'); {s_graph:.4f} s '
           f'per train step graphed ({batch / s_graph:.1f} images/s) against '
           f'{s_eager:.4f} ({batch / s_eager:.1f}) eager, the kept graph\'s '
-          f'call of {LOOP_TRAIN_STEPS} steps; capture {capture_s:.3f} s, pool '
+          f'call of {steps} steps; capture {capture_s:.3f} s, pool '
           f'{pool:.1f} MiB; peak allocated {res["peak"] / 2**20:.1f} MiB '
-          f'graphed, {res["peak_eager"] / 2**20:.1f} eager; a milestone '
-          f'(DDIM chains of batch {sizes}, save) {res["milestone_graph"]:.2f} '
-          f's graphed against {res["milestone_eager"]:.2f} s eager, peak '
-          f'{res["milestone_peak"] / 2**20:.1f} MiB graphed, '
-          f'{res["milestone_peak_eager"] / 2**20:.1f} eager; captures {got}',
-          flush=True)
+          f'graphed, {res["peak_eager"] / 2**20:.1f} eager{text}; captures '
+          f'{got}', flush=True)
     return res
 
 
-def phase_loops(dev, root):
-    """The loop-graphs slice (see LOOP_* above). Returns the numbers and
-    the graphed DiffusionFWI run's launches."""
+def phase_loops(dev, root, bench, train_data):
+    """The loop-graphs slice (see LOOP_* above) on the bench slice's
+    presets, each DiffusionFWI and ILVR-FWI run graphed against the bench
+    slice's eager run of it (``bench``: :func:`phase_bench`'s summary), and
+    the amp trainer on the training slice's velocity models
+    (``train_data``). Returns the numbers and the graphed DiffusionFWI
+    run's launches."""
     from pathlib import Path
 
     root = Path(root)
-    paths = write_bench_dataset(dev, root)
-    out = {m: loop_bench(dev, paths[BENCH_PRESET], root, m)
+    paths, runs = bench['paths'], bench['runs']
+    out = {m: loop_bench(dev, paths[BENCH_PRESET], root, m,
+                         runs[m]['eager']['argv'], eager=runs[m]['eager'])
            for m in BENCH_METHODS}
     for m in BENCH_METHODS:
+        eager = runs[f'{m} wide']['eager']
         out[f'{m} wide'] = loop_bench(
-            dev, paths[BENCH_WIDE_PRESET], root, m, BENCH_WIDE_DIFFUSION_TS,
+            dev, paths[BENCH_WIDE_PRESET], root, m, eager['argv'],
             f'Marmousi ablation preset (patched, diffusion_ts cut to '
-            f'{BENCH_WIDE_DIFFUSION_TS})')
+            f'{BENCH_WIDE_DIFFUSION_TS})', 'wide_', eager)
     out['idle'], out['window_ms'] = loop_bench_trace(
         dev, paths[BENCH_PRESET], root)
     out['samplers'] = loop_samplers(dev, paths[BENCH_PRESET])
-    out['trainer'] = loop_trainer(dev, root)
-    out['trainer amp'] = loop_trainer(dev, root, ['--amp', '--calculate_fid'],
+    out['trainer amp'] = loop_trainer(dev, root, train_data,
+                                      ['--amp', '--calculate_fid'],
                                       'amp, FID')
+    return out
+
+
+# The configurations phase: configurations a user runs that only the CPU
+# tests had run graphed, each graphed against eager in one call, bit for
+# bit. The headline (the slice's problem, the shipped prior) at each batch
+# of CONFIG_BATCHES for CONFIG_TS steps (scan_pair; a replay launches one
+# step's kernels whatever the batch); the bench CLI on each (preset family,
+# flag set, method, outer steps, further flags) of CONFIG_BENCH (loop_bench:
+# the other flag sets' inner bodies, the ts=1 depth, whose every inner
+# replay starts Adam anew, and ILVR's stepwise schedule at enough outer
+# steps that each of its four factors blends twice); the train CLI with each
+# Trainer keyword set of CONFIG_TRAIN for CONFIG_TRAIN_STEPS steps twice
+# (loop_trainer, no milestone); and the refined TV and RED-DiffEq rows of
+# the Marmousi-width quality table (tools/torch_eval_quality.py --n 2
+# --width 190 --sigma 20), each within QUALITY_GAP SSIM of the JAX table's
+# row (QUALITY_marmousi.md), RED above TV.
+CONFIG_BATCHES, CONFIG_TS = (8, 16), 10
+CONFIG_BENCH = (
+    ('OpenFWI', 'no_tricks_dt30_ts10', 'diffusionfwi', 4, ()),
+    ('OpenFWI', 'grad_norm_dt30_ts10', 'diffusionfwi', 4, ()),
+    ('OpenFWI', 'grad_smooth_dt30_ts10', 'diffusionfwi', 4, ()),
+    ('OpenFWI', 'model_blur_dt30_ts10', 'diffusionfwi', 4, ()),
+    ('OpenFWI', 'all_tricks_dt300_ts1', 'diffusionfwi', 6, ()),
+    ('OpenFWI', 'all_tricks_dt30_ts10', 'ilvr', 12,
+     ('--ilvr_down_schedule', 'stepwise')),
+    ('Marmousi', 'grad_norm_dt30_ts10', 'diffusionfwi', 4, ()),
+)
+CONFIG_TRAIN = (('accumulate 2', dict(gradient_accumulate_every=2)),
+                ('host batches', dict(device_data=False)))
+CONFIG_TRAIN_STEPS = 10
+CONFIG_QUALITY = dict(n=2, width=190, sigma=20.0, ts=300)
+CONFIG_QUALITY_SSIM = {'tv': 0.6390, 'diffusion': 0.7126}
+
+
+def config_preset(c):
+    """The preset file of a CONFIG_BENCH entry."""
+    return f'configs/ablation/{c[0]}_Ablation/ablation_{c[1]}.yaml'
+
+
+def config_headline(dev, diffusion):
+    """RED-DiffEq at the headline for each batch of CONFIG_BATCHES,
+    graphed against eager (:func:`scan_pair`), a replay launching one
+    step's kernels; s/sample of a QUALITY_TS-step run. Returns {batch:
+    numbers}."""
+    from red_diffeq_tpu_torch.core.inversion import InversionEngine
+    from red_diffeq_tpu_torch.solvers import acoustic
+    from red_diffeq_tpu_torch.utils.data_trans import (
+        s_normalize_none, v_denormalize,
+    )
+
+    hp = HEADLINE['n_grid'] + 2 * HEADLINE['nbc']
+    want = {k: n for k, n in route_launches(1, HEADLINE['nt'], hp,
+                                            hp).items() if n}
+    op = acoustic.FWIForward(HEADLINE, v_denorm_func=v_denormalize,
+                             s_norm_func=s_normalize_none, chunk=CHUNK,
+                             device=dev)
+    out = {}
+    for b in CONFIG_BATCHES:
+        problem = slice_problem(dev, HEADLINE, batch=b)
+        engine = InversionEngine(diffusion, regularization='diffusion',
+                                 sigma_x0=1e-4, device=dev)
+        r, _ = scan_pair(f'configurations, headline at B={b}',
+                         scan_runner(dev, engine, op, problem, CONFIG_TS),
+                         engine, CONFIG_TS, want)
+        r['s_sample'] = QUALITY_TS * r['s_graph'] / b
+        r['s_sample_eager'] = QUALITY_TS * r['s_eager'] / b
+        out[b] = r
+        print(f'configurations, headline at B={b}: {r["s_graph"]:.4f} s/step '
+              f'graphed ({r["s_sample"]:.4f} s/sample for {QUALITY_TS} '
+              f'steps) against {r["s_eager"]:.4f} eager '
+              f'({r["s_sample_eager"]:.4f}); capture {r["capture_s"]:.3f} s, '
+              f'pool {r["pool_bytes"] / 2**20:.1f} MiB, peak allocated '
+              f'{r["peak_graph"] / 2**20:.1f} MiB replaying, '
+              f'{r["peak_eager"] / 2**20:.1f} eager', flush=True)
+        engine.release_graphs()
+        del engine, problem
+    return out
+
+
+def config_quality(dev):
+    """The refined TV and RED-DiffEq rows of the Marmousi-width quality
+    table (CONFIG_QUALITY's problem from ``held_out_problem``, the eval
+    tool's lambdas and draws, graphed): finite, each SSIM within
+    QUALITY_GAP of CONFIG_QUALITY_SSIM, ordered as QUALITY_ORDER. Returns
+    {reg: MAE, RMSE, SSIM, s/sample}."""
+    from red_diffeq_tpu_torch.core.inversion import InversionEngine
+
+    tools = quality_tools()
+    Q, lambdas = tools['quality'], tools['eval_quality'].LAMBDAS
+    c = CONFIG_QUALITY
+    prob = Q.held_out_problem(dev, n=c['n'], width=c['width'],
+                              sigma=c['sigma'], obs=('refined',),
+                              ckpt=QUALITY_CKPT)
+    y = prob.observations['refined']
+    rows = {}
+    for reg in QUALITY_REGS:
+        engine = InversionEngine(prob.diffusion, regularization=reg,
+                                 sigma_x0=1e-4, device=dev)
+        Q.sync(dev)
+        t0 = time.perf_counter()
+        _, per_model = engine.optimize(
+            prob.mu0, prob.v_true_t, y, prob.op, ts=c['ts'], lr=0.03,
+            reg_lambda=lambdas[reg], regularization=reg, use_scan=True,
+            progress=False, generator=Q.draws(dev))
+        Q.sync(dev)
+        seconds = time.perf_counter() - t0
+        engine.release_graphs()
+        rows[reg] = dict(Q.final_metrics(per_model),
+                         s_sample=seconds / c['n'])
+        r = rows[reg]
+        check(all(np.isfinite(v) for v in r.values()), f'configurations, '
+              f'Marmousi-width quality, refined {reg}: {r}')
+        gap = r['SSIM'] - CONFIG_QUALITY_SSIM[reg]
+        print(f'configurations, Marmousi-width quality (n={c["n"]}, '
+              f'70x{c["width"]}, sigma {c["sigma"]}, {c["ts"]} steps), '
+              f'refined {reg}: MAE {r["MAE"]:.4f}  RMSE {r["RMSE"]:.4f}  '
+              f'SSIM {r["SSIM"]:.4f} (QUALITY_marmousi.md '
+              f'{CONFIG_QUALITY_SSIM[reg]:.4f}, gap {gap:+.4f})  '
+              f'{r["s_sample"]:.4f} s/sample (the capture included)',
+              flush=True)
+        check(abs(gap) <= QUALITY_GAP, f'Marmousi-width refined {reg}: SSIM '
+              f'{r["SSIM"]:.4f}, more than {QUALITY_GAP} from the JAX '
+              f'table\'s {CONFIG_QUALITY_SSIM[reg]:.4f}')
+    for hi, lo in QUALITY_ORDER:
+        check(rows[hi]['SSIM'] > rows[lo]['SSIM'], f'Marmousi-width refined '
+              f'{hi} SSIM {rows[hi]["SSIM"]:.4f} is not above {lo}\'s '
+              f'{rows[lo]["SSIM"]:.4f}')
+    return rows
+
+
+def phase_configs(dev, root, paths, train_data):
+    """The configurations phase (see CONFIG_* above) on the bench slice's
+    presets (``paths``) and the training slice's velocity models
+    (``train_data``). Returns the numbers by run."""
+    from pathlib import Path
+
+    root = Path(root)
+    diffusion = load_prior(dev)
+    out = {'headline': config_headline(dev, diffusion)}
+    del diffusion
+    out['bench'] = {}
+    for i, c in enumerate(CONFIG_BENCH):
+        family, flags, method, dts, extra = c
+        out['bench'][f'{family} {flags} {method} {" ".join(extra)}'.strip()] \
+            = loop_bench(dev, paths[config_preset(c)], root, method,
+                         ['--diffusion_ts', str(dts), *extra],
+                         f'{family} ablation preset {flags} (diffusion_ts '
+                         f'cut to {dts}{"; " if extra else ""}'
+                         f'{" ".join(extra)})', f'config{i}_',
+                         phase='configurations')
+    out['trainer'] = {
+        tag: loop_trainer(dev, root, train_data, tag=tag, trainer_kw=kw,
+                          milestone=False, steps=CONFIG_TRAIN_STEPS,
+                          phase='configurations')
+        for tag, kw in CONFIG_TRAIN}
+    out['quality'] = config_quality(dev)
     return out
 
 
@@ -4545,6 +4782,7 @@ def main(argv=None):
     or ``--write-bench-dataset DIR`` only write that slice's dataset and
     configs under DIR."""
     import argparse
+    from pathlib import Path
     import torch
     args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     args.add_argument('--write-wide-dataset', metavar='DIR',
@@ -4637,13 +4875,17 @@ def main(argv=None):
                                                                      root)
     with Phase('wide kernels'):
         wide = wide_kernels(dev, wide_ctx)
+    # The bench slice's datasets, presets and eager runs stay for the loop
+    # graphs and the configurations.
+    bench_root = tempfile.TemporaryDirectory()
     with Phase('bench slice'):
-        with tempfile.TemporaryDirectory() as root:
-            bench_counts, bench = phase_bench(dev, root)
+        bench_counts, bench = phase_bench(dev, bench_root.name)
     with Phase('tape past the cluster limit'):
         beyond = phase_beyond(dev)
-    # The training slice's milestones stay for the quality slice.
+    # The training slice's milestones stay for the quality slice, its
+    # velocity models for the loop graphs and the configurations.
     train_root = tempfile.TemporaryDirectory()
+    train_data = Path(train_root.name) / 'train' / 'Velocity_Data'
     with Phase('training slice'):
         training = phase_training(dev, train_root.name)
     with Phase('layout probe'):
@@ -4654,7 +4896,6 @@ def main(argv=None):
     with Phase('quality slice'):
         with tempfile.TemporaryDirectory() as root:
             quality = phase_quality(dev, root, training)
-    train_root.cleanup()
     with Phase('mesh slice'):
         with tempfile.TemporaryDirectory() as root:
             mesh = phase_mesh(dev, root)
@@ -4663,7 +4904,12 @@ def main(argv=None):
             scan = phase_scan(dev, root)
     with Phase('loop graphs'):
         with tempfile.TemporaryDirectory() as root:
-            loops = phase_loops(dev, root)
+            loops = phase_loops(dev, root, bench, train_data)
+    with Phase('configurations'):
+        with tempfile.TemporaryDirectory() as root:
+            configs = phase_configs(dev, root, bench['paths'], train_data)
+    bench_root.cleanup()
+    train_root.cleanup()
 
     n_chunks = len(p['src'])
     steps = n_chunks * CHUNK
@@ -4740,6 +4986,15 @@ def main(argv=None):
             launches=d['launches'][k['name']],
             launches_per_replay={p: d['per_replay'].get(p, {}).get(
                 k['name'], 0) for p in ('inner', 'metrics')})
+        # The configurations phase's graphed runs: the headline by batch,
+        # the bench CLI runs, and a replay of the headline's step.
+        k['configs'] = dict(
+            headline={str(b): r['launches'][k['name']]
+                      for b, r in configs['headline'].items()},
+            launches_per_replay={str(b): r['per_replay'].get(k['name'], 0)
+                                 for b, r in configs['headline'].items()},
+            bench={n: r['launches'][k['name']]
+                   for n, r in configs['bench'].items()})
     # The tape replay past tape_step's cluster limit (420x420, B=1):
     # tape_step_stream's launches in the velocity gradient there, its
     # numbers from that phase, its registers, planes and resident clusters
@@ -4923,7 +5178,7 @@ def main(argv=None):
           f'warm_compile then 3 runs on 1 capture: '
           f'{scan["cache"]["first_s"]:.4f} s/step the first, '
           f'{scan["cache"]["third_s"]:.4f} the third', flush=True)
-    lt, ls = loops['trainer'], loops['samplers']
+    lt, ls = training['loop_trainer'], loops['samplers']
     print('loop graphs (graphed against eager in one call, bit for bit): '
           + '; '.join(f'{m} {loops[m]["graph"]["outer_s"]:.4f} s per outer '
                       f'step against {loops[m]["eager"]["outer_s"]:.4f}, '
@@ -4937,6 +5192,21 @@ def main(argv=None):
           + f'; train {lt["s_graph"]:.4f} s a step against '
           f'{lt["s_eager"]:.4f}, a milestone {lt["milestone_graph"]:.2f} s '
           f'against {lt["milestone_eager"]:.2f}', flush=True)
+    ch, cb = configs['headline'], configs['bench']
+    print('configurations (graphed against eager in one call, bit for bit): '
+          + '; '.join(f'headline B={b} {r["s_graph"]:.4f} s/step against '
+                      f'{r["s_eager"]:.4f}, {r["s_sample"]:.4f} s/sample, '
+                      f'pool {r["pool_bytes"] / 2**20:.1f} MiB'
+                      for b, r in ch.items())
+          + '; ' + '; '.join(f'{n} {r["graph"]["outer_s"]:.4f} s per outer '
+                             f'step against {r["eager"]["outer_s"]:.4f}'
+                             for n, r in cb.items())
+          + '; ' + '; '.join(f'train ({n}) {r["s_graph"]:.4f} s a step '
+                             f'against {r["s_eager"]:.4f}'
+                             for n, r in configs['trainer'].items())
+          + '; Marmousi-width refined SSIM ' + ', '.join(
+              f'{reg} {r["SSIM"]:.4f}' for reg, r in
+              configs['quality'].items()), flush=True)
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -378,6 +378,23 @@ METHOD_CASES = {
                     dict(grad_smooth=1.0, model_blur=True)),
     'ilvr_stepwise': (dict(ilvr_weight=0.1, ilvr_down_schedule='stepwise'),
                       dict(grad_norm=True)),
+    # The ablation presets' other flag sets, each trick alone.
+    'grad_norm': (None, dict(grad_norm=True, grad_smooth=None,
+                             model_blur=False, grad_clip=1.0)),
+    'grad_smooth': (None, dict(grad_norm=False, grad_smooth=1.0,
+                               model_blur=False, grad_clip=1.0)),
+    'model_blur': (None, dict(grad_norm=False, grad_smooth=None,
+                              model_blur=True, grad_clip=1.0)),
+    # The dt300_ts1 depth: one inner step an outer step, so every inner
+    # step starts Adam's state anew.
+    'ts1': (None, dict(ts=1, diffusion_ts=4, grad_norm=True, grad_smooth=1.0,
+                       model_blur=True, grad_clip=1.0)),
+    # Twelve outer steps: each of the stepwise factors 4, 8, 16 and 32
+    # blends at two or more of them.
+    'ilvr_stepwise_12': (dict(ilvr_weight=0.1,
+                              ilvr_down_schedule='stepwise'),
+                         dict(ts=1, diffusion_ts=12, grad_norm=True,
+                              grad_smooth=1.0, model_blur=True)),
 }
 
 
@@ -399,7 +416,7 @@ def test_method_programs_repeat_the_host_loop(bench_pair, bench_problem,
     _, td = bench_pair
     v_true, mu0, y, top = bench_problem
     ilvr, kw = METHOD_CASES[case]
-    common = dict(ts=TS, diffusion_ts=DTS, lr=0.05, **kw)
+    common = {**dict(ts=TS, diffusion_ts=DTS, lr=0.05), **kw}
     cls = tfwi.DiffusionFWI if ilvr is None else tilvr.ILVR_FWI
     method = cls(td, top, device='cpu')
     for _ in range(2):

@@ -46,15 +46,15 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
-def _problem(ctx, rows=16):
+def _problem(ctx, rows=16, batch=2):
     cols = ctx['n_grid']
     rng = np.random.RandomState(7)
-    v_true = np.full((2, 1, rows, cols), 2000.0, np.float32)
+    v_true = np.full((batch, 1, rows, cols), 2000.0, np.float32)
     v_true[:, :, rows // 2:] = 3200.0
     v_true += rng.uniform(-50, 50, v_true.shape).astype(np.float32)
     init = np.concatenate([tdt.prepare_initial_model(v_true[i:i + 1],
                                                      'smoothed', sigma=3.0)
-                           for i in range(2)])
+                           for i in range(batch)])
     mu0 = np.pad(init, ((0, 0), (0, 0), (1, 1), (1, 1)))
     op = FWIForward(ctx, v_denorm_func=tdt.v_denormalize,
                     s_norm_func=tdt.s_normalize_none, device='cpu')
@@ -359,3 +359,38 @@ def test_scanned_run_matches_the_jax_scanned_run(problem, jax_scan):
         for k in KEYS:
             np.testing.assert_allclose(curves[k], want_curves[k], rtol=1e-4,
                                        err_msg=k)
+
+
+@pytest.fixture(scope='module')
+def batch_of_eight():
+    return _problem(CTX, batch=8)
+
+
+def test_a_batch_of_eight_matches_the_jax_scanned_run(batch_of_eight):
+    """Batch 8 (the card's larger headline batches at this problem's size):
+    TV, scanned in both packages, within the tolerances above."""
+    p = batch_of_eight
+    jop = JaxFWI(CTX, v_denorm_func=jdt.v_denormalize,
+                 s_norm_func=jdt.s_normalize_none, backend='xla')
+    kw = dict(ts=TS, lr=0.03, reg_lambda=0.75, regularization='tv',
+              use_scan=True, progress=False)
+    want_mu, want = JaxEngine().optimize(
+        jnp.asarray(p['mu0']), jnp.asarray(p['v_true']),
+        jnp.asarray(p['y'].numpy()), jop, key=jax.random.PRNGKey(0), **kw)
+    mu, got = inversion.InversionEngine(device='cpu').optimize(
+        p['mu0'], p['v_true'], p['y'], p['op'], **kw)
+    assert len(got) == 8
+    np.testing.assert_allclose(mu.numpy(), np.asarray(want_mu), atol=1e-5,
+                               rtol=0)
+    for curves, want_curves in zip(got, want):
+        for k in KEYS:
+            np.testing.assert_allclose(curves[k], want_curves[k], rtol=1e-4,
+                                       err_msg=k)
+
+
+def test_a_batch_of_eight_scans_as_the_eager_loop(batch_of_eight, diff):
+    """RED-DiffEq at batch 8 on corrupted observations: the scanned run
+    equals the eager loop bit for bit (the step buffers' draw tables and
+    history at that batch)."""
+    _assert_same(_run(batch_of_eight, diff, use_scan=True),
+                 _run(batch_of_eight, diff, use_scan=False))

@@ -15,7 +15,8 @@ runs for real (times read 1 ms an interval), at a 14x14 model with nbc=60 (tape-
 (taped route), batch 2, 3 inversion steps, and the wide phases at the
 presets' width with nt=60 and nbc=60, 3 steps a CLI run, and the bench
 slice's CLI runs at the ablation presets' width with nt=60 and nbc=60, 2
-outer x 2 inner steps each, and a 3-step DDIM sample; the tape past the
+outer x 2 inner steps each (graphed against them in the loop graphs), and
+a 3-step DDIM sample; the tape past the
 cluster limit on a 34x34 field (16x16 at nbc=9) whose tape route is forced
 to 'stream' (its 'global' twin forced at the same pass), and on a 36x36
 field forced to 'global'; the training slice with 8 models a family, a
@@ -36,7 +37,10 @@ the headline's 14x14 problem (a dim-8 U-Net of random weights, 3 steps
 over 2 x 5, the taped route over 2 x 1 for 2 steps), the CLI over its mesh
 at the OpenFWI preset's width with nt=60 for 2 steps, the trainer's split
 step at dim 8 and batch 16 for 2 steps, the U-Net fields at dim 8, and the
-converter on the shipped prior. Times printed are
+converter on the shipped prior; the configurations phase's headline at
+batch 3 for 2 steps (a dim-8 U-Net of random weights), its bench CLI runs
+at 3 outer x 1 inner steps, 2 + 2 train steps a keyword set and its
+quality rows on a 14x20 problem for 2 steps (gates opened). Times printed are
 meaningless; device memory reads 0. Exits with ``chip_smoke.main()``'s code. About fifty
 minutes (the quality slice about twenty of them).
 """
@@ -220,11 +224,34 @@ def main():
             ns['load_prior'] = prior
 
     ns['phase_mesh'] = small_mesh
-    # The loop graphs: the bench CLI and the traced run at 2 x 1 steps,
-    # 3-step chains, 2 + 2 train steps.
-    ns['LOOP_BENCH_DEPTH'], ns['LOOP_TRACE'] = (2, 1), (2, 1)
+    # The loop graphs: the traced run at 2 x 1 steps, 3-step chains, 2 + 2
+    # train steps (the bench CLI runs at the bench slice's depth).
+    ns['LOOP_TRACE'] = (2, 1)
     ns['LOOP_ANCESTRAL_T'], ns['LOOP_INTERP_T'], ns['LOOP_POST_TS'] = 3, 2, 2
     ns['LOOP_TRAIN_STEPS'] = 2
+    # The configurations: the headline at batch 3 for 2 steps on a dim-8
+    # U-Net of random weights, the bench CLI runs at 3 outer x 1 inner
+    # steps, 2 + 2 train steps, and the quality rows on a 14x20 problem for
+    # 2 steps (their gates opened).
+    ns['CONFIG_BATCHES'], ns['CONFIG_TS'] = (3,), 2
+    ns['CONFIG_BENCH'] = tuple((f, fl, m, min(d, 3), (*e, '--ts', '1'))
+                               for f, fl, m, d, e in ns['CONFIG_BENCH'])
+    ns['CONFIG_TRAIN_STEPS'] = 2
+    ns['CONFIG_QUALITY'] = dict(n=2, width=20, sigma=20.0, ts=2)
+    ns['CONFIG_QUALITY_SSIM'] = dict.fromkeys(ns['CONFIG_QUALITY_SSIM'], 0.5)
+    phase_configs = ns['phase_configs']
+
+    def small_configs(dev, root, paths, train_data):
+        prior = ns['load_prior']
+        ns['load_prior'] = lambda dev: GaussianDiffusion(
+            Unet(dim=8, dim_mults=(1, 2, 4, 8)), image_size=16,
+            timesteps=1000, device=dev)
+        try:
+            return phase_configs(dev, root, paths, train_data)
+        finally:
+            ns['load_prior'] = prior
+
+    ns['phase_configs'] = small_configs
     loop_bench_trace = ns['loop_bench_trace']
 
     def cpu_loop_trace(dev, path, root):
