@@ -304,7 +304,17 @@ Phases, each printing its wall time:
    ``device_data=False`` (host batches), 10 + 10 steps under deterministic
    cuDNN; the refined TV and RED-DiffEq rows of the Marmousi-width quality
    table (n=2, 70x190, sigma 20, 300 steps), each within 0.03 SSIM of
-   ``QUALITY_marmousi.md``'s, RED above TV.
+   ``QUALITY_marmousi.md``'s, RED above TV;
+22. red parity: the port's graphed ``optimize`` on the kernels, on the
+   committed JAX reference (``tests/data/red_parity_reference.npz``, made
+   by ``tools/make_red_parity_reference.py``: the quality tools' held-out
+   problem at the full width, sample 0, refined observations, 16 steps
+   on JAX's own draws) through ``tools/torch_red_parity.py``: ``mu`` at
+   every step and the losses and metrics within the tool's allowance (PR
+   10's rule for two runs of Adam, 1e-4 on all but 1% of the cells and
+   0.1 lr on every cell, widened to twice the JAX package's own spread
+   under a one-ulp nudge of the initial model where that is wider), exact
+   launches of the route's kernels and no plain chunk.
 
 The bench slice's CLI runs, the training slice's 200-step run, the train
 CLI's eager twins and the api slice's ``--amp`` run hook every call or run
@@ -329,6 +339,7 @@ tool run and under ``mesh`` those of the mesh slice's sharded headline
 under ``scan`` those of the scan slice's replayed headline run and nbc=40
 run and one replay's and under ``loops`` those of the loop-graphs slice's
 graphed DiffusionFWI run and a replay of its inner step and metrics;
+and under ``red_parity`` those of the red parity phase's run;
 then ``tape_step_stream`` with the launches of the gradient past the
 cluster limit (420x420) and ``tape_step_global`` with those of the
 gradient past ``tape_step_stream``'s (680x680) and its times
@@ -4777,6 +4788,40 @@ def phase_configs(dev, root, paths, train_data):
     return out
 
 
+RED_PARITY_REFERENCE = 'tests/data/red_parity_reference.npz'
+RED_PARITY_TOOL = 'tools/torch_red_parity.py'
+
+
+def phase_red_parity(dev):
+    """The red parity phase (see 22. above). Returns the launches, the
+    first and last step's gaps and the final metrics of both packages."""
+    from red_diffeq_tpu_torch.ops import stencil
+    from red_diffeq_tpu_torch.solvers import acoustic
+
+    tool = _load_file('torch_red_parity', RED_PARITY_TOOL)
+    ref = tool.load_reference(RED_PARITY_REFERENCE)
+    meta = ref['meta']
+    ctx = meta['ctx']
+    hp = ctx['n_grid'] + 2 * ctx['nbc']
+    stencil.reset_launches()
+    acoustic.plain_chunk_calls['chunk'] = 0
+    res = tool.run_trajectory(ref, dev, backend='kernel')
+    counts = dict(stencil.launches)
+    plain = acoustic.plain_chunk_calls['chunk']
+    cmp = tool.compare(ref, res)
+    tool.report(ref, res, cmp)
+    check(res['backend'] == 'kernel', f'red parity ran {res["backend"]}')
+    want = route_launches(meta['ts'], ctx['nt'], hp, hp)
+    check(counts == want, f'red parity: launches {counts}, expected {want}')
+    check(plain == 0, f'red parity: the plain path ran {plain} chunks')
+    check(cmp['first_mu'] is None, 'red parity: mu leaves its allowance at '
+          f'(step, cell) {cmp["first_mu"]}')
+    check(cmp['first_curve'] is None, 'red parity: a loss or metric leaves '
+          f'its allowance at (step, name) {cmp["first_curve"]}')
+    return dict(counts=counts, steps=cmp['steps'], final=cmp['final'],
+                seconds=res['seconds'], ts=meta['ts'])
+
+
 def main(argv=None):
     """Run every phase (no arguments), or with ``--write-wide-dataset DIR``
     or ``--write-bench-dataset DIR`` only write that slice's dataset and
@@ -4908,6 +4953,8 @@ def main(argv=None):
     with Phase('configurations'):
         with tempfile.TemporaryDirectory() as root:
             configs = phase_configs(dev, root, bench['paths'], train_data)
+    with Phase('red parity'):
+        red_parity = phase_red_parity(dev)
     bench_root.cleanup()
     train_root.cleanup()
 
@@ -4995,6 +5042,7 @@ def main(argv=None):
                                  for b, r in configs['headline'].items()},
             bench={n: r['launches'][k['name']]
                    for n, r in configs['bench'].items()})
+        k['red_parity'] = dict(launches=red_parity['counts'][k['name']])
     # The tape replay past tape_step's cluster limit (420x420, B=1):
     # tape_step_stream's launches in the velocity gradient there, its
     # numbers from that phase, its registers, planes and resident clusters
@@ -5207,6 +5255,13 @@ def main(argv=None):
           + '; Marmousi-width refined SSIM ' + ', '.join(
               f'{reg} {r["SSIM"]:.4f}' for reg, r in
               configs['quality'].items()), flush=True)
+    first, last = red_parity['steps'][0], red_parity['steps'][-1]
+    print(f'red parity ({red_parity["ts"]} graphed steps on the kernels, '
+          f'{red_parity["seconds"]:.2f} s, on JAX\'s draws): max |d mu| '
+          f'{first[1]:.3e} after step 1, {last[1]:.3e} ({last[3]:.3%} of the '
+          'cells beyond 1e-4) after the last; final SSIM port '
+          f'{red_parity["final"]["port"]["SSIM"]:.4f}, JAX '
+          f'{red_parity["final"]["jax"]["SSIM"]:.4f}', flush=True)
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -5,18 +5,15 @@ means of first differences of the velocity image (B, 1, H, W) -> (B,).
 """
 import torch
 
-
-def _abs(x: torch.Tensor) -> torch.Tensor:
-    """|x| whose gradient at 0 is 1, as ``jnp.abs``'s (``torch.abs``'s is
-    0). A model's zero pad ring has zero differences, so the ring moves
-    under the TV term only with JAX's rule."""
-    return torch.where(x >= 0, x, -x)
+from red_diffeq_tpu_torch.core.losses import abs_jax
 
 
 def total_variation_loss(mu: torch.Tensor) -> torch.Tensor:
-    """Anisotropic total variation, per sample."""
-    dx = _abs(mu[:, :, :, 1:] - mu[:, :, :, :-1])
-    dy = _abs(mu[:, :, 1:, :] - mu[:, :, :-1, :])
+    """Anisotropic total variation, per sample. Its |x| has JAX's gradient
+    at 0 (:func:`abs_jax`): a model's zero pad ring has zero differences,
+    so the ring moves under the TV term only with JAX's rule."""
+    dx = abs_jax(mu[:, :, :, 1:] - mu[:, :, :, :-1])
+    dy = abs_jax(mu[:, :, 1:, :] - mu[:, :, :-1, :])
     return dx.mean(dim=(1, 2, 3)) + dy.mean(dim=(1, 2, 3))
 
 

@@ -16,7 +16,8 @@ SOURCES = sorted((REPO / 'red_diffeq_tpu_torch').rglob('*.py')) + [
     REPO / 'tools' / 'torch_convert_checkpoint.py'] + [
     REPO / 'tools' / f'torch_{name}.py' for name in (
         'quality', 'eval_quality', 'compare_methods', 'milestone_eval',
-        'lambda_sweep', 'pick_best_milestone', 'quality_seeds')] + [
+        'lambda_sweep', 'pick_best_milestone', 'quality_seeds',
+        'red_parity')] + [
     REPO / 'examples' / f'torch_example_{name}.py'
     for name in ('openfwi', 'marmousi')]
 # The quality slice's tools and examples, which the walk above must reach.

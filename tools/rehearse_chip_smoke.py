@@ -40,7 +40,9 @@ step at dim 8 and batch 16 for 2 steps, the U-Net fields at dim 8, and the
 converter on the shipped prior; the configurations phase's headline at
 batch 3 for 2 steps (a dim-8 U-Net of random weights), its bench CLI runs
 at 3 outer x 1 inner steps, 2 + 2 train steps a keyword set and its
-quality rows on a 14x20 problem for 2 steps (gates opened). Times printed are
+quality rows on a 14x20 problem for 2 steps (gates opened); red parity on
+a 3-step JAX reference of the headline's 14x14 problem (the shipped prior
+at 16x16), which the tool makes first with the JAX package. Times printed are
 meaningless; device memory reads 0. Exits with ``chip_smoke.main()``'s code. About fifty
 minutes (the quality slice about twenty of them).
 """
@@ -265,11 +267,48 @@ def main():
             ns['API_KERNELS'] = kernels
 
     ns['loop_bench_trace'] = cpu_loop_trace
+    # Red parity on a 3-step JAX reference of the headline's 14x14 problem
+    # (the shipped prior at 16x16), made here by the JAX package.
+    ns['RED_PARITY_REFERENCE'] = str(small_red_reference(
+        out / 'red_parity.npz', ns['HEADLINE']))
     ns['cuda_ms'] = lambda fn, reps, warm=True: (fn(), 0.0)[1]
     ns['graph_ms'] = ns['cuda_ms']
     smi = types.SimpleNamespace(stdout='CPU rehearsal, 0 W\n')
     ns['subprocess'] = types.SimpleNamespace(run=lambda *a, **k: smi)
     return ns['main']()
+
+
+def small_red_reference(path, ctx, steps=3):
+    """A ``steps``-step reference of ``tools/make_red_parity_reference.py``
+    on a ``ctx``-sized held-out problem (sample 0 of 4, clean
+    observations, sigma 3), the shipped prior at the padded width; imports
+    the JAX package."""
+    import importlib.util
+    import jax.numpy as jnp
+    import numpy as np
+    from red_diffeq_tpu.io.synthetic import generate_mixed_dataset
+    from red_diffeq_tpu.solvers.acoustic import FWIForward
+    from red_diffeq_tpu.utils import data_trans as jdt
+    spec = importlib.util.spec_from_file_location(
+        'make_red_parity_reference',
+        ROOT / 'tools' / 'make_red_parity_reference.py')
+    maker = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(maker)
+    n = ctx['n_grid']
+    v_true = generate_mixed_dataset(4, h=n, w=n, seed=maker.SEED_TRUTHS)[:1]
+    op = FWIForward(ctx, normalize=True, v_denorm_func=jdt.v_denormalize,
+                    s_norm_func=jdt.s_normalize_none, backend='xla',
+                    chunk=20)
+    y = np.asarray(op(jdt.v_normalize(jnp.asarray(v_true))))
+    mu0 = np.pad(jdt.prepare_initial_model(v_true, 'smoothed', sigma=3.0),
+                 ((0, 0), (0, 0), (1, 1), (1, 1))).astype(np.float32)
+    ref = maker.make_reference(
+        maker.prior_bundle(ROOT / 'pretrained_models'
+                           / 'model-synthetic-ema.ckpt', image_size=n + 2),
+        ctx, op, v_true, y, mu0, steps, confirm=False, log=lambda m: None,
+        n_truths=4, samples=[0], obs='clean')
+    maker.save(Path(path), ref)
+    return path
 
 
 if __name__ == '__main__':
